@@ -1,0 +1,138 @@
+"""``build(spec)`` / ``run(spec)``: the port's front door.
+
+``build`` resolves an ``ExperimentSpec``'s registry names into the task,
+the federated dataset (on the run's device), the sampler and the
+``FedConfig``; ``run`` calls ``fed.server.run_federated`` with them.  Both
+run on the GPU unless ``device="cpu"`` is passed (``repro_torch.device``).
+
+Served: ``kind="task"``.  Not ported (``NotImplementedError``, naming the
+``ROADMAP.md`` item): ``kind="zoo"``, an enabled ``fault`` or
+``compression`` section, and ``execution.sampler_axis``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from repro_torch.api.spec import ExperimentSpec
+from repro_torch.core.samplers import make_sampler
+from repro_torch.data import synthetic_classification, synthetic_tokens
+from repro_torch.device import resolve_device
+from repro_torch.fed import tasks
+from repro_torch.fed.server import FedConfig, History, run_federated
+
+__all__ = ["BuiltExperiment", "build", "run", "task_names", "dataset_names"]
+
+_TASKS = {
+    "logreg": tasks.logistic_regression,
+    "mlp": tasks.mlp_classifier,
+    "tiny_lm": tasks.tiny_lm,
+}
+_DATASETS = {
+    "synthetic_classification": synthetic_classification,
+    "synthetic_tokens": synthetic_tokens,
+}
+
+
+def task_names() -> list[str]:
+    return sorted(_TASKS)
+
+
+def dataset_names() -> list[str]:
+    return sorted(_DATASETS)
+
+
+@dataclasses.dataclass(frozen=True)
+class BuiltExperiment:
+    """The resolved pieces of one ``kind="task"`` spec: exactly the
+    ``run_federated`` argument tuple, with the dataset on ``device``."""
+
+    spec: ExperimentSpec
+    kind: str
+    dataset: Any
+    sampler: Any
+    task: Any
+    fed_config: FedConfig
+    device: Any
+
+
+def _check_ported(spec: ExperimentSpec) -> None:
+    if spec.task.kind == "zoo":
+        raise NotImplementedError(
+            "kind='zoo' is not ported to repro_torch yet; see ROADMAP.md "
+            "queue 1, 'Zoo models + pod-scale round'"
+        )
+    if spec.fault.enabled:
+        raise NotImplementedError(
+            "an enabled fault section is not ported to repro_torch yet; see "
+            "ROADMAP.md queue 1, 'Fault layer'"
+        )
+    if spec.compression.enabled:
+        raise NotImplementedError(
+            "an enabled compression section is not ported to repro_torch yet; "
+            "see ROADMAP.md queue 1, 'Compressed deltas'"
+        )
+    if spec.execution.sampler_axis is not None:
+        raise NotImplementedError(
+            "execution.sampler_axis is not ported to repro_torch yet; see "
+            "ROADMAP.md queue 1, 'Sharded sampler'"
+        )
+
+
+def build(spec: ExperimentSpec, device=None) -> BuiltExperiment:
+    """Resolve a spec into the concrete experiment objects on ``device``."""
+    _check_ported(spec)
+    dev = resolve_device(device)
+    if spec.task.name not in _TASKS:
+        raise ValueError(f"unknown task {spec.task.name!r}; registered: {task_names()}")
+    if spec.task.dataset not in _DATASETS:
+        raise ValueError(
+            f"unknown dataset {spec.task.dataset!r}; registered: {dataset_names()}"
+        )
+    task = _TASKS[spec.task.name](**dict(spec.task.kwargs))
+    ds = _DATASETS[spec.task.dataset](**dict(spec.task.dataset_kwargs), device=dev)
+    sampler = make_sampler(
+        spec.sampler.name,
+        n=ds.n_clients,
+        budget=spec.federation.budget,
+        **dict(spec.sampler.kwargs),
+    )
+    return BuiltExperiment(
+        spec=spec,
+        kind="task",
+        dataset=ds,
+        sampler=sampler,
+        task=task,
+        fed_config=spec.fed_config(),
+        device=dev,
+    )
+
+
+def run(
+    spec: ExperimentSpec,
+    device=None,
+    *,
+    eval_data: tuple | None = None,
+    built: BuiltExperiment | None = None,
+    random_source=None,
+) -> History:
+    """Execute a spec end to end on ``device`` (default: the GPU).
+
+    ``eval_data`` — optional (x, y) evaluation batch for the accuracy curve.
+    ``built`` — a prior ``build(spec, device)`` result to reuse.
+    ``random_source`` — every draw of the run (``repro_torch.rng``); default
+    Philox generators seeded from ``spec.execution.seed``."""
+    dev = resolve_device(device)
+    if built is None:
+        built = build(spec, dev)
+    elif built.spec != spec or built.device != dev:
+        raise ValueError("run(built=...) got a BuiltExperiment from a different spec or device")
+    return run_federated(
+        built.task,
+        built.dataset,
+        built.sampler,
+        built.fed_config,
+        eval_data=eval_data,
+        device=dev,
+        random_source=random_source,
+    )

@@ -1,0 +1,14 @@
+from repro_torch.data.partition import power_law_sizes, size_share
+from repro_torch.data.pipeline import (
+    FederatedDataset,
+    synthetic_classification,
+    synthetic_tokens,
+)
+
+__all__ = [
+    "power_law_sizes",
+    "size_share",
+    "FederatedDataset",
+    "synthetic_classification",
+    "synthetic_tokens",
+]

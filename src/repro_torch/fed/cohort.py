@@ -1,0 +1,87 @@
+"""Shared padded-cohort contract: selection, padding, and weight semantics.
+
+Port of ``repro/fed/cohort.py`` (see its module docstring for the full
+contract).  A round's ISP draw ``S`` (the ``mask``) maps onto a static
+buffer of C slots:
+
+* ids     — (C,) client indices; the first ``min(|S|, C)`` slots hold
+  included clients in random-priority order, the rest are padding.
+* valid   — (C,) bool, True exactly for slots holding included clients.
+  Padding slots are inert: zero weight, zero feedback, zero loss share.
+* weights — (C,) f32 estimator coefficients (zero on padding).
+
+On overflow (``|S| > C``) a uniformly random size-C subset of ``S`` is kept
+(top-k over i.i.d. uniform priorities) and every retained weight is scaled
+by ``|S|/C``, which keeps the estimate unbiased.  The priorities come from
+the run's random source (``repro_torch.rng``).
+
+``torch.topk`` orders equal priorities differently from ``lax.top_k``.  The
+ties are the -1 priorities of non-included clients, i.e. the padding slots
+when ``|S| < C``, so which client a padding slot names may differ from the
+reference; valid slots, weights and every aggregate agree.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.fed.tasks import tree_map
+
+__all__ = ["CohortSelection", "select_cohort", "scatter_cohort", "weighted_delta_sum"]
+
+
+class CohortSelection(NamedTuple):
+    """Static C-slot cohort (see module docstring)."""
+
+    ids: torch.Tensor  # (C,) int64 client index per slot
+    weights: torch.Tensor  # (C,) f32 estimator weight per slot (0 on padding)
+    valid: torch.Tensor  # (C,) bool slot holds an included client
+    n_included: torch.Tensor  # 0-d int |S| (pre-overflow)
+    n_dropped: torch.Tensor  # 0-d int max(|S| - C, 0)
+
+
+def select_cohort(
+    mask: torch.Tensor, weights: torch.Tensor, cohort: int, priorities: torch.Tensor
+) -> CohortSelection:
+    """Map an (N,) inclusion mask + full weight vector onto C static slots,
+    with (N,) uniform ``priorities`` deciding which clients an overflow
+    drops."""
+    n = mask.shape[0]
+    c = int(min(int(cohort), n))
+    priority = torch.where(mask, priorities, -1.0)
+    ids = torch.topk(priority, c).indices
+    valid = mask[ids]
+    n_inc = mask.to(torch.int32).sum()
+    # rescale is exactly 1.0 without overflow (x * 1.0 is bitwise x), so the
+    # cohort weights then equal the full-mask weights.
+    rescale = torch.where(n_inc > c, n_inc.to(torch.float32) / c, 1.0)
+    w = torch.where(valid, weights[ids].to(torch.float32) * rescale, 0.0)
+    n_kept = valid.to(torch.int32).sum()
+    return CohortSelection(
+        ids=ids, weights=w, valid=valid, n_included=n_inc, n_dropped=n_inc - n_kept
+    )
+
+
+def scatter_cohort(values, sel: CohortSelection, n: int):
+    """(C, ...)-stacked tensor or dict -> (N, ...) with zeros for clients
+    outside the cohort.  Padding slots are zeroed first, so a padding slot
+    cannot corrupt a real client's row; slot ids are distinct."""
+
+    def one(leaf):
+        keep = sel.valid.reshape((-1,) + (1,) * (leaf.dim() - 1))
+        v = torch.where(keep, leaf, torch.zeros((), dtype=leaf.dtype, device=leaf.device))
+        out = torch.zeros((n,) + tuple(leaf.shape[1:]), dtype=leaf.dtype, device=leaf.device)
+        return out.index_add(0, sel.ids, v)
+
+    return tree_map(one, values)
+
+
+def weighted_delta_sum(deltas, w: torch.Tensor):
+    """``sum_c w_c * delta_c`` over a stacked (C, ...) dict, f32 accumulate."""
+
+    def one(leaf):
+        wc = w.reshape((-1,) + (1,) * (leaf.dim() - 1)).to(torch.float32)
+        return (wc * leaf.to(torch.float32)).sum(0)
+
+    return tree_map(one, deltas)

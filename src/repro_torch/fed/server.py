@@ -1,0 +1,312 @@
+"""Federated server loop (Algorithm 1) at simulation scale.
+
+Port of ``repro/fed/server.py``.  ``repro_torch.api.run(spec)`` builds the
+``(task, dataset, sampler, FedConfig)`` tuple and calls ``run_federated``.
+
+Each round (``_build_round_body``):
+
+1. the sampler solves its marginals (K-Vib: water-filling + mixing);
+2. an independent Bernoulli draw picks the clients, with uniforms from the
+   run's random source (``repro_torch.rng``);
+3. ``estimator.client_weights`` forms the estimator weights;
+4. clients run local SGD, vmapped (``torch.func.vmap``) over all N clients
+   in oracle mode or over the C cohort slots in deployable mode;
+5. the deltas are aggregated with the estimator's squared error by one of
+   the CUDA kernels (``fused_multi_weighted_agg`` in oracle mode,
+   ``fused_cohort_agg_and_error`` in deployable mode);
+6. the server optimizer applies the estimate;
+7. the sampler updates and, in oracle mode, ``regret.round_costs`` records
+   the round's online costs.
+
+Per-round metrics stay on the device in (T,)-preallocated buffers and reach
+the host once, at the end.  ``compiled=False`` runs the same body but copies
+each round's metrics to the host as it ends (the debuggable loop of the
+reference); the two give identical results.
+
+Metric fidelities, as in the reference:
+
+* ``oracle_metrics=True``: every client trains every round, so the paper's
+  diagnostics (dynamic regret, estimator squared error) are exact.
+* ``oracle_metrics=False`` (deployable): only a static C-slot cohort
+  (``FedConfig.cohort``, default ``min(2K, N)``) trains, selected from the
+  draw by ``fed.cohort.select_cohort``; aggregation is C-width.
+
+Not ported yet (each raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item): the fault layer, compressed deltas,
+``exact_oracle_equiv``, score-history host offload, and checkpointing
+(``ckpt_every`` is accepted and ignored while no checkpoint manager is
+given: segmentation is bitwise-neutral in the reference).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import estimator, regret
+from repro_torch.core.regret import RegretTracker
+from repro_torch.core.samplers import Sampler
+from repro_torch.data.pipeline import FederatedDataset
+from repro_torch.device import resolve_device
+from repro_torch.fed import client as fed_client
+from repro_torch.fed import cohort as fed_cohort
+from repro_torch.fed.tasks import Task, params_to_numpy
+from repro_torch.optim.fedopt import FedAvgServer, ServerOptimizer
+from repro_torch.rng import PhiloxSource, RandomSource
+
+__all__ = ["FedConfig", "History", "run_federated"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FedConfig:
+    """The reference's ``FedConfig`` field for field (see its comments)."""
+
+    rounds: int = 100
+    budget: int = 10
+    local_steps: int = 1
+    batch_size: int = 64
+    local_lr: float = 0.02
+    server_opt: ServerOptimizer = FedAvgServer(lr=1.0)
+    seed: int = 0
+    eval_every: int = 5
+    eval_batches: int = 4
+    oracle_metrics: bool = True
+    compiled: bool = True  # False: per-round host copies of the metrics
+    # Deployable-mode static cohort buffer size C; None -> min(2 * budget, N).
+    cohort: int | None = None
+    exact_oracle_equiv: bool = False  # not ported
+    track_scores: bool = True  # oracle-mode (T, N) score history
+    score_history_bytes_limit: int = 1 << 30
+    score_history_host_offload: bool = False  # not ported
+    ckpt_every: int = 0  # bitwise-neutral segmentation; ignored without a manager
+    faults: object | None = None  # not ported
+    compression: object | None = None  # not ported
+
+    def cohort_slots(self, n_clients: int) -> int:
+        c = 2 * self.budget if self.cohort is None else int(self.cohort)
+        return max(1, min(c, n_clients))
+
+
+@dataclasses.dataclass
+class History:
+    rounds: list = dataclasses.field(default_factory=list)
+    train_loss: list = dataclasses.field(default_factory=list)
+    test_accuracy: list = dataclasses.field(default_factory=list)
+    estimator_sq_error: list = dataclasses.field(default_factory=list)
+    cohort_size: list = dataclasses.field(default_factory=list)
+    cohort_dropped: list = dataclasses.field(default_factory=list)  # deployable
+    deadline_dropped: list = dataclasses.field(default_factory=list)  # fault layer
+    regret: RegretTracker | None = None
+    wall_time_s: float = 0.0
+    final_params: object = None  # trained parameters, nested dicts of numpy arrays
+
+    def summary(self) -> dict:
+        out = {
+            "final_loss": self.train_loss[-1] if self.train_loss else None,
+            "final_acc": self.test_accuracy[-1] if self.test_accuracy else None,
+            "mean_sq_error": float(np.mean(self.estimator_sq_error))
+            if self.estimator_sq_error
+            else None,
+            "mean_cohort": float(np.mean(self.cohort_size)) if self.cohort_size else None,
+            "wall_time_s": self.wall_time_s,
+        }
+        if self.regret is not None and self.regret.costs:
+            out["final_dynamic_regret_per_round"] = float(
+                self.regret.dynamic_regret()[-1] / len(self.regret.costs)
+            )
+        return out
+
+
+def _check_supported(cfg: FedConfig, ckpt_manager, n_clients: int) -> None:
+    missing = []
+    if cfg.faults is not None:
+        missing.append("faults (ROADMAP.md queue 1, 'Fault layer')")
+    if cfg.compression is not None:
+        missing.append("compression (ROADMAP.md queue 1, 'Compressed deltas')")
+    if cfg.exact_oracle_equiv and not cfg.oracle_metrics:
+        missing.append(
+            "exact_oracle_equiv (ROADMAP.md queue 1, 'Server loop + TrainState')"
+        )
+    if cfg.score_history_host_offload:
+        missing.append(
+            "score_history_host_offload (ROADMAP.md queue 1, 'Server loop + TrainState')"
+        )
+    if ckpt_manager is not None:
+        missing.append("a checkpoint manager (ROADMAP.md queue 1, 'Checkpointing')")
+    if missing:
+        raise NotImplementedError("not ported to repro_torch yet: " + "; ".join(missing))
+    full_bytes = int(cfg.rounds) * int(n_clients) * 4
+    if cfg.oracle_metrics and cfg.track_scores and full_bytes > cfg.score_history_bytes_limit:
+        raise ValueError(
+            f"track_scores=True would allocate a ({cfg.rounds}, {n_clients}) f32 "
+            f"score-history buffer ({full_bytes / 2**20:.0f} MiB) on the device, "
+            f"over score_history_bytes_limit={cfg.score_history_bytes_limit / 2**20:.0f} "
+            "MiB.  Raise the limit or set track_scores=False."
+        )
+
+
+def _build_clients(task: Task, cfg: FedConfig):
+    """Local training of a stack of clients: (params, xs (C, R, B, ...),
+    ys (C, R, B)) -> (deltas (C, ...), losses (C,), update norms (C,)).
+    One definition for both modes, so their per-client numerics match."""
+
+    def one_client(params, xs, ys):
+        delta, loss = fed_client.local_update(params, task.loss, (xs, ys), cfg.local_lr)
+        return delta, loss, fed_client.update_norm(delta)
+
+    return torch.func.vmap(one_client, in_dims=(None, 0, 0))
+
+
+def _build_round_body(
+    task: Task,
+    dataset: FederatedDataset,
+    sampler: Sampler,
+    cfg: FedConfig,
+    eval_data,
+    source: RandomSource,
+):
+    """One federated round: ``(t, (params, opt_state, sampler_state)) ->
+    (new carry, per-round metrics)``, every metric a tensor on the device."""
+    lam = dataset.lam
+    n = dataset.n_clients
+    device = dataset.device
+    all_ids = torch.arange(n, device=device)
+    clients = _build_clients(task, cfg)
+    c_slots = cfg.cohort_slots(n)
+    nan = torch.full((), float("nan"), dtype=torch.float32, device=device)
+
+    def body(t: int, carry):
+        params, opt_state, s_state = carry
+        # Solve p~ once; reuse it for the draw AND the regret diagnostics.
+        p_marg = sampler.probabilities(s_state)
+        draw = sampler.sample_from(p_marg, source.isp_uniforms(t, n))
+        weights = estimator.client_weights(draw, lam, sampler.procedure, sampler.budget)
+        idx = source.batch_indices(t, dataset.sizes, cfg.local_steps, cfg.batch_size)
+
+        metrics = {}
+        if cfg.oracle_metrics:
+            deltas, losses, norms = clients(params, *dataset.gather(all_ids, idx))
+            feedback_full = lam * norms  # pi_t(i) = lambda_i ||g_i||
+            feedback = feedback_full * draw.mask
+            metrics["train_loss"] = (lam * losses).sum()
+            metrics["cohort_size"] = draw.size
+            d_est, sq_err = estimator.aggregate_and_error(deltas, weights, lam)
+        else:
+            sel = fed_cohort.select_cohort(
+                draw.mask, weights, c_slots, source.cohort_priorities(t, n)
+            )
+            deltas_c, losses_c, norms_c = clients(
+                params, *dataset.gather(sel.ids, idx[sel.ids])
+            )
+            lam_c = torch.where(sel.valid, lam[sel.ids], 0.0)
+            # The sampler state is (N,): scatter the (C,) feedback.
+            feedback = fed_cohort.scatter_cohort(lam_c * norms_c, sel, n)
+            # Unbiased cohort estimate of the full weighted loss.
+            metrics["train_loss"] = torch.where(sel.valid, sel.weights * losses_c, 0.0).sum()
+            metrics["cohort_size"] = sel.valid.to(torch.int32).sum()
+            metrics["dropped"] = sel.n_dropped
+            d_est, sq_err = estimator.aggregate_and_error_cohort(deltas_c, sel.weights, lam_c)
+
+        params, opt_state = cfg.server_opt.apply(params, d_est, opt_state)
+        # The server only observes the feedback of the clients it contacted.
+        s_state = sampler.update(s_state, draw, feedback)
+
+        if cfg.oracle_metrics:
+            cost, opt_cost = regret.round_costs(feedback_full, p_marg, sampler.budget)
+            metrics.update(sq_error=sq_err, cost=cost, opt_cost=opt_cost)
+            if cfg.track_scores:
+                metrics["scores"] = feedback_full
+        if eval_data is not None:
+            do_eval = t % cfg.eval_every == 0 or t == cfg.rounds - 1
+            metrics["accuracy"] = (
+                task.accuracy(params, eval_data).to(torch.float32) if do_eval else nan
+            )
+        return (params, opt_state, s_state), metrics
+
+    return body
+
+
+def _materialize_history(metrics: dict, cfg: FedConfig, has_eval: bool) -> History:
+    """Host-side per-round arrays -> the History lists."""
+    hist = History(regret=RegretTracker(budget=cfg.budget))
+    hist.rounds = list(range(cfg.rounds))
+    hist.train_loss = [float(x) for x in metrics["train_loss"]]
+    hist.cohort_size = [int(x) for x in metrics["cohort_size"]]
+    if "dropped" in metrics:
+        hist.cohort_dropped = [int(x) for x in metrics["dropped"]]
+    if cfg.oracle_metrics:
+        hist.estimator_sq_error = [float(x) for x in metrics["sq_error"]]
+        hist.regret = RegretTracker.from_arrays(
+            cfg.budget, metrics["cost"], metrics["opt_cost"], metrics.get("scores")
+        )
+    if has_eval:
+        acc = metrics["accuracy"]
+        hist.test_accuracy = [float(a) for a in acc[~np.isnan(acc)]]
+    return hist
+
+
+def run_federated(
+    task: Task,
+    dataset: FederatedDataset,
+    sampler: Sampler,
+    cfg: FedConfig,
+    eval_data: tuple | None = None,
+    *,
+    device=None,
+    random_source: RandomSource | None = None,
+    ckpt_manager=None,
+) -> History:
+    """Run Algorithm 1 on ``device`` (default: the GPU; see
+    ``repro_torch.device``).
+
+    ``random_source`` supplies every draw (default ``PhiloxSource(cfg.seed,
+    device)``); ``eval_data`` is an optional (x, y) batch for the accuracy
+    curve (``cfg.eval_every`` schedule)."""
+    t0 = time.perf_counter()
+    dev = resolve_device(device)
+    _check_supported(cfg, ckpt_manager, dataset.n_clients)
+    if dataset.device != dev:
+        dataset = FederatedDataset(
+            dataset.features.to(dev), dataset.labels.to(dev), dataset.sizes.to(dev)
+        )
+    if eval_data is not None:
+        eval_data = tuple(
+            (a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))).to(dev)
+            for a in eval_data
+        )
+    source = PhiloxSource(cfg.seed, dev) if random_source is None else random_source
+
+    params = source.init_params(task)
+    carry = (params, cfg.server_opt.init(params), sampler.init(dev))
+    body = _build_round_body(task, dataset, sampler, cfg, eval_data, source)
+
+    buffers: dict = {}
+    per_round: list = []
+    for t in range(cfg.rounds):
+        carry, m = body(t, carry)
+        if cfg.compiled:
+            for k, v in m.items():
+                if k not in buffers:
+                    buffers[k] = torch.empty(
+                        (cfg.rounds,) + tuple(v.shape), dtype=v.dtype, device=dev
+                    )
+                buffers[k][t] = v
+        else:
+            # Host copy every round — the reference loop's defining trait.
+            per_round.append({k: v.cpu().numpy() for k, v in m.items()})
+    if cfg.rounds == 0:
+        keys = ["train_loss", "cohort_size"]
+        keys += ["sq_error", "cost", "opt_cost"] if cfg.oracle_metrics else ["dropped"]
+        keys += ["accuracy"] if eval_data is not None else []
+        metrics = {k: np.zeros(0) for k in keys}
+    elif cfg.compiled:
+        metrics = {k: b.cpu().numpy() for k, b in buffers.items()}
+    else:
+        metrics = {k: np.stack([m[k] for m in per_round]) for k in per_round[0]}
+
+    hist = _materialize_history(metrics, cfg, has_eval=eval_data is not None)
+    hist.final_params = params_to_numpy(carry[0])
+    hist.wall_time_s = time.perf_counter() - t0
+    return hist

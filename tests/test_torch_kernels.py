@@ -1,0 +1,200 @@
+"""The port's aggregation kernels: their plain versions against the JAX
+Pallas kernels (``interpret=True``, as tests/test_kernels.py runs them), the
+estimator that drives them, and the wrappers' input checks.
+
+The CUDA kernels themselves run only on a GPU: ``test_cuda_kernel_matches_plain``
+holds them against the plain versions there and skips elsewhere.  Run it on a
+CUDA machine with ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import estimator as ref_estimator  # noqa: E402
+from repro.kernels.fused_weighted_agg import (  # noqa: E402
+    fused_cohort_agg_and_error as ref_cohort,
+    fused_multi_weighted_agg as ref_multi,
+)
+from repro_torch.core import estimator  # noqa: E402
+from repro_torch.kernels import fused_weighted_agg as fwa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+F32_TOL = dict(rtol=1e-5, atol=1e-4)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def _inputs(c, d, m, seed=0):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((c, d)).astype(np.float32)
+    w = rng.uniform(0.0, 1.0, (m, c)).astype(np.float32)
+    return g, w
+
+
+def _pair(g, dtype):
+    """The same (bf16-rounded when asked) values in both frameworks."""
+    t_dt, j_dt = DTYPES[dtype]
+    return torch.from_numpy(g).to(t_dt), jnp.asarray(g, j_dt)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("m,c,d,bd", [(2, 8, 4096, 1024), (3, 16, 2048, 2048), (2, 50, 1024, 256)])
+def test_multi_plain_matches_pallas(dtype, m, c, d, bd):
+    g, w = _inputs(c, d, m)
+    g_t, g_j = _pair(g, dtype)
+    want = np.asarray(ref_multi(g_j, jnp.asarray(w), block_d=bd, interpret=True))
+    got = fwa.fused_multi_weighted_agg(g_t, torch.from_numpy(w))
+    assert got.dtype == torch.float32 and got.shape == (m, d)
+    np.testing.assert_allclose(got.numpy(), want, **(BF16_TOL if dtype == "bf16" else F32_TOL))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c,d,bd", [(8, 4096, 1024), (20, 2048, 2048), (3, 1024, 256)])
+def test_cohort_plain_matches_pallas(dtype, c, d, bd):
+    g, w2 = _inputs(c, d, 2, seed=1)
+    w, lam_c = w2[0], w2[1] * 0.1
+    w[-1] = lam_c[-1] = 0.0  # an inert padding slot
+    g_t, g_j = _pair(g, dtype)
+    d_want, sq_want = ref_cohort(g_j, jnp.asarray(w), jnp.asarray(lam_c), block_d=bd, interpret=True)
+    d_got, sq_got = fwa.fused_cohort_agg_and_error(g_t, torch.from_numpy(w), torch.from_numpy(lam_c))
+    assert d_got.shape == (d,) and sq_got.shape == ()
+    tol = BF16_TOL if dtype == "bf16" else F32_TOL
+    np.testing.assert_allclose(d_got.numpy(), np.asarray(d_want), **tol)
+    np.testing.assert_allclose(float(sq_got), float(sq_want), rtol=2e-2 if dtype == "bf16" else 1e-4)
+
+
+@pytest.mark.parametrize("c,d", [(100, 610), (7, 1027), (1, 1)])
+def test_ragged_d_matches_reference_contraction(c, d):
+    """Any D: the reference's own off-TPU arithmetic ``w2 @ flat``."""
+    g, w2 = _inputs(c, d, 2, seed=2)
+    want = np.asarray(jnp.asarray(w2) @ jnp.asarray(g))
+    got = fwa.fused_multi_weighted_agg(torch.from_numpy(g), torch.from_numpy(w2))
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    lam_c = w2[0] - w2[1]
+    d_got, sq_got = fwa.fused_cohort_agg_and_error(
+        torch.from_numpy(g), torch.from_numpy(w2[0]), torch.from_numpy(lam_c)
+    )
+    w_rows = np.stack([w2[0], w2[0] - lam_c])
+    want2 = np.asarray(jnp.asarray(w_rows) @ jnp.asarray(g))
+    np.testing.assert_allclose(d_got.numpy(), want2[0], **F32_TOL)
+    np.testing.assert_allclose(float(sq_got), float(np.sum(want2[1] ** 2)), rtol=1e-4)
+
+
+def _stacked(rng, lead):
+    return {
+        "w": rng.standard_normal((lead, 30, 10)).astype(np.float32),
+        "b": rng.standard_normal((lead, 10)).astype(np.float32),
+        "blk0": {"up": rng.standard_normal((lead, 4, 6)).astype(np.float32)},
+    }
+
+
+def _to(tree, fn):
+    return {k: _to(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _assert_tree_close(got, want, **tol):
+    for k in want:
+        if isinstance(want[k], dict):
+            _assert_tree_close(got[k], want[k], **tol)
+        else:
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **tol)
+
+
+def test_estimator_matches_reference():
+    """aggregate_and_error / aggregate_and_error_cohort over parameter dicts
+    (flattened in tree order) and client_weights, against repro.core.estimator."""
+    rng = np.random.default_rng(3)
+    n = 12
+    ups = _stacked(rng, n)
+    weights = rng.uniform(0, 3, n).astype(np.float32)
+    lam = rng.dirichlet(np.ones(n)).astype(np.float32)
+    d_r, sq_r = ref_estimator.aggregate_and_error(_to(ups, jnp.asarray), jnp.asarray(weights), jnp.asarray(lam))
+    d_p, sq_p = estimator.aggregate_and_error(_to(ups, torch.from_numpy), torch.from_numpy(weights), torch.from_numpy(lam))
+    _assert_tree_close(d_p, d_r, **F32_TOL)
+    np.testing.assert_allclose(float(sq_p), float(sq_r), rtol=1e-5)
+
+    c = 5
+    ups_c = _stacked(rng, c)
+    w_c = np.array([1.3, 0.4, 2.0, 0.0, 0.0], np.float32)
+    lam_c = np.array([0.1, 0.05, 0.2, 0.0, 0.0], np.float32)
+    d_r, sq_r = ref_estimator.aggregate_and_error_cohort(_to(ups_c, jnp.asarray), jnp.asarray(w_c), jnp.asarray(lam_c))
+    d_p, sq_p = estimator.aggregate_and_error_cohort(_to(ups_c, torch.from_numpy), torch.from_numpy(w_c), torch.from_numpy(lam_c))
+    _assert_tree_close(d_p, d_r, **F32_TOL)
+    np.testing.assert_allclose(float(sq_p), float(sq_r), rtol=1e-5)
+
+
+def test_cpu_path_launches_nothing():
+    fwa.reset_launch_counts()
+    g, w = _inputs(4, 64, 2)
+    fwa.fused_multi_weighted_agg(torch.from_numpy(g), torch.from_numpy(w))
+    fwa.fused_cohort_agg_and_error(torch.from_numpy(g), torch.from_numpy(w[0]), torch.from_numpy(w[1]))
+    assert fwa.launch_counts() == {"fused_multi_weighted_agg": 0, "fused_cohort_agg_and_error": 0}
+
+
+@pytest.mark.parametrize(
+    "g,w,match",
+    [
+        (torch.zeros(4), torch.zeros(2, 4), "2-D"),
+        (torch.zeros(4, 8, dtype=torch.float64), torch.zeros(2, 4), "float32"),
+        (torch.zeros(4, 8, dtype=torch.float16), torch.zeros(2, 4), "float32"),
+        (torch.zeros(4, 8), torch.zeros(2, 5), "shape"),
+        (torch.zeros(4, 8), torch.zeros(2, 4, dtype=torch.bfloat16), "float32"),
+        (torch.zeros(8, 4).T, torch.zeros(2, 4), "contiguous"),
+        (torch.zeros(4, 8), torch.zeros(4, 2).T, "contiguous"),
+        (torch.zeros(0, 8), torch.zeros(2, 0), "non-empty"),
+        (torch.zeros(4, 8, device="meta"), torch.zeros(2, 4, device="meta"), "device"),
+        (torch.zeros(4, 8), torch.zeros(2, 4, device="meta"), "expected"),
+    ],
+)
+def test_multi_wrapper_rejects_bad_inputs(g, w, match):
+    with pytest.raises(ValueError, match=match):
+        fwa.fused_multi_weighted_agg(g, w)
+
+
+@pytest.mark.parametrize(
+    "g,w,lam,match",
+    [
+        (torch.zeros(4), torch.zeros(4), torch.zeros(4), "2-D"),
+        (torch.zeros(4, 8, dtype=torch.float64), torch.zeros(4), torch.zeros(4), "float32"),
+        (torch.zeros(4, 8), torch.zeros(5), torch.zeros(4), "shape"),
+        (torch.zeros(4, 8), torch.zeros(4), torch.zeros(4, 1), "shape"),
+        (torch.zeros(4, 8), torch.zeros(4), torch.zeros(4, dtype=torch.float64), "float32"),
+        (torch.zeros(4, 8), torch.zeros(8)[::2], torch.zeros(4), "contiguous"),
+        (torch.zeros(4, 8), torch.zeros(4), torch.zeros(4, device="meta"), "expected"),
+    ],
+)
+def test_cohort_wrapper_rejects_bad_inputs(g, w, lam, match):
+    with pytest.raises(ValueError, match=match):
+        fwa.fused_cohort_agg_and_error(g, w, lam)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c,d", [(50, 114688), (10, 114688), (100, 610), (3, 1027)])
+def test_cuda_kernel_matches_plain(cuda, dtype, c, d):
+    g, w2 = _inputs(c, d, 2, seed=4)
+    g_t = torch.from_numpy(g).to(DTYPES[dtype][0]).to(cuda)
+    w_t = torch.from_numpy(w2).to(cuda)
+    tol = BF16_TOL if dtype == "bf16" else F32_TOL
+    before = fwa.launch_counts()
+    got = fwa.fused_multi_weighted_agg(g_t, w_t)
+    want = ref.multi_weighted_agg_reference(g_t, w_t)
+    torch.testing.assert_close(got, want, **tol)
+    d_got, sq_got = fwa.fused_cohort_agg_and_error(g_t, w_t[0].contiguous(), w_t[1].contiguous())
+    d_want, sq_want = ref.cohort_agg_and_error_reference(g_t, w_t[0], w_t[1])
+    torch.testing.assert_close(d_got, d_want, **tol)
+    torch.testing.assert_close(sq_got, sq_want, rtol=1e-4, atol=0.0)
+    again = fwa.fused_cohort_agg_and_error(g_t, w_t[0].contiguous(), w_t[1].contiguous())
+    assert torch.equal(again[1], sq_got)  # no float atomics: bitwise repeatable
+    after = fwa.launch_counts()
+    assert after["fused_multi_weighted_agg"] == before["fused_multi_weighted_agg"] + 1
+    assert after["fused_cohort_agg_and_error"] == before["fused_cohort_agg_and_error"] + 2
