@@ -15,6 +15,8 @@ they raise instead of falling back::
 
 Ported so far: the simulation-task federated round (``api.run`` with
 ``kind="task"``) with the ``kvib`` and ``uniform_isp`` samplers, in oracle
-and deployable modes, and the two aggregation kernels on that path.
+and deployable modes, with plain or compressed (int8 / fp8, error feedback)
+client deltas, ``kernels.ops.aggregate_cohort_updates``, and the four
+aggregation kernels on those paths.
 ``ROADMAP.md`` lists what is still to be ported.
 """

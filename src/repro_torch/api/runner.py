@@ -5,9 +5,10 @@ the federated dataset (on the run's device), the sampler and the
 ``FedConfig``; ``run`` calls ``fed.server.run_federated`` with them.  Both
 run on the GPU unless ``device="cpu"`` is passed (``repro_torch.device``).
 
-Served: ``kind="task"``.  Not ported (``NotImplementedError``, naming the
-``ROADMAP.md`` item): ``kind="zoo"``, an enabled ``fault`` or
-``compression`` section, and ``execution.sampler_axis``.
+Served: ``kind="task"``, with or without an enabled ``compression``
+section.  Not ported (``NotImplementedError``, naming the ``ROADMAP.md``
+item): ``kind="zoo"``, an enabled ``fault`` section (with or without
+compression), and ``execution.sampler_axis``.
 """
 from __future__ import annotations
 
@@ -66,11 +67,6 @@ def _check_ported(spec: ExperimentSpec) -> None:
         raise NotImplementedError(
             "an enabled fault section is not ported to repro_torch yet; see "
             "ROADMAP.md queue 1, 'Fault layer'"
-        )
-    if spec.compression.enabled:
-        raise NotImplementedError(
-            "an enabled compression section is not ported to repro_torch yet; "
-            "see ROADMAP.md queue 1, 'Compressed deltas'"
         )
     if spec.execution.sampler_axis is not None:
         raise NotImplementedError(

@@ -386,11 +386,11 @@ class CompressionSpec:
         (float8_e4m3fn, where the installed torch supports it); ``None`` = off.
         Client deltas are quantized inside the traced round body with one
         fp32 abs-max scale per (cohort slot, ``scale_block``-wide block), so
-        the (C, D) stacked buffer lives in HBM at quantized width and is
-        widened to f32 only inside the fused aggregation kernel's VMEM tiles
-        (``kernels.fused_dequant_cohort_agg``).  Sampler feedback norms are
-        computed from the dequantized values — the regret signal is what the
-        estimator actually saw.
+        the (C, D) stacked buffer lives in device memory at quantized width
+        and is widened to f32 only in the registers of the fused aggregation
+        kernel (``kernels.fused_dequant_cohort_agg``).  Sampler feedback
+        norms are computed from the dequantized values — the regret signal
+        is what the estimator actually saw.
     error_feedback:
         When True (default) the server carries a (D,) f32 residual in
         ``TrainState``: each round applies ``d_hat + resid`` and stores the
@@ -400,7 +400,7 @@ class CompressionSpec:
         and sampler-axis sharding stay exact under compression.
     scale_block:
         Block width (in flattened-param elements) sharing one fp32 scale.
-        Default 128 — one scale per TPU lane tile; D is zero-padded
+        Default 128, the reference's; any width is valid; D is zero-padded
         internally to a block multiple.
     """
 

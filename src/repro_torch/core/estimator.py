@@ -5,11 +5,13 @@ The server-side estimate of the full-participation update
     d^t = sum_{i in S^t} lambda_i g_i^t / p_i^t          (ISP, mask form)
 
 operates on stacked parameter dicts whose leaves lead with a client (or
-cohort-slot) axis.  Both aggregation entry points flatten the stacked deltas
+cohort-slot) axis.  The aggregation entry points flatten the stacked deltas
 into one (C, D) f32 buffer in the reference's tree order (dict keys sorted at
 every level), so the buffer is the same array as the JAX package's, and hand
 it to ``kernels.fused_weighted_agg``: the CUDA kernel for a tensor on the
 GPU (any D), the plain PyTorch version for one on the CPU.
+``aggregate_compressed`` quantizes that buffer to int8 or fp8 first and
+aggregates the codes with ``fused_dequant_cohort_agg``.
 """
 from __future__ import annotations
 
@@ -18,16 +20,23 @@ import math
 import torch
 
 from repro_torch.core.samplers import SampleResult
-from repro_torch.fed.tasks import tree_leaves
+from repro_torch.fed.tasks import tree_leaves, tree_map
 from repro_torch.kernels.fused_weighted_agg import (
     fused_cohort_agg_and_error,
+    fused_dequant_cohort_agg,
     fused_multi_weighted_agg,
+    quantize_stacked,
 )
 
 __all__ = [
     "client_weights",
+    "aggregate_stacked",
+    "full_aggregate_stacked",
+    "flatten_stacked",
+    "unflatten_vector",
     "aggregate_and_error",
     "aggregate_and_error_cohort",
+    "aggregate_compressed",
     "isp_variance",
     "rsp_variance_bound",
     "empirical_sq_error",
@@ -48,9 +57,26 @@ def client_weights(
     )
 
 
-def _flatten_stacked(updates):
-    """Stacked dict (leading axis C) -> (C, D) f32 in tree order + the
-    (key path, shape, dtype) spec to rebuild a (D,) vector."""
+def aggregate_stacked(updates, weights: torch.Tensor):
+    """d = sum_i w_i * g_i over a stacked dict (leading client axis), in each
+    leaf's dtype."""
+
+    def agg(leaf):
+        w = weights.reshape((-1,) + (1,) * (leaf.dim() - 1)).to(leaf.dtype)
+        return (w * leaf).sum(0)
+
+    return tree_map(agg, updates)
+
+
+def full_aggregate_stacked(updates, lam: torch.Tensor):
+    """Full-participation target sum_i lambda_i g_i."""
+    return aggregate_stacked(updates, lam)
+
+
+def flatten_stacked(updates, dtype: torch.dtype | None = torch.float32):
+    """Stacked dict (leading axis C) -> (C, D) in tree order + the
+    (key path, shape, dtype) spec to rebuild a (D,) vector.  The buffer is
+    ``dtype``, or with ``dtype=None`` the leaves' promoted dtype."""
     spec = []
 
     def walk(tree, path):
@@ -63,11 +89,13 @@ def _flatten_stacked(updates):
 
     walk(updates, ())
     leaves = tree_leaves(updates)
-    flat = torch.cat([x.reshape(x.shape[0], -1).to(torch.float32) for x in leaves], dim=1)
-    return flat, spec
+    flat = torch.cat([x.reshape(x.shape[0], -1) for x in leaves], dim=1)
+    return (flat if dtype is None else flat.to(dtype)), spec
 
 
-def _unflatten_vector(vec: torch.Tensor, spec) -> dict:
+def unflatten_vector(vec: torch.Tensor, spec) -> dict:
+    """(D,) vector -> dict of ``flatten_stacked``'s spec, each leaf cast to
+    its input dtype."""
     out: dict = {}
     off = 0
     for path, shape, dtype in spec:
@@ -88,11 +116,11 @@ def aggregate_and_error(updates, weights: torch.Tensor, lam: torch.Tensor):
 
     Returns (estimate dict, 0-d squared error).
     """
-    flat, spec = _flatten_stacked(updates)
+    flat, spec = flatten_stacked(updates)
     w = weights.to(torch.float32)
     w2 = torch.stack([w, w - lam.to(torch.float32)])
     out = fused_multi_weighted_agg(flat, w2)
-    return _unflatten_vector(out[0], spec), (out[1] ** 2).sum()
+    return unflatten_vector(out[0], spec), (out[1] ** 2).sum()
 
 
 def aggregate_and_error_cohort(updates, weights: torch.Tensor, lam_cohort: torch.Tensor):
@@ -105,11 +133,45 @@ def aggregate_and_error_cohort(updates, weights: torch.Tensor, lam_cohort: torch
     Returns (estimate dict, 0-d squared error
     ``||sum_c (w_c - lam_c) delta_c||^2``).
     """
-    flat, spec = _flatten_stacked(updates)
+    flat, spec = flatten_stacked(updates)
     d_vec, sq = fused_cohort_agg_and_error(
         flat, weights.to(torch.float32), lam_cohort.to(torch.float32)
     )
-    return _unflatten_vector(d_vec, spec), sq
+    return unflatten_vector(d_vec, spec), sq
+
+
+def aggregate_compressed(
+    updates, weights: torch.Tensor, lam_cohort: torch.Tensor, compression, resid=None
+):
+    """Compressed-width ``aggregate_and_error_cohort``: quantize the stacked
+    deltas to ``compression.delta_dtype`` with one f32 scale per (slot,
+    ``compression.scale_block``) block, then aggregate the codes with kernel
+    ``fused_dequant_cohort_agg``, which widens them in registers, so the
+    (C, D) buffer is read once at quantized width.
+
+    ``resid`` (D,) f32 turns on server-side error feedback: the applied
+    estimate is ``d_hat + resid`` and the returned ``new_resid`` is the fresh
+    quantization error ``d_true - d_hat`` (``d_true`` the uncompressed
+    aggregate of the f32 deltas), so errors telescope instead of
+    accumulating.  With ``resid=None`` the raw ``d_hat`` is applied and
+    ``new_resid`` is None.
+
+    Returns (estimate dict, err_sq () f32, dequantized norms (C,) f32,
+    new_resid (D,) f32 | None).  ``err_sq`` and the norms come from the
+    dequantized values, so the sampler's feedback is what the estimator saw.
+    """
+    flat, spec = flatten_stacked(updates)
+    w = weights.to(torch.float32)
+    q, scales = quantize_stacked(
+        flat, dtype=compression.delta_dtype, scale_block=int(compression.scale_block)
+    )
+    d_vec, sq, sqn = fused_dequant_cohort_agg(q, scales, w, lam_cohort.to(torch.float32))
+    d_hat = d_vec[: flat.shape[1]]
+    new_resid = None
+    if resid is not None:
+        new_resid = w @ flat - d_hat
+        d_hat = d_hat + resid
+    return unflatten_vector(d_hat, spec), sq, torch.sqrt(sqn), new_resid
 
 
 def isp_variance(scores: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

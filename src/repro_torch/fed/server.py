@@ -13,7 +13,10 @@ Each round (``_build_round_body``):
    in oracle mode or over the C cohort slots in deployable mode;
 5. the deltas are aggregated with the estimator's squared error by one of
    the CUDA kernels (``fused_multi_weighted_agg`` in oracle mode,
-   ``fused_cohort_agg_and_error`` in deployable mode);
+   ``fused_cohort_agg_and_error`` in deployable mode), or, with
+   ``cfg.compression`` set, quantized to int8 or fp8 and aggregated by
+   ``fused_dequant_cohort_agg`` in either mode, whose dequantized norms then
+   replace the clients' update norms as the sampler's feedback;
 6. the server optimizer applies the estimate;
 7. the sampler updates and, in oracle mode, ``regret.round_costs`` records
    the round's online costs.
@@ -31,8 +34,12 @@ Metric fidelities, as in the reference:
   (``FedConfig.cohort``, default ``min(2K, N)``) trains, selected from the
   draw by ``fed.cohort.select_cohort``; aggregation is C-width.
 
+Compressed deltas with error feedback carry the (D,) f32 residual
+``{"resid": ...}`` as a trailing element of the round's carry, zero at round
+0, as the reference's ``TrainState`` does.
+
 Not ported yet (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): the fault layer, compressed deltas,
+``ROADMAP.md`` item): the fault layer (also combined with compression),
 ``exact_oracle_equiv``, score-history host offload, and checkpointing
 (``ckpt_every`` is accepted and ignored while no checkpoint manager is
 given: segmentation is bitwise-neutral in the reference).
@@ -48,6 +55,7 @@ import torch
 from repro_torch.core import estimator, regret
 from repro_torch.core.regret import RegretTracker
 from repro_torch.core.samplers import Sampler
+from repro_torch.core.stragglers import flat_dim
 from repro_torch.data.pipeline import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.fed import client as fed_client
@@ -56,7 +64,7 @@ from repro_torch.fed.tasks import Task, params_to_numpy
 from repro_torch.optim.fedopt import FedAvgServer, ServerOptimizer
 from repro_torch.rng import PhiloxSource, RandomSource
 
-__all__ = ["FedConfig", "History", "run_federated"]
+__all__ = ["FedConfig", "History", "init_carry", "run_federated"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +90,8 @@ class FedConfig:
     score_history_host_offload: bool = False  # not ported
     ckpt_every: int = 0  # bitwise-neutral segmentation; ignored without a manager
     faults: object | None = None  # not ported
-    compression: object | None = None  # not ported
+    # An api.CompressionSpec (int8/fp8 deltas, error feedback) or None.
+    compression: object | None = None
 
     def cohort_slots(self, n_clients: int) -> int:
         c = 2 * self.budget if self.cohort is None else int(self.cohort)
@@ -120,11 +129,16 @@ class History:
 
 
 def _check_supported(cfg: FedConfig, ckpt_manager, n_clients: int) -> None:
+    if cfg.compression is not None and not cfg.oracle_metrics and cfg.exact_oracle_equiv:
+        raise ValueError(
+            "compression is incompatible with exact_oracle_equiv: the N-width "
+            "scatter path exists to reproduce the oracle contraction bitwise, "
+            "which quantization cannot; use the cohort-width aggregation "
+            "(exact_oracle_equiv=False)"
+        )
     missing = []
     if cfg.faults is not None:
         missing.append("faults (ROADMAP.md queue 1, 'Fault layer')")
-    if cfg.compression is not None:
-        missing.append("compression (ROADMAP.md queue 1, 'Compressed deltas')")
     if cfg.exact_oracle_equiv and not cfg.oracle_metrics:
         missing.append(
             "exact_oracle_equiv (ROADMAP.md queue 1, 'Server loop + TrainState')"
@@ -167,8 +181,9 @@ def _build_round_body(
     eval_data,
     source: RandomSource,
 ):
-    """One federated round: ``(t, (params, opt_state, sampler_state)) ->
-    (new carry, per-round metrics)``, every metric a tensor on the device."""
+    """One federated round: ``(t, carry) -> (new carry, per-round metrics)``,
+    every metric a tensor on the device.  The carry is ``(params, opt_state,
+    sampler_state)``, plus ``{"resid": (D,) f32}`` with error feedback."""
     lam = dataset.lam
     n = dataset.n_clients
     device = dataset.device
@@ -176,8 +191,13 @@ def _build_round_body(
     clients = _build_clients(task, cfg)
     c_slots = cfg.cohort_slots(n)
     nan = torch.full((), float("nan"), dtype=torch.float32, device=device)
+    comp = cfg.compression
+    ef_on = comp is not None and bool(comp.error_feedback)
 
     def body(t: int, carry):
+        c_state = {}
+        if ef_on:
+            carry, c_state = carry[:-1], carry[-1]
         params, opt_state, s_state = carry
         # Solve p~ once; reuse it for the draw AND the regret diagnostics.
         p_marg = sampler.probabilities(s_state)
@@ -188,11 +208,18 @@ def _build_round_body(
         metrics = {}
         if cfg.oracle_metrics:
             deltas, losses, norms = clients(params, *dataset.gather(all_ids, idx))
-            feedback_full = lam * norms  # pi_t(i) = lambda_i ||g_i||
-            feedback = feedback_full * draw.mask
             metrics["train_loss"] = (lam * losses).sum()
             metrics["cohort_size"] = draw.size
-            d_est, sq_err = estimator.aggregate_and_error(deltas, weights, lam)
+            if comp is not None:
+                # The feedback norms are the dequantized ones: the regret
+                # signal is what the estimator saw.
+                d_est, sq_err, norms, new_resid = estimator.aggregate_compressed(
+                    deltas, weights, lam, comp, c_state.get("resid")
+                )
+            else:
+                d_est, sq_err = estimator.aggregate_and_error(deltas, weights, lam)
+            feedback_full = lam * norms  # pi_t(i) = lambda_i ||g_i||
+            feedback = feedback_full * draw.mask
         else:
             sel = fed_cohort.select_cohort(
                 draw.mask, weights, c_slots, source.cohort_priorities(t, n)
@@ -201,14 +228,21 @@ def _build_round_body(
                 params, *dataset.gather(sel.ids, idx[sel.ids])
             )
             lam_c = torch.where(sel.valid, lam[sel.ids], 0.0)
-            # The sampler state is (N,): scatter the (C,) feedback.
-            feedback = fed_cohort.scatter_cohort(lam_c * norms_c, sel, n)
             # Unbiased cohort estimate of the full weighted loss.
             metrics["train_loss"] = torch.where(sel.valid, sel.weights * losses_c, 0.0).sum()
             metrics["cohort_size"] = sel.valid.to(torch.int32).sum()
             metrics["dropped"] = sel.n_dropped
-            d_est, sq_err = estimator.aggregate_and_error_cohort(deltas_c, sel.weights, lam_c)
+            if comp is not None:
+                d_est, sq_err, norms_c, new_resid = estimator.aggregate_compressed(
+                    deltas_c, sel.weights, lam_c, comp, c_state.get("resid")
+                )
+            else:
+                d_est, sq_err = estimator.aggregate_and_error_cohort(deltas_c, sel.weights, lam_c)
+            # The sampler state is (N,): scatter the (C,) feedback.
+            feedback = fed_cohort.scatter_cohort(lam_c * norms_c, sel, n)
 
+        if ef_on:
+            c_state = {"resid": new_resid}
         params, opt_state = cfg.server_opt.apply(params, d_est, opt_state)
         # The server only observes the feedback of the clients it contacted.
         s_state = sampler.update(s_state, draw, feedback)
@@ -223,9 +257,22 @@ def _build_round_body(
             metrics["accuracy"] = (
                 task.accuracy(params, eval_data).to(torch.float32) if do_eval else nan
             )
-        return (params, opt_state, s_state), metrics
+        out = (params, opt_state, s_state)
+        return (out + (c_state,) if ef_on else out), metrics
 
     return body
+
+
+def init_carry(task: Task, sampler: Sampler, cfg: FedConfig, source: RandomSource, device):
+    """Round 0's carry: initial parameters from ``source``, the server
+    optimizer's and the sampler's initial states, and with error feedback a
+    zero (D,) f32 residual."""
+    params = source.init_params(task)
+    carry = (params, cfg.server_opt.init(params), sampler.init(device))
+    if cfg.compression is not None and cfg.compression.error_feedback:
+        resid = torch.zeros(flat_dim(params), dtype=torch.float32, device=device)
+        carry = carry + ({"resid": resid},)
+    return carry
 
 
 def _materialize_history(metrics: dict, cfg: FedConfig, has_eval: bool) -> History:
@@ -278,8 +325,7 @@ def run_federated(
         )
     source = PhiloxSource(cfg.seed, dev) if random_source is None else random_source
 
-    params = source.init_params(task)
-    carry = (params, cfg.server_opt.init(params), sampler.init(dev))
+    carry = init_carry(task, sampler, cfg, source, dev)
     body = _build_round_body(task, dataset, sampler, cfg, eval_data, source)
 
     buffers: dict = {}

@@ -1,9 +1,12 @@
 """Fused weighted aggregation of stacked client deltas: the server's hot loop.
 
 Wrappers around the CUDA kernels in ``csrc/fused_weighted_agg.cu`` (design
-notes there), which replace the JAX reference's Pallas TPU kernels
-``fused_multi_weighted_agg`` and ``fused_cohort_agg_and_error``
-(``repro/kernels/fused_weighted_agg.py``).
+notes there), which replace the JAX reference's four Pallas TPU kernels of
+``repro/kernels/fused_weighted_agg.py``: ``fused_weighted_agg``,
+``fused_multi_weighted_agg``, ``fused_cohort_agg_and_error`` and
+``fused_dequant_cohort_agg``.  The blockwise quantizer of the compressed
+delta path (``quantize_stacked`` / ``dequantize_stacked``) is plain PyTorch,
+as it is plain ``jnp`` in the reference.
 
 Dispatch is by the device of the tensors: on the CPU a wrapper computes its
 plain PyTorch version (``kernels.ref``); on a CUDA device it launches the
@@ -24,13 +27,75 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import load_library
 
 __all__ = [
+    "fused_weighted_agg",
     "fused_multi_weighted_agg",
     "fused_cohort_agg_and_error",
+    "fused_dequant_cohort_agg",
+    "quant_dtype",
+    "quantize_stacked",
+    "dequantize_stacked",
     "launch_counts",
     "reset_launch_counts",
 ]
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Element-type codes of the C interface.  fp8 crosses it as raw bytes.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
+_FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+_QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+# Saturation point of each delta width: int8 symmetric round-to-nearest keeps
+# +-127 (the -128 code is unused, so the grid is symmetric); float8_e4m3fn's
+# largest finite value is 448.
+_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+def quant_dtype(name: str) -> torch.dtype:
+    """torch dtype for a delta-width name ('int8' | 'fp8')."""
+    if name == "int8":
+        return torch.int8
+    if name == "fp8":
+        return torch.float8_e4m3fn
+    raise ValueError(f"unknown delta dtype {name!r}")
+
+
+def quantize_stacked(
+    flat: torch.Tensor, *, dtype: str = "int8", scale_block: int = 128
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise symmetric quantization of stacked (C, D) deltas.
+
+    Each row is split into ``scale_block``-wide blocks with one f32 abs-max
+    scale ``absmax / qmax`` per (row, block); D is zero-padded to a block
+    multiple.  Zero blocks get scale 1.0.  int8 rounds half to even and clips
+    to +-127; fp8 is the float8_e4m3fn cast.  Bitwise the reference's codes
+    and scales.
+
+    Returns (q (C, D_pad) int8|float8_e4m3fn, scales (C, nb) f32) with
+    ``D_pad = nb * scale_block``.
+    """
+    qmax = _QMAX[dtype]
+    c, d = flat.shape
+    sb = int(scale_block)
+    nb = -(-d // sb)
+    flat = flat.to(torch.float32)
+    if nb * sb != d:
+        flat = torch.nn.functional.pad(flat, (0, nb * sb - d))
+    blocks = flat.reshape(c, nb, sb)
+    absmax = blocks.abs().amax(dim=2)
+    scales = torch.where(absmax > 0.0, absmax / qmax, 1.0)
+    scaled = blocks / scales[:, :, None]
+    if dtype == "int8":
+        q = torch.clamp(torch.round(scaled), -qmax, qmax).to(torch.int8)
+    else:
+        q = scaled.to(quant_dtype(dtype))
+    return q.reshape(c, nb * sb), scales
+
+
+def dequantize_stacked(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_stacked``: (C, D_pad) codes and (C, nb) scales
+    -> (C, D_pad) f32."""
+    c, d_pad = q.shape
+    nb = scales.shape[1]
+    return (q.to(torch.float32).reshape(c, nb, d_pad // nb) * scales[:, :, None]).reshape(c, d_pad)
 
 
 @functools.cache
@@ -47,6 +112,12 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr,
     ]
     lib.fwa_cohort_agg_and_error.restype = i32
+    lib.fwa_weighted_agg.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i64, ptr]
+    lib.fwa_weighted_agg.restype = i32
+    lib.fwa_dequant_cohort_agg.argtypes = [
+        ptr, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr,
+    ]
+    lib.fwa_dequant_cohort_agg.restype = i32
     return lib
 
 
@@ -63,13 +134,13 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtypes, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_g(g: torch.Tensor) -> tuple[int, int]:
+def _check_g(g: torch.Tensor, dtypes=_FLOAT_DTYPES, name: str = "g") -> tuple[int, int]:
     if not isinstance(g, torch.Tensor) or g.dim() != 2:
-        raise ValueError("g must be a 2-D (C, D) tensor")
+        raise ValueError(f"{name} must be a 2-D (C, D) tensor")
     c, d = g.shape
     if c < 1 or d < 1:
-        raise ValueError(f"g must be non-empty, got shape {(c, d)}")
-    _check("g", g, (c, d), tuple(_DTYPE_CODES), g.device)
+        raise ValueError(f"{name} must be non-empty, got shape {(c, d)}")
+    _check(name, g, (c, d), dtypes, g.device)
     if g.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {g.device}")
     return c, d
@@ -78,6 +149,36 @@ def _check_g(g: torch.Tensor) -> tuple[int, int]:
 def _raise_on(rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel} CUDA launch failed: cudaError {rc}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def fused_weighted_agg(g: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Weighted aggregate and per-row squared norms in one read of g.
+
+    g (C, D) f32|bf16 stacked flattened client updates; w (C,) f32 weights.
+    Returns (d (D,) f32, sq_norms (C,) f32) with ``d = sum_c w_c g_c`` and
+    ``sq_norms[c] = ||g_c||^2``.  On the GPU the norms are bitwise repeatable
+    (no float atomics)."""
+    c, d = _check_g(g)
+    _check("w", w, (c,), (torch.float32,), g.device)
+    if g.device.type == "cpu":
+        return ref.weighted_agg_reference(g, w)
+    lib = _lib()
+    code = _DTYPE_CODES[g.dtype]
+    d_out = torch.empty(d, dtype=torch.float32, device=g.device)
+    sq = torch.empty(c, dtype=torch.float32, device=g.device)
+    partials = torch.empty(lib.fwa_num_tiles(d, code) * c, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = lib.fwa_weighted_agg(
+            g.data_ptr(), code, w.data_ptr(), d_out.data_ptr(), partials.data_ptr(),
+            sq.data_ptr(), c, d, _stream(g),
+        )
+    _raise_on(rc, "fused_weighted_agg")
+    fused_weighted_agg.launches += 1
+    return d_out, sq
 
 
 def fused_multi_weighted_agg(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -99,7 +200,7 @@ def fused_multi_weighted_agg(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(g.device):
         rc = lib.fwa_multi_weighted_agg(
             g.data_ptr(), _DTYPE_CODES[g.dtype], w.data_ptr(), out.data_ptr(),
-            c, d, m, torch.cuda.current_stream(g.device).cuda_stream,
+            c, d, m, _stream(g),
         )
     _raise_on(rc, "fused_multi_weighted_agg")
     fused_multi_weighted_agg.launches += 1
@@ -129,17 +230,61 @@ def fused_cohort_agg_and_error(
     with torch.cuda.device(g.device):
         rc = lib.fwa_cohort_agg_and_error(
             g.data_ptr(), code, w.data_ptr(), lam_c.data_ptr(), d_out.data_ptr(),
-            partials.data_ptr(), err.data_ptr(), c, d,
-            torch.cuda.current_stream(g.device).cuda_stream,
+            partials.data_ptr(), err.data_ptr(), c, d, _stream(g),
         )
     _raise_on(rc, "fused_cohort_agg_and_error")
     fused_cohort_agg_and_error.launches += 1
     return d_out, err
 
 
-fused_multi_weighted_agg.launches = 0
-fused_cohort_agg_and_error.launches = 0
-_WRAPPERS = (fused_multi_weighted_agg, fused_cohort_agg_and_error)
+def fused_dequant_cohort_agg(
+    q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor, lam_c: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compressed-width ``fused_cohort_agg_and_error``: widen the codes
+    and aggregate in one read of q.
+
+    q (C, D_pad) int8|float8_e4m3fn from ``quantize_stacked``; scales (C, nb)
+    f32 with ``D_pad % nb == 0`` (scale block ``D_pad // nb``, any width);
+    w / lam_c (C,) f32 as in ``fused_cohort_agg_and_error``.  With
+    ``g = float(q) * scale`` per block, returns (d (D_pad,) f32,
+    err () f32, sq_norms (C,) f32): ``d = sum_c w_c g_c``,
+    ``err = ||sum_c (w_c - lam_c) g_c||^2`` and ``sq_norms[c] = ||g_c||^2``.
+    On the GPU err and the norms are bitwise repeatable."""
+    c, d = _check_g(q, _QUANT_DTYPES, "q")
+    if not isinstance(scales, torch.Tensor) or scales.dim() != 2:
+        raise ValueError("scales must be a 2-D (C, nb) tensor")
+    nb = scales.shape[1]
+    _check("scales", scales, (c, nb), (torch.float32,), q.device)
+    if nb < 1 or d % nb:
+        raise ValueError(f"D_pad={d} must be a positive multiple of nb={nb}")
+    _check("w", w, (c,), (torch.float32,), q.device)
+    _check("lam_c", lam_c, (c,), (torch.float32,), q.device)
+    if q.device.type == "cpu":
+        return ref.dequant_cohort_agg_reference(q, scales, w, lam_c)
+    lib = _lib()
+    code = _DTYPE_CODES[q.dtype]
+    d_out = torch.empty(d, dtype=torch.float32, device=q.device)
+    # sums[:C] are the norms, sums[C] the error; partials is (n_tiles, C + 1).
+    sums = torch.empty(c + 1, dtype=torch.float32, device=q.device)
+    partials = torch.empty(
+        lib.fwa_num_tiles(d, code) * (c + 1), dtype=torch.float32, device=q.device
+    )
+    with torch.cuda.device(q.device):
+        rc = lib.fwa_dequant_cohort_agg(
+            q.data_ptr(), code, scales.data_ptr(), nb, w.data_ptr(), lam_c.data_ptr(),
+            d_out.data_ptr(), partials.data_ptr(), sums.data_ptr(), c, d, _stream(q),
+        )
+    _raise_on(rc, "fused_dequant_cohort_agg")
+    fused_dequant_cohort_agg.launches += 1
+    return d_out, sums[c], sums[:c]
+
+
+_WRAPPERS = (
+    fused_weighted_agg,
+    fused_multi_weighted_agg,
+    fused_cohort_agg_and_error,
+    fused_dequant_cohort_agg,
+)
 
 
 def launch_counts() -> dict:
@@ -150,3 +295,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for f in _WRAPPERS:
         f.launches = 0
+
+
+reset_launch_counts()

@@ -1,0 +1,47 @@
+"""Public wrappers for the port's kernels, after ``repro/kernels/ops.py``.
+
+Only the wrappers whose kernels exist in the port are here.  The reference's
+``flash_attention``, ``flash_attention_trainable``, ``ssd_scan`` and
+``rmsnorm`` wait for the zoo slice (``ROADMAP.md`` queue 1, "Zoo models +
+pod-scale round"; queue 2, kernels 6-8) and ``waterfill_level_stats`` for the
+sharded-sampler slice (queue 1, "Sharded sampler"; queue 2, kernel 5).
+
+As everywhere in the port, a tensor on the CPU takes the kernel's plain
+PyTorch version and a tensor on a CUDA device launches the CUDA kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.estimator import flatten_stacked, unflatten_vector
+from repro_torch.kernels import fused_weighted_agg as _fwa
+
+__all__ = ["fused_weighted_agg", "aggregate_cohort_updates"]
+
+
+def fused_weighted_agg(g: torch.Tensor, w: torch.Tensor, *, block_d: int = 2048):
+    """g (C, D) f32|bf16, w (C,) f32 -> (d (D,) f32, sq_norms (C,) f32).
+
+    ``block_d`` is accepted for signature parity with the reference, whose
+    Pallas kernel tiles D by it; the CUDA kernel takes any D and
+    ``block_d`` does not change the result."""
+    if int(block_d) < 1:
+        raise ValueError(f"block_d must be positive, got {block_d}")
+    return _fwa.fused_weighted_agg(g, w)
+
+
+def aggregate_cohort_updates(stacked_deltas, weights: torch.Tensor, *, block_d: int = 2048):
+    """Dict-level driver of ``fused_weighted_agg``: flattens a stacked client
+    update dict (leading client axis; leaves in the reference's tree order,
+    keys sorted), runs one fused pass, and returns (delta dict, sq_norms (C,)).
+    Each output leaf has its input leaf's dtype.
+
+    This is the deployable server aggregation of Algorithm 1, lines 12 and
+    14, in one read of the deltas.  Unlike the reference it pads nothing:
+    ``block_d`` does not change the result."""
+    flat, spec = flatten_stacked(stacked_deltas, dtype=None)
+    if flat.dtype not in (torch.float32, torch.bfloat16):
+        flat = flat.to(torch.float32)
+    w = weights.to(torch.float32).contiguous()
+    d_flat, sq = fused_weighted_agg(flat, w, block_d=block_d)
+    return unflatten_vector(d_flat, spec), sq

@@ -2,16 +2,21 @@
 
 Each function computes what its kernel in ``fused_weighted_agg`` computes,
 with the arithmetic the JAX reference falls back to off the TPU
-(``repro/core/estimator.py``: ``w2 @ flat``).  The wrappers use them for
-tensors on the CPU, the tests hold them against the JAX kernels run in
-interpret mode, and ``chip_smoke.py`` holds the CUDA kernels against them on
-the card.
+(``repro/core/estimator.py``: ``w2 @ flat`` and
+``dequant_cohort_agg_reference``).  The wrappers use them for tensors on the
+CPU, the tests hold them against the JAX kernels run in interpret mode, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["multi_weighted_agg_reference", "cohort_agg_and_error_reference"]
+__all__ = [
+    "multi_weighted_agg_reference",
+    "cohort_agg_and_error_reference",
+    "weighted_agg_reference",
+    "dequant_cohort_agg_reference",
+]
 
 
 def multi_weighted_agg_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -28,3 +33,27 @@ def cohort_agg_and_error_reference(
     w2 = torch.stack([w, w - lam_c.to(torch.float32)])
     out = w2 @ g.to(torch.float32)
     return out[0], (out[1] ** 2).sum()
+
+
+def weighted_agg_reference(g: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(C, D) stacked deltas, weights w (C,) -> (d = sum_c w_c g_c (D,) f32,
+    per-row squared norms ||g_c||^2 (C,) f32)."""
+    gf = g.to(torch.float32)
+    return w.to(torch.float32) @ gf, (gf * gf).sum(1)
+
+
+def dequant_cohort_agg_reference(
+    q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor, lam_c: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Blockwise dequantization of q (C, D_pad) int8|fp8 with scales (C, nb)
+    f32, then the (2, C) x (C, D_pad) contraction of [w, w - lam_c] and the
+    per-row squared norms of the dequantized values.
+
+    Returns (d (D_pad,) f32, ||sum_c (w_c - lam_c) g_c||^2 () f32,
+    sq_norms (C,) f32)."""
+    c, d_pad = q.shape
+    nb = scales.shape[1]
+    g = (q.to(torch.float32).reshape(c, nb, d_pad // nb) * scales[:, :, None]).reshape(c, d_pad)
+    w = w.to(torch.float32)
+    out = torch.stack([w, w - lam_c.to(torch.float32)]) @ g
+    return out[0], (out[1] ** 2).sum(), (g * g).sum(1)

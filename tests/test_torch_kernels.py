@@ -1,10 +1,10 @@
 """The port's aggregation kernels: their plain versions against the JAX
 Pallas kernels (``interpret=True``, as tests/test_kernels.py runs them), the
-estimator that drives them, and the wrappers' input checks.
+estimator and ``kernels.ops`` that drive them, and the wrappers' input checks.
 
-The CUDA kernels themselves run only on a GPU: ``test_cuda_kernel_matches_plain``
-holds them against the plain versions there and skips elsewhere.  Run it on a
-CUDA machine with ``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py``.
+The CUDA kernels themselves run only on a GPU: the tests marked ``cuda`` hold
+them against the plain versions there and skip elsewhere.  Run them on a
+CUDA machine with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels.py``.
 """
 import numpy as np
 import pytest
@@ -14,13 +14,15 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import estimator as ref_estimator  # noqa: E402
+from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels.fused_weighted_agg import (  # noqa: E402
     fused_cohort_agg_and_error as ref_cohort,
     fused_multi_weighted_agg as ref_multi,
+    fused_weighted_agg as ref_single,
 )
 from repro_torch.core import estimator  # noqa: E402
 from repro_torch.kernels import fused_weighted_agg as fwa  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 
 F32_TOL = dict(rtol=1e-5, atol=1e-4)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -83,6 +85,59 @@ def test_ragged_d_matches_reference_contraction(c, d):
     np.testing.assert_allclose(float(sq_got), float(np.sum(want2[1] ** 2)), rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c,d,bd", [(8, 4096, 1024), (16, 2048, 2048), (3, 8192, 512)])
+def test_weighted_agg_plain_matches_pallas(dtype, c, d, bd):
+    """Kernel 3 at tests/test_kernels.py's sweep shapes and tolerances."""
+    g, w = _inputs(c, d, 1, seed=5)
+    g_t, g_j = _pair(g, dtype)
+    d_want, sq_want = ref_single(g_j, jnp.asarray(w[0]), block_d=bd, interpret=True)
+    d_got, sq_got = fwa.fused_weighted_agg(g_t, torch.from_numpy(w[0]))
+    assert d_got.shape == (d,) and sq_got.shape == (c,) and sq_got.dtype == torch.float32
+    tol = dict(rtol=2e-2, atol=1e-2) if dtype == "bf16" else dict(rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(d_got.numpy(), np.asarray(d_want), **tol)
+    np.testing.assert_allclose(sq_got.numpy(), np.asarray(sq_want), **tol)
+
+
+@pytest.mark.parametrize("block_d", [512, 2048])
+def test_aggregate_cohort_updates_matches_reference(block_d):
+    """kernels.ops.aggregate_cohort_updates on tests/test_kernels.py's
+    pytree: the same estimate and norms as the reference's ops, leaf dtypes
+    kept, and block_d changes nothing."""
+    rng = np.random.default_rng(3)
+    c = 6
+    deltas = {
+        "w": rng.standard_normal((c, 33, 17)).astype(np.float32),
+        "b": rng.standard_normal((c, 129)).astype(np.float32),
+    }
+    w = rng.uniform(0.0, 1.0, c).astype(np.float32)
+    want, sq_want = ref_ops.aggregate_cohort_updates(
+        _to(deltas, jnp.asarray), jnp.asarray(w), block_d=512
+    )
+    got, sq_got = ops.aggregate_cohort_updates(
+        _to(deltas, torch.from_numpy), torch.from_numpy(w), block_d=block_d
+    )
+    assert sorted(got) == ["b", "w"] and got["w"].shape == (33, 17)
+    assert got["w"].dtype == torch.float32
+    _assert_tree_close(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(sq_got.numpy(), np.asarray(sq_want), rtol=1e-5)
+    stacked = estimator.aggregate_stacked(_to(deltas, torch.from_numpy), torch.from_numpy(w))
+    _assert_tree_close(got, _to(stacked, np.asarray), rtol=1e-5, atol=1e-5)
+
+
+def test_stacked_aggregates_match_reference():
+    rng = np.random.default_rng(6)
+    ups = _stacked(rng, 7)
+    w = rng.uniform(0, 2, 7).astype(np.float32)
+    for ref_fn, fn in (
+        (ref_estimator.aggregate_stacked, estimator.aggregate_stacked),
+        (ref_estimator.full_aggregate_stacked, estimator.full_aggregate_stacked),
+    ):
+        want = ref_fn(_to(ups, jnp.asarray), jnp.asarray(w))
+        got = fn(_to(ups, torch.from_numpy), torch.from_numpy(w))
+        _assert_tree_close(got, want, **F32_TOL)
+
+
 def _stacked(rng, lead):
     return {
         "w": rng.standard_normal((lead, 30, 10)).astype(np.float32),
@@ -129,9 +184,18 @@ def test_estimator_matches_reference():
 def test_cpu_path_launches_nothing():
     fwa.reset_launch_counts()
     g, w = _inputs(4, 64, 2)
-    fwa.fused_multi_weighted_agg(torch.from_numpy(g), torch.from_numpy(w))
-    fwa.fused_cohort_agg_and_error(torch.from_numpy(g), torch.from_numpy(w[0]), torch.from_numpy(w[1]))
-    assert fwa.launch_counts() == {"fused_multi_weighted_agg": 0, "fused_cohort_agg_and_error": 0}
+    g_t, w0, w1 = torch.from_numpy(g), torch.from_numpy(w[0]), torch.from_numpy(w[1])
+    fwa.fused_multi_weighted_agg(g_t, torch.from_numpy(w))
+    fwa.fused_cohort_agg_and_error(g_t, w0, w1)
+    fwa.fused_weighted_agg(g_t, w0)
+    q, scales = fwa.quantize_stacked(g_t, scale_block=16)
+    fwa.fused_dequant_cohort_agg(q, scales, w0, w1)
+    assert fwa.launch_counts() == {
+        "fused_weighted_agg": 0,
+        "fused_multi_weighted_agg": 0,
+        "fused_cohort_agg_and_error": 0,
+        "fused_dequant_cohort_agg": 0,
+    }
 
 
 @pytest.mark.parametrize(
@@ -171,6 +235,40 @@ def test_cohort_wrapper_rejects_bad_inputs(g, w, lam, match):
         fwa.fused_cohort_agg_and_error(g, w, lam)
 
 
+@pytest.mark.parametrize(
+    "g,w,match",
+    [
+        (torch.zeros(4), torch.zeros(4), "2-D"),
+        (torch.zeros(4, 8, dtype=torch.int8), torch.zeros(4), "float32"),
+        (torch.zeros(4, 8), torch.zeros(5), "shape"),
+        (torch.zeros(4, 8), torch.zeros(8)[::2], "contiguous"),
+    ],
+)
+def test_weighted_agg_wrapper_rejects_bad_inputs(g, w, match):
+    with pytest.raises(ValueError, match=match):
+        fwa.fused_weighted_agg(g, w)
+
+
+_Q = torch.zeros(4, 64, dtype=torch.int8)
+
+
+@pytest.mark.parametrize(
+    "q,scales,w,match",
+    [
+        (torch.zeros(4, 64), torch.ones(4, 2), torch.zeros(4), "int8"),
+        (_Q, torch.ones(4), torch.zeros(4), "2-D"),
+        (_Q, torch.ones(4, 3), torch.zeros(4), "multiple"),
+        (_Q, torch.ones(5, 2), torch.zeros(4), "shape"),
+        (_Q, torch.ones(4, 2, dtype=torch.float64), torch.zeros(4), "float32"),
+        (_Q, torch.ones(4, 2), torch.zeros(3), "shape"),
+        (_Q.T, torch.ones(64, 2), torch.zeros(64), "contiguous"),
+    ],
+)
+def test_dequant_wrapper_rejects_bad_inputs(q, scales, w, match):
+    with pytest.raises(ValueError, match=match):
+        fwa.fused_dequant_cohort_agg(q, scales, w, torch.zeros_like(w))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -178,6 +276,7 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("c,d", [(50, 114688), (10, 114688), (100, 610), (3, 1027)])
 def test_cuda_kernel_matches_plain(cuda, dtype, c, d):
@@ -198,3 +297,29 @@ def test_cuda_kernel_matches_plain(cuda, dtype, c, d):
     after = fwa.launch_counts()
     assert after["fused_multi_weighted_agg"] == before["fused_multi_weighted_agg"] + 1
     assert after["fused_cohort_agg_and_error"] == before["fused_cohort_agg_and_error"] + 2
+    d3, sq3 = fwa.fused_weighted_agg(g_t, w_t[0].contiguous())
+    d3_want, sq3_want = ref.weighted_agg_reference(g_t, w_t[0])
+    torch.testing.assert_close(d3, d3_want, **tol)
+    torch.testing.assert_close(sq3, sq3_want, rtol=1e-4, atol=0.0)
+    assert torch.equal(fwa.fused_weighted_agg(g_t, w_t[0].contiguous())[1], sq3)
+    assert fwa.launch_counts()["fused_weighted_agg"] == before["fused_weighted_agg"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+@pytest.mark.parametrize(
+    "c,d,sb", [(50, 114688, 128), (10, 114688, 128), (100, 640, 128), (3, 1000, 40)]
+)
+def test_cuda_dequant_kernel_matches_plain(cuda, dtype, c, d, sb):
+    g, w2 = _inputs(c, d, 2, seed=7)
+    q, scales = fwa.quantize_stacked(torch.from_numpy(g).to(cuda), dtype=dtype, scale_block=sb)
+    w, lam = torch.from_numpy(w2[0]).to(cuda), torch.from_numpy(0.1 * w2[1]).to(cuda)
+    before = fwa.launch_counts()["fused_dequant_cohort_agg"]
+    got = fwa.fused_dequant_cohort_agg(q, scales, w, lam)
+    want = ref.dequant_cohort_agg_reference(q, scales, w, lam)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
+    again = fwa.fused_dequant_cohort_agg(q, scales, w, lam)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+    assert fwa.launch_counts()["fused_dequant_cohort_agg"] == before + 2

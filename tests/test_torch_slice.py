@@ -179,7 +179,7 @@ def test_spec_json_loads_unchanged(tmp_path):
     [
         {"task": {"kind": "zoo", "name": "smollm-360m"}},
         {"fault": {"availability": "bernoulli"}},
-        {"compression": {"delta_dtype": "int8"}},
+        {"fault": {"availability": "bernoulli"}, "compression": {"delta_dtype": "int8"}},
         {"execution": {"sampler_axis": "data"}},
         {"execution": {"oracle_metrics": False, "exact_oracle_equiv": True}},
         {"sampler": {"name": "vrb"}},
@@ -192,4 +192,17 @@ def test_unported_parts_raise(section):
             "task", {"dataset_kwargs": {"n_clients": 4, "total": 64}})}
     )
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        api.run(spec, device="cpu")
+
+
+def test_compression_with_exact_oracle_equiv_is_refused():
+    """The reference's ValueError, raised before the NotImplementedError
+    that exact_oracle_equiv alone gets."""
+    spec = api.ExperimentSpec.from_dict({
+        "task": {"dataset_kwargs": {"n_clients": 4, "total": 64}},
+        "federation": {"rounds": 1},
+        "execution": {"oracle_metrics": False, "exact_oracle_equiv": True},
+        "compression": {"delta_dtype": "int8"},
+    })
+    with pytest.raises(ValueError, match="exact_oracle_equiv"):
         api.run(spec, device="cpu")
