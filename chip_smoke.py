@@ -7,23 +7,31 @@ Phases, each failing loudly (non-zero exit, no result line):
 
 1. device — a CUDA GPU must be visible; print its name and power limit;
 2. build  — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   with nvcc for sm_90a and print the build time;
-3. kernels — hold each of the four kernels against its plain PyTorch version
+   with nvcc for sm_90a, one nvcc per source, all started together, and
+   print the build times;
+3. kernels — hold each of the five kernels against its plain PyTorch version
    on the card at the main path's shapes (and one large shape), check that
-   its norms and error scalar are bitwise repeatable, and time kernel, plain
-   version, the library call computing the same function (where there is
-   one) and the memory bound;
+   its norms, error scalar or counts and sums are bitwise repeatable, and
+   time kernel, plain version, the library call computing the same function
+   (where there is one) and the bound;
 4. path — ``repro_torch.api.run(spec)`` with no device argument (so on the
    GPU) for the paper's logistic-regression spec and the tiny-LM spec in
-   oracle and deployable mode, then for three compressed specs (int8 / fp8
-   deltas, with and without error feedback), counting kernel launches per
-   run; then ``kernels.ops.aggregate_cohort_updates`` on a stacked tiny-LM
-   delta dict;
-5. agreement — small runs on the GPU, uncompressed and int8-compressed,
-   equal the same runs on the CPU (plain PyTorch path) fed the same recorded
-   draws;
-6. trace — one tiny-LM round loop under ``torch.profiler``: the device's
-   busy share and the kernels that take its time.
+   oracle and deployable mode, three compressed specs (int8 / fp8 deltas,
+   with and without error feedback), then (g) the logistic-regression spec
+   with ``execution.sampler_axis`` (bitwise the run without it), (h) the
+   deployable tiny LM with the sharded solve, Markov availability, a
+   deadline and buffered async, (i) the oracle tiny LM with int8 deltas,
+   Bernoulli availability and the quantized async ring, counting kernel
+   launches per run; then ``kernels.ops.aggregate_cohort_updates`` on a
+   stacked tiny-LM delta dict, and (j) the reference's million-client
+   sampler round (K-Vib, K=64, sharded solve + draw + update) at
+   N = 10^4, 10^5, 10^6;
+5. agreement — small runs on the GPU, uncompressed and int8-compressed, and
+   runs (g) and (h) equal the same runs on the CPU (plain PyTorch path) fed
+   the same recorded draws;
+6. trace — host syncs in the round bodies, then one tiny-LM round loop under
+   ``torch.profiler``: the device's busy share and the kernels that take
+   its time.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -35,6 +43,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -42,14 +51,22 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_weighted_agg.cu"
+LIBRARIES = ("fused_weighted_agg", "sharded_waterfill")  # csrc/<name>.cu
+SOURCE = {
+    name: "src/repro_torch/kernels/csrc/fused_weighted_agg.cu"
+    for name in ("fused_weighted_agg", "fused_multi_weighted_agg",
+                 "fused_cohort_agg_and_error", "fused_dequant_cohort_agg")
+}
+SOURCE["waterfill_level_stats"] = "src/repro_torch/kernels/csrc/sharded_waterfill.cu"
 REPLACES = {
     "fused_weighted_agg": "src/repro/kernels/fused_weighted_agg.py:134",
     "fused_multi_weighted_agg": "src/repro/kernels/fused_weighted_agg.py:174",
     "fused_cohort_agg_and_error": "src/repro/kernels/fused_weighted_agg.py:221",
     "fused_dequant_cohort_agg": "src/repro/kernels/fused_weighted_agg.py:296",
+    "waterfill_level_stats": "src/repro/kernels/sharded_waterfill.py:72",
 }
 ROUNDS = 5
+LADDER_PASSES = 5  # kernel 5 launches per sharded K-Vib solve (core/solver.py)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -86,9 +103,13 @@ def build_phase():
     phase("build")
     from repro_torch.kernels.build import build_library
 
-    info = build_library("fused_weighted_agg", force=True)
-    print(f"nvcc: {info['command']}")
-    print(f"built {Path(info['path']).name} in {info['seconds']:.2f} s")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        infos = list(pool.map(lambda name: build_library(name, force=True), LIBRARIES))
+    for info in infos:
+        print(f"nvcc: {info['command']}")
+        print(f"built {Path(info['path']).name} in {info['seconds']:.2f} s")
+    print(f"all {len(LIBRARIES)} builds, in parallel: {time.perf_counter() - t0:.2f} s")
 
 
 # -- 3. kernels ---------------------------------------------------------------
@@ -116,7 +137,8 @@ def time_ms(torch, fn, flush, iters: int = 30) -> float:
 
 def measure(torch, flush, kern, plain, lib, n_bytes: int, flops: int, err: float) -> dict:
     """One kernel at one shape: the times of kernel, plain version and
-    library call (None where there is none), and the bound."""
+    library call (None where there is none), and the bound: the larger of
+    the bytes over the memory rate and the operations over the f32 rate."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return {
         "kernel_ms": time_ms(torch, kern, flush),
@@ -225,6 +247,9 @@ def kernel_phase(torch):
                        "n/a (no bf16 x f32 call)", extra + (f" library={lib_name}" if f32 else ""))
             del g, out, want, d_out, d_want, d3, d3_want
     rows.update(dequant_kernel_phase(torch, fwa, ref, gen, flush, max_err))
+    max_err["waterfill_level_stats"] = 0.0
+    rows.update(waterfill_kernel_phase(torch, gen, flush, max_err))
+    path_shape["waterfill_level_stats"] = ("path", "float32")
     return rows, max_err, path_shape
 
 
@@ -295,10 +320,56 @@ def dequant_kernel_phase(torch, fwa, ref, gen, flush, max_err):
     return rows
 
 
+def waterfill_kernel_phase(torch, gen, flush, max_err):
+    """Kernel 5 at the sharded solve's shape (M = 10^6 scores, the 128-level
+    ladder), at the logreg spec's N, and at a ragged M with +inf entries and
+    L = 100.  Counts exactly equal, mid_sum at rtol 1e-5, bitwise repeatable.
+    The bound counts the compares (two per pair) and the adds this run's
+    data needs (one per count, one per middle-set sum), over the f32 rate."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sharded_waterfill as swf
+
+    dev = torch.device("cuda")
+    rows = {}
+    for label, m, n_levels in (("path", 1_000_000, 128), ("logreg N", 100, 128),
+                               ("ragged +inf", 1_000_003, 100)):
+        scores = torch.empty(m, device=dev).exponential_(generator=gen)
+        if label == "ragged +inf":
+            scores[torch.randperm(m, device=dev, generator=gen)[: m // 10]] = float("inf")
+        # A ladder spanning the scores, as the solve's first pass does.
+        levels = torch.exp2(torch.linspace(-12.0, 6.0, n_levels, device=dev))
+        floors = levels * 0.01
+        got = torch.stack(swf.waterfill_level_stats(scores, levels, floors))
+        again = torch.stack(swf.waterfill_level_stats(scores, levels, floors))
+        want = torch.stack(ref.waterfill_stats_reference(scores, levels, floors))
+        torch.cuda.synchronize()
+        check(torch.equal(got[:2], want[:2]), f"waterfill_level_stats {label}: counts differ")
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0.0)
+        check(torch.equal(got, again), f"waterfill_level_stats {label}: not repeatable")
+        if label == "ragged +inf":
+            check(float(got[0].max()) <= m - m // 10, "+inf scores were counted")
+        err = float((got[2] - want[2]).abs().max())
+        max_err["waterfill_level_stats"] = max(max_err["waterfill_level_stats"], err)
+        n_bytes = m * 4 + 2 * n_levels * 4 + 3 * n_levels * 4
+        ops = 2 * m * n_levels + 2 * int(got[0].sum())
+        row = measure(torch, flush, lambda: swf.waterfill_level_stats(scores, levels, floors),
+                      lambda: ref.waterfill_stats_reference(scores, levels, floors),
+                      None, n_bytes, ops, err)
+        row["shape"] = {"M": m, "L": n_levels}
+        rows[("waterfill_level_stats", label, "float32")] = row
+        rel = float(((got[2] - want[2]).abs() / want[2].abs().clamp(min=1e-30)).max())
+        report("waterfill_level_stats", f"{label} M={m} L={n_levels}", row,
+               "n/a (no one PyTorch call computes the three statistics)",
+               f" mid_sum_rel={rel:.3g} ops={ops:.3g}")
+        del scores, got, again, want
+    return rows
+
+
 # -- 4. path ------------------------------------------------------------------
 
 
 def path_specs(api):
+    """(label, spec, expected kernel launches of the 5-round run)."""
     logreg = api.ExperimentSpec(  # the paper's Section 6.1 spec (examples/quickstart.py)
         task=api.TaskSpec(
             name="logreg", dataset="synthetic_classification",
@@ -323,18 +394,45 @@ def path_specs(api):
         execution=api.ExecutionSpec(seed=0),
     )
     lm_deploy = with_sections(api, lm, execution={"oracle_metrics": False})
-    dequant = "fused_dequant_cohort_agg"
+    multi, cohort, dequant = (
+        {"fused_multi_weighted_agg": ROUNDS}, {"fused_cohort_agg_and_error": ROUNDS},
+        {"fused_dequant_cohort_agg": ROUNDS},
+    )
+    solve = {"waterfill_level_stats": LADDER_PASSES * ROUNDS}
     return [
-        ("logreg oracle", logreg, "fused_multi_weighted_agg"),
-        ("tiny_lm oracle", lm, "fused_multi_weighted_agg"),
-        ("tiny_lm deployable", lm_deploy, "fused_cohort_agg_and_error"),
+        ("logreg oracle", logreg, multi),
+        ("tiny_lm oracle", lm, multi),
+        ("tiny_lm deployable", lm_deploy, cohort),
         ("(d) tiny_lm deployable int8+EF",
          with_sections(api, lm_deploy, compression={"delta_dtype": "int8"}), dequant),
-        ("(e) tiny_lm oracle fp8+EF", with_sections(api, lm, compression={"delta_dtype": "fp8"}), dequant),
+        ("(e) tiny_lm oracle fp8+EF", with_sections(api, lm, compression={"delta_dtype": "fp8"}),
+         dequant),
         ("(f) logreg oracle int8 no EF",
          with_sections(api, logreg, compression={"delta_dtype": "int8", "error_feedback": False}),
          dequant),
+        ("(g) logreg oracle sampler_axis", sharded_logreg(api, logreg), {**multi, **solve}),
+        ("(h) tiny_lm deployable sampler_axis markov+deadline+async", faulted_lm(api, lm_deploy),
+         {**cohort, **solve}),
+        ("(i) tiny_lm oracle int8+EF bernoulli+async",
+         with_sections(api, lm, compression={"delta_dtype": "int8"},
+                       fault={"availability": "bernoulli", "availability_kwargs": {"q": 0.7},
+                              "async_buffer": 4}),
+         dequant),
     ]
+
+
+def sharded_logreg(api, logreg):
+    return with_sections(api, logreg, execution={"sampler_axis": "data"})
+
+
+def faulted_lm(api, lm_deploy):
+    """(h): the sharded solve, Markov availability, an exponential deadline
+    that drops about a third of the contacted clients, buffered async."""
+    return with_sections(
+        api, lm_deploy, execution={"sampler_axis": "data"},
+        fault={"availability": "markov", "availability_kwargs": {"p_on": 0.6, "p_off": 0.2},
+               "deadline": 1.2, "latency": "exponential", "async_buffer": 4},
+    )
 
 
 def with_sections(api, spec, **sections):
@@ -347,41 +445,119 @@ def path_phase(torch):
     phase("path")
     import numpy as np
 
-    from repro_torch import api
-    from repro_torch.kernels import fused_weighted_agg as fwa
+    from repro_torch import api, kernels
 
-    launches = {k: 0 for k in fwa.launch_counts()}
-    for label, spec, kernel in path_specs(api):
+    launches = {k: 0 for k in kernels.launch_counts()}
+    hists = {}
+    for label, spec, expected in path_specs(api):
         t0 = time.perf_counter()
         built = api.build(spec)
         build_s = time.perf_counter() - t0
         check(built.device.type == "cuda", f"{label}: default device is {built.device}")
-        fwa.reset_launch_counts()
+        kernels.reset_launch_counts()
         hist = api.run(spec, built=built)
-        counts = fwa.launch_counts()
+        counts = kernels.launch_counts()
         torch.cuda.synchronize()
         check(len(hist.train_loss) == ROUNDS, f"{label}: {len(hist.train_loss)} rounds")
         check(all(math.isfinite(x) for x in hist.train_loss), f"{label}: loss {hist.train_loss}")
         check(all(math.isfinite(x) for x in hist.estimator_sq_error), f"{label}: sq_error")
         for leaf in _leaves(hist.final_params):
             check(bool(np.isfinite(leaf).all()), f"{label}: non-finite parameters")
-        want = {k: (ROUNDS if k == kernel else 0) for k in counts}
+        want = {k: expected.get(k, 0) for k in counts}
         check(counts == want, f"{label}: kernel launches {counts}, expected {want}")
         for k, v in counts.items():
             launches[k] += v
+        hists[label] = hist
         d_dim = sum(leaf.size for leaf in _leaves(hist.final_params))
+        extra = f" deadline_dropped={hist.deadline_dropped}" if hist.deadline_dropped else ""
         print(
             f"{label}: D={d_dim} N={built.dataset.n_clients} rounds={ROUNDS} "
             f"build_s={build_s:.3f} run_wall_s={hist.wall_time_s:.3f} "
             f"loss {hist.train_loss[0]:.4f} -> {hist.train_loss[-1]:.4f} "
-            f"cohort={hist.cohort_size} launches={counts}",
+            f"cohort={hist.cohort_size}{extra} launches={ {k: v for k, v in counts.items() if v} }",
             flush=True,
         )
-    launches["fused_weighted_agg"] += ops_call(torch, api, fwa)
+    # (g) splits the solve and must change nothing: bitwise the plain run.
+    g, plain = hists["(g) logreg oracle sampler_axis"], hists["logreg oracle"]
+    for field in ("train_loss", "cohort_size", "estimator_sq_error"):
+        check(getattr(g, field) == getattr(plain, field), f"(g): {field} differs from the unsharded run")
+    check(g.regret.costs == plain.regret.costs, "(g): regret costs differ")
+    for a, b in zip(_leaves(g.final_params), _leaves(plain.final_params)):
+        check(np.array_equal(a, b), "(g): final parameters differ from the unsharded run")
+    print("(g) == logreg oracle without sampler_axis: History and final parameters bitwise equal")
+    h = hists["(h) tiny_lm deployable sampler_axis markov+deadline+async"]
+    check(sum(h.deadline_dropped) > 0, f"(h): no client missed the deadline {h.deadline_dropped}")
+    launches["fused_weighted_agg"] += ops_call(torch, api, kernels)
+    launches["waterfill_level_stats"] += sampler_scale_phase(torch, kernels)
     return launches
 
 
-def ops_call(torch, api, fwa) -> int:
+def sampler_scale_phase(torch, kernels) -> int:
+    """(j) the reference's million-client sampler round
+    (``benchmarks/run.py:bench_fed_sampler_scale``): K-Vib with K=64 and a
+    one-shard ``ShardSpec``, the sharded solve, the Bernoulli draw and the
+    feedback update, at N = 10^4, 10^5, 10^6.  Host clock around ``reps``
+    rounds ending in a synchronize, after two warm-up rounds.  Checks that
+    each round launches kernel 5 five times, that p is finite with sum K,
+    and how far the sharded solve is from the unsharded one on the same
+    state.  Returns the launches."""
+    from repro_torch.core import make_sampler, solver
+    from repro_torch.launch.mesh import ShardSpec
+
+    dev = torch.device("cuda")
+    k = 64
+    total, per_client = 0, {}
+    for n in (10_000, 100_000, 1_000_000):
+        sampler = make_sampler("kvib", n=n, budget=k, horizon=100, shard=ShardSpec())
+        gen = torch.Generator(device=dev).manual_seed(n)
+
+        def sampler_round(state):
+            p = sampler.probabilities(state)
+            draw = sampler.sample_from(p, torch.rand(n, generator=gen, device=dev))
+            return sampler.update(state, draw, draw.mask * p), p
+
+        state = sampler.init(dev)
+        for _ in range(2):
+            state, _ = sampler_round(state)
+        torch.cuda.synchronize()
+        reps = 20
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state, p = sampler_round(state)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / reps * 1e6
+        launched = kernels.launch_counts()["waterfill_level_stats"]
+        check(launched == LADDER_PASSES * reps, f"(j) N={n}: {launched} launches in {reps} rounds")
+        total += launched
+        check(bool(torch.isfinite(p).all()) and abs(float(p.sum()) - k) < 1e-3 * k,
+              f"(j) N={n}: sum(p) = {float(p.sum())}")
+        gamma = torch.clamp(state.aux[0], min=1e-12)
+        scores = torch.sqrt(state.stats + gamma)
+        sharded = solver.isp_probabilities_unchecked(scores, k, 0.0, shard=ShardSpec())
+        plain = solver.isp_probabilities_unchecked(scores, k, 0.0)
+        diff = float((sharded - plain).abs().max())
+        check(diff <= 1e-6 * float(plain.max()), f"(j) N={n}: sharded solve off by {diff}")
+        # Whether each solve, and the prefix sum both snap from, repeats
+        # bitwise on the card: the S=1 bitwise claim rests on them.
+        sorted_scores = torch.sort(scores).values
+        repeats = {
+            "unsharded solve": torch.equal(plain, solver.isp_probabilities_unchecked(scores, k, 0.0)),
+            "sharded solve": torch.equal(
+                sharded, solver.isp_probabilities_unchecked(scores, k, 0.0, shard=ShardSpec())),
+            "cumsum": all(torch.equal(torch.cumsum(sorted_scores, 0), torch.cumsum(sorted_scores, 0))
+                          for _ in range(10)),
+        }
+        per_client[n] = us / n
+        print(f"(j) sampler round N={n} K={k}: {us:.1f} us/round, {us / n:.6f} us/client, "
+              f"{launched // reps} launches of waterfill_level_stats a round, "
+              f"sharded vs unsharded solve max_abs_diff={diff:.3g} "
+              f"(bitwise {torch.equal(sharded, plain)}); bitwise repeatable: {repeats}", flush=True)
+    print(f"(j) us/client N=1e6 over N=1e4: {per_client[1_000_000] / per_client[10_000]:.3f}x")
+    return total
+
+
+def ops_call(torch, api, kernels) -> int:
     """``kernels.ops.aggregate_cohort_updates`` on a stacked (C=10) delta dict
     of the tiny LM's parameters: one launch of kernel 3, the estimate and
     norms of its plain version.  Returns the launches."""
@@ -398,9 +574,9 @@ def ops_call(torch, api, fwa) -> int:
         lambda p: 0.01 * torch.randn((10,) + tuple(p.shape), generator=gen, device=p.device), params
     )
     w = torch.rand(10, generator=gen, device=built.device)
-    fwa.reset_launch_counts()
+    kernels.reset_launch_counts()
     est, sq = ops.aggregate_cohort_updates(deltas, w)
-    counts = fwa.launch_counts()
+    counts = kernels.launch_counts()
     want = {k: int(k == "fused_weighted_agg") for k in counts}
     check(counts == want, f"kernels.ops: kernel launches {counts}, expected {want}")
     d_want, sq_want = ref.weighted_agg_reference(flatten_stacked(deltas)[0], w)
@@ -439,6 +615,35 @@ def count_round_syncs(torch, api, spec, rounds: int = 2) -> list:
     return [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
 
 
+def count_sampler_syncs(torch, rounds: int = 2) -> list:
+    """Host syncs in (j)'s sampler round at N = 10^6, after a warm-up round."""
+    import warnings
+
+    from repro_torch.core import make_sampler
+    from repro_torch.launch.mesh import ShardSpec
+
+    dev, n = torch.device("cuda"), 1_000_000
+    sampler = make_sampler("kvib", n=n, budget=64, horizon=100, shard=ShardSpec())
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def sampler_round(state):
+        p = sampler.probabilities(state)
+        draw = sampler.sample_from(p, torch.rand(n, generator=gen, device=dev))
+        return sampler.update(state, draw, draw.mask * p)
+
+    state = sampler_round(sampler.init(dev))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(rounds):
+                state = sampler_round(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+
+
 def trace_phase(torch):
     """Host syncs per round, then one more tiny_lm oracle run under
     torch.profiler: the device's busy share of the run's wall time and the
@@ -452,6 +657,8 @@ def trace_phase(torch):
         syncs = count_round_syncs(torch, api, spec)
         print(f"{label}: host syncs in 2 rounds of the round body: {len(syncs)} "
               f"{sorted(set(syncs))[:4]}")
+    syncs = count_sampler_syncs(torch)
+    print(f"(j) sampler round N=10^6: host syncs in 2 rounds: {len(syncs)} {sorted(set(syncs))[:4]}")
 
     _, spec, _ = path_specs(api)[1]
     built = api.build(spec)
@@ -544,6 +751,47 @@ def agreement_phase(torch):
             f"cohort {gpu.cohort_size})",
             flush=True,
         )
+    full_size_agreement(torch, api, np, rng)
+
+
+def full_size_agreement(torch, api, np, rng):
+    """Runs (g) and (h) at their full size: the GPU run (sharded solve on the
+    kernel ladder) equals the CPU run (plain path, bisection bracket) fed the
+    same recorded draws, fault draws included."""
+    from repro_torch.fed.tasks import params_to_numpy
+    from repro_torch.rng import ReplaySource
+
+    for label, spec, _ in path_specs(api):
+        if not label.startswith(("(g)", "(h)")):
+            continue
+        built = api.build(spec, "cpu")
+        cfg, n = built.fed_config, built.dataset.n_clients
+        sizes = built.dataset.sizes.numpy()
+        t, r, b = cfg.rounds, cfg.local_steps, cfg.batch_size
+        tables = dict(
+            init_params=params_to_numpy(built.task.init(torch.Generator().manual_seed(0), "cpu")),
+            uniforms=rng.uniform(size=(t, n)),
+            priorities=rng.uniform(size=(t, n)),
+            batch_idx=(rng.uniform(size=(t, n, r, b)) * sizes[:, None, None]).astype(np.int64),
+        )
+        if cfg.faults is not None:
+            width = n if cfg.oracle_metrics else cfg.cohort_slots(n)
+            tables.update(avail_uniforms=rng.uniform(size=(t, n)),
+                          latencies=rng.exponential(size=(t, width)),
+                          async_latencies=rng.exponential(size=t))
+        cpu, gpu = (api.run(spec, dev, random_source=ReplaySource(**tables, device=dev))
+                    for dev in ("cpu", "cuda"))
+        check(cpu.cohort_size == gpu.cohort_size, f"{label}: cohort sizes differ")
+        check(cpu.deadline_dropped == gpu.deadline_dropped, f"{label}: deadline drops differ")
+        np.testing.assert_allclose(gpu.train_loss, cpu.train_loss, rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(gpu.estimator_sq_error, cpu.estimator_sq_error, rtol=1e-4, atol=1e-6)
+        diff = 0.0
+        for a, c in zip(_leaves(gpu.final_params), _leaves(cpu.final_params)):
+            np.testing.assert_allclose(a, c, rtol=1e-4, atol=1e-5)
+            diff = max(diff, float(np.abs(a - c).max()))
+        print(f"{label}: GPU run == CPU run on the same draws (params max_abs_diff={diff:.3g}; "
+              f"loss {gpu.train_loss}; cohort {gpu.cohort_size}; "
+              f"deadline_dropped {gpu.deadline_dropped})", flush=True)
 
 
 def main() -> int:
@@ -565,7 +813,7 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
+            "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": max_err[name],
@@ -583,7 +831,7 @@ def main() -> int:
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": 1,  # the smoke drives one card, cuda:0
+            "count": torch.cuda.device_count(),
         },
     }))
     return 0

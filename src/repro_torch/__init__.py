@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of ``repro`` (Adaptive Unbiased Client Sampling, K-Vib).
 
 The package mirrors the JAX reference's layout (``data/``, ``fed/``,
-``core/``, ``optim/``, ``kernels/``, ``api/``) so each module's counterpart
+``core/``, ``optim/``, ``kernels/``, ``api/``, ``launch/``) so each module's counterpart
 is found under the same path.  It imports ``torch`` and numpy only, never
 ``jax`` or ``repro``.
 
@@ -16,7 +16,9 @@ they raise instead of falling back::
 Ported so far: the simulation-task federated round (``api.run`` with
 ``kind="task"``) with the ``kvib`` and ``uniform_isp`` samplers, in oracle
 and deployable modes, with plain or compressed (int8 / fp8, error feedback)
-client deltas, ``kernels.ops.aggregate_cohort_updates``, and the four
-aggregation kernels on those paths.
+client deltas, with or without the fault layer (availability, deadline
+stragglers, buffered async) and the sharded K-Vib solve
+(``execution.sampler_axis``); ``kernels.ops.aggregate_cohort_updates``; and
+the five kernels on those paths.
 ``ROADMAP.md`` lists what is still to be ported.
 """

@@ -5,10 +5,9 @@ the federated dataset (on the run's device), the sampler and the
 ``FedConfig``; ``run`` calls ``fed.server.run_federated`` with them.  Both
 run on the GPU unless ``device="cpu"`` is passed (``repro_torch.device``).
 
-Served: ``kind="task"``, with or without an enabled ``compression``
-section.  Not ported (``NotImplementedError``, naming the ``ROADMAP.md``
-item): ``kind="zoo"``, an enabled ``fault`` section (with or without
-compression), and ``execution.sampler_axis``.
+Served: ``kind="task"``, with any of an enabled ``fault`` section, an
+enabled ``compression`` section and ``execution.sampler_axis``.  Not ported
+(``NotImplementedError``, naming the ``ROADMAP.md`` item): ``kind="zoo"``.
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ from repro_torch.data import synthetic_classification, synthetic_tokens
 from repro_torch.device import resolve_device
 from repro_torch.fed import tasks
 from repro_torch.fed.server import FedConfig, History, run_federated
+from repro_torch.launch.mesh import ShardSpec
 
 __all__ = ["BuiltExperiment", "build", "run", "task_names", "dataset_names"]
 
@@ -63,16 +63,15 @@ def _check_ported(spec: ExperimentSpec) -> None:
             "kind='zoo' is not ported to repro_torch yet; see ROADMAP.md "
             "queue 1, 'Zoo models + pod-scale round'"
         )
-    if spec.fault.enabled:
-        raise NotImplementedError(
-            "an enabled fault section is not ported to repro_torch yet; see "
-            "ROADMAP.md queue 1, 'Fault layer'"
-        )
-    if spec.execution.sampler_axis is not None:
-        raise NotImplementedError(
-            "execution.sampler_axis is not ported to repro_torch yet; see "
-            "ROADMAP.md queue 1, 'Sharded sampler'"
-        )
+
+
+def _sampler_shard(spec: ExperimentSpec) -> ShardSpec | None:
+    """The ``ShardSpec`` that ``spec.execution.sampler_axis`` denotes, or
+    None: the axis over the ranks of the default process group, one shard
+    when ``torch.distributed`` is not initialised.  Only the K-Vib solve is
+    split; every rank runs the rest of the round on the whole (N,) state."""
+    axis = spec.execution.sampler_axis
+    return None if axis is None else ShardSpec.from_process_group(axis)
 
 
 def build(spec: ExperimentSpec, device=None) -> BuiltExperiment:
@@ -91,6 +90,7 @@ def build(spec: ExperimentSpec, device=None) -> BuiltExperiment:
         spec.sampler.name,
         n=ds.n_clients,
         budget=spec.federation.budget,
+        shard=_sampler_shard(spec),
         **dict(spec.sampler.kwargs),
     )
     return BuiltExperiment(

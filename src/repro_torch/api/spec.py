@@ -5,9 +5,9 @@ imports the JAX server, so the port cannot import it.  The copy reads the
 same JSON (every section, ``fault``, ``compression`` and ``serve`` included),
 rejects unknown keys the same way, and round-trips ``to_dict`` identically,
 so a spec saved by either package loads in the other unchanged.  Sections
-describing parts that are not ported yet (``kind="zoo"``, an enabled fault
-or compression section, ``sampler_axis``) still parse; ``repro_torch.api``
-raises ``NotImplementedError`` when asked to build them.
+describing parts that are not ported yet (``kind="zoo"``, ``serve``) still
+parse; ``repro_torch.api`` raises ``NotImplementedError`` when asked to
+build a zoo spec.
 
 Serialization contract (as in the reference):
 
@@ -19,11 +19,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 from typing import Any, Mapping
 
 import torch
 
+from repro_torch.core.stragglers import deadline_survival
 from repro_torch.fed.server import FedConfig
 from repro_torch.optim.fedopt import FedAdam, FedAvgServer, ServerOptimizer
 
@@ -47,36 +47,6 @@ _SERVER_OPTS: dict[str, type[ServerOptimizer]] = {
 
 def server_opt_names() -> list[str]:
     return sorted(_SERVER_OPTS)
-
-
-def _deadline_survival(fault) -> float:
-    """P(latency <= deadline), the reference's ``core.stragglers.
-    deadline_survival``: validates a deadline spec's latency kwargs and
-    raises when the survival probability is (numerically) zero."""
-    d = float(fault.deadline)
-    dist = fault.latency
-    kw = dict(fault.latency_kwargs)
-    if dist == "exponential":
-        r = 1.0 - math.exp(-d / float(kw.get("scale", 1.0)))
-    elif dist == "uniform":
-        lo = float(kw.get("lo", 0.0))
-        hi = float(kw.get("hi", 1.0))
-        r = 1.0 if hi <= lo else min(max((d - lo) / (hi - lo), 0.0), 1.0)
-        if hi <= lo and d < lo:
-            r = 0.0
-    elif dist == "lognormal":
-        mu = float(kw.get("mu", 0.0))
-        sigma = float(kw.get("sigma", 1.0))
-        r = 0.0 if d <= 0.0 else 0.5 * (1.0 + math.erf((math.log(d) - mu) / (sigma * math.sqrt(2.0))))
-    else:
-        raise ValueError(f"unknown latency distribution {dist!r}")
-    if r <= 1e-12:
-        raise ValueError(
-            f"deadline={d} gives survival probability ~{r:.3g} under "
-            f"latency={dist!r} {dict(kw)}: every client always misses the "
-            "deadline and no reweighting can keep the estimator unbiased"
-        )
-    return r
 
 
 # ---------------------------------------------------------------------------
@@ -229,12 +199,12 @@ class ExecutionSpec:
     ``(2, 1)`` for 2-way data parallelism; ``None`` uses
     ``repro.launch.mesh.make_host_mesh()``'s device-derived default.
 
-    ``sampler_axis``: name of the mesh axis to shard every sampler (N,)-axis
-    tensor over — the million-client switch.  ``None`` (default) keeps the
-    sampler replicated; setting it makes ``repro.api.build`` hand the
-    sampler a ``repro.launch.mesh.ShardSpec`` so the budget solve, the
-    draw, and the feedback update all run shard-local on BOTH execution
-    stacks (see ``core/solver.py``'s sharded-solve contract).
+    ``sampler_axis``: name of the axis to shard the sampler's (N,) client
+    axis over — the million-client switch.  ``None`` (default) keeps the
+    sampler replicated; setting it makes ``repro_torch.api.build`` hand the
+    sampler a ``launch.mesh.ShardSpec`` over the ranks of the default
+    ``torch.distributed`` group (one shard without one), and K-Vib's budget
+    solve runs split over them (see ``core/solver.py``'s sharded solve).
 
     ``score_history_host_offload``: shrink the oracle (T, N) score-history
     buffer to a per-segment device ring drained to host every ``ckpt_every``
@@ -349,7 +319,7 @@ class FaultSpec:
                 raise ValueError(f"deadline must be positive, got {self.deadline}")
             # Raises when P(latency <= deadline) ~ 0 (no unbiased reweighting
             # exists); also validates the latency kwargs for the chosen dist.
-            _deadline_survival(self)
+            deadline_survival(self)
         if int(self.async_buffer) < 0:
             raise ValueError(f"async_buffer must be >= 0, got {self.async_buffer}")
         if not (0.0 < float(self.staleness_discount) <= 1.0):

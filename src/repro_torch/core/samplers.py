@@ -20,6 +20,13 @@ reference's own draws.  Every state field is a tensor on the run's device
 (the round counter included), so a round never reads the device from the
 host.
 
+With ``shard=ShardSpec(...)`` (``launch.mesh``) K-Vib's water-filling
+solve runs split over the layout's process group
+(``solver.isp_probabilities(..., shard=...)``).  The reference also pins
+every (N,) value to the shard layout (``shard_constrain`` /
+``shard_state``); the port places nothing, so those hooks are identities
+here, and every rank holds the whole (N,) state.
+
 Only ``uniform_isp`` and ``kvib`` are ported; ``make_sampler`` raises
 ``NotImplementedError`` for the reference's other registry names.
 """
@@ -31,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import solver
+from repro_torch.launch.mesh import ShardSpec
 
 __all__ = [
     "SampleResult",
@@ -88,6 +96,16 @@ class Sampler:
     n: int
     budget: int
     procedure: str = "isp"
+    shard: ShardSpec | None = None  # (N,)-axis shard layout (module docstring)
+
+    def shard_constrain(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference pins a leading-(N,) value to the shard layout here;
+        the port places no tensor, so this is the identity."""
+        return x
+
+    def shard_state(self, state: SamplerState) -> SamplerState:
+        """``shard_constrain`` over a state's (N,) leaves: the identity."""
+        return state
 
     def init(self, device) -> SamplerState:
         return SamplerState(
@@ -151,7 +169,9 @@ class KVib(Sampler):
     def probabilities(self, state: SamplerState) -> torch.Tensor:
         gamma = torch.clamp(state.aux[0], min=1e-12)
         scores = torch.sqrt(state.stats + gamma)
-        p = solver.isp_probabilities_unchecked(scores, self.budget, self.p_min)
+        p = solver.isp_probabilities_unchecked(
+            scores, self.budget, self.p_min, shard=self.shard
+        )
         return solver.mix_probabilities(p, self._theta(), self.budget)
 
     def update(

@@ -1,6 +1,6 @@
 """Budgeted water-filling solvers for independent-sampling probabilities.
 
-Port of ``repro/core/solver.py``, single-device path:
+Port of ``repro/core/solver.py``:
 
 * Lemma 2.2 (ISP): ``min_p sum_i a_i^2 / p_i`` subject to ``sum_i p_i = K``,
   ``0 < p_i <= 1``.
@@ -8,11 +8,26 @@ Port of ``repro/core/solver.py``, single-device path:
 * Lemma 2.2 (RSP): ``p_i = K * a_i / sum_j a_j``.
 
 The KKT system is solved vectorized: ``p_i = clip(a_i / s, p_min, 1)`` for
-one water level ``s`` with ``sum_i p_i = K``.  ``f(s)`` is evaluated at all
-2N breakpoints through sorted prefix sums (sort, cumsum, searchsorted), and
-the level is snapped to the exact rational solution on the bracketed segment
-(Lemma B.8).  No step copies to the host, so the solve stays on the device
-inside a training round.
+one water level ``s`` with ``sum_i p_i = K``, and the level is snapped to the
+exact rational solution on the bracketed segment (Lemma B.8).  Two paths
+share that snap:
+
+* **Single-device** (``_isp_solve``): ``f(s)`` is evaluated at all 2N
+  breakpoints through sorted prefix sums (sort, cumsum, searchsorted).
+* **Sharded** (``shard=ShardSpec(...)``, ``_isp_solve_sharded``): each shard
+  sorts and prefix-sums only its own slice; the crossing is bracketed in
+  log-space by 64 bisection steps, or with ``use_kernel`` by five passes that
+  score a 128-level ladder with the ``waterfill_level_stats`` kernel, and the
+  per-shard statistics are merged by ``torch.distributed.all_reduce`` on the
+  shard layout's process group (none for one shard).  The snap recomputes
+  the active sets from the *local sorted prefix sums* with the single-device
+  expressions, so on one shard the result is bitwise equal to ``_isp_solve``;
+  across S > 1 shards it differs only by the reassociation of the middle-set
+  score sum (~1e-6 relative).  Shard padding uses +inf scores, which never
+  enter a count or a sum.
+
+No step copies to the host, so the solve stays on the device inside a
+training round.
 
 Validation: only the public ``isp_probabilities`` checks its inputs (and
 copies the scores to the host to do so), raising ``ValueError`` for
@@ -26,6 +41,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.kernels.sharded_waterfill import waterfill_level_stats
 
 __all__ = [
     "isp_probabilities",
@@ -113,8 +131,121 @@ def _isp_solve(a: torch.Tensor, budget: float, p_min: float) -> torch.Tensor:
     return torch.clamp(a / torch.clamp(s_star, min=1e-30), min=p_min, max=1.0)
 
 
+# The sharded solve's bracket search (the reference's defaults).
+_BISECT_DEPTH = 64
+_LADDER_LEVELS = 128
+_LADDER_ROUNDS = 5
+
+
+def _isp_solve_local(
+    a_local: torch.Tensor,
+    budget: float,
+    p_min: float,
+    *,
+    n_global: int,
+    group=None,
+    use_kernel: bool = False,
+) -> torch.Tensor:
+    """Shard-local body of the sharded water-filling solve.
+
+    ``a_local`` is this rank's slice of the scores, possibly +inf-padded
+    (infs sort last, sit above every finite threshold and clip to p = 1
+    entries the caller drops).  With a process ``group`` the per-shard
+    statistics are merged by ``all_reduce`` (SUM for counts and sums, MIN /
+    MAX for the bracket's ends); with ``group=None`` there is no collective.
+
+    The budget crossing of f(s) = sum clip(a_i/s, p_min, 1) is bracketed in
+    log2-space, by ``_BISECT_DEPTH`` bisection steps or, with ``use_kernel``,
+    by ``_LADDER_ROUNDS`` passes that each score a ``_LADDER_LEVELS``-level
+    geometric ladder with ``waterfill_level_stats``.  The bracket is then
+    snapped to the exact Lemma B.8 solution through the same local
+    sorted-prefix expressions as ``_isp_solve``.  Every step is f32 and
+    stays on the device.  ``budget`` / ``p_min`` as in ``_isp_solve``.
+    """
+    if budget >= n_global:  # degenerate: everything saturates at 1
+        return torch.ones_like(a_local)
+
+    def allreduce(x, op=dist.ReduceOp.SUM):
+        if group is not None:
+            dist.all_reduce(x, op=op, group=group)
+        return x
+
+    a_sorted = torch.sort(a_local).values
+    prefix = torch.cat([a_sorted.new_zeros(1), torch.cumsum(a_sorted, 0)])
+    finite = torch.isfinite(a_sorted)
+    a_min = allreduce(torch.where(finite, a_sorted, torch.inf).min(), dist.ReduceOp.MIN)
+    a_max = allreduce(torch.where(finite, a_sorted, -torch.inf).max(), dist.ReduceOp.MAX)
+
+    def global_sets(s):
+        # _isp_solve's f_and_sets on the LOCAL sorted prefix; the counts and
+        # the middle sum are merged across shards.
+        n_floor_l = torch.searchsorted(a_sorted, s * p_min, right=True)
+        n_below_l = torch.searchsorted(a_sorted, s, right=False)
+        c_l = prefix[n_below_l] - prefix[n_floor_l]
+        counts = allreduce(torch.stack([n_floor_l, n_below_l]))
+        return counts[0], n_global - counts[1], allreduce(c_l)
+
+    # The bracket strictly encloses every breakpoint {a_i, a_i/p_min}:
+    # f(2**log_lo) = N >= budget, f(2**log_hi) = N*p_min <= budget.
+    log_lo = torch.log2(0.5 * a_min)
+    log_hi = torch.log2(2.0 * a_max / p_min)
+    if use_kernel:
+        n_levels = _LADDER_LEVELS
+        t = torch.arange(n_levels, dtype=a_sorted.dtype, device=a_sorted.device) / (n_levels - 1)
+        for _ in range(_LADDER_ROUNDS):
+            logs = log_lo + t * (log_hi - log_lo)
+            levels = torch.exp2(logs)
+            stats = allreduce(torch.stack(waterfill_level_stats(a_sorted, levels, levels * p_min)))
+            f = (n_global - stats[0]) + stats[1] * p_min + stats[2] / levels
+            j = torch.clamp((f >= budget).sum() - 1, min=0)
+            log_lo, log_hi = _take(logs, j), _take(logs, torch.clamp(j + 1, max=n_levels - 1))
+    else:
+        for _ in range(_BISECT_DEPTH):
+            l_mid = 0.5 * (log_lo + log_hi)
+            s_mid = torch.exp2(l_mid)
+            n_floor, n_upper, c = global_sets(s_mid.reshape(1))
+            ge = (n_upper + n_floor * p_min + c / s_mid >= budget).reshape(())
+            log_lo, log_hi = torch.where(ge, l_mid, log_lo), torch.where(ge, log_hi, l_mid)
+
+    # Snap: inside the bracketed open segment the active sets are fixed;
+    # recover them at the (log-)midpoint and solve the Lemma B.8 closed form.
+    s_probe = torch.exp2(0.5 * (log_lo + log_hi))
+    n_floor, n_upper, c = global_sets(s_probe.reshape(1))
+    z = (budget - n_upper - n_floor * p_min).reshape(())
+    s_star = torch.where(z > 0, c.reshape(()) / torch.clamp(z, min=1e-30), torch.exp2(log_lo))
+    return torch.clamp(a_local / torch.clamp(s_star, min=1e-30), min=p_min, max=1.0)
+
+
+def _isp_solve_sharded(
+    a: torch.Tensor, budget: float, p_min: float, shard, *, use_kernel: bool = False
+) -> torch.Tensor:
+    """Solve over (N,) scores split across ``shard``'s ranks (a
+    ``launch.mesh.ShardSpec``).  Every rank holds the global scores, solves
+    its +inf-padded slice of ``ceil(N/S)`` and gathers p back to (N,)."""
+    n = a.shape[0]
+    group = shard.process_group()
+    if group is None:
+        return _isp_solve_local(a, budget, p_min, n_global=n, use_kernel=use_kernel)
+    s = shard.num_shards
+    m = -(-n // s)
+    a_pad = torch.cat([a, a.new_full((m * s - n,), torch.inf)])
+    rank = dist.get_rank(group)
+    p_local = _isp_solve_local(
+        a_pad[rank * m : (rank + 1) * m], budget, p_min, n_global=n, group=group,
+        use_kernel=use_kernel,
+    )
+    parts = [torch.empty_like(p_local) for _ in range(s)]
+    dist.all_gather(parts, p_local, group=group)
+    return torch.cat(parts)[:n]
+
+
 def isp_probabilities_unchecked(
-    scores: torch.Tensor, budget: float, p_min: float = 0.0
+    scores: torch.Tensor,
+    budget: float,
+    p_min: float = 0.0,
+    *,
+    shard=None,
+    use_kernel: bool | None = None,
 ) -> torch.Tensor:
     """``isp_probabilities`` without the host-side validation, for code that
     runs every round; infeasible inputs are clipped (module docstring)."""
@@ -122,11 +253,21 @@ def isp_probabilities_unchecked(
     # A zero floor breaks the bracket; a tiny positive floor plus the snap
     # gives clients with a_i == 0 p = floor ~ 0 (the open-constraint limit).
     p_min_f32 = float(max(f32(p_min), f32(1e-12)))
-    return _isp_solve(torch.clamp(scores, min=1e-30), float(f32(budget)), p_min_f32)
+    safe = torch.clamp(scores, min=1e-30)
+    if shard is None:
+        return _isp_solve(safe, float(f32(budget)), p_min_f32)
+    if use_kernel is None:
+        use_kernel = scores.device.type == "cuda"
+    return _isp_solve_sharded(safe, float(f32(budget)), p_min_f32, shard, use_kernel=use_kernel)
 
 
 def isp_probabilities(
-    scores: torch.Tensor, budget: float, p_min: float = 0.0
+    scores: torch.Tensor,
+    budget: float,
+    p_min: float = 0.0,
+    *,
+    shard=None,
+    use_kernel: bool | None = None,
 ) -> torch.Tensor:
     """Optimal independent-sampling probabilities (Lemma 2.2 / Lemma 5.1).
 
@@ -135,6 +276,11 @@ def isp_probabilities(
         for Lemma 2.2, ``sqrt(pi^2_{1:t-1}(i) + gamma)`` for the FTRL solution).
       budget: expected cohort size ``K`` with ``0 < K <= N``.
       p_min: probability floor (0 recovers Lemma 2.2).
+      shard: optional ``launch.mesh.ShardSpec``: solve with the (N,) axis
+        split over its process group.  Bitwise equal to the unsharded solve
+        on one shard; ~1e-6 on more (module docstring).
+      use_kernel: bracket the sharded solve with the ``waterfill_level_stats``
+        ladder.  Default (None): on for CUDA tensors, off for CPU ones.
 
     Returns:
       p with ``p_min <= p_i <= 1`` and ``sum(p) == K`` (to float tolerance).
@@ -144,7 +290,7 @@ def isp_probabilities(
         non-finite scores.
     """
     _validate_solver_inputs(scores, budget, p_min)
-    return isp_probabilities_unchecked(scores, budget, p_min)
+    return isp_probabilities_unchecked(scores, budget, p_min, shard=shard, use_kernel=use_kernel)
 
 
 def rsp_probabilities(scores: torch.Tensor, budget: float) -> torch.Tensor:

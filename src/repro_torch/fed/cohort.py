@@ -24,11 +24,18 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.fed.tasks import tree_map
 
-__all__ = ["CohortSelection", "select_cohort", "scatter_cohort", "weighted_delta_sum"]
+__all__ = [
+    "CohortSelection",
+    "select_cohort",
+    "mask_selection",
+    "scatter_cohort",
+    "weighted_delta_sum",
+]
 
 
 class CohortSelection(NamedTuple):
@@ -60,6 +67,27 @@ def select_cohort(
     n_kept = valid.to(torch.int32).sum()
     return CohortSelection(
         ids=ids, weights=w, valid=valid, n_included=n_inc, n_dropped=n_inc - n_kept
+    )
+
+
+def mask_selection(
+    sel: CohortSelection, keep: torch.Tensor, rescale: float = 1.0
+) -> CohortSelection:
+    """Demote slots with ``keep == False`` to inert padding after selection.
+
+    The deadline-straggler hook (``core.stragglers``): late clients' training
+    already ran, but their slot's weight and validity, and so their feedback
+    and loss share, are zeroed like padding, leaving the (C, D) aggregation
+    untouched.  Survivors' weights are multiplied by ``rescale`` (the
+    ``1 / P(latency <= deadline)`` correction, cast to f32 as the reference
+    does; 1.0 keeps them bitwise).  Newly dropped slots count in
+    ``n_dropped``."""
+    valid = sel.valid & keep
+    w = torch.where(valid, sel.weights * float(np.float32(rescale)), 0.0)
+    n_kept = valid.to(torch.int32).sum()
+    return CohortSelection(
+        ids=sel.ids, weights=w, valid=valid, n_included=sel.n_included,
+        n_dropped=sel.n_included - n_kept,
     )
 
 

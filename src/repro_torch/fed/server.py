@@ -34,15 +34,24 @@ Metric fidelities, as in the reference:
   (``FedConfig.cohort``, default ``min(2K, N)``) trains, selected from the
   draw by ``fed.cohort.select_cohort``; aggregation is C-width.
 
-Compressed deltas with error feedback carry the (D,) f32 residual
-``{"resid": ...}`` as a trailing element of the round's carry, zero at round
-0, as the reference's ``TrainState`` does.
+``cfg.faults`` (a ``FaultSpec``) switches on the fault layer
+(``core.stragglers``), in the reference's order: the availability process
+intersects the draw (composed ``q * p`` correction) right after step 2;
+deadline stragglers are dropped after local training, with survivors
+reweighted by ``1 / P(latency <= deadline)`` (``fed.cohort.mask_selection``
+in deployable mode); and buffered async routes step 6 through the carried
+stale-delta ring, whose pending deltas flush once after the last round.
+
+The carry is ``(params, opt_state, sampler_state)``, then the fault state
+(a dict: the Markov ``chain``, the async ``buf``) when ``cfg.faults`` is set,
+then with error feedback the (D,) f32 residual ``{"resid": ...}``, zero at
+round 0, as the reference's ``TrainState`` orders them.
 
 Not ported yet (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): the fault layer (also combined with compression),
-``exact_oracle_equiv``, score-history host offload, and checkpointing
-(``ckpt_every`` is accepted and ignored while no checkpoint manager is
-given: segmentation is bitwise-neutral in the reference).
+``ROADMAP.md`` item): ``exact_oracle_equiv``, score-history host offload,
+and checkpointing (``ckpt_every`` is accepted and ignored while no
+checkpoint manager is given: segmentation is bitwise-neutral in the
+reference).
 """
 from __future__ import annotations
 
@@ -52,10 +61,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import estimator, regret
+from repro_torch.core import estimator, regret, stragglers
 from repro_torch.core.regret import RegretTracker
 from repro_torch.core.samplers import Sampler
-from repro_torch.core.stragglers import flat_dim
 from repro_torch.data.pipeline import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.fed import client as fed_client
@@ -89,7 +97,7 @@ class FedConfig:
     score_history_bytes_limit: int = 1 << 30
     score_history_host_offload: bool = False  # not ported
     ckpt_every: int = 0  # bitwise-neutral segmentation; ignored without a manager
-    faults: object | None = None  # not ported
+    faults: object | None = None  # an api.FaultSpec (enabled) or None
     # An api.CompressionSpec (int8/fp8 deltas, error feedback) or None.
     compression: object | None = None
 
@@ -137,8 +145,6 @@ def _check_supported(cfg: FedConfig, ckpt_manager, n_clients: int) -> None:
             "(exact_oracle_equiv=False)"
         )
     missing = []
-    if cfg.faults is not None:
-        missing.append("faults (ROADMAP.md queue 1, 'Fault layer')")
     if cfg.exact_oracle_equiv and not cfg.oracle_metrics:
         missing.append(
             "exact_oracle_equiv (ROADMAP.md queue 1, 'Server loop + TrainState')"
@@ -183,7 +189,8 @@ def _build_round_body(
 ):
     """One federated round: ``(t, carry) -> (new carry, per-round metrics)``,
     every metric a tensor on the device.  The carry is ``(params, opt_state,
-    sampler_state)``, plus ``{"resid": (D,) f32}`` with error feedback."""
+    sampler_state)``, plus the fault state with ``cfg.faults`` and
+    ``{"resid": (D,) f32}`` with error feedback (module docstring)."""
     lam = dataset.lam
     n = dataset.n_clients
     device = dataset.device
@@ -193,23 +200,56 @@ def _build_round_body(
     nan = torch.full((), float("nan"), dtype=torch.float32, device=device)
     comp = cfg.compression
     ef_on = comp is not None and bool(comp.error_feedback)
+    fault = cfg.faults
+    fault_on = fault is not None
+    avail_on = fault_on and fault.availability is not None
+    deadline_on = fault_on and fault.deadline is not None
+    async_on = fault_on and int(fault.async_buffer) > 0
+    if deadline_on:
+        # Build-time survival probability (raises if the deadline is
+        # unsatisfiable); survivors' weights are divided by it.
+        surv = stragglers.deadline_survival(fault)
+        deadline = float(np.float32(fault.deadline))
 
     def body(t: int, carry):
         c_state = {}
         if ef_on:
             carry, c_state = carry[:-1], carry[-1]
-        params, opt_state, s_state = carry
+        if fault_on:
+            params, opt_state, s_state, f_state = carry
+        else:
+            params, opt_state, s_state = carry
         # Solve p~ once; reuse it for the draw AND the regret diagnostics.
         p_marg = sampler.probabilities(s_state)
         draw = sampler.sample_from(p_marg, source.isp_uniforms(t, n))
+        if avail_on:
+            # Composing q into the draw's probabilities makes the plain
+            # client_weights below the availability-corrected 1/(q p) weights.
+            diurnal = fault.availability == "diurnal"  # a schedule: no draw
+            u_avail = None if diurnal else source.availability_uniforms(t, n)
+            avail_mask, q_t, new_chain = stragglers.availability_step(
+                fault, f_state.get("chain"), t, u_avail, n, device
+            )
+            draw = stragglers.available_draw(draw, avail_mask, q_t)
+            if "chain" in f_state:
+                f_state = {**f_state, "chain": new_chain}
         weights = estimator.client_weights(draw, lam, sampler.procedure, sampler.budget)
         idx = source.batch_indices(t, dataset.sizes, cfg.local_steps, cfg.batch_size)
 
         metrics = {}
         if cfg.oracle_metrics:
             deltas, losses, norms = clients(params, *dataset.gather(all_ids, idx))
+            active = draw.mask
+            if deadline_on:
+                # Clients past the deadline report nothing; survivors / surv
+                # keeps the estimate unbiased.
+                lat = stragglers.latency_draw(fault, source.latencies(t, (n,), fault.latency))
+                late = draw.mask & (lat > deadline)
+                active = draw.mask & ~late
+                weights = torch.where(late, 0.0, weights * float(np.float32(1.0 / surv)))
+                metrics["deadline_dropped"] = late.to(torch.int32).sum()
             metrics["train_loss"] = (lam * losses).sum()
-            metrics["cohort_size"] = draw.size
+            metrics["cohort_size"] = active.to(torch.int32).sum() if deadline_on else draw.size
             if comp is not None:
                 # The feedback norms are the dequantized ones: the regret
                 # signal is what the estimator saw.
@@ -219,19 +259,27 @@ def _build_round_body(
             else:
                 d_est, sq_err = estimator.aggregate_and_error(deltas, weights, lam)
             feedback_full = lam * norms  # pi_t(i) = lambda_i ||g_i||
-            feedback = feedback_full * draw.mask
+            feedback = feedback_full * active
         else:
             sel = fed_cohort.select_cohort(
                 draw.mask, weights, c_slots, source.cohort_priorities(t, n)
             )
+            metrics["dropped"] = sel.n_dropped  # overflow drops, before the deadline's
             deltas_c, losses_c, norms_c = clients(
                 params, *dataset.gather(sel.ids, idx[sel.ids])
             )
+            if deadline_on:
+                # Late slots become inert padding after their training ran.
+                lat_c = stragglers.latency_draw(
+                    fault, source.latencies(t, (c_slots,), fault.latency)
+                )
+                late_c = sel.valid & (lat_c > deadline)
+                sel = fed_cohort.mask_selection(sel, ~late_c, 1.0 / surv)
+                metrics["deadline_dropped"] = late_c.to(torch.int32).sum()
             lam_c = torch.where(sel.valid, lam[sel.ids], 0.0)
             # Unbiased cohort estimate of the full weighted loss.
             metrics["train_loss"] = torch.where(sel.valid, sel.weights * losses_c, 0.0).sum()
             metrics["cohort_size"] = sel.valid.to(torch.int32).sum()
-            metrics["dropped"] = sel.n_dropped
             if comp is not None:
                 d_est, sq_err, norms_c, new_resid = estimator.aggregate_compressed(
                     deltas_c, sel.weights, lam_c, comp, c_state.get("resid")
@@ -243,6 +291,15 @@ def _build_round_body(
 
         if ef_on:
             c_state = {"resid": new_resid}
+        if async_on:
+            # The aggregate enters the stale-delta ring; the server applies
+            # only the discounted deltas whose arrival round has come.
+            new_buf, apply_vec, _ = stragglers.async_step(
+                fault, f_state["buf"], stragglers.tree_to_vec(d_est), t,
+                source.async_latency(t, fault.latency), comp,
+            )
+            f_state = {**f_state, "buf": new_buf}
+            d_est = stragglers.vec_to_tree(apply_vec, d_est)
         params, opt_state = cfg.server_opt.apply(params, d_est, opt_state)
         # The server only observes the feedback of the clients it contacted.
         s_state = sampler.update(s_state, draw, feedback)
@@ -258,19 +315,28 @@ def _build_round_body(
                 task.accuracy(params, eval_data).to(torch.float32) if do_eval else nan
             )
         out = (params, opt_state, s_state)
-        return (out + (c_state,) if ef_on else out), metrics
+        if fault_on:
+            out = out + (f_state,)
+        if ef_on:
+            out = out + (c_state,)
+        return out, metrics
 
     return body
 
 
 def init_carry(task: Task, sampler: Sampler, cfg: FedConfig, source: RandomSource, device):
     """Round 0's carry: initial parameters from ``source``, the server
-    optimizer's and the sampler's initial states, and with error feedback a
-    zero (D,) f32 residual."""
+    optimizer's and the sampler's initial states, with ``cfg.faults`` the
+    fault state, and with error feedback a zero (D,) f32 residual."""
     params = source.init_params(task)
     carry = (params, cfg.server_opt.init(params), sampler.init(device))
+    d_dim = stragglers.flat_dim(params)
+    if cfg.faults is not None:
+        carry = carry + (
+            stragglers.fault_state_init(cfg.faults, sampler.n, d_dim, cfg.compression, device),
+        )
     if cfg.compression is not None and cfg.compression.error_feedback:
-        resid = torch.zeros(flat_dim(params), dtype=torch.float32, device=device)
+        resid = torch.zeros(d_dim, dtype=torch.float32, device=device)
         carry = carry + ({"resid": resid},)
     return carry
 
@@ -283,6 +349,8 @@ def _materialize_history(metrics: dict, cfg: FedConfig, has_eval: bool) -> Histo
     hist.cohort_size = [int(x) for x in metrics["cohort_size"]]
     if "dropped" in metrics:
         hist.cohort_dropped = [int(x) for x in metrics["dropped"]]
+    if "deadline_dropped" in metrics:
+        hist.deadline_dropped = [int(x) for x in metrics["deadline_dropped"]]
     if cfg.oracle_metrics:
         hist.estimator_sq_error = [float(x) for x in metrics["sq_error"]]
         hist.regret = RegretTracker.from_arrays(
@@ -292,6 +360,18 @@ def _materialize_history(metrics: dict, cfg: FedConfig, has_eval: bool) -> Histo
         acc = metrics["accuracy"]
         hist.test_accuracy = [float(a) for a in acc[~np.isnan(acc)]]
     return hist
+
+
+def _flush_async(params, opt_state, f_state: dict, cfg: FedConfig):
+    """End-of-horizon flush of the async ring: the staleness-discounted sum
+    of every still-pending delta goes through the server optimizer once,
+    after the last round (one host read of the ring's valid flags)."""
+    buf = f_state["buf"]
+    if not bool(buf["valid"].any()):
+        return params
+    pending = stragglers.flush_pending(buf, cfg.rounds, float(cfg.faults.staleness_discount))
+    params, _ = cfg.server_opt.apply(params, stragglers.vec_to_tree(pending, params), opt_state)
+    return params
 
 
 def run_federated(
@@ -345,6 +425,8 @@ def run_federated(
     if cfg.rounds == 0:
         keys = ["train_loss", "cohort_size"]
         keys += ["sq_error", "cost", "opt_cost"] if cfg.oracle_metrics else ["dropped"]
+        if cfg.faults is not None and cfg.faults.deadline is not None:
+            keys += ["deadline_dropped"]
         keys += ["accuracy"] if eval_data is not None else []
         metrics = {k: np.zeros(0) for k in keys}
     elif cfg.compiled:
@@ -352,7 +434,10 @@ def run_federated(
     else:
         metrics = {k: np.stack([m[k] for m in per_round]) for k in per_round[0]}
 
+    params = carry[0]
+    if cfg.faults is not None and int(cfg.faults.async_buffer) > 0:
+        params = _flush_async(params, carry[1], carry[3], cfg)
     hist = _materialize_history(metrics, cfg, has_eval=eval_data is not None)
-    hist.final_params = params_to_numpy(carry[0])
+    hist.final_params = params_to_numpy(params)
     hist.wall_time_s = time.perf_counter() - t0
     return hist

@@ -1,17 +1,19 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version (``ref``).  Ported: the four aggregation kernels of
-``fused_weighted_agg``; kernel 3 (``fused_weighted_agg``) is reached through
-``kernels.ops`` so that the name here stays the module's.  ``ROADMAP.md``
-queues the rest."""
+``fused_weighted_agg`` (kernel 3, ``fused_weighted_agg``, is reached through
+``kernels.ops`` so that the name here stays the module's) and
+``sharded_waterfill.waterfill_level_stats``.  ``ROADMAP.md`` queues the
+rest."""
+from repro_torch.kernels import fused_weighted_agg as _fwa
+from repro_torch.kernels import sharded_waterfill as _swf
 from repro_torch.kernels.fused_weighted_agg import (
     dequantize_stacked,
     fused_cohort_agg_and_error,
     fused_dequant_cohort_agg,
     fused_multi_weighted_agg,
-    launch_counts,
     quantize_stacked,
-    reset_launch_counts,
 )
+from repro_torch.kernels.sharded_waterfill import waterfill_level_stats
 
 __all__ = [
     "fused_multi_weighted_agg",
@@ -19,6 +21,18 @@ __all__ = [
     "fused_dequant_cohort_agg",
     "quantize_stacked",
     "dequantize_stacked",
+    "waterfill_level_stats",
     "launch_counts",
     "reset_launch_counts",
 ]
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper, every kernel of the port, since the last
+    reset."""
+    return {**_fwa.launch_counts(), **_swf.launch_counts()}
+
+
+def reset_launch_counts() -> None:
+    _fwa.reset_launch_counts()
+    _swf.reset_launch_counts()

@@ -3,8 +3,7 @@
 Only the wrappers whose kernels exist in the port are here.  The reference's
 ``flash_attention``, ``flash_attention_trainable``, ``ssd_scan`` and
 ``rmsnorm`` wait for the zoo slice (``ROADMAP.md`` queue 1, "Zoo models +
-pod-scale round"; queue 2, kernels 6-8) and ``waterfill_level_stats`` for the
-sharded-sampler slice (queue 1, "Sharded sampler"; queue 2, kernel 5).
+pod-scale round"; queue 2, kernels 6-8).
 
 As everywhere in the port, a tensor on the CPU takes the kernel's plain
 PyTorch version and a tensor on a CUDA device launches the CUDA kernel.
@@ -15,8 +14,9 @@ import torch
 
 from repro_torch.core.estimator import flatten_stacked, unflatten_vector
 from repro_torch.kernels import fused_weighted_agg as _fwa
+from repro_torch.kernels.sharded_waterfill import waterfill_level_stats
 
-__all__ = ["fused_weighted_agg", "aggregate_cohort_updates"]
+__all__ = ["fused_weighted_agg", "aggregate_cohort_updates", "waterfill_level_stats"]
 
 
 def fused_weighted_agg(g: torch.Tensor, w: torch.Tensor, *, block_d: int = 2048):

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each function computes what its kernel in ``fused_weighted_agg`` computes,
-with the arithmetic the JAX reference falls back to off the TPU
-(``repro/core/estimator.py``: ``w2 @ flat`` and
-``dequant_cohort_agg_reference``).  The wrappers use them for tensors on the
+Each function computes what its kernel in ``fused_weighted_agg`` or
+``sharded_waterfill`` computes, with the arithmetic the JAX reference falls
+back to off the TPU (``repro/core/estimator.py``: ``w2 @ flat`` and
+``dequant_cohort_agg_reference``; ``repro/kernels/ref.py``:
+``waterfill_stats_reference``).  The wrappers use them for tensors on the
 CPU, the tests hold them against the JAX kernels run in interpret mode, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
@@ -16,6 +17,7 @@ __all__ = [
     "cohort_agg_and_error_reference",
     "weighted_agg_reference",
     "dequant_cohort_agg_reference",
+    "waterfill_stats_reference",
 ]
 
 
@@ -57,3 +59,30 @@ def dequant_cohort_agg_reference(
     w = w.to(torch.float32)
     out = torch.stack([w, w - lam_c.to(torch.float32)]) @ g
     return out[0], (out[1] ** 2).sum(), (g * g).sum(1)
+
+
+def waterfill_stats_reference(
+    scores: torch.Tensor, levels: torch.Tensor, floors: torch.Tensor, chunk: int = 1 << 16
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """scores (M,) f32 (+inf entries inert); levels / floors (L,) f32.
+
+    Returns (n_below, n_floor, mid_sum), each (L,) f32:
+
+      n_below[k] = #{a < levels[k]}
+      n_floor[k] = #{a <= floors[k]}
+      mid_sum[k] = sum of a over floors[k] < a < levels[k]
+
+    Masked reductions over ``chunk`` scores at a time, so no (M, L)
+    temporary is built; counts are summed as integers and exact."""
+    lv, fl = levels[None, :], floors[None, :]
+    n_below = torch.zeros(levels.shape[0], dtype=torch.int64, device=scores.device)
+    n_floor = torch.zeros_like(n_below)
+    mid = torch.zeros(levels.shape[0], dtype=torch.float32, device=scores.device)
+    for start in range(0, scores.shape[0], chunk):
+        a = scores[start : start + chunk, None]
+        below = a < lv
+        at_floor = a <= fl
+        n_below += below.sum(0)
+        n_floor += at_floor.sum(0)
+        mid += torch.where(below & ~at_floor, a, 0.0).sum(0)
+    return n_below.to(torch.float32), n_floor.to(torch.float32), mid

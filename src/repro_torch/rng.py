@@ -12,7 +12,19 @@ can hand it the reference's own draws.  A source supplies:
   deployable cohort's overflow drop;
 * ``batch_indices(t, sizes, local_steps, batch_size)``: round t's
   (N, R, B) sample indices, client i's drawn uniformly from
-  ``[0, sizes[i])``.
+  ``[0, sizes[i])``;
+* ``availability_uniforms(t, n)``: round t's (N,) uniforms of the fault
+  layer's availability draw (the reference's ``fold_in(k_sample, 101)``);
+* ``latencies(t, shape, dist)``: round t's per-client standard latency
+  variates for the deadline (``fold_in(k_sample, 102)``; (N,) in oracle
+  mode, (C,) in deployable mode);
+* ``async_latency(t, dist)``: round t's 0-d standard variate for the
+  buffered-async arrival delay (``fold_in(k_sample, 103)``).
+
+A standard variate is one of the latency family ``dist``, before the
+spec's parameters are applied (``core.stragglers.latency_draw``): Exp(1)
+for ``"exponential"``, U[0, 1) for ``"uniform"``, N(0, 1) for
+``"lognormal"``.
 
 ``PhiloxSource`` is the default: one ``torch.Generator`` per stream on the
 run's device (Philox on CUDA), seeded from the run's seed.  ``ReplaySource``
@@ -30,6 +42,8 @@ from repro_torch.fed.tasks import params_from_reference
 
 __all__ = ["RandomSource", "PhiloxSource", "ReplaySource"]
 
+_LATENCY_DISTS = ("exponential", "uniform", "lognormal")
+
 
 class RandomSource(Protocol):
     def init_params(self, task) -> dict: ...
@@ -42,12 +56,23 @@ class RandomSource(Protocol):
         self, t: int, sizes: torch.Tensor, local_steps: int, batch_size: int
     ) -> torch.Tensor: ...
 
+    def availability_uniforms(self, t: int, n: int) -> torch.Tensor: ...
+
+    def latencies(self, t: int, shape: tuple, dist: str) -> torch.Tensor: ...
+
+    def async_latency(self, t: int, dist: str) -> torch.Tensor: ...
+
+
+def _check_dist(dist: str) -> None:
+    if dist not in _LATENCY_DISTS:
+        raise ValueError(f"unknown latency distribution {dist!r}; options: {list(_LATENCY_DISTS)}")
+
 
 class PhiloxSource:
-    """Independent generator streams (init, draw, cohort, batches) seeded
-    from ``seed``; draws are taken in round order."""
+    """Independent generator streams seeded from ``seed``; draws are taken
+    in round order."""
 
-    _STREAMS = ("init", "sample", "cohort", "data")
+    _STREAMS = ("init", "sample", "cohort", "data", "avail", "latency", "async")
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
@@ -78,6 +103,24 @@ class PhiloxSource:
         # f32 rounding can carry u * size up to size itself: clamp.
         return torch.minimum((u * hi).long(), hi - 1)
 
+    def availability_uniforms(self, t: int, n: int) -> torch.Tensor:
+        return torch.rand(n, generator=self._gen["avail"], device=self.device)
+
+    def _standard(self, shape: tuple, dist: str, stream: str) -> torch.Tensor:
+        _check_dist(dist)
+        gen = self._gen[stream]
+        if dist == "exponential":
+            return torch.empty(shape, device=self.device).exponential_(generator=gen)
+        if dist == "uniform":
+            return torch.rand(shape, generator=gen, device=self.device)
+        return torch.randn(shape, generator=gen, device=self.device)
+
+    def latencies(self, t: int, shape: tuple, dist: str) -> torch.Tensor:
+        return self._standard(tuple(shape), dist, "latency")
+
+    def async_latency(self, t: int, dist: str) -> torch.Tensor:
+        return self._standard((), dist, "async")
+
 
 class ReplaySource:
     """Plays back recorded draws.
@@ -85,18 +128,35 @@ class ReplaySource:
     ``init_params``: the round-0 parameters as nested dicts of numpy arrays
     (the reference's layout, see ``fed.tasks.params_from_reference``);
     ``uniforms`` and ``priorities``: (T, N) float32; ``batch_idx``:
-    (T, N, R, B) integers.  ``priorities`` may be None for oracle runs."""
+    (T, N, R, B) integers.  ``priorities`` may be None for oracle runs.
+    The fault layer's tables, each None when the run does not draw it:
+    ``avail_uniforms`` (T, N), ``latencies`` (T, W) standard variates with
+    W = N (oracle) or C (deployable), ``async_latencies`` (T,) standard
+    variates; the latency tables are of the run's latency family."""
 
-    def __init__(self, init_params, uniforms, priorities, batch_idx, device):
+    def __init__(
+        self, init_params, uniforms, priorities, batch_idx, device, *,
+        avail_uniforms=None, latencies=None, async_latencies=None,
+    ):
         self.device = torch.device(device)
         self._init = init_params
-        self._u = torch.as_tensor(np.asarray(uniforms, np.float32), device=self.device)
-        self._prio = (
-            None
-            if priorities is None
-            else torch.as_tensor(np.asarray(priorities, np.float32), device=self.device)
-        )
+        self._u = self._table(uniforms)
+        self._prio = self._table(priorities)
         self._idx = torch.as_tensor(np.asarray(batch_idx, np.int64), device=self.device)
+        self._avail = self._table(avail_uniforms)
+        self._lat = self._table(latencies)
+        self._async = self._table(async_latencies)
+
+    def _table(self, values):
+        if values is None:
+            return None
+        return torch.as_tensor(np.asarray(values, np.float32), device=self.device)
+
+    @staticmethod
+    def _recorded(table, what: str):
+        if table is None:
+            raise ValueError(f"this ReplaySource recorded no {what}")
+        return table
 
     def init_params(self, task) -> dict:
         return params_from_reference(self._init, self.device)
@@ -105,9 +165,7 @@ class ReplaySource:
         return self._u[t, :n]
 
     def cohort_priorities(self, t: int, n: int) -> torch.Tensor:
-        if self._prio is None:
-            raise ValueError("this ReplaySource recorded no cohort priorities")
-        return self._prio[t, :n]
+        return self._recorded(self._prio, "cohort priorities")[t, :n]
 
     def batch_indices(
         self, t: int, sizes: torch.Tensor, local_steps: int, batch_size: int
@@ -117,3 +175,19 @@ class ReplaySource:
         if tuple(idx.shape) != want:
             raise ValueError(f"recorded batch indices have shape {tuple(idx.shape)}, need {want}")
         return idx
+
+    def availability_uniforms(self, t: int, n: int) -> torch.Tensor:
+        return self._recorded(self._avail, "availability uniforms")[t, :n]
+
+    def latencies(self, t: int, shape: tuple, dist: str) -> torch.Tensor:
+        _check_dist(dist)
+        lat = self._recorded(self._lat, "latencies")[t]
+        if tuple(lat.shape) != tuple(shape):
+            raise ValueError(
+                f"recorded latencies have shape {tuple(lat.shape)}, need {tuple(shape)}"
+            )
+        return lat
+
+    def async_latency(self, t: int, dist: str) -> torch.Tensor:
+        _check_dist(dist)
+        return self._recorded(self._async, "async latencies")[t]

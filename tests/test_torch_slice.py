@@ -56,12 +56,22 @@ def _spec(task: str, oracle: bool) -> "ref_api.ExperimentSpec":
     )
 
 
+_STANDARD = {  # the latency family's standard variate, as the reference draws it
+    "exponential": lambda key, shape: jax.random.exponential(key, shape, jnp.float32),
+    "uniform": lambda key, shape: jax.random.uniform(key, shape, jnp.float32),
+    "lognormal": lambda key, shape: jax.random.normal(key, shape, jnp.float32),
+}
+
+
 def jax_replay(built, device="cpu") -> ReplaySource:
-    """The reference run's draws, along its own key chain."""
+    """The reference run's draws, along its own key chain; with a fault
+    section also the fault layer's (``fold_in(k_sample, 101/102/103)``)."""
     cfg = built.fed_config
     n = built.dataset.n_clients
     r, b = cfg.local_steps, cfg.batch_size
     sizes = jnp.asarray(built.dataset.sizes)
+    fault = cfg.faults
+    lat_width = n if cfg.oracle_metrics else cfg.cohort_slots(n)
     key = jax.random.PRNGKey(cfg.seed)
     key, init_key = jax.random.split(key)
     init = jax.tree_util.tree_map(np.asarray, built.task.init(init_key))
@@ -70,6 +80,7 @@ def jax_replay(built, device="cpu") -> ReplaySource:
         return jax.vmap(lambda k: jax.random.randint(k, (b,), 0, sizes[i]))(keys)
 
     uniforms, priorities, idx = [], [], []
+    faults = {"avail_uniforms": [], "latencies": [], "async_latencies": []}
     for _ in range(cfg.rounds):
         key, k_data, k_sample = jax.random.split(key, 3)
         uniforms.append(np.asarray(jax.random.uniform(k_sample, (n,))))
@@ -78,7 +89,21 @@ def jax_replay(built, device="cpu") -> ReplaySource:
         )
         batch_keys = jax.random.split(k_data, n * r).reshape(n, r, 2)
         idx.append(np.asarray(jax.vmap(client_idx)(jnp.arange(n), batch_keys)))
-    return ReplaySource(init, np.stack(uniforms), np.stack(priorities), np.stack(idx), device)
+        if fault is not None:
+            std = _STANDARD[fault.latency]
+            faults["avail_uniforms"].append(
+                np.asarray(jax.random.uniform(jax.random.fold_in(k_sample, 101), (n,)))
+            )
+            faults["latencies"].append(
+                np.asarray(std(jax.random.fold_in(k_sample, 102), (lat_width,)))
+            )
+            faults["async_latencies"].append(
+                np.asarray(std(jax.random.fold_in(k_sample, 103), ()))
+            )
+    extra = {k: np.stack(v) for k, v in faults.items()} if fault is not None and cfg.rounds else {}
+    return ReplaySource(
+        init, np.stack(uniforms), np.stack(priorities), np.stack(idx), device, **extra
+    )
 
 
 @pytest.fixture
@@ -178,13 +203,13 @@ def test_spec_json_loads_unchanged(tmp_path):
     "section",
     [
         {"task": {"kind": "zoo", "name": "smollm-360m"}},
-        {"fault": {"availability": "bernoulli"}},
-        {"fault": {"availability": "bernoulli"}, "compression": {"delta_dtype": "int8"}},
-        {"execution": {"sampler_axis": "data"}},
+        {"sampler": {"name": "osmd"}},
+        {"sampler": {"name": "mabs"}},
+        {"sampler": {"name": "avare"}},
         {"execution": {"oracle_metrics": False, "exact_oracle_equiv": True}},
         {"sampler": {"name": "vrb"}},
     ],
-    ids=["zoo", "fault", "compression", "sampler_axis", "exact_oracle_equiv", "vrb"],
+    ids=["zoo", "osmd", "mabs", "avare", "exact_oracle_equiv", "vrb"],
 )
 def test_unported_parts_raise(section):
     spec = api.ExperimentSpec.from_dict(
