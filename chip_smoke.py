@@ -9,11 +9,13 @@ Phases, each failing loudly (non-zero exit, no result line):
 2. build  — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a, one nvcc per source, all started together, and
    print the build times;
-3. kernels — hold each of the five kernels against its plain PyTorch version
-   on the card at the main path's shapes (and one large shape), check that
-   its norms, error scalar or counts and sums are bitwise repeatable, and
-   time kernel, plain version, the library call computing the same function
-   (where there is one) and the bound;
+3. kernels — hold each of the seven kernels against its plain PyTorch
+   version on the card at the main path's shapes (and one large shape),
+   check that kernels 2–5's norms, error scalar or counts and sums are
+   bitwise repeatable, and time kernel, plain version, the library call
+   computing the same function (where there is one) and the bound; kernels 6
+   (rmsnorm) and 7 (flash_attention) at the serving path's shapes, kernel 7
+   in all four modes, at a ragged S, with grouped-query heads, bf16 and f32;
 4. path — ``repro_torch.api.run(spec)`` with no device argument (so on the
    GPU) for the paper's logistic-regression spec and the tiny-LM spec in
    oracle and deployable mode, three compressed specs (int8 / fp8 deltas,
@@ -25,11 +27,20 @@ Phases, each failing loudly (non-zero exit, no result line):
    launches per run; then ``kernels.ops.aggregate_cohort_updates`` on a
    stacked tiny-LM delta dict, and (j) the reference's million-client
    sampler round (K-Vib, K=64, sharded solve + draw + update) at
-   N = 10^4, 10^5, 10^6;
+   N = 10^4, 10^5, 10^6; then serving: (k) ``python -m
+   repro_torch.launch.serve``'s demo at full width and depth (smollm-360m,
+   bf16, batch 8, prompt 512, 64 new tokens, pages of 16) and (l) gemma2-27b
+   at full width cut to one (attn_local, attn) pattern through
+   ``repro_torch.serve.ServeEngine``, each with its exact kernel 6 and 7
+   launch counts;
 5. agreement — small runs on the GPU, uncompressed and int8-compressed, and
    runs (g) and (h) equal the same runs on the CPU (plain PyTorch path) fed
-   the same recorded draws;
-6. trace — host syncs in the round bodies, then one tiny-LM round loop under
+   the same recorded draws; a 2-layer full-width smollm-360m served in f32 on
+   the GPU and on the CPU from the same weights gives the same greedy tokens
+   and logits within 1e-4, and bf16 prefill + decode on the GPU agrees with
+   the full forward (teacher forcing) within 2e-2;
+6. trace — host syncs in the round bodies and per decode step, then one
+   tiny-LM round loop and one serving prefill and decode of (k) under
    ``torch.profiler``: the device's busy share and the kernels that take
    its time.
 
@@ -51,20 +62,30 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-LIBRARIES = ("fused_weighted_agg", "sharded_waterfill")  # csrc/<name>.cu
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+LIBRARIES = ("fused_weighted_agg", "sharded_waterfill", "rmsnorm", "flash_attention")  # csrc/<name>.cu
 SOURCE = {
     name: "src/repro_torch/kernels/csrc/fused_weighted_agg.cu"
     for name in ("fused_weighted_agg", "fused_multi_weighted_agg",
                  "fused_cohort_agg_and_error", "fused_dequant_cohort_agg")
 }
 SOURCE["waterfill_level_stats"] = "src/repro_torch/kernels/csrc/sharded_waterfill.cu"
+SOURCE["rmsnorm"] = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+SOURCE["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {
     "fused_weighted_agg": "src/repro/kernels/fused_weighted_agg.py:134",
     "fused_multi_weighted_agg": "src/repro/kernels/fused_weighted_agg.py:174",
     "fused_cohort_agg_and_error": "src/repro/kernels/fused_weighted_agg.py:221",
     "fused_dequant_cohort_agg": "src/repro/kernels/fused_weighted_agg.py:296",
     "waterfill_level_stats": "src/repro/kernels/sharded_waterfill.py:72",
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
+    "flash_attention": "src/repro/kernels/flash_attention.py:86",
 }
+# The serving runs: (k) the launcher's demo at full width and depth,
+# (l) gemma2-27b at full width, one pattern deep.
+SERVE_K = ["--arch", "smollm-360m", "--batch", "8", "--prompt-len", "512",
+           "--new-tokens", "64", "--page-size", "16"]
+GEMMA_L = dict(batch=8, prompt_len=512, new_tokens=16, page_size=16)
 ROUNDS = 5
 LADDER_PASSES = 5  # kernel 5 launches per sharded K-Vib solve (core/solver.py)
 
@@ -135,11 +156,13 @@ def time_ms(torch, fn, flush, iters: int = 30) -> float:
     return times[iters // 2]
 
 
-def measure(torch, flush, kern, plain, lib, n_bytes: int, flops: int, err: float) -> dict:
+def measure(torch, flush, kern, plain, lib, n_bytes: int, flops: int, err: float,
+            flops_per_s: float = F32_FLOPS_PER_S) -> dict:
     """One kernel at one shape: the times of kernel, plain version and
     library call (None where there is none), and the bound: the larger of
-    the bytes over the memory rate and the operations over the f32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    the bytes over the memory rate and the operations over the peak rate of
+    their type (f32 unless given)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flops_per_s
     return {
         "kernel_ms": time_ms(torch, kern, flush),
         "plain_ms": time_ms(torch, plain, flush),
@@ -250,6 +273,11 @@ def kernel_phase(torch):
     max_err["waterfill_level_stats"] = 0.0
     rows.update(waterfill_kernel_phase(torch, gen, flush, max_err))
     path_shape["waterfill_level_stats"] = ("path", "float32")
+    max_err["rmsnorm"] = max_err["flash_attention"] = 0.0
+    rows.update(rmsnorm_kernel_phase(torch, gen, flush, max_err))
+    rows.update(flash_kernel_phase(torch, gen, flush, max_err))
+    path_shape["rmsnorm"] = ("prefill smollm", "bfloat16")
+    path_shape["flash_attention"] = ("prefill smollm causal", "bfloat16")
     return rows, max_err, path_shape
 
 
@@ -362,6 +390,124 @@ def waterfill_kernel_phase(torch, gen, flush, max_err):
                "n/a (no one PyTorch call computes the three statistics)",
                f" mid_sum_rel={rel:.3g} ops={ops:.3g}")
         del scores, got, again, want
+    return rows
+
+
+def rmsnorm_kernel_phase(torch, gen, flush, max_err):
+    """Kernel 6 at the serving path's shapes: (k)'s prefill (B*S, d_model)
+    and decode (B, d_model), per-head rows of width hd (qk_norm's shape),
+    (l)'s prefill at d_model 4608, and a ragged D that takes the scalar
+    loads; bf16 and f32.  The bound counts x read and y written once and
+    ~4 f32 operations an element; the library call is ``F.rms_norm`` with
+    weight 1 + scale."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
+
+    dev = torch.device("cuda")
+    rows = {}
+    for label, r, d in (("prefill smollm", 4096, 960), ("decode smollm", 8, 960),
+                        ("qk_norm rows", 61440, 64), ("prefill gemma2", 4096, 4608),
+                        ("ragged D", 4097, 962)):
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
+            x = torch.randn(r, d, generator=gen, device=dev).to(dtype)
+            scale = (0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+            got = rms.rmsnorm(x, scale)
+            want = ref.rmsnorm_reference(x, scale)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **tol)
+            err = float((got.float() - want.float()).abs().max())
+            max_err["rmsnorm"] = max(max_err["rmsnorm"], err)
+            weight = (1.0 + scale.float()).to(dtype)
+            es = x.element_size()
+            row = measure(torch, flush, lambda: rms.rmsnorm(x, scale),
+                          lambda: ref.rmsnorm_reference(x, scale),
+                          lambda: F.rms_norm(x, (d,), weight, 1e-6),
+                          2 * r * d * es + d * es, 4 * r * d, err)
+            row["shape"] = {"R": r, "D": d, "dtype": str(dtype)[6:]}
+            rows[("rmsnorm", label, str(dtype)[6:])] = row
+            report("rmsnorm", f"{label} R={r} D={d} {str(dtype)[6:]}", row, "n/a",
+                   " library=F.rms_norm(weight=1+scale)")
+            del x, got, want
+    return rows
+
+
+def attention_pairs(s_q: int, s_k: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through: the work this input needs."""
+    total = 0
+    for q in range(s_q):
+        hi = min(q, s_k - 1) if causal else s_k - 1
+        lo = max(0, q - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_kernel_phase(torch, gen, flush, max_err):
+    """Kernel 7 at (k)'s prefill shape (B=8, 15 heads over 5 KV heads, S=512,
+    hd=64) in all four modes (causal, window 96, full, softcap 30), at a
+    ragged S=200, and at (l)'s gemma2 shapes (32 heads over 16, hd=128,
+    softcap 50, window 4096 and global); bf16 and f32.  q, k, v are the
+    (B, S, heads, hd) projections seen as (B, heads, S, hd), as the model
+    passes them.  The bound: q, k, v read and out written once over the
+    memory rate, against 4 * hd operations per unmasked (query, key) pair of
+    this input over the bf16 tensor-core (or f32) peak.  The library call:
+    ``F.scaled_dot_product_attention`` on K/V expanded over the groups (a
+    boolean mask for the window; none for the softcap, which it lacks)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    rows = {}
+    cases = [  # (label, B, KV heads, groups, S, hd, causal, window, softcap)
+        ("prefill smollm causal", 8, 5, 3, 512, 64, True, None, None),
+        ("prefill smollm window", 8, 5, 3, 512, 64, True, 96, None),
+        ("prefill smollm full", 8, 5, 3, 512, 64, False, None, None),
+        ("prefill smollm softcap", 8, 5, 3, 512, 64, True, None, 30.0),
+        ("ragged S smollm", 8, 5, 3, 200, 64, True, None, None),
+        ("prefill gemma2 local", 8, 16, 2, 512, 128, True, 4096, 50.0),
+        ("prefill gemma2 global", 8, 16, 2, 512, 128, True, None, 50.0),
+    ]
+    for label, b, kv, g, s, hd, causal, window, cap in cases:
+        h = kv * g
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=2e-4, atol=2e-5)
+            q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            k = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            v = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            kw = dict(causal=causal, window=window, softcap=cap, q_groups=g)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = ref.mha_reference(q, k, v, **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **tol)
+            err = float((got.float() - want.float()).abs().max())
+            max_err["flash_attention"] = max(max_err["flash_attention"], err)
+            lib = None
+            if cap is None:
+                k_x, v_x = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+                if window is None:
+                    lib = lambda: F.scaled_dot_product_attention(q, k_x, v_x, is_causal=causal)  # noqa: E731
+                else:
+                    pos = torch.arange(s, device=dev)
+                    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                    lib = lambda: F.scaled_dot_product_attention(q, k_x, v_x, attn_mask=mask)  # noqa: E731
+            es = q.element_size()
+            pairs = attention_pairs(s, s, causal, window)
+            row = measure(torch, flush, lambda: fa.flash_attention(q, k, v, **kw),
+                          lambda: ref.mha_reference(q, k, v, **kw), lib,
+                          b * s * (2 * h + 2 * kv) * hd * es, 4 * b * h * pairs * hd, err,
+                          BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+            row["shape"] = {"B": b, "H": h, "q_groups": g, "S": s, "hd": hd, "window": window,
+                            "softcap": cap, "dtype": str(dtype)[6:]}
+            rows[("flash_attention", label, str(dtype)[6:])] = row
+            ratio = f" kernel/library={row['kernel_ms'] / row['library_ms']:.1f}x" if lib else ""
+            report("flash_attention", f"{label} B={b} H={h} G={g} S={s} hd={hd} {str(dtype)[6:]}",
+                   row, "n/a (no library call applies a softcap)",
+                   f" pairs={pairs}{ratio} library=sdpa(K/V expanded)")
+            del q, k, v, got, want
     return rows
 
 
@@ -489,7 +635,95 @@ def path_phase(torch):
     check(sum(h.deadline_dropped) > 0, f"(h): no client missed the deadline {h.deadline_dropped}")
     launches["fused_weighted_agg"] += ops_call(torch, api, kernels)
     launches["waterfill_level_stats"] += sampler_scale_phase(torch, kernels)
-    return launches
+    serve_launches, engine = serve_path_phase(torch, kernels)
+    for k, v in serve_launches.items():
+        launches[k] += v
+    return launches, engine
+
+
+def _serve_checks(torch, label, engine, counts, want, new_tokens):
+    cfg = engine.cfg
+    check(engine.device.type == "cuda", f"{label}: engine on {engine.device}")
+    want = {k: want.get(k, 0) for k in counts}
+    check(counts == want, f"{label}: kernel launches {counts}, expected {want}")
+    gen = engine.generated()
+    check(tuple(gen.shape) == (engine.batch, new_tokens), f"{label}: generated {tuple(gen.shape)}")
+    check(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab, f"{label}: token ids out of range")
+    logits = engine.last_logits
+    check(tuple(logits.shape) == (engine.batch, 1, cfg.vocab), f"{label}: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
+
+
+def serve_path_phase(torch, kernels):
+    """(k) ``repro_torch.launch.serve`` as a user runs it (no device flag:
+    the GPU), smollm-360m at full width and depth in bf16: one prefill of
+    8 x 512 tokens and 63 decode steps, so kernel 6 runs 65 x 64 times and
+    kernel 7 32 times.  (l) gemma2-27b at full width (hd 128, vocab 256,000,
+    window 4096, both softcaps, embedding scale, tanh-gelu) cut to one
+    (attn_local, attn) pattern, through ``ServeEngine``: 8 x 512 prompt, 16
+    new tokens.  Returns the launches and (k)'s engine."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = serve.main(SERVE_K)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    engine = out["engine"]
+    cfg = engine.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.vocab, cfg.param_dtype) == (32, 960, 49152, torch.bfloat16),
+          f"(k): not smollm-360m at full width: {cfg}")
+    per_pass = 2 * cfg.n_layers + 1
+    new = int(SERVE_K[SERVE_K.index("--new-tokens") + 1])
+    _serve_checks(torch, "(k)", engine, counts,
+                  {"rmsnorm": per_pass * new, "flash_attention": cfg.n_layers}, new)
+    check(out["prefill_launches"]["rmsnorm"] == per_pass
+          and out["prefill_launches"]["flash_attention"] == cfg.n_layers,
+          f"(k): prefill launches {out['prefill_launches']}")
+    launches = dict(counts)
+    print(f"(k) smollm-360m serve: {transformer.param_count(engine.params) / 1e6:.1f}M params bf16, "
+          f"batch 8, prompt 512, {new} new tokens: prefill_s={out['prefill_s']:.4f} "
+          f"decode_s={out['decode_s']:.4f} ({new - 1} steps) tokens_per_sec={out['tokens_per_sec']:.1f} "
+          f"decode_ms_per_step={out['decode_s'] / (new - 1) * 1e3:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
+
+    cfg_l = dataclasses.replace(get_config("gemma2-27b"), n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = transformer.init_params(cfg_l, gen)
+    n_params = transformer.param_count(params)
+    eng_l = ServeEngine(cfg_l, params, batch=GEMMA_L["batch"],
+                        max_seq=GEMMA_L["prompt_len"] + GEMMA_L["new_tokens"],
+                        page_size=GEMMA_L["page_size"], seed=1)
+    del params
+    prompts = torch.randint(0, cfg_l.vocab, (GEMMA_L["batch"], GEMMA_L["prompt_len"]),
+                            generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng_l.start(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    eng_l.step(GEMMA_L["new_tokens"] - 1)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    _serve_checks(torch, "(l)", eng_l, counts,
+                  {"rmsnorm": 5 * GEMMA_L["new_tokens"], "flash_attention": 2}, GEMMA_L["new_tokens"])
+    for k, v in counts.items():
+        launches[k] += v
+    print(f"(l) gemma2-27b full width, 2 layers: {n_params / 1e9:.3f}B params bf16, batch 8, "
+          f"prompt 512, {GEMMA_L['new_tokens']} new tokens: prefill_s={prefill_s:.4f} "
+          f"decode_s={eng_l.decode_seconds:.4f} tokens_per_sec={eng_l.tokens_per_sec():.1f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
+    del eng_l
+    torch.cuda.empty_cache()
+    return launches, engine
 
 
 def sampler_scale_phase(torch, kernels) -> int:
@@ -644,13 +878,70 @@ def count_sampler_syncs(torch, rounds: int = 2) -> list:
     return [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
 
 
-def trace_phase(torch):
-    """Host syncs per round, then one more tiny_lm oracle run under
-    torch.profiler: the device's busy share of the run's wall time and the
-    kernels that take the device time."""
-    phase("trace")
+def profile_kernels(torch, fn, label: str, note: str, top: int = 8) -> None:
+    """Run ``fn`` under torch.profiler and print the device's busy share of
+    the wall time and the kernels that take the device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Kernel events only: an aten op's self device time repeats its kernels'.
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    if not kernels:
+        print(f"trace {label}: the profiler recorded no kernel time (not measured)")
+        return
+    device_us = sum(e.self_device_time_total for e in kernels)
+    print(
+        f"trace {label}: wall_s={wall:.4f} kernel_busy_s={device_us / 1e6:.4f} "
+        f"busy_share={device_us / 1e6 / wall:.3%} ({note}, under the profiler, "
+        f"{sum(e.count for e in kernels)} kernel launches)"
+    )
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def serve_trace(torch, engine) -> None:
+    """(k)'s engine again: host syncs in 8 decode steps (``torch.cuda`` sync
+    debug mode; the one synchronize that ends each ``step`` call is not an
+    implicit sync and is not flagged), then one prefill and 16 decode steps
+    under the profiler."""
+    import warnings
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompts = torch.randint(0, engine.cfg.vocab, (engine.batch, 512), generator=gen, device="cuda")
+    engine.start(prompts)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            engine.step(8)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    print(f"(k) serve: host syncs in 8 decode steps: {len(syncs)} ({len(syncs) / 8:.2f} a step) "
+          f"{sorted(set(syncs))[:4]}")
+    profile_kernels(torch, lambda: engine.start(prompts), "(k) prefill 8x512",
+                    "one prefill: 32 layers", top=10)
+    t0 = engine.decode_seconds
+    profile_kernels(torch, lambda: engine.step(16), "(k) decode", "16 decode steps of 8 tokens",
+                    top=10)
+    print(f"(k) decode under the profiler: {16 * engine.batch / (engine.decode_seconds - t0):.1f} tokens/s")
+
+
+def trace_phase(torch, engine):
+    """Host syncs per round and per decode step, then one more tiny_lm
+    oracle run and (k)'s prefill and decode under torch.profiler: the
+    device's busy share of the wall time and the kernels that take the
+    device time."""
+    phase("trace")
     from repro_torch import api
 
     for label, spec, _ in path_specs(api):
@@ -662,28 +953,8 @@ def trace_phase(torch):
 
     _, spec, _ = path_specs(api)[1]
     built = api.build(spec)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        api.run(spec, built=built)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # Kernel events only: an aten op's self device time repeats its kernels'.
-    kernels = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    if not kernels:
-        print("trace: the profiler recorded no kernel time (not measured)")
-        return
-    device_us = sum(e.self_device_time_total for e in kernels)
-    print(
-        f"trace tiny_lm oracle: wall_s={wall:.4f} kernel_busy_s={device_us / 1e6:.4f} "
-        f"busy_share={device_us / 1e6 / wall:.3%} ({ROUNDS} rounds, under the profiler, "
-        f"{sum(e.count for e in kernels)} kernel launches)"
-    )
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    profile_kernels(torch, lambda: api.run(spec, built=built), "tiny_lm oracle", f"{ROUNDS} rounds")
+    serve_trace(torch, engine)
 
 
 def _leaves(tree):
@@ -752,6 +1023,54 @@ def agreement_phase(torch):
             flush=True,
         )
     full_size_agreement(torch, api, np, rng)
+    serve_agreement(torch)
+
+
+def serve_agreement(torch):
+    """A 2-layer smollm-360m at full width in f32, served on the GPU and on
+    the CPU (plain path) from the same weights and prompts (4 x 200 tokens,
+    a ragged S for kernel 7, then 7 decode steps): the same greedy tokens,
+    logits within 1e-4.  Then bf16 on the GPU: prefill + paged decode
+    against the full forward (teacher forcing) within the reference's serve
+    tolerance, 2e-2."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2, param_dtype=torch.float32)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = torch.randint(0, cfg.vocab, (4, 200), generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params, batch=4, max_seq=208, page_size=16, device=dev)
+        eng.start(prompts)
+        first = eng.last_logits.cpu()
+        eng.step(7)
+        runs[dev] = (first, eng.last_logits.cpu(), eng.generated().cpu())
+    (f_cpu, l_cpu, g_cpu), (f_gpu, l_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    check(torch.equal(g_cpu, g_gpu), f"served tokens differ: GPU {g_gpu.tolist()} CPU {g_cpu.tolist()}")
+    torch.testing.assert_close(f_gpu, f_cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-4, atol=1e-4)
+    print(f"serve smollm-360m full width 2 layers f32: GPU == CPU greedy tokens {tuple(g_gpu.shape)}, "
+          f"prefill logits max_abs_diff={float((f_gpu - f_cpu).abs().max()):.3g}, last decode "
+          f"logits max_abs_diff={float((l_gpu - l_cpu).abs().max()):.3g}", flush=True)
+
+    cfg16 = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    p16 = transformer.init_params(cfg16, gen, "cuda")
+    toks = torch.randint(0, cfg.vocab, (4, 203), generator=gen, device="cuda")
+    full, _ = transformer.forward(p16, cfg16, toks)
+    pre, caches = transformer.prefill(p16, cfg16, toks[:, :200], max_seq=204, page_size=16)
+    diffs = [float((pre[:, 0].float() - full[:, 199].float()).abs().max())]
+    torch.testing.assert_close(pre[:, 0].float(), full[:, 199].float(), rtol=2e-2, atol=2e-2)
+    for i in range(3):
+        dec, caches = transformer.decode_step(p16, cfg16, toks[:, 200 + i : 201 + i], caches, 200 + i)
+        torch.testing.assert_close(dec[:, 0].float(), full[:, 200 + i].float(), rtol=2e-2, atol=2e-2)
+        diffs.append(float((dec[:, 0].float() - full[:, 200 + i].float()).abs().max()))
+    print(f"serve bf16 on the GPU: prefill + 3 paged decode steps == full forward within 2e-2 "
+          f"(max_abs_diff per step {[f'{d:.3g}' for d in diffs]})", flush=True)
 
 
 def full_size_agreement(torch, api, np, rng):
@@ -803,9 +1122,9 @@ def main() -> int:
     card = device_phase(torch)
     build_phase()
     rows, max_err, path_shape = kernel_phase(torch)
-    launches = path_phase(torch)
+    launches, engine = path_phase(torch)
     agreement_phase(torch)
-    trace_phase(torch)
+    trace_phase(torch, engine)
 
     kernels = []
     for name, (label, dtype) in path_shape.items():

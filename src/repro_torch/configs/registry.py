@@ -1,0 +1,77 @@
+"""Architecture registry (the port of ``repro/configs/registry.py``).
+
+Every zoo architecture of the reference is registered by name; the port
+holds its own copies of the dense configs and raises ``NotImplementedError``
+for the families it does not run yet.  ``llama3.2-1b-sw`` (the reference's
+``SW_CONFIG``, all layers sliding-window) is registered by name here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.common import ArchConfig
+
+__all__ = ["get_config", "has_arch", "list_archs", "INPUT_SHAPES", "ARCH_MODULES"]
+
+ARCH_MODULES = {
+    "qwen3-moe-235b-a22b": None,
+    "whisper-small": None,
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+    "xlstm-125m": None,
+    "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "zamba2-1.2b": None,
+    "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
+    "arctic-480b": None,
+    "llama-3.2-vision-11b": None,
+}
+# The reference's family of each arch the port does not hold yet, and the
+# ROADMAP.md item that ports it.
+_NOT_PORTED = {
+    "qwen3-moe-235b-a22b": ("moe", "moe, xlstm, vlm and audio families"),
+    "arctic-480b": ("moe", "moe, xlstm, vlm and audio families"),
+    "xlstm-125m": ("ssm", "moe, xlstm, vlm and audio families"),
+    "zamba2-1.2b": ("hybrid", "the hybrid family with kernel 8"),
+    "llama-3.2-vision-11b": ("vlm", "moe, xlstm, vlm and audio families"),
+    "whisper-small": ("audio", "moe, xlstm, vlm and audio families"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name == "llama3.2-1b-sw":
+        return importlib.import_module("repro_torch.configs.llama3_2_1b").SW_CONFIG
+    if name not in ARCH_MODULES:
+        raise ValueError(f"unknown arch {name!r}; options: {list_archs()}")
+    if ARCH_MODULES[name] is None:
+        family, item = _NOT_PORTED[name]
+        raise NotImplementedError(
+            f"{name!r} ({family} family) is not ported to repro_torch yet; see ROADMAP.md, "
+            f"'Zoo models': {item}"
+        )
+    return importlib.import_module(ARCH_MODULES[name]).CONFIG
+
+
+def has_arch(name: str) -> bool:
+    """Whether ``name`` is a registered zoo architecture (ported or not)."""
+    return name in ARCH_MODULES
+
+
+def list_archs() -> list[str]:
+    return list(ARCH_MODULES)

@@ -33,10 +33,13 @@ __all__ = [
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of a nested dict in the reference's pytree order: keys sorted
-    at every level (``jax.tree_util.tree_flatten`` on dicts)."""
+    """Leaves of nested dicts and lists in the reference's pytree order:
+    dict keys sorted at every level, lists in order
+    (``jax.tree_util.tree_flatten``)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 

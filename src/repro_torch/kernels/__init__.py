@@ -1,10 +1,13 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version (``ref``).  Ported: the four aggregation kernels of
-``fused_weighted_agg`` (kernel 3, ``fused_weighted_agg``, is reached through
-``kernels.ops`` so that the name here stays the module's) and
-``sharded_waterfill.waterfill_level_stats``.  ``ROADMAP.md`` queues the
-rest."""
+``fused_weighted_agg``, ``sharded_waterfill.waterfill_level_stats``,
+``rmsnorm.rmsnorm`` and ``flash_attention.flash_attention`` (forward).
+Kernels 3, 6 and 7 share their module's name and are reached through
+``kernels.ops``, so that the name here stays the module's.  ``ROADMAP.md``
+queues the rest."""
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_weighted_agg as _fwa
+from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import sharded_waterfill as _swf
 from repro_torch.kernels.fused_weighted_agg import (
     dequantize_stacked,
@@ -30,9 +33,12 @@ __all__ = [
 def launch_counts() -> dict:
     """Kernel launches per wrapper, every kernel of the port, since the last
     reset."""
-    return {**_fwa.launch_counts(), **_swf.launch_counts()}
+    return {
+        **_fwa.launch_counts(), **_swf.launch_counts(), **_rms.launch_counts(),
+        **_fa.launch_counts(),
+    }
 
 
 def reset_launch_counts() -> None:
-    _fwa.reset_launch_counts()
-    _swf.reset_launch_counts()
+    for mod in (_fwa, _swf, _rms, _fa):
+        mod.reset_launch_counts()

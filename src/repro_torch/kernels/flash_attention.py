@@ -1,0 +1,134 @@
+"""Flash attention (forward): kernel 7 of the port.
+
+Wrapper around the CUDA kernel in ``csrc/flash_attention.cu`` (design notes
+there), which replaces the JAX reference's Pallas TPU kernel
+``repro/kernels/flash_attention.py:flash_attention``: online-softmax
+attention with logits scaled by hd^-0.5, an optional soft cap applied before
+the mask, causal and sliding-window masks that set logits to -2.3819763e38,
+f32 accumulation, output in q's dtype.
+
+Beyond the TPU kernel's (H, S, hd) it takes a leading batch axis, any
+strides with hd contiguous (so the zoo models pass their
+(B, S, heads, hd) projections as (B, heads, S, hd) views without a copy),
+and ``q_groups``: query head h reads key/value head h // q_groups
+(grouped-query attention without expanding K and V).  ``q_groups=1`` is
+exactly the TPU kernel's function.  The TPU wrapper asserts
+``S % block == 0``; this one masks the ragged tail instead: keys at or past
+S_k never count, query rows at or past S_q are not written.
+
+Dispatch is by the device of the tensors: on the CPU the wrapper computes
+the plain PyTorch version (``kernels.ref.mha_reference``); on a CUDA device
+it launches the kernel or raises, with no fallback.  Launches are counted in
+``flash_attention.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import load_library
+
+__all__ = ["flash_attention", "launch_counts", "reset_launch_counts"]
+
+MAX_HEAD_DIM = 256
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load_library("flash_attention")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+        i32, i32, ctypes.c_float, ctypes.c_float, i32, ptr,
+    ]
+    lib.flash_attention_fwd.restype = i32
+    return lib
+
+
+def _check(q, k, v, q_groups, window, softcap):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.dim() not in (3, 4):
+            raise ValueError(f"{name} must be a (H, S, hd) or (B, H, S, hd) tensor")
+        if t.dim() != q.dim() or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("q, k and v must share rank, dtype and device")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q, k, v must be f32 or bf16, got {q.dtype}")
+    if k.shape != v.shape:
+        raise ValueError(f"k and v shapes differ: {tuple(k.shape)} vs {tuple(v.shape)}")
+    if int(q_groups) < 1 or q.shape[-3] != k.shape[-3] * int(q_groups):
+        raise ValueError(
+            f"q has {q.shape[-3]} heads, k {k.shape[-3]}: need q heads = k heads * q_groups "
+            f"({q_groups})"
+        )
+    if q.shape[:-3] != k.shape[:-3] or q.shape[-1] != k.shape[-1]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on batch or hd")
+    if k.shape[-2] < 1:
+        raise ValueError("k must hold at least one key")
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if softcap is not None and not float(softcap) > 0.0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    q_groups: int = 1,
+) -> torch.Tensor:
+    """q (H, S_q, hd) or (B, H, S_q, hd); k, v (H / q_groups, S_k, hd) or
+    (B, H / q_groups, S_k, hd); f32 or bf16, hd <= 256 on the GPU.  Returns
+    q's shape and dtype (on the GPU with q's memory layout)."""
+    _check(q, k, v, q_groups, window, softcap)
+    if q.device.type == "cpu":
+        return ref.mha_reference(
+            q, k, v, causal=causal, window=window, softcap=softcap, q_groups=int(q_groups)
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    hd = q.shape[-1]
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes hd <= {MAX_HEAD_DIM}, got {hd}")
+    batched = q.dim() == 4
+    q4, k4, v4 = (t if batched else t.unsqueeze(0) for t in (q, k, v))
+    q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous() for t in (q4, k4, v4))
+    out = torch.empty_like(q4)  # a dense q keeps its layout (preserve_format)
+    b, h, s_q, _ = q4.shape
+    s_k = k4.shape[2]
+    if max(b, s_q, s_k) >= 2**31 or h > 65535:
+        raise ValueError(f"unsupported shape q {tuple(q4.shape)}, k {tuple(k4.shape)}")
+    if out.numel() == 0:
+        return out if batched else out.squeeze(0)
+    strides = (ctypes.c_int64 * 12)(*(s for t in (q4, k4, v4, out) for s in t.stride()[:3]))
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), strides,
+            b, h, int(q_groups), s_q, s_k, hd, int(bool(causal)),
+            0 if window is None else int(window), 0.0 if softcap is None else float(softcap),
+            float(hd**-0.5), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention CUDA launch failed: cudaError {rc}")
+    flash_attention.launches += 1
+    return out if batched else out.squeeze(0)
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset."""
+    return {"flash_attention": flash_attention.launches}
+
+
+def reset_launch_counts() -> None:
+    flash_attention.launches = 0
+
+
+reset_launch_counts()

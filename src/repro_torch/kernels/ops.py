@@ -1,9 +1,8 @@
 """Public wrappers for the port's kernels, after ``repro/kernels/ops.py``.
 
 Only the wrappers whose kernels exist in the port are here.  The reference's
-``flash_attention``, ``flash_attention_trainable``, ``ssd_scan`` and
-``rmsnorm`` wait for the zoo slice (``ROADMAP.md`` queue 1, "Zoo models +
-pod-scale round"; queue 2, kernels 6-8).
+``flash_attention_trainable`` (with its backward) waits for the zoo
+federated round and ``ssd_scan`` for the hybrid family (``ROADMAP.md``).
 
 As everywhere in the port, a tensor on the CPU takes the kernel's plain
 PyTorch version and a tensor on a CUDA device launches the CUDA kernel.
@@ -14,9 +13,17 @@ import torch
 
 from repro_torch.core.estimator import flatten_stacked, unflatten_vector
 from repro_torch.kernels import fused_weighted_agg as _fwa
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sharded_waterfill import waterfill_level_stats
 
-__all__ = ["fused_weighted_agg", "aggregate_cohort_updates", "waterfill_level_stats"]
+__all__ = [
+    "flash_attention",
+    "fused_weighted_agg",
+    "rmsnorm",
+    "aggregate_cohort_updates",
+    "waterfill_level_stats",
+]
 
 
 def fused_weighted_agg(g: torch.Tensor, w: torch.Tensor, *, block_d: int = 2048):

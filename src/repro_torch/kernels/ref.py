@@ -1,10 +1,11 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each function computes what its kernel in ``fused_weighted_agg`` or
-``sharded_waterfill`` computes, with the arithmetic the JAX reference falls
-back to off the TPU (``repro/core/estimator.py``: ``w2 @ flat`` and
+Each function computes what its kernel in ``fused_weighted_agg``,
+``sharded_waterfill``, ``rmsnorm`` or ``flash_attention`` computes, with the
+arithmetic the JAX reference falls back to off the TPU
+(``repro/core/estimator.py``: ``w2 @ flat`` and
 ``dequant_cohort_agg_reference``; ``repro/kernels/ref.py``:
-``waterfill_stats_reference``).  The wrappers use them for tensors on the
+``waterfill_stats_reference``, ``rmsnorm_reference``, ``mha_reference``).  The wrappers use them for tensors on the
 CPU, the tests hold them against the JAX kernels run in interpret mode, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
@@ -18,7 +19,11 @@ __all__ = [
     "weighted_agg_reference",
     "dequant_cohort_agg_reference",
     "waterfill_stats_reference",
+    "rmsnorm_reference",
+    "mha_reference",
 ]
+
+NEG = -2.3819763e38  # the reference's bf16-safe -inf surrogate for masked logits
 
 
 def multi_weighted_agg_reference(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -86,3 +91,47 @@ def waterfill_stats_reference(
         n_floor += at_floor.sum(0)
         mid += torch.where(below & ~at_floor, a, 0.0).sum(0)
     return n_below.to(torch.float32), n_floor.to(torch.float32), mid
+
+
+def rmsnorm_reference(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x (R, D), scale (D,) -> x * rsqrt(mean(x^2) + eps) * (1 + scale) in
+    x.dtype, with f32 math."""
+    xf = x.to(torch.float32)
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def mha_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    q_groups: int = 1,
+) -> torch.Tensor:
+    """q (..., H, S_q, hd); k, v (..., H / q_groups, S_k, hd), query head h
+    reading key/value head h // q_groups.  Returns (..., H, S_q, hd) in
+    q.dtype.
+
+    Logits in f32 scaled by hd^-0.5, soft-capped before the mask, masked
+    logits set to ``NEG`` (so a row masked everywhere averages v, as the
+    reference's does), probabilities kept in f32 for the product with v."""
+    if q_groups > 1:
+        k = k.repeat_interleave(q_groups, dim=-3)
+        v = v.repeat_interleave(q_groups, dim=-3)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    s_q, s_k = q.shape[-2], k.shape[-2]
+    qpos = torch.arange(s_q, device=q.device)[:, None]
+    kpos = torch.arange(s_k, device=q.device)[None, :]
+    mask = torch.ones((s_q, s_k), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    probs = torch.softmax(torch.where(mask, logits, NEG), dim=-1)
+    return torch.matmul(probs, v.to(torch.float32)).to(q.dtype)

@@ -1,0 +1,341 @@
+"""Model assembly for the dense family (the port of
+``repro/models/transformer.py``, block kinds ``attn`` and ``attn_local``).
+
+The parameter tree keeps the reference's names and stacked layout: each
+pattern slot j holds its blocks' leaves in ``params["stacks"][j]`` with a
+leading repeats axis, and the forward loops over repeats in Python (the
+reference scans them).  Three modes share the blocks:
+
+  train   (``forward``)     full sequence, no caches   -> logits, aux
+  prefill (``prefill``)     full sequence, caches out  -> last logits, caches
+  decode  (``decode_step``) one token, caches updated  -> logits, caches
+
+Caches mirror the slots, stacked over repeats.  Every ``rms_norm`` is one
+launch of kernel 6 (two a layer plus the final norm) and every
+full-sequence attention one launch of kernel 7 (one a layer in ``forward``
+and ``prefill``); a decode step launches kernel 6 ``2 * n_layers + 1``
+times and kernel 7 never.  ``params_from_reference`` turns the JAX
+reference's ``init_params`` tree (numpy leaves) into the port's tree.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.fed.tasks import tree_leaves
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import (
+    _causal_mask,
+    _project_qkv,
+    _rope_qk,
+    _self_attention,
+    init_attention,
+)
+from repro_torch.models.common import ArchConfig, rms_norm, rope_angles, softcap, uniform_init
+from repro_torch.models.mlp import init_mlp, mlp
+
+__all__ = [
+    "init_params",
+    "params_from_reference",
+    "forward",
+    "loss_fn",
+    "prefill",
+    "decode_step",
+    "init_caches",
+    "param_count",
+]
+
+MOE_AUX_COEF = 0.01
+
+PORTED_KINDS = ("attn", "attn_local")
+_TODO = {
+    "moe": "moe, xlstm, vlm and audio families",
+    "mlstm": "moe, xlstm, vlm and audio families",
+    "slstm": "moe, xlstm, vlm and audio families",
+    "cross_attn": "moe, xlstm, vlm and audio families",
+    "enc": "moe, xlstm, vlm and audio families",
+    "dec": "moe, xlstm, vlm and audio families",
+    "mamba2": "the hybrid family with kernel 8",
+    "shared_attn": "the hybrid family with kernel 8",
+}
+
+
+def _check_kind(kind: str) -> None:
+    if kind in PORTED_KINDS:
+        return
+    if kind in _TODO:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported to repro_torch yet; see ROADMAP.md, "
+            f"'Zoo models': {_TODO[kind]}"
+        )
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_block(cfg: ArchConfig, gen: torch.Generator | None) -> dict:
+    """One ``attn`` / ``attn_local`` block (the two kinds share a layout)."""
+    dev = "meta" if gen is None else gen.device
+    d, dt = cfg.d_model, cfg.param_dtype
+    return {
+        "ln1": torch.zeros((d,), dtype=dt, device=dev),
+        "attn": init_attention(cfg, gen),
+        "ln2": torch.zeros((d,), dtype=dt, device=dev),
+        "mlp": init_mlp(cfg, gen),
+    }
+
+
+def _stack(trees: list) -> dict:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _init_tree(cfg: ArchConfig, gen: torch.Generator | None) -> dict:
+    for kind in cfg.block_pattern:
+        _check_kind(kind)
+    reps = cfg.pattern_repeats()
+    dev = "meta" if gen is None else gen.device
+    params = {
+        "embed": uniform_init(gen, (cfg.vocab, cfg.d_model), cfg.param_dtype, scale=0.02),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.param_dtype, device=dev),
+        "stacks": [
+            _stack([_init_block(cfg, gen) for _ in range(reps)]) for _ in cfg.block_pattern
+        ],
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = uniform_init(gen, (cfg.d_model, cfg.vocab), cfg.param_dtype, scale=0.02)
+    return params
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, device=None) -> dict:
+    """Fresh weights drawn from ``gen`` (a generator on ``device``; the GPU
+    unless the caller asks for the CPU).  The reference's initializers and
+    scales; other numbers than the reference's threefry draws."""
+    dev = resolve_device(device)
+    if gen.device.type != dev.type:
+        raise ValueError(f"the generator is on {gen.device}, the parameters go to {dev}")
+    return _init_tree(cfg, gen)
+
+
+def _to_tensor(x, device) -> torch.Tensor:
+    a = np.array(x, copy=True, order="C")  # writable: jax's host arrays are read-only
+    if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: torch.from_numpy refuses it
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_reference(tree, cfg: ArchConfig, device=None) -> dict:
+    """The JAX reference's ``init_params(cfg, key)`` tree, with numpy (or
+    array-like) leaves, as the port's tree, name for name; shapes and dtypes
+    are checked against what ``init_params`` builds for ``cfg``."""
+    dev = resolve_device(device)
+    want = _init_tree(cfg, None)
+
+    def conv(node, spec, path):
+        if isinstance(spec, dict):
+            if not isinstance(node, dict) or set(node) != set(spec):
+                got = sorted(node) if isinstance(node, dict) else type(node).__name__
+                raise ValueError(f"params_from_reference: {path or 'root'} has {got}, expected {sorted(spec)}")
+            return {k: conv(node[k], spec[k], f"{path}[{k!r}]") for k in spec}
+        if isinstance(spec, list):
+            if not isinstance(node, (list, tuple)) or len(node) != len(spec):
+                raise ValueError(f"params_from_reference: {path} must be a list of {len(spec)} slots")
+            return [conv(n, s, f"{path}[{i}]") for i, (n, s) in enumerate(zip(node, spec))]
+        t = _to_tensor(node, dev)
+        if tuple(t.shape) != tuple(spec.shape) or t.dtype != spec.dtype:
+            raise ValueError(
+                f"params_from_reference: {path} is {tuple(t.shape)}/{t.dtype}, expected "
+                f"{tuple(spec.shape)}/{spec.dtype}"
+            )
+        return t
+
+    return conv(tree, want, "")
+
+
+def param_count(params) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _rep(tree, r: int):
+    if isinstance(tree, dict):
+        return {k: _rep(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _full_attention(p, cfg: ArchConfig, x, rope, *, window=None, want_cache=False, max_seq=None):
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, x)
+    q, k = _rope_qk(cfg, q, k, rope)
+    out = _self_attention(cfg, q, k, v, causal=True, window=window)
+    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    cache = None
+    if want_cache:
+        if max_seq is not None and max_seq > s:
+            pad = (0, 0, 0, 0, 0, max_seq - s)
+            k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
+        cache = {"k": k, "v": v}
+    return out, cache
+
+
+def _decode_attn(p, cfg: ArchConfig, x, cache, index, rope, masks: dict, *, window=None):
+    """The paged cache (the serving engine's pool + page table) routes to
+    ``paged_decode_attention``, the dense layout to ``decode_attention``.
+    ``masks`` memoizes the step's decode mask per window across layers."""
+    paged = "page_table" in cache
+    if window not in masks:
+        n_keys = cache["page_table"].shape[1] * cache["pool_k"].shape[1] if paged else cache["k"].shape[1]
+        masks[window] = _causal_mask(1, n_keys, window, index, x.device)
+    fn = attn_mod.paged_decode_attention if paged else attn_mod.decode_attention
+    return fn(p, cfg, x, cache, index, window=window, rope=rope, mask=masks[window])
+
+
+def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cache=None,
+                 index=None, max_seq=None, masks=None):
+    """Returns (h, new_cache).  ``rope``: the (cos, sin) tables of the
+    positions this call processes, shared by every layer."""
+    window = cfg.sliding_window if kind == "attn_local" else None
+    x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    if mode == "decode":
+        y, cache = _decode_attn(p["attn"], cfg, x, cache, index, rope, masks, window=window)
+    else:
+        y, cache = _full_attention(
+            p["attn"], cfg, x, rope, window=window, want_cache=(mode == "prefill"), max_seq=max_seq
+        )
+    h = h + y
+    x = rms_norm(h, p["ln2"], cfg.norm_eps)
+    return h + mlp(p["mlp"], cfg, x), cache
+
+
+def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max_seq=None):
+    """Loop over the pattern groups.  caches: per slot, stacked over
+    repeats (decode updates them in place); prefill returns new ones.  The
+    RoPE tables (and in decode the masks) are the same for every layer, so
+    they are computed once per call (the reference's XLA program shares
+    them the same way)."""
+    for kind in cfg.block_pattern:
+        _check_kind(kind)
+    reps = cfg.pattern_repeats()
+    if mode == "decode":
+        pos = torch.arange(index, index + 1, device=h.device)
+    else:
+        pos = torch.arange(h.shape[1], device=h.device)
+    rope = rope_angles(pos, cfg.hd, cfg.rope_theta)
+    masks: dict = {}
+    out_caches = [[] for _ in cfg.block_pattern]
+    for r in range(reps):
+        for j, kind in enumerate(cfg.block_pattern):
+            cache = None if caches is None else _rep(caches[j], r)
+            h, nc = _apply_block(
+                kind, _rep(params["stacks"][j], r), cfg, h, rope, mode=mode, cache=cache,
+                index=index, max_seq=max_seq, masks=masks,
+            )
+            out_caches[j].append(nc)
+    if mode == "prefill":
+        return h, [_stack(c) for c in out_caches]
+    return h, caches
+
+
+def _embed(params, cfg: ArchConfig, tokens):
+    h = params["embed"][tokens]
+    if cfg.scale_embed:
+        # sqrt(d_model) rounded to h's dtype first, as the reference does; a
+        # host scalar, so no host-to-device copy.
+        h = h * float(torch.tensor(cfg.d_model**0.5, dtype=h.dtype))
+    return h
+
+
+def _head(params, cfg: ArchConfig, h):
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    return softcap(h @ head, cfg.final_softcap)
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None):
+    """Training forward: tokens (B, S) -> (logits (B,S,V), aux_loss)."""
+    if aux_embeds is not None or cfg.frontend:
+        raise NotImplementedError("frontend archs (vlm, audio) are not ported; see ROADMAP.md")
+    h = _embed(params, cfg, tokens)
+    h, _ = _run_stack(params, cfg, h, mode="train")
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _head(params, cfg, h), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
+    """batch: (tokens, targets).  Mean next-token cross-entropy in f32 (plus
+    the MoE auxiliary term, zero for the dense family)."""
+    tokens, targets = batch[0], batch[1]
+    logits, aux = forward(params, cfg, tokens, batch[2] if len(batch) > 2 else None)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(logz - gold) + MOE_AUX_COEF * aux
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_seq: int, page_size: int | None = None, *,
+                device=None):
+    """Zeroed caches (stacked over pattern repeats) for decode; ``page_size``
+    switches to the paged layout (``attention.init_paged_kv_cache``)."""
+    dev = resolve_device(device)
+    reps = cfg.pattern_repeats()
+
+    def one(kind):
+        _check_kind(kind)
+        if page_size is not None:
+            c = attn_mod.init_paged_kv_cache(cfg, batch, max_seq, page_size, device=dev)
+        else:
+            c = attn_mod.init_kv_cache(cfg, batch, max_seq, device=dev)
+        return _stack([c] * reps)
+
+    return [one(kind) for kind in cfg.block_pattern]
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None, max_seq=None,
+            page_size: int | None = None):
+    """Process the prompt, return (logits (B, 1, V), caches).  Attention
+    caches are padded to ``max_seq`` (default: the prompt length); with
+    ``page_size`` they are repacked into the paged decode layout."""
+    if aux_embeds is not None or cfg.frontend:
+        raise NotImplementedError("frontend archs (vlm, audio) are not ported; see ROADMAP.md")
+    h = _embed(params, cfg, tokens)
+    h, caches = _run_stack(params, cfg, h, mode="prefill", max_seq=max_seq)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = _head(params, cfg, h[:, -1:])
+    if page_size is not None:
+        caches = _caches_to_pages(cfg, caches, page_size)
+    return logits, caches
+
+
+def _caches_to_pages(cfg: ArchConfig, caches, page_size: int):
+    """Repack every self-attention slot cache (stacked over repeats) into the
+    paged layout."""
+    out = []
+    for cache in caches:
+        reps = cache["k"].shape[0]
+        out.append(_stack([
+            attn_mod.pack_kv_to_pages({"k": cache["k"][r], "v": cache["v"][r]}, page_size)
+            for r in range(reps)
+        ]))
+    return out
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, index: int):
+    """token (B, 1) int; index = number of tokens already in the cache (a
+    host integer).  Updates ``caches`` in place and returns them."""
+    h = _embed(params, cfg, token)
+    h, caches = _run_stack(params, cfg, h, mode="decode", caches=caches, index=int(index))
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _head(params, cfg, h), caches

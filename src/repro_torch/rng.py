@@ -19,7 +19,12 @@ can hand it the reference's own draws.  A source supplies:
   variates for the deadline (``fold_in(k_sample, 102)``; (N,) in oracle
   mode, (C,) in deployable mode);
 * ``async_latency(t, dist)``: round t's 0-d standard variate for the
-  buffered-async arrival delay (``fold_in(k_sample, 103)``).
+  buffered-async arrival delay (``fold_in(k_sample, 103)``);
+* ``gumbel(t, shape)``: the serving engine's t-th sampling call's standard
+  Gumbel noise (the prefill's first token is call 0); a token is
+  ``argmax(logits / temperature + noise)``, which is how
+  ``jax.random.categorical`` samples, so a test can replay the reference
+  engine's noise.
 
 A standard variate is one of the latency family ``dist``, before the
 spec's parameters are applied (``core.stragglers.latency_draw``): Exp(1)
@@ -62,6 +67,8 @@ class RandomSource(Protocol):
 
     def async_latency(self, t: int, dist: str) -> torch.Tensor: ...
 
+    def gumbel(self, t: int, shape: tuple) -> torch.Tensor: ...
+
 
 def _check_dist(dist: str) -> None:
     if dist not in _LATENCY_DISTS:
@@ -76,6 +83,7 @@ class PhiloxSource:
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
+        self._seed = int(seed)
         self._gen = {}
         for k, name in enumerate(self._STREAMS):
             gen = torch.Generator(device=self.device)
@@ -121,6 +129,17 @@ class PhiloxSource:
     def async_latency(self, t: int, dist: str) -> torch.Tensor:
         return self._standard((), dist, "async")
 
+    def gumbel(self, t: int, shape: tuple) -> torch.Tensor:
+        if "gumbel" not in self._gen:
+            # Seeded apart from the round's streams (whose seeds are
+            # seed * 7 + k), so adding this stream moved none of them.
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed((1 << 40) + self._seed)
+            self._gen["gumbel"] = gen
+        u = torch.rand(tuple(shape), generator=self._gen["gumbel"], device=self.device)
+        tiny = torch.finfo(torch.float32).tiny
+        return -torch.log(-torch.log(u.clamp_(min=tiny)))
+
 
 class ReplaySource:
     """Plays back recorded draws.
@@ -132,20 +151,28 @@ class ReplaySource:
     The fault layer's tables, each None when the run does not draw it:
     ``avail_uniforms`` (T, N), ``latencies`` (T, W) standard variates with
     W = N (oracle) or C (deployable), ``async_latencies`` (T,) standard
-    variates; the latency tables are of the run's latency family."""
+    variates; the latency tables are of the run's latency family.  The
+    serving engine's table, None unless it samples: ``gumbel``
+    (T, B, V) standard Gumbel noise, one row per sampling call.  A source
+    for the engine alone records only that: the round's tables default to
+    None."""
 
     def __init__(
-        self, init_params, uniforms, priorities, batch_idx, device, *,
-        avail_uniforms=None, latencies=None, async_latencies=None,
+        self, init_params=None, uniforms=None, priorities=None, batch_idx=None, device="cpu", *,
+        avail_uniforms=None, latencies=None, async_latencies=None, gumbel=None,
     ):
         self.device = torch.device(device)
         self._init = init_params
         self._u = self._table(uniforms)
         self._prio = self._table(priorities)
-        self._idx = torch.as_tensor(np.asarray(batch_idx, np.int64), device=self.device)
+        self._idx = (
+            None if batch_idx is None
+            else torch.as_tensor(np.asarray(batch_idx, np.int64), device=self.device)
+        )
         self._avail = self._table(avail_uniforms)
         self._lat = self._table(latencies)
         self._async = self._table(async_latencies)
+        self._gumbel = self._table(gumbel)
 
     def _table(self, values):
         if values is None:
@@ -162,7 +189,7 @@ class ReplaySource:
         return params_from_reference(self._init, self.device)
 
     def isp_uniforms(self, t: int, n: int) -> torch.Tensor:
-        return self._u[t, :n]
+        return self._recorded(self._u, "ISP uniforms")[t, :n]
 
     def cohort_priorities(self, t: int, n: int) -> torch.Tensor:
         return self._recorded(self._prio, "cohort priorities")[t, :n]
@@ -170,7 +197,7 @@ class ReplaySource:
     def batch_indices(
         self, t: int, sizes: torch.Tensor, local_steps: int, batch_size: int
     ) -> torch.Tensor:
-        idx = self._idx[t]
+        idx = self._recorded(self._idx, "batch indices")[t]
         want = (sizes.shape[0], local_steps, batch_size)
         if tuple(idx.shape) != want:
             raise ValueError(f"recorded batch indices have shape {tuple(idx.shape)}, need {want}")
@@ -191,3 +218,9 @@ class ReplaySource:
     def async_latency(self, t: int, dist: str) -> torch.Tensor:
         _check_dist(dist)
         return self._recorded(self._async, "async latencies")[t]
+
+    def gumbel(self, t: int, shape: tuple) -> torch.Tensor:
+        g = self._recorded(self._gumbel, "Gumbel noise")[t]
+        if tuple(g.shape) != tuple(shape):
+            raise ValueError(f"recorded Gumbel noise has shape {tuple(g.shape)}, need {tuple(shape)}")
+        return g
