@@ -9,13 +9,16 @@ Phases, each failing loudly (non-zero exit, no result line):
 2. build  — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a, one nvcc per source, all started together, and
    print the build times;
-3. kernels — hold each of the seven kernels against its plain PyTorch
+3. kernels — hold each of the eight kernels against its plain PyTorch
    version on the card at the main path's shapes (and one large shape),
    check that kernels 2–5's norms, error scalar or counts and sums are
    bitwise repeatable, and time kernel, plain version, the library call
    computing the same function (where there is one) and the bound; kernels 6
    (rmsnorm) and 7 (flash_attention) at the serving path's shapes, kernel 7
    in all four modes, at a ragged S, with grouped-query heads, bf16 and f32;
+   kernel 8 (ssd_scan) at zamba2-1.2b's prefill shape as the model passes
+   it, with b and c per row, at a ragged S, under strong decays, y and the
+   final state;
 4. path — ``repro_torch.api.run(spec)`` with no device argument (so on the
    GPU) for the paper's logistic-regression spec and the tiny-LM spec in
    oracle and deployable mode, three compressed specs (int8 / fp8 deltas,
@@ -29,20 +32,23 @@ Phases, each failing loudly (non-zero exit, no result line):
    sampler round (K-Vib, K=64, sharded solve + draw + update) at
    N = 10^4, 10^5, 10^6; then serving: (k) ``python -m
    repro_torch.launch.serve``'s demo at full width and depth (smollm-360m,
-   bf16, batch 8, prompt 512, 64 new tokens, pages of 16) and (l) gemma2-27b
+   bf16, batch 8, prompt 512, 64 new tokens, pages of 16), (l) gemma2-27b
    at full width cut to one (attn_local, attn) pattern through
-   ``repro_torch.serve.ServeEngine``, each with its exact kernel 6 and 7
-   launch counts;
+   ``repro_torch.serve.ServeEngine``, and (m) the launcher serving
+   zamba2-1.2b (the Mamba2 hybrid) at full width and depth, each with its
+   exact kernel 6, 7 and 8 launch counts;
 5. agreement — small runs on the GPU, uncompressed and int8-compressed, and
    runs (g) and (h) equal the same runs on the CPU (plain PyTorch path) fed
    the same recorded draws; a 2-layer full-width smollm-360m served in f32 on
    the GPU and on the CPU from the same weights gives the same greedy tokens
    and logits within 1e-4, and bf16 prefill + decode on the GPU agrees with
-   the full forward (teacher forcing) within 2e-2;
+   the full forward (teacher forcing) within 2e-2; a 3-layer full-width
+   zamba2 hybrid in f32 likewise gives the CPU's greedy tokens and logits
+   within 1e-4;
 6. trace — host syncs in the round bodies and per decode step, then one
-   tiny-LM round loop and one serving prefill and decode of (k) under
-   ``torch.profiler``: the device's busy share and the kernels that take
-   its time.
+   tiny-LM round loop and one serving prefill and decode of (k) and of (m)
+   under ``torch.profiler``: the device's busy share, the kernels that take
+   its time and, for (m), kernel 8's share of the prefill.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -63,7 +69,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
-LIBRARIES = ("fused_weighted_agg", "sharded_waterfill", "rmsnorm", "flash_attention")  # csrc/<name>.cu
+LIBRARIES = ("fused_weighted_agg", "sharded_waterfill", "rmsnorm", "flash_attention",
+             "ssd_scan")  # csrc/<name>.cu
 SOURCE = {
     name: "src/repro_torch/kernels/csrc/fused_weighted_agg.cu"
     for name in ("fused_weighted_agg", "fused_multi_weighted_agg",
@@ -72,6 +79,7 @@ SOURCE = {
 SOURCE["waterfill_level_stats"] = "src/repro_torch/kernels/csrc/sharded_waterfill.cu"
 SOURCE["rmsnorm"] = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 SOURCE["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCE["ssd_scan"] = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 REPLACES = {
     "fused_weighted_agg": "src/repro/kernels/fused_weighted_agg.py:134",
     "fused_multi_weighted_agg": "src/repro/kernels/fused_weighted_agg.py:174",
@@ -80,11 +88,16 @@ REPLACES = {
     "waterfill_level_stats": "src/repro/kernels/sharded_waterfill.py:72",
     "rmsnorm": "src/repro/kernels/rmsnorm.py:27",
     "flash_attention": "src/repro/kernels/flash_attention.py:86",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:74",
 }
 # The serving runs: (k) the launcher's demo at full width and depth,
-# (l) gemma2-27b at full width, one pattern deep.
+# (l) gemma2-27b at full width, one pattern deep, (m) the launcher serving
+# the Mamba2 hybrid at full width and depth.
 SERVE_K = ["--arch", "smollm-360m", "--batch", "8", "--prompt-len", "512",
            "--new-tokens", "64", "--page-size", "16"]
+SERVE_M = ["--arch", "zamba2-1.2b", "--batch", "8", "--prompt-len", "512",
+           "--new-tokens", "64", "--page-size", "16"]
+ZAMBA2_PARAMS = 1_053_612_800
 GEMMA_L = dict(batch=8, prompt_len=512, new_tokens=16, page_size=16)
 ROUNDS = 5
 LADDER_PASSES = 5  # kernel 5 launches per sharded K-Vib solve (core/solver.py)
@@ -278,6 +291,9 @@ def kernel_phase(torch):
     rows.update(flash_kernel_phase(torch, gen, flush, max_err))
     path_shape["rmsnorm"] = ("prefill smollm", "bfloat16")
     path_shape["flash_attention"] = ("prefill smollm causal", "bfloat16")
+    max_err["ssd_scan"] = 0.0
+    rows.update(ssd_kernel_phase(torch, gen, flush, max_err))
+    path_shape["ssd_scan"] = ("prefill zamba2", "float32")
     return rows, max_err, path_shape
 
 
@@ -511,6 +527,107 @@ def flash_kernel_phase(torch, gen, flush, max_err):
     return rows
 
 
+def ssd_ops(s: int, hd: int, n: int, q: int, rows: int, bc_rows: int) -> int:
+    """Operations the SSD scan needs over ``rows`` rows reading ``bc_rows``
+    rows of b and c, for the steps each chunk of this input holds.  Per
+    chunk of qn steps: the causal half of the scores x X, qn (qn + 1) hd,
+    and the inter-chunk term and state update, 4 qn N hd, for every row;
+    the causal half of C B^T, qn (qn + 1) N, once a b/c row (the heads that
+    share b and c share it).  Elementwise exps and scalings are left out."""
+    per_row = per_bc = 0
+    for s0 in range(0, s, q):
+        qn = min(q, s - s0)
+        per_row += qn * (qn + 1) * hd + 4 * qn * n * hd
+        per_bc += qn * (qn + 1) * n
+    return rows * per_row + bc_rows * per_bc
+
+
+def ssd_kernel_phase(torch, gen, flush, max_err):
+    """Kernel 8 at (m)'s prefill shape (B=8, 64 heads, S=512, hd=N=64,
+    Q=128) as ``models/ssm.py`` passes it: x and da f32 (B, H, S, ·) views of
+    the model's (B, S, H, ·) tensors, b and c bf16 (B, S, N) slices of the
+    conv output shared by the 64 heads, the final state returned; the same
+    with bf16 x, with b and c repeated per row, at a ragged S=200, at
+    hd=128 over N=16, and under a strong decay (-0.75 a step: exp(cum_t -
+    cum_s) above the diagonal overflows f32).  Decays are the model's at
+    its init (A=-1, da = -softplus(dt)).  y and the state within 1e-4 of the
+    plain version relative to their largest value in f32, 3e-2 in bf16; the
+    ragged and strong-decay cases also against the sequential recurrence
+    ``ref.ssd_reference`` (1e-3 in f32, the tests' tolerance for a chunked
+    sum against a step-by-step one; 3e-2 in bf16).  The bound: x, da, b, c
+    read once, y and the state written once, against ``ssd_ops`` over the
+    f32 rate.  No PyTorch call computes the scan."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {}
+    cases = [  # (label, B, H, S, hd, N, Q, x dtype, b/c dtype, b/c shared, constant da)
+        ("prefill zamba2", 8, 64, 512, 64, 64, 128, f32, bf16, True, None),
+        ("prefill zamba2 bf16 x", 8, 64, 512, 64, 64, 128, bf16, bf16, True, None),
+        ("per-row b/c", 8, 64, 512, 64, 64, 128, f32, f32, False, None),
+        ("ragged S=200", 8, 64, 200, 64, 64, 128, f32, bf16, True, None),
+        ("ragged S=200 bf16", 8, 64, 200, 64, 64, 128, bf16, bf16, True, None),
+        ("hd=128 N=16", 4, 8, 128, 128, 16, 128, f32, f32, True, None),
+        ("strong decay", 8, 64, 512, 64, 64, 128, f32, bf16, True, -0.75),
+    ]
+    for label, b, h, s, hd, n, q, x_dt, bc_dt, shared, da_value in cases:
+        x = (0.7 * torch.randn(b, s, h, hd, generator=gen, device=dev)).to(x_dt).transpose(1, 2)
+        if da_value is None:
+            da = -F.softplus(0.5 * torch.randn(b, s, h, generator=gen, device=dev)).transpose(1, 2)
+        else:
+            da = torch.full((b, s, h), da_value, device=dev).transpose(1, 2)
+        xbc = (0.5 * torch.randn(b, s, 4096 + 2 * n, generator=gen, device=dev)).to(bc_dt)
+        bm, cm = xbc[..., 4096 : 4096 + n], xbc[..., 4096 + n :]
+        if not shared:
+            x = x.reshape(b * h, s, hd)
+            da = da.reshape(b * h, s)
+            bm, cm = (t.repeat_interleave(h, dim=0) for t in (bm, cm))
+        y, st = ssd.ssd_scan(x, da, bm, cm, chunk=q, return_state=True)
+        y_want, st_want = ref.ssd_scan_reference(x, da, bm, cm, chunk=q, return_state=True)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()),
+              f"ssd_scan {label}: non-finite output")
+        limit = 3e-2 if x_dt == bf16 else 1e-4
+        errs = []
+        for got, want in ((y, y_want), (st, st_want)):
+            err = float((got.float() - want.float()).abs().max())
+            rel = err / float(want.float().abs().max())
+            check(rel <= limit, f"ssd_scan {label}: error {err:.3g} is {rel:.3g} of the largest value")
+            errs.append((err, rel))
+        max_err["ssd_scan"] = max(max_err["ssd_scan"], errs[0][0], errs[1][0])
+        oracle_txt = ""
+        if s % q or da_value is not None:  # ragged and strong decay: the step-by-step recurrence too
+            bh = b * h
+            b_r, c_r = (t.repeat_interleave(bh // t.shape[0], dim=0) for t in (bm, cm))
+            y_seq, st_seq = ref.ssd_reference(x.reshape(bh, s, hd), da.reshape(bh, s), b_r, c_r)
+            tol = 3e-2 if x_dt == bf16 else 1e-3
+            for what, got, want in (("y", y.reshape(bh, s, hd), y_seq), ("state", st, st_seq)):
+                diff, mag = (got.float() - want.float()).abs(), want.float().abs()
+                check(bool((diff <= tol + tol * mag).all()),
+                      f"ssd_scan {label}: {what} differs from the sequential recurrence beyond {tol}")
+                oracle_txt += f" {what}_err_vs_sequential={float(diff.max()):.3g}"
+            del b_r, c_r, y_seq, st_seq
+        es_x, es_bc = x.element_size(), bm.element_size()
+        n_bytes = (2 * b * h * s * hd * es_x + b * h * s * 4 + 2 * bm.shape[0] * s * n * es_bc
+                   + b * h * hd * n * 4)
+        row = measure(torch, flush, lambda: ssd.ssd_scan(x, da, bm, cm, chunk=q, return_state=True),
+                      lambda: ref.ssd_scan_reference(x, da, bm, cm, chunk=q, return_state=True),
+                      None, n_bytes, ssd_ops(s, hd, n, q, b * h, bm.shape[0]), errs[0][0])
+        row["shape"] = {"B": b, "H": h, "S": s, "hd": hd, "N": n, "Q": q, "dtype": str(x_dt)[6:],
+                        "bc_dtype": str(bc_dt)[6:], "bc_shared": shared}
+        rows[("ssd_scan", label, str(x_dt)[6:])] = row
+        report("ssd_scan", f"{label} B={b} H={h} S={s} hd={hd} N={n} Q={q} x {str(x_dt)[6:]} "
+               f"b/c {str(bc_dt)[6:]}{' shared' if shared else ' per row'}", row,
+               "n/a (no PyTorch call computes the SSD scan)",
+               f" y_rel={errs[0][1]:.3g} state_rel={errs[1][1]:.3g} state_err={errs[1][0]:.3g}{oracle_txt}")
+        del x, da, xbc, bm, cm, y, st, y_want, st_want
+    return rows
+
+
 # -- 4. path ------------------------------------------------------------------
 
 
@@ -635,10 +752,10 @@ def path_phase(torch):
     check(sum(h.deadline_dropped) > 0, f"(h): no client missed the deadline {h.deadline_dropped}")
     launches["fused_weighted_agg"] += ops_call(torch, api, kernels)
     launches["waterfill_level_stats"] += sampler_scale_phase(torch, kernels)
-    serve_launches, engine = serve_path_phase(torch, kernels)
+    serve_launches, engines = serve_path_phase(torch, kernels)
     for k, v in serve_launches.items():
         launches[k] += v
-    return launches, engine
+    return launches, engines
 
 
 def _serve_checks(torch, label, engine, counts, want, new_tokens):
@@ -661,7 +778,13 @@ def serve_path_phase(torch, kernels):
     kernel 7 32 times.  (l) gemma2-27b at full width (hd 128, vocab 256,000,
     window 4096, both softcaps, embedding scale, tanh-gelu) cut to one
     (attn_local, attn) pattern, through ``ServeEngine``: 8 x 512 prompt, 16
-    new tokens.  Returns the launches and (k)'s engine."""
+    new tokens.  (m) ``repro_torch.launch.serve`` again, zamba2-1.2b at full
+    width and depth in bf16 (38 blocks: 36 mamba2, 2 invocations of the
+    shared attention block; 1,053,612,800 parameters), the same batch,
+    prompt and tokens as (k): kernel 8 once a mamba2 block in the one
+    prefill (36), kernel 7 twice, kernel 6 77 times a pass (two a block,
+    one final) x 64 passes.  Returns the launches and the engines of (k)
+    and (m)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -723,7 +846,37 @@ def serve_path_phase(torch, kernels):
           f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
     del eng_l
     torch.cuda.empty_cache()
-    return launches, engine
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = serve.main(SERVE_M)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    eng_m = out["engine"]
+    cfg = eng_m.cfg
+    n_params = transformer.param_count(eng_m.params)
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.vocab, cfg.param_dtype, n_params)
+          == ("hybrid", 38, 2048, 32000, torch.bfloat16, ZAMBA2_PARAMS),
+          f"(m): not zamba2-1.2b at full width and depth: {cfg}, {n_params} parameters")
+    reps = cfg.pattern_repeats()
+    n_mamba = cfg.block_pattern.count("mamba2") * reps
+    n_shared = cfg.block_pattern.count("shared_attn") * reps
+    per_pass = 2 * cfg.n_layers + 1
+    new = int(SERVE_M[SERVE_M.index("--new-tokens") + 1])
+    _serve_checks(torch, "(m)", eng_m, counts,
+                  {"rmsnorm": per_pass * new, "flash_attention": n_shared, "ssd_scan": n_mamba}, new)
+    want_prefill = {"rmsnorm": per_pass, "flash_attention": n_shared, "ssd_scan": n_mamba}
+    check({k: out["prefill_launches"][k] for k in want_prefill} == want_prefill,
+          f"(m): prefill launches {out['prefill_launches']}")
+    for k, v in counts.items():
+        launches[k] += v
+    print(f"(m) zamba2-1.2b serve: {n_params:,} params bf16 ({n_mamba} mamba2 + {n_shared} shared_attn "
+          f"blocks), batch 8, prompt 512, {new} new tokens: prefill_s={out['prefill_s']:.4f} "
+          f"decode_s={out['decode_s']:.4f} ({new - 1} steps) tokens_per_sec={out['tokens_per_sec']:.1f} "
+          f"decode_ms_per_step={out['decode_s'] / (new - 1) * 1e3:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+          f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
+    return launches, {"k": engine, "m": eng_m}
 
 
 def sampler_scale_phase(torch, kernels) -> int:
@@ -878,9 +1031,10 @@ def count_sampler_syncs(torch, rounds: int = 2) -> list:
     return [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
 
 
-def profile_kernels(torch, fn, label: str, note: str, top: int = 8) -> None:
+def profile_kernels(torch, fn, label: str, note: str, top: int = 8) -> dict:
     """Run ``fn`` under torch.profiler and print the device's busy share of
-    the wall time and the kernels that take the device time."""
+    the wall time and the kernels that take the device time.  Returns the
+    device µs of each kernel (empty where the profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -896,7 +1050,7 @@ def profile_kernels(torch, fn, label: str, note: str, top: int = 8) -> None:
     ]
     if not kernels:
         print(f"trace {label}: the profiler recorded no kernel time (not measured)")
-        return
+        return {}
     device_us = sum(e.self_device_time_total for e in kernels)
     print(
         f"trace {label}: wall_s={wall:.4f} kernel_busy_s={device_us / 1e6:.4f} "
@@ -905,13 +1059,15 @@ def profile_kernels(torch, fn, label: str, note: str, top: int = 8) -> None:
     )
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {e.key: e.self_device_time_total for e in kernels}
 
 
-def serve_trace(torch, engine) -> None:
-    """(k)'s engine again: host syncs in 8 decode steps (``torch.cuda`` sync
-    debug mode; the one synchronize that ends each ``step`` call is not an
-    implicit sync and is not flagged), then one prefill and 16 decode steps
-    under the profiler."""
+def serve_trace(torch, engine, label: str) -> dict:
+    """A served engine again ((k)'s or (m)'s): host syncs in 8 decode steps
+    (``torch.cuda`` sync debug mode; the one synchronize that ends each
+    ``step`` call is not an implicit sync and is not flagged), then one
+    prefill and 16 decode steps under the profiler.  Returns the syncs and
+    the prefill's device µs per kernel."""
     import warnings
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -926,21 +1082,24 @@ def serve_trace(torch, engine) -> None:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     syncs = [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
-    print(f"(k) serve: host syncs in 8 decode steps: {len(syncs)} ({len(syncs) / 8:.2f} a step) "
+    print(f"{label} serve: host syncs in 8 decode steps: {len(syncs)} ({len(syncs) / 8:.2f} a step) "
           f"{sorted(set(syncs))[:4]}")
-    profile_kernels(torch, lambda: engine.start(prompts), "(k) prefill 8x512",
-                    "one prefill: 32 layers", top=10)
+    prefill = profile_kernels(torch, lambda: engine.start(prompts), f"{label} prefill 8x512",
+                              f"one prefill: {engine.cfg.n_layers} blocks", top=10)
     t0 = engine.decode_seconds
-    profile_kernels(torch, lambda: engine.step(16), "(k) decode", "16 decode steps of 8 tokens",
+    profile_kernels(torch, lambda: engine.step(16), f"{label} decode", "16 decode steps of 8 tokens",
                     top=10)
-    print(f"(k) decode under the profiler: {16 * engine.batch / (engine.decode_seconds - t0):.1f} tokens/s")
+    print(f"{label} decode under the profiler: "
+          f"{16 * engine.batch / (engine.decode_seconds - t0):.1f} tokens/s")
+    return syncs, prefill
 
 
-def trace_phase(torch, engine):
+def trace_phase(torch, engines):
     """Host syncs per round and per decode step, then one more tiny_lm
-    oracle run and (k)'s prefill and decode under torch.profiler: the
-    device's busy share of the wall time and the kernels that take the
-    device time."""
+    oracle run and the prefill and decode of (k) and (m) under
+    torch.profiler: the device's busy share of the wall time, the kernels
+    that take the device time and kernel 8's share of (m)'s prefill.  (m)
+    must make no host sync in its decode steps."""
     phase("trace")
     from repro_torch import api
 
@@ -954,7 +1113,13 @@ def trace_phase(torch, engine):
     _, spec, _ = path_specs(api)[1]
     built = api.build(spec)
     profile_kernels(torch, lambda: api.run(spec, built=built), "tiny_lm oracle", f"{ROUNDS} rounds")
-    serve_trace(torch, engine)
+    serve_trace(torch, engines["k"], "(k)")
+    syncs, prefill = serve_trace(torch, engines["m"], "(m)")
+    check(not syncs, f"(m): {len(syncs)} host syncs in 8 decode steps")
+    if prefill:
+        ssd_us = sum(us for key, us in prefill.items() if "ssd_scan_kernel" in key)
+        print(f"(m) prefill: kernel 8 (ssd_scan) {ssd_us / 1e3:.3f} ms of {sum(prefill.values()) / 1e3:.3f} "
+              f"ms of kernel time ({ssd_us / sum(prefill.values()):.1%})")
 
 
 def _leaves(tree):
@@ -1024,6 +1189,7 @@ def agreement_phase(torch):
         )
     full_size_agreement(torch, api, np, rng)
     serve_agreement(torch)
+    hybrid_agreement(torch)
 
 
 def serve_agreement(torch):
@@ -1071,6 +1237,45 @@ def serve_agreement(torch):
         diffs.append(float((dec[:, 0].float() - full[:, 200 + i].float()).abs().max()))
     print(f"serve bf16 on the GPU: prefill + 3 paged decode steps == full forward within 2e-2 "
           f"(max_abs_diff per step {[f'{d:.3g}' for d in diffs]})", flush=True)
+
+
+def hybrid_agreement(torch):
+    """zamba2-1.2b at full width (d_model 2048, 64 SSM heads of 64, N 64,
+    32 attention heads, d_ff 8192, vocab 32,000) cut from 38 blocks to a
+    (mamba2, mamba2, shared_attn) pattern of 3, in f32, served on the GPU
+    (kernels 6, 7 and 8) and on the CPU (their plain versions) from the
+    same weights and prompts: 4 x 200 tokens (the model's chunk rule gives
+    chunks of 8 there) and 7 decode steps.  The same greedy tokens; prefill
+    and last decode logits within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=3,
+                              block_pattern=("mamba2", "mamba2", "shared_attn"),
+                              param_dtype=torch.float32)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = torch.randint(0, cfg.vocab, (4, 200), generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params, batch=4, max_seq=208, page_size=16, device=dev)
+        eng.start(prompts)
+        first = eng.last_logits.cpu()
+        eng.step(7)
+        runs[dev] = (first, eng.last_logits.cpu(), eng.generated().cpu())
+        del eng
+    (f_cpu, l_cpu, g_cpu), (f_gpu, l_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    check(torch.equal(g_cpu, g_gpu), f"hybrid tokens differ: GPU {g_gpu.tolist()} CPU {g_cpu.tolist()}")
+    torch.testing.assert_close(f_gpu, f_cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-4, atol=1e-4)
+    print(f"serve zamba2 full width 3 layers (mamba2, mamba2, shared_attn) f32: GPU == CPU greedy tokens "
+          f"{tuple(g_gpu.shape)}, prefill logits max_abs_diff={float((f_gpu - f_cpu).abs().max()):.3g}, "
+          f"last decode logits max_abs_diff={float((l_gpu - l_cpu).abs().max()):.3g} "
+          f"(logits up to {float(f_cpu.abs().max()):.3g})", flush=True)
+    del params
+    torch.cuda.empty_cache()
 
 
 def full_size_agreement(torch, api, np, rng):
@@ -1122,9 +1327,9 @@ def main() -> int:
     card = device_phase(torch)
     build_phase()
     rows, max_err, path_shape = kernel_phase(torch)
-    launches, engine = path_phase(torch)
+    launches, engines = path_phase(torch)
     agreement_phase(torch)
-    trace_phase(torch, engine)
+    trace_phase(torch, engines)
 
     kernels = []
     for name, (label, dtype) in path_shape.items():

@@ -1,8 +1,8 @@
 """Architecture registry (the port of ``repro/configs/registry.py``).
 
 Every zoo architecture of the reference is registered by name; the port
-holds its own copies of the dense configs and raises ``NotImplementedError``
-for the families it does not run yet.  ``llama3.2-1b-sw`` (the reference's
+holds its own copies of the dense and hybrid configs and raises
+``NotImplementedError`` for the families it does not run yet.  ``llama3.2-1b-sw`` (the reference's
 ``SW_CONFIG``, all layers sliding-window) is registered by name here.
 """
 from __future__ import annotations
@@ -20,7 +20,7 @@ ARCH_MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "xlstm-125m": None,
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
-    "zamba2-1.2b": None,
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "llama3-405b": "repro_torch.configs.llama3_405b",
     "arctic-480b": None,
@@ -32,7 +32,6 @@ _NOT_PORTED = {
     "qwen3-moe-235b-a22b": ("moe", "moe, xlstm, vlm and audio families"),
     "arctic-480b": ("moe", "moe, xlstm, vlm and audio families"),
     "xlstm-125m": ("ssm", "moe, xlstm, vlm and audio families"),
-    "zamba2-1.2b": ("hybrid", "the hybrid family with kernel 8"),
     "llama-3.2-vision-11b": ("vlm", "moe, xlstm, vlm and audio families"),
     "whisper-small": ("audio", "moe, xlstm, vlm and audio families"),
 }

@@ -2,7 +2,7 @@
 
 Only the wrappers whose kernels exist in the port are here.  The reference's
 ``flash_attention_trainable`` (with its backward) waits for the zoo
-federated round and ``ssd_scan`` for the hybrid family (``ROADMAP.md``).
+federated round (``ROADMAP.md``).
 
 As everywhere in the port, a tensor on the CPU takes the kernel's plain
 PyTorch version and a tensor on a CUDA device launches the CUDA kernel.
@@ -16,9 +16,11 @@ from repro_torch.kernels import fused_weighted_agg as _fwa
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sharded_waterfill import waterfill_level_stats
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 __all__ = [
     "flash_attention",
+    "ssd_scan",
     "fused_weighted_agg",
     "rmsnorm",
     "aggregate_cohort_updates",

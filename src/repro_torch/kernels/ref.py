@@ -1,13 +1,16 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each function computes what its kernel in ``fused_weighted_agg``,
-``sharded_waterfill``, ``rmsnorm`` or ``flash_attention`` computes, with the
-arithmetic the JAX reference falls back to off the TPU
+``sharded_waterfill``, ``rmsnorm``, ``flash_attention`` or ``ssd_scan``
+computes, with the arithmetic the JAX reference falls back to off the TPU
 (``repro/core/estimator.py``: ``w2 @ flat`` and
 ``dequant_cohort_agg_reference``; ``repro/kernels/ref.py``:
-``waterfill_stats_reference``, ``rmsnorm_reference``, ``mha_reference``).  The wrappers use them for tensors on the
-CPU, the tests hold them against the JAX kernels run in interpret mode, and
-``chip_smoke.py`` holds the CUDA kernels against them on the card.
+``waterfill_stats_reference``, ``rmsnorm_reference``, ``mha_reference``;
+``repro/kernels/ssd_scan.py``: the Pallas body's chunked math).  The
+wrappers use them for tensors on the CPU, the tests hold them against the
+JAX kernels run in interpret mode, and ``chip_smoke.py`` holds the CUDA
+kernels against them on the card.  ``ssd_reference`` is the sequential
+oracle of the SSD scan, no kernel's plain version.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ __all__ = [
     "waterfill_stats_reference",
     "rmsnorm_reference",
     "mha_reference",
+    "ssd_reference",
+    "ssd_scan_reference",
 ]
 
 NEG = -2.3819763e38  # the reference's bf16-safe -inf surrogate for masked logits
@@ -135,3 +140,80 @@ def mha_reference(
         mask = mask & (kpos > qpos - window)
     probs = torch.softmax(torch.where(mask, logits, NEG), dim=-1)
     return torch.matmul(probs, v.to(torch.float32)).to(q.dtype)
+
+
+def ssd_reference(x: torch.Tensor, da: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """The sequential SSD recurrence, one step a token (the definitionally
+    correct scan):
+
+      h_t = exp(da_t) h_{t-1} + x_t b_t^T,   y_t = h_t c_t
+
+    x (B, S, hd) dt-weighted inputs of one head, da (B, S) log decays
+    (negative), b, c (B, S, N).  Returns y (B, S, hd) in x.dtype and the
+    final state (B, hd, N) f32."""
+    xf, daf, bf, cf = (t.to(torch.float32) for t in (x, da, b, c))
+    h = torch.zeros((x.shape[0], x.shape[2], b.shape[2]), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        h = h * torch.exp(daf[:, t])[:, None, None] + xf[:, t, :, None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    return torch.stack(ys, 1).to(x.dtype), h
+
+
+def ssd_scan_reference(
+    x: torch.Tensor,
+    da: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    chunk: int = 128,
+    return_state: bool = False,
+):
+    """The SSD chunked scan with the Pallas body's math (kernel 8's plain
+    version).  x (BH, S, hd) or (B, H, S, hd); da x.shape[:-1]; b, c (R, S, N)
+    with R dividing BH: row i reads b[i // (BH / R)] (R = BH: a row each;
+    R = B: B and C shared by the H heads of a batch row).
+
+    Chunks of Q = min(chunk, S) steps, a ragged last one zero-padded (zero
+    inputs and zero log decay leave y and the state unchanged).  Within a
+    chunk, with cum the inclusive cumsum of da:
+
+      y = (C B^T * exp(cum_t - cum_s) [s <= t]) X + (C * exp(cum)) S^T
+      S <- exp(cum_last) S + (X * exp(cum_last - cum))^T B
+
+    S (hd, N) f32 carried across chunks.  The mask is applied before the
+    exp: above the diagonal cum_t - cum_s is positive and overflows f32 at
+    strong decays.  Returns y (x's shape and dtype) and, with
+    ``return_state``, the final state (BH, hd, N) f32."""
+    s, hd = x.shape[-2:]
+    r, n = b.shape[0], b.shape[-1]
+    xf = x.reshape(-1, s, hd).to(torch.float32)
+    g = xf.shape[0] // r
+    xf = xf.reshape(r, g, s, hd)
+    daf = da.reshape(r, g, s).to(torch.float32)
+    bf = b.to(torch.float32)[:, None]
+    cf = c.to(torch.float32)[:, None]
+    q = min(int(chunk), s)
+    n_chunks = -(-s // q)
+    pad = n_chunks * q - s
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, pad))
+        daf = torch.nn.functional.pad(daf, (0, pad))
+        bf = torch.nn.functional.pad(bf, (0, 0, 0, pad))
+        cf = torch.nn.functional.pad(cf, (0, 0, 0, pad))
+    above = ~torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros((r, g, hd, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(n_chunks):
+        sl = slice(i * q, (i + 1) * q)
+        xq, dq, bq, cq = xf[:, :, sl], daf[:, :, sl], bf[:, :, sl], cf[:, :, sl]
+        cum = torch.cumsum(dq, -1)
+        decay = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(above, float("-inf")))
+        y = ((cq @ bq.transpose(-1, -2)) * decay) @ xq
+        ys.append(y + (cq * torch.exp(cum)[..., None]) @ state.transpose(-1, -2))
+        w = torch.exp(cum[..., -1:] - cum)
+        state = state * torch.exp(cum[..., -1])[..., None, None] + (xq * w[..., None]).transpose(-1, -2) @ bq
+    y = torch.cat(ys, 2)[:, :, :s].reshape(x.shape).to(x.dtype)
+    if return_state:
+        return y, state.reshape(r * g, hd, n)
+    return y

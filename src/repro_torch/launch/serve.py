@@ -5,9 +5,11 @@
       --batch 8 --prompt-len 512 --new-tokens 64 --page-size 16
 
 runs on the GPU: it initializes the model in its ``param_dtype`` from
-``--seed``, prefills a random prompt batch (kernels 6 and 7), decodes
-``--new-tokens - 1`` steps over the paged cache (kernel 6) and prints the
-times, tokens/s, kernel launches and the generated ids.  ``--device cpu``
+``--seed``, prefills a random prompt batch (kernels 6 and 7, and kernel 8
+for the hybrid's Mamba2 blocks), decodes ``--new-tokens - 1`` steps over the
+paged cache (kernel 6) and prints the times, tokens/s, kernel launches and
+the generated ids.  ``--arch zamba2-1.2b`` serves the hybrid at full width
+and depth (38 blocks, 1.05B parameters, bf16).  ``--device cpu``
 runs the plain PyTorch path instead; without a GPU and without that flag it
 raises.  ``--reduced`` serves the arch's tiny same-family variant.
 

@@ -1,7 +1,8 @@
 """Zoo models for the port (``repro/models``): the dense family (block kinds
-``attn`` and ``attn_local``), forward, prefill and paged decode.  RMSNorm
-runs kernel 6 and full-sequence attention kernel 7."""
-from repro_torch.models import attention, mlp, transformer
+``attn`` and ``attn_local``) and the hybrid family (``mamba2`` and
+``shared_attn``), forward, prefill and paged decode.  RMSNorm runs kernel 6,
+full-sequence attention kernel 7 and the Mamba2 chunked scan kernel 8."""
+from repro_torch.models import attention, mlp, ssm, transformer
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import (
     decode_step,
@@ -17,6 +18,7 @@ from repro_torch.models.transformer import (
 __all__ = [
     "attention",
     "mlp",
+    "ssm",
     "transformer",
     "ArchConfig",
     "decode_step",

@@ -1,21 +1,27 @@
-"""Model assembly for the dense family (the port of
-``repro/models/transformer.py``, block kinds ``attn`` and ``attn_local``).
+"""Model assembly for the dense and hybrid families (the port of
+``repro/models/transformer.py``, block kinds ``attn``, ``attn_local``,
+``mamba2`` and ``shared_attn``).
 
 The parameter tree keeps the reference's names and stacked layout: each
 pattern slot j holds its blocks' leaves in ``params["stacks"][j]`` with a
 leading repeats axis, and the forward loops over repeats in Python (the
-reference scans them).  Three modes share the blocks:
+reference scans them).  A ``shared_attn`` slot holds no weights (``{}``): its
+blocks run the one ``attn`` block stored once in ``params["shared"]``, each
+invocation with a cache of its own (zamba2).  Three modes share the blocks:
 
   train   (``forward``)     full sequence, no caches   -> logits, aux
   prefill (``prefill``)     full sequence, caches out  -> last logits, caches
   decode  (``decode_step``) one token, caches updated  -> logits, caches
 
-Caches mirror the slots, stacked over repeats.  Every ``rms_norm`` is one
-launch of kernel 6 (two a layer plus the final norm) and every
-full-sequence attention one launch of kernel 7 (one a layer in ``forward``
-and ``prefill``); a decode step launches kernel 6 ``2 * n_layers + 1``
-times and kernel 7 never.  ``params_from_reference`` turns the JAX
-reference's ``init_params`` tree (numpy leaves) into the port's tree.
+Caches mirror the slots, stacked over repeats: K/V for the attention kinds,
+the recurrent {"conv", "ssm"} state for ``mamba2`` (never paged).  Every
+``rms_norm`` is one launch of kernel 6 (two a block plus the final norm; a
+``mamba2`` block's two are its input norm and its gated norm over d_in),
+every full-sequence attention one launch of kernel 7 and every ``mamba2``
+block in ``forward`` and ``prefill`` one launch of kernel 8; a decode step
+launches kernel 6 ``2 * n_layers + 1`` times and kernels 7 and 8 never.
+``params_from_reference`` turns the JAX reference's ``init_params`` tree
+(numpy leaves) into the port's tree.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.fed.tasks import tree_leaves
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     _causal_mask,
     _project_qkv,
@@ -48,16 +55,11 @@ __all__ = [
 
 MOE_AUX_COEF = 0.01
 
-PORTED_KINDS = ("attn", "attn_local")
+PORTED_KINDS = ("attn", "attn_local", "mamba2", "shared_attn")
+ATTN_KINDS = ("attn", "attn_local", "shared_attn")  # self-attention K/V caches
 _TODO = {
-    "moe": "moe, xlstm, vlm and audio families",
-    "mlstm": "moe, xlstm, vlm and audio families",
-    "slstm": "moe, xlstm, vlm and audio families",
-    "cross_attn": "moe, xlstm, vlm and audio families",
-    "enc": "moe, xlstm, vlm and audio families",
-    "dec": "moe, xlstm, vlm and audio families",
-    "mamba2": "the hybrid family with kernel 8",
-    "shared_attn": "the hybrid family with kernel 8",
+    kind: "moe, xlstm, vlm and audio families"
+    for kind in ("moe", "mlstm", "slstm", "cross_attn", "enc", "dec")
 }
 
 
@@ -77,10 +79,15 @@ def _check_kind(kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _init_block(cfg: ArchConfig, gen: torch.Generator | None) -> dict:
-    """One ``attn`` / ``attn_local`` block (the two kinds share a layout)."""
+def _init_block(kind: str, cfg: ArchConfig, gen: torch.Generator | None) -> dict:
+    """One block of ``kind`` (``attn`` and ``attn_local`` share a layout;
+    ``shared_attn`` has no weights of its own)."""
     dev = "meta" if gen is None else gen.device
     d, dt = cfg.d_model, cfg.param_dtype
+    if kind == "mamba2":
+        return {"ln1": torch.zeros((d,), dtype=dt, device=dev), "ssm": ssm_mod.init_mamba2(cfg, gen)}
+    if kind == "shared_attn":
+        return {}
     return {
         "ln1": torch.zeros((d,), dtype=dt, device=dev),
         "attn": init_attention(cfg, gen),
@@ -104,9 +111,11 @@ def _init_tree(cfg: ArchConfig, gen: torch.Generator | None) -> dict:
         "embed": uniform_init(gen, (cfg.vocab, cfg.d_model), cfg.param_dtype, scale=0.02),
         "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.param_dtype, device=dev),
         "stacks": [
-            _stack([_init_block(cfg, gen) for _ in range(reps)]) for _ in cfg.block_pattern
+            _stack([_init_block(kind, cfg, gen) for _ in range(reps)]) for kind in cfg.block_pattern
         ],
     }
+    if "shared_attn" in cfg.block_pattern:
+        params["shared"] = _init_block("attn", cfg, gen)
     if not cfg.tie_embeddings:
         params["lm_head"] = uniform_init(gen, (cfg.d_model, cfg.vocab), cfg.param_dtype, scale=0.02)
     return params
@@ -200,11 +209,24 @@ def _decode_attn(p, cfg: ArchConfig, x, cache, index, rope, masks: dict, *, wind
 
 
 def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cache=None,
-                 index=None, max_seq=None, masks=None):
+                 index=None, max_seq=None, masks=None, shared=None):
     """Returns (h, new_cache).  ``rope``: the (cos, sin) tables of the
-    positions this call processes, shared by every layer."""
-    window = cfg.sliding_window if kind == "attn_local" else None
+    positions this call processes, shared by every layer.  ``shared_attn``
+    runs the ``attn`` block ``shared`` with this invocation's cache; a
+    ``mamba2`` decode updates its cache in place."""
+    if kind == "shared_attn":
+        return _apply_block("attn", shared, cfg, h, rope, mode=mode, cache=cache, index=index,
+                            max_seq=max_seq, masks=masks)
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    if kind == "mamba2":
+        if mode == "decode":
+            y, cache = ssm_mod.mamba2_decode_step(p["ssm"], cfg, x, cache)
+        elif mode == "prefill":
+            y, cache = ssm_mod.mamba2_block(p["ssm"], cfg, x, return_state=True)
+        else:
+            y = ssm_mod.mamba2_block(p["ssm"], cfg, x)
+        return h + y, cache
+    window = cfg.sliding_window if kind == "attn_local" else None
     if mode == "decode":
         y, cache = _decode_attn(p["attn"], cfg, x, cache, index, rope, masks, window=window)
     else:
@@ -237,7 +259,7 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
             cache = None if caches is None else _rep(caches[j], r)
             h, nc = _apply_block(
                 kind, _rep(params["stacks"][j], r), cfg, h, rope, mode=mode, cache=cache,
-                index=index, max_seq=max_seq, masks=masks,
+                index=index, max_seq=max_seq, masks=masks, shared=params.get("shared"),
             )
             out_caches[j].append(nc)
     if mode == "prefill":
@@ -288,13 +310,17 @@ def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int, page_size: int | None = None, *,
                 device=None):
     """Zeroed caches (stacked over pattern repeats) for decode; ``page_size``
-    switches to the paged layout (``attention.init_paged_kv_cache``)."""
+    switches the attention caches to the paged layout
+    (``attention.init_paged_kv_cache``).  The Mamba2 state is O(1) in the
+    sequence and is never paged."""
     dev = resolve_device(device)
     reps = cfg.pattern_repeats()
 
     def one(kind):
         _check_kind(kind)
-        if page_size is not None:
+        if kind == "mamba2":
+            c = ssm_mod.init_mamba2_state(cfg, batch, device=dev)
+        elif page_size is not None:
             c = attn_mod.init_paged_kv_cache(cfg, batch, max_seq, page_size, device=dev)
         else:
             c = attn_mod.init_kv_cache(cfg, batch, max_seq, device=dev)
@@ -321,9 +347,12 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None, max_
 
 def _caches_to_pages(cfg: ArchConfig, caches, page_size: int):
     """Repack every self-attention slot cache (stacked over repeats) into the
-    paged layout."""
+    paged layout; recurrent caches pass through."""
     out = []
-    for cache in caches:
+    for kind, cache in zip(cfg.block_pattern, caches):
+        if kind not in ATTN_KINDS:
+            out.append(cache)
+            continue
         reps = cache["k"].shape[0]
         out.append(_stack([
             attn_mod.pack_kv_to_pages({"k": cache["k"][r], "v": cache["v"][r]}, page_size)

@@ -4,8 +4,11 @@ port of ``repro/serve/engine.py``).
 ``ServeEngine`` owns the serving hot path, ``prefill + first-token sample``
 and ``single-token decode + sample``, over a paged KV cache
 (``models.attention``: a ``(B*P, page_size, KV, hd)`` pool indexed through a
-``(B, P)`` page table).  The reference pins one jitted program per entry
-point; the port runs eagerly and keeps the same contract in data:
+``(B, P)`` page table) and, for the hybrid family, the Mamba2 recurrent
+state ({"conv", "ssm"} per block, never paged).  The engine is generic over
+the caches ``transformer.prefill`` returns.  The reference pins one jitted
+program per entry point; the port runs eagerly and keeps the same contract
+in data:
 
 * the parameter signature (names, shapes, dtypes) is pinned at
   construction, and ``swap_params`` validates a candidate against it before
@@ -17,7 +20,10 @@ point; the port runs eagerly and keeps the same contract in data:
   one: argmax at temperature 0, else ``argmax(logits / T + gumbel)``, with
   the noise from the engine's random source (``rng``);
 * in-flight sequences keep their caches, positions and last tokens across
-  a swap.
+  a swap;
+* a decode step writes into the caches in place: the new K/V line into the
+  pool, the new conv and SSM states into the recurrent caches, so every
+  cache tensor too keeps its address from prefill to the last step.
 
 ``step`` synchronizes the device once per call, not once per token.  The
 reference's XLA lint handles (``decode_cache_entries``, ``decode_jaxpr``,

@@ -65,11 +65,13 @@ def _np(x):
 
 
 @pytest.mark.parametrize(
-    "name", ["smollm-360m", "llama3.2-1b", "llama3.2-1b-sw", "gemma2-27b", "llama3-405b"]
+    "name",
+    ["smollm-360m", "llama3.2-1b", "llama3.2-1b-sw", "gemma2-27b", "llama3-405b", "zamba2-1.2b"],
 )
 def test_configs_match_reference(name):
-    """The port's own copies of the dense configs equal the reference's,
-    field for field (param_dtype as the torch dtype of the same name)."""
+    """The port's own copies of the dense and hybrid configs equal the
+    reference's, field for field (param_dtype as the torch dtype of the same
+    name)."""
     ref = REF_SW_CONFIG if name == "llama3.2-1b-sw" else ref_get_config(name)
     port = get_config(name)
     for f in dataclasses.fields(ref):
@@ -84,7 +86,7 @@ def test_configs_match_reference(name):
 def test_registry_lists_every_arch_and_refuses_unported_families():
     assert list_archs() == ref_list_archs()
     assert all(has_arch(a) for a in ref_list_archs()) and not has_arch("nope")
-    for arch in ("qwen3-moe-235b-a22b", "zamba2-1.2b", "xlstm-125m", "whisper-small",
+    for arch in ("qwen3-moe-235b-a22b", "xlstm-125m", "whisper-small",
                  "llama-3.2-vision-11b", "arctic-480b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
@@ -217,8 +219,8 @@ def test_kernel_calls_per_prefill_and_decode(monkeypatch):
 
 
 def test_unported_block_kinds_and_cross_attention_raise():
-    cfg = get_config("smollm-360m").reduced(block_pattern=("mamba2",))
-    with pytest.raises(NotImplementedError, match="kernel 8"):
+    cfg = get_config("smollm-360m").reduced(block_pattern=("mlstm",))
+    with pytest.raises(NotImplementedError, match="xlstm"):
         transformer.init_params(cfg, torch.Generator(), "cpu")
     from repro_torch.models import attention
 
