@@ -8,14 +8,17 @@ Phases, each failing loudly (non-zero exit, no result line):
 1. device — a CUDA GPU must be visible; print its name and power limit;
 2. build  — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a, one nvcc per source, all started together, and
-   print the build times;
+   print the build times and kernel 7's tensor-core instructions (HMMA in
+   ``cuobjdump -sass``; none fails);
 3. kernels — hold each of the eight kernels against its plain PyTorch
    version on the card at the main path's shapes (and one large shape),
    check that kernels 2–5's norms, error scalar or counts and sums are
    bitwise repeatable, and time kernel, plain version, the library call
    computing the same function (where there is one) and the bound; kernels 6
    (rmsnorm) and 7 (flash_attention) at the serving path's shapes, kernel 7
-   in all four modes, at a ragged S, with grouped-query heads, bf16 and f32;
+   in all four modes, at a ragged S, with grouped-query heads, at (m)'s
+   shared-attention shape, bf16 and f32, each row naming the kernel that
+   ran (tensor cores for bf16, CUDA cores for f32);
    kernel 8 (ssd_scan) at zamba2-1.2b's prefill shape as the model passes
    it, with b and c per row, at a ragged S, under strong decays, y and the
    final state;
@@ -36,7 +39,12 @@ Phases, each failing loudly (non-zero exit, no result line):
    at full width cut to one (attn_local, attn) pattern through
    ``repro_torch.serve.ServeEngine``, and (m) the launcher serving
    zamba2-1.2b (the Mamba2 hybrid) at full width and depth, each with its
-   exact kernel 6, 7 and 8 launch counts;
+   exact kernel 6, 7 and 8 launch counts and every kernel-7 launch on the
+   tensor cores; (l)'s prefill with kernel 7 on the tensor cores against
+   the CUDA-core kernel;
+   autograd — the CUDA wrappers of kernels 6-8, alone and in a reduced
+   smollm's ``loss_fn``, refuse inputs that require grad and run under
+   ``torch.no_grad()``;
 5. agreement — small runs on the GPU, uncompressed and int8-compressed, and
    runs (g) and (h) equal the same runs on the CPU (plain PyTorch path) fed
    the same recorded draws; a 2-layer full-width smollm-360m served in f32 on
@@ -48,7 +56,8 @@ Phases, each failing loudly (non-zero exit, no result line):
 6. trace — host syncs in the round bodies and per decode step, then one
    tiny-LM round loop and one serving prefill and decode of (k) and of (m)
    under ``torch.profiler``: the device's busy share, the kernels that take
-   its time and, for (m), kernel 8's share of the prefill.
+   its time and, for (m), kernel 8's share of the prefill; (k)'s and (m)'s
+   prefill with kernel 7 on the tensor cores against the CUDA-core kernel.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -144,6 +153,30 @@ def build_phase():
         print(f"nvcc: {info['command']}")
         print(f"built {Path(info['path']).name} in {info['seconds']:.2f} s")
     print(f"all {len(LIBRARIES)} builds, in parallel: {time.perf_counter() - t0:.2f} s")
+    flash = infos[LIBRARIES.index("flash_attention")]
+    hmma = sass_counts(flash["path"], "HMMA")
+    print(f"SASS HMMA per flash_attention kernel: {hmma}")
+    check(all(n > 0 for k, n in hmma.items() if "flash_fwd_tc_kernel" in k) and
+          any("flash_fwd_tc_kernel" in k for k in hmma),
+          "the tensor-core flash_attention kernels hold no HMMA instruction")
+
+
+def sass_counts(library: str, opcode: str) -> dict:
+    """Instructions whose opcode starts with ``opcode`` in each kernel (by
+    its mangled name) of a built library (``cuobjdump -sass``, next to
+    nvcc)."""
+    from repro_torch.kernels.build import _nvcc
+
+    sass = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass", library],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            counts[name] = 0
+        elif name and f" {opcode}" in line:
+            counts[name] += 1
+    return counts
 
 
 # -- 3. kernels ---------------------------------------------------------------
@@ -463,12 +496,15 @@ def attention_pairs(s_q: int, s_k: int, causal: bool, window) -> int:
 def flash_kernel_phase(torch, gen, flush, max_err):
     """Kernel 7 at (k)'s prefill shape (B=8, 15 heads over 5 KV heads, S=512,
     hd=64) in all four modes (causal, window 96, full, softcap 30), at a
-    ragged S=200, and at (l)'s gemma2 shapes (32 heads over 16, hd=128,
-    softcap 50, window 4096 and global); bf16 and f32.  q, k, v are the
-    (B, S, heads, hd) projections seen as (B, heads, S, hd), as the model
-    passes them.  The bound: q, k, v read and out written once over the
-    memory rate, against 4 * hd operations per unmasked (query, key) pair of
-    this input over the bf16 tensor-core (or f32) peak.  The library call:
+    ragged S=200, at (l)'s gemma2 shapes (32 heads over 16, hd=128,
+    softcap 50, window 4096 and global) and at (m)'s shared attention (32
+    heads over 32, hd=64, causal); bf16 and f32.  Each row names the kernel
+    that ran, from the launch counters: the tensor cores for bf16 (hd 64
+    and 128 here), the CUDA cores for f32.  q, k, v are the (B, S, heads, hd) projections
+    seen as (B, heads, S, hd), as the model passes them.  The bound: q, k,
+    v read and out written once over the memory rate, against 4 * hd
+    operations per unmasked (query, key) pair of this input over the bf16
+    tensor-core (or f32) peak.  The library call:
     ``F.scaled_dot_product_attention`` on K/V expanded over the groups (a
     boolean mask for the window; none for the softcap, which it lacks)."""
     import torch.nn.functional as F
@@ -486,6 +522,7 @@ def flash_kernel_phase(torch, gen, flush, max_err):
         ("ragged S smollm", 8, 5, 3, 200, 64, True, None, None),
         ("prefill gemma2 local", 8, 16, 2, 512, 128, True, 4096, 50.0),
         ("prefill gemma2 global", 8, 16, 2, 512, 128, True, None, 50.0),
+        ("prefill zamba2 shared", 8, 32, 1, 512, 64, True, None, None),
     ]
     for label, b, kv, g, s, hd, causal, window, cap in cases:
         h = kv * g
@@ -495,7 +532,12 @@ def flash_kernel_phase(torch, gen, flush, max_err):
             k = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
             v = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
             kw = dict(causal=causal, window=window, softcap=cap, q_groups=g)
+            tc_before = fa.flash_attention.launches_tc
             got = fa.flash_attention(q, k, v, **kw)
+            tc = fa.flash_attention.launches_tc - tc_before == 1
+            check(tc == fa.uses_tensor_cores(dtype, hd),
+                  f"flash_attention {label} {dtype}: tensor-core launch {tc}")
+            path = "tensor cores" if tc else "CUDA cores"
             want = ref.mha_reference(q, k, v, **kw)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, **tol)
@@ -518,11 +560,12 @@ def flash_kernel_phase(torch, gen, flush, max_err):
                           BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
             row["shape"] = {"B": b, "H": h, "q_groups": g, "S": s, "hd": hd, "window": window,
                             "softcap": cap, "dtype": str(dtype)[6:]}
+            row["path"] = path
             rows[("flash_attention", label, str(dtype)[6:])] = row
-            ratio = f" kernel/library={row['kernel_ms'] / row['library_ms']:.1f}x" if lib else ""
+            ratio = f" kernel/library={row['kernel_ms'] / row['library_ms']:.2f}x" if lib else ""
             report("flash_attention", f"{label} B={b} H={h} G={g} S={s} hd={hd} {str(dtype)[6:]}",
                    row, "n/a (no library call applies a softcap)",
-                   f" pairs={pairs}{ratio} library=sdpa(K/V expanded)")
+                   f" path={path} pairs={pairs}{ratio} library=sdpa(K/V expanded)")
             del q, k, v, got, want
     return rows
 
@@ -771,6 +814,50 @@ def _serve_checks(torch, label, engine, counts, want, new_tokens):
     check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
 
 
+def _tensor_core_check(label, counts):
+    """Every kernel-7 launch of a bf16 serving run took the tensor-core
+    kernel."""
+    from repro_torch.kernels import flash_attention as fa
+
+    tc = fa.flash_attention.launches_tc
+    check(tc == counts["flash_attention"],
+          f"{label}: {tc} of {counts['flash_attention']} kernel-7 launches on the tensor cores")
+    print(f"{label}: kernel 7 on the tensor cores in {tc} of {counts['flash_attention']} launches")
+
+
+def prefill_ab(torch, engine, label: str) -> None:
+    """One engine's 8 x 512 prefill with kernel 7 on the tensor cores, then
+    with every launch sent to the CUDA-core kernel (the kernel before the
+    tensor-core one: ``uses_tensor_cores`` is replaced by a function that
+    says no, for this measurement only), then on the tensor cores again: the
+    median wall time of 3 prefills outside the profiler, and the kernel time
+    and kernel 7's share under it."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    prompts = torch.randint(0, engine.cfg.vocab, (engine.batch, 512), generator=gen, device="cuda")
+    chooser = fa.uses_tensor_cores
+    try:
+        for path in ("tensor cores", "CUDA cores", "tensor cores"):
+            fa.uses_tensor_cores = chooser if path == "tensor cores" else (lambda dtype, hd: False)
+            engine.start(prompts)
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                engine.start(prompts)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            prof = profile_kernels(torch, lambda: engine.start(prompts),
+                                   f"{label} prefill 8x512, kernel 7 on the {path}", "one prefill", top=3)
+            k7 = sum(us for key, us in prof.items() if "flash_fwd" in key)
+            print(f"{label} prefill with kernel 7 on the {path}: wall_s={sorted(walls)[1]:.4f} "
+                  f"(median of 3, outside the profiler) kernel_s={sum(prof.values()) / 1e6:.4f} "
+                  f"kernel7_ms={k7 / 1e3:.3f}", flush=True)
+    finally:
+        fa.uses_tensor_cores = chooser
+
+
 def serve_path_phase(torch, kernels):
     """(k) ``repro_torch.launch.serve`` as a user runs it (no device flag:
     the GPU), smollm-360m at full width and depth in bf16: one prefill of
@@ -805,6 +892,7 @@ def serve_path_phase(torch, kernels):
     new = int(SERVE_K[SERVE_K.index("--new-tokens") + 1])
     _serve_checks(torch, "(k)", engine, counts,
                   {"rmsnorm": per_pass * new, "flash_attention": cfg.n_layers}, new)
+    _tensor_core_check("(k)", counts)
     check(out["prefill_launches"]["rmsnorm"] == per_pass
           and out["prefill_launches"]["flash_attention"] == cfg.n_layers,
           f"(k): prefill launches {out['prefill_launches']}")
@@ -837,6 +925,7 @@ def serve_path_phase(torch, kernels):
     torch.cuda.synchronize()
     _serve_checks(torch, "(l)", eng_l, counts,
                   {"rmsnorm": 5 * GEMMA_L["new_tokens"], "flash_attention": 2}, GEMMA_L["new_tokens"])
+    _tensor_core_check("(l)", counts)
     for k, v in counts.items():
         launches[k] += v
     print(f"(l) gemma2-27b full width, 2 layers: {n_params / 1e9:.3f}B params bf16, batch 8, "
@@ -844,6 +933,7 @@ def serve_path_phase(torch, kernels):
           f"decode_s={eng_l.decode_seconds:.4f} tokens_per_sec={eng_l.tokens_per_sec():.1f} "
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
+    prefill_ab(torch, eng_l, "(l)")
     del eng_l
     torch.cuda.empty_cache()
 
@@ -865,6 +955,7 @@ def serve_path_phase(torch, kernels):
     new = int(SERVE_M[SERVE_M.index("--new-tokens") + 1])
     _serve_checks(torch, "(m)", eng_m, counts,
                   {"rmsnorm": per_pass * new, "flash_attention": n_shared, "ssd_scan": n_mamba}, new)
+    _tensor_core_check("(m)", counts)
     want_prefill = {"rmsnorm": per_pass, "flash_attention": n_shared, "ssd_scan": n_mamba}
     check({k: out["prefill_launches"][k] for k in want_prefill} == want_prefill,
           f"(m): prefill launches {out['prefill_launches']}")
@@ -877,6 +968,70 @@ def serve_path_phase(torch, kernels):
           f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
           f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
     return launches, {"k": engine, "m": eng_m}
+
+
+def autograd_phase(torch):
+    """The CUDA wrappers of kernels 6-8 are forward-only: with grad mode on,
+    an input that requires grad raises; under ``torch.no_grad()`` the same
+    call launches the kernel.  Each wrapper alone, then ``loss_fn`` of a
+    2-layer reduced smollm-360m whose parameters require grad."""
+    phase("autograd")
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.fed.tasks import tree_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").requires_grad_(True)
+
+    calls = {
+        "rmsnorm": lambda: rms.rmsnorm(rand(8, 960), rand(960)),
+        "flash_attention": lambda: fa.flash_attention(
+            rand(2, 15, 64, 64).bfloat16(), rand(2, 5, 64, 64).bfloat16(),
+            rand(2, 5, 64, 64).bfloat16(), q_groups=3),
+        "ssd_scan": lambda: ssd.ssd_scan(rand(1, 4, 64, 64), -rand(1, 4, 64).abs(),
+                                         rand(1, 64, 64), rand(1, 64, 64), chunk=32),
+    }
+
+    def refuses(call) -> str:
+        try:
+            call()
+        except RuntimeError as e:
+            check("not ported yet" in str(e), f"unexpected error: {e}")
+            return str(e)
+        raise RuntimeError("a CUDA wrapper accepted inputs that require grad")
+
+    for name, call in calls.items():
+        msg = refuses(call)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        n = kernels.launch_counts()[name]
+        check(n == 1, f"{name} under torch.no_grad(): {n} launches")
+        print(f"{name}: refuses inputs that require grad ({msg!r}); under torch.no_grad() "
+              f"{n} launch", flush=True)
+
+    cfg = get_config("smollm-360m").reduced()
+    params = transformer.init_params(cfg, gen)
+    for t in tree_leaves(params):
+        t.requires_grad_(t.is_floating_point())
+    tokens = torch.randint(0, cfg.vocab, (2, 33), generator=gen, device="cuda")
+    batch = (tokens[:, :-1], tokens[:, 1:])
+    msg = refuses(lambda: transformer.loss_fn(params, cfg, batch))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        loss = transformer.loss_fn(params, cfg, batch)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(bool(torch.isfinite(loss)) and counts.get("rmsnorm", 0) > 0
+          and counts.get("flash_attention", 0) > 0, f"loss_fn under torch.no_grad(): {loss}, {counts}")
+    print(f"loss_fn, {cfg.n_layers}-layer reduced smollm-360m, parameters requiring grad: refuses "
+          f"({msg!r}); under torch.no_grad() loss={float(loss):.4f} launches={counts}", flush=True)
 
 
 def sampler_scale_phase(torch, kernels) -> int:
@@ -1114,7 +1269,9 @@ def trace_phase(torch, engines):
     built = api.build(spec)
     profile_kernels(torch, lambda: api.run(spec, built=built), "tiny_lm oracle", f"{ROUNDS} rounds")
     serve_trace(torch, engines["k"], "(k)")
+    prefill_ab(torch, engines["k"], "(k)")
     syncs, prefill = serve_trace(torch, engines["m"], "(m)")
+    prefill_ab(torch, engines["m"], "(m)")
     check(not syncs, f"(m): {len(syncs)} host syncs in 8 decode steps")
     if prefill:
         ssd_us = sum(us for key, us in prefill.items() if "ssd_scan_kernel" in key)
@@ -1328,6 +1485,7 @@ def main() -> int:
     build_phase()
     rows, max_err, path_shape = kernel_phase(torch)
     launches, engines = path_phase(torch)
+    autograd_phase(torch)
     agreement_phase(torch)
     trace_phase(torch, engines)
 

@@ -18,8 +18,13 @@ S_k never count, query rows at or past S_q are not written.
 
 Dispatch is by the device of the tensors: on the CPU the wrapper computes
 the plain PyTorch version (``kernels.ref.mha_reference``); on a CUDA device
-it launches the kernel or raises, with no fallback.  Launches are counted in
-``flash_attention.launches``.
+it launches a kernel or raises, with no fallback.  Of the two CUDA kernels
+the dtype and hd alone choose (``uses_tensor_cores``): bf16 with hd a
+multiple of 16 up to 128 runs on the tensor cores, f32 and any other hd on
+the CUDA cores.  The CUDA kernels are forward-only: with grad mode on, an
+input that requires grad raises (``_common.refuse_grad``).  Launches are
+counted in ``flash_attention.launches``, those of the tensor-core kernel
+also in ``flash_attention.launches_tc``.
 """
 from __future__ import annotations
 
@@ -29,23 +34,42 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._common import refuse_grad
 from repro_torch.kernels.build import load_library
 
-__all__ = ["flash_attention", "launch_counts", "reset_launch_counts"]
+__all__ = ["flash_attention", "uses_tensor_cores", "launch_counts", "reset_launch_counts"]
 
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 256  # the CUDA-core kernel
+MAX_TC_HEAD_DIM = 128  # the tensor-core kernel (bf16, hd a multiple of 16)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-        i32, i32, ctypes.c_float, ctypes.c_float, i32, ptr,
-    ]
-    lib.flash_attention_fwd.restype = i32
+    args = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+            i32, i32, ctypes.c_float, ctypes.c_float]
+    lib.flash_attention_fwd_cudacore.argtypes = [*args, i32, ptr]  # i32: bf16
+    lib.flash_attention_fwd_tc.argtypes = [*args, ptr]
+    for fn in (lib.flash_attention_fwd_cudacore, lib.flash_attention_fwd_tc):
+        fn.restype = i32
     return lib
+
+
+def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
+    """Whether a CUDA input of this dtype and head dim takes the tensor-core
+    kernel (bf16, hd a multiple of 16 up to 128) rather than the CUDA-core
+    one."""
+    return dtype == torch.bfloat16 and hd % 16 == 0 and 0 < hd <= MAX_TC_HEAD_DIM
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if its pointer and (batch, head, seq) strides suit the
+    tensor-core kernel's 16-byte copies, else a contiguous copy."""
+    es = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check(q, k, v, q_groups, window, softcap):
@@ -93,12 +117,22 @@ def flash_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     hd = q.shape[-1]
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes hd <= {MAX_HEAD_DIM}, got {hd}")
+    return _launch(q, k, v, causal, window, softcap, int(q_groups))
+
+
+def _launch(q, k, v, causal, window, softcap, q_groups) -> torch.Tensor:
+    """Launch the kernel ``uses_tensor_cores`` picks."""
+    hd = q.shape[-1]
+    tc = uses_tensor_cores(q.dtype, hd)
     batched = q.dim() == 4
     q4, k4, v4 = (t if batched else t.unsqueeze(0) for t in (q, k, v))
     q4, k4, v4 = (t if t.stride(-1) == 1 else t.contiguous() for t in (q4, k4, v4))
+    if tc:
+        q4, k4, v4 = (_aligned(t) for t in (q4, k4, v4))
     out = torch.empty_like(q4)  # a dense q keeps its layout (preserve_format)
     b, h, s_q, _ = q4.shape
     s_k = k4.shape[2]
@@ -108,27 +142,36 @@ def flash_attention(
         return out if batched else out.squeeze(0)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q4, k4, v4, out) for s in t.stride()[:3]))
     lib = _lib()
+    # The CUDA-core entry point alone takes a dtype flag, before the stream.
+    fn, dtype_flag = (
+        (lib.flash_attention_fwd_tc, ())
+        if tc
+        else (lib.flash_attention_fwd_cudacore, (int(q.dtype == torch.bfloat16),))
+    )
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd(
+        rc = fn(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), strides,
-            b, h, int(q_groups), s_q, s_k, hd, int(bool(causal)),
+            b, h, q_groups, s_q, s_k, hd, int(bool(causal)),
             0 if window is None else int(window), 0.0 if softcap is None else float(softcap),
-            float(hd**-0.5), int(q.dtype == torch.bfloat16),
+            float(hd**-0.5), *dtype_flag,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention CUDA launch failed: cudaError {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_tc += int(tc)
     return out if batched else out.squeeze(0)
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last reset."""
+    """Kernel launches since the last reset (both kernels; the tensor-core
+    kernel's alone are ``flash_attention.launches_tc``)."""
     return {"flash_attention": flash_attention.launches}
 
 
 def reset_launch_counts() -> None:
     flash_attention.launches = 0
+    flash_attention.launches_tc = 0
 
 
 reset_launch_counts()

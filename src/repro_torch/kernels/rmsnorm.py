@@ -15,8 +15,9 @@ The TPU wrapper asserts ``R % block_rows == 0``; this one takes any R and D
 
 Dispatch is by the device of the tensors: on the CPU the wrapper computes
 the plain PyTorch version (``kernels.ref.rmsnorm_reference``); on a CUDA
-device it launches the kernel or raises, with no fallback.  Launches are
-counted in ``rmsnorm.launches``.
+device it launches the kernel or raises, with no fallback.  The kernel is
+forward-only: with grad mode on, an input that requires grad raises
+(``_common.refuse_grad``).  Launches are counted in ``rmsnorm.launches``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._common import refuse_grad
 from repro_torch.kernels.build import load_library
 
 __all__ = ["rmsnorm", "launch_counts", "reset_launch_counts"]
@@ -57,6 +59,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
         return ref.rmsnorm_reference(x, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    refuse_grad("rmsnorm", x, scale)
     if d < 1 or r >= 2**31:
         raise ValueError(f"the CUDA kernel takes 0 < D and R < 2**31, got {(r, d)}")
     x, scale = x.contiguous(), scale.contiguous()

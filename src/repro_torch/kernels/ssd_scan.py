@@ -22,8 +22,9 @@ Beyond the TPU kernel's (BH, S, hd) and (BH, S, N) it takes:
 
 Dispatch is by the device of the tensors: on the CPU the wrapper computes
 the plain PyTorch version (``kernels.ref.ssd_scan_reference``); on a CUDA
-device it launches the kernel or raises, with no fallback.  Launches are
-counted in ``ssd_scan.launches``.
+device it launches the kernel or raises, with no fallback.  The kernel is
+forward-only: with grad mode on, an input that requires grad raises
+(``_common.refuse_grad``).  Launches are counted in ``ssd_scan.launches``.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._common import refuse_grad
 from repro_torch.kernels.build import load_library
 
 __all__ = ["ssd_scan", "launch_counts", "reset_launch_counts"]
@@ -93,6 +95,7 @@ def ssd_scan(
         return ref.ssd_scan_reference(x, da, b, c, chunk=chunk, return_state=return_state)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    refuse_grad("ssd_scan", x, da, b, c)
     s, hd = x.shape[-2:]
     q = min(int(chunk), s)
     if q > MAX_CHUNK:

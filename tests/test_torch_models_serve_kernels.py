@@ -5,7 +5,10 @@ port's extensions (ragged rows and sequences, grouped-query heads, strided
 views), and the wrappers' input checks.
 
 The CUDA kernels run only on a GPU: the tests marked ``cuda`` hold them
-against the plain versions there and skip elsewhere.  Run them on a CUDA
+against the plain versions there (kernel 7 on both its paths: the
+tensor-core kernel for bf16 with hd a multiple of 16 up to 128, the
+CUDA-core kernel otherwise), check that the CUDA wrappers refuse inputs
+that require grad, and skip elsewhere.  Run them on a CUDA
 machine with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_models_serve_kernels.py``.
 """
 import numpy as np
@@ -13,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
@@ -21,11 +25,15 @@ from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 # tests/test_kernels.py's tolerances: f32 sums in another order than XLA's,
 # bf16 outputs one rounding apart.
 F32_TOL = dict(rtol=2e-4, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# A chunked SSD scan against the sequential oracle: the reference's own 1e-3
+# (tests/test_kernels.py; ORACLE_TOL in tests/test_torch_ssm.py).
+ORACLE_TOL = dict(rtol=1e-3, atol=1e-3)
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 MODES = {
     "causal": dict(causal=True),
@@ -180,6 +188,140 @@ def test_cpu_path_counts_no_launches():
     assert kernels.launch_counts()["flash_attention"] == 0
 
 
+def _kernel7_rounding(q, k, v, *, causal=True, window=None, softcap=None, q_groups=1):
+    """``ref.mha_reference`` with the tensor-core kernel's rounding points:
+    bf16 q, k, v; f32 scores; the unnormalised probabilities exp(x - max)
+    rounded to bf16 before the product with v; their f32 sum (unrounded)
+    divides the f32 product; the output rounded to bf16."""
+    if q_groups > 1:
+        k = k.repeat_interleave(q_groups, dim=-3)
+        v = v.repeat_interleave(q_groups, dim=-3)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    qpos = torch.arange(q.shape[-2])[:, None]
+    kpos = torch.arange(k.shape[-2])[None, :]
+    mask = kpos <= qpos if causal else torch.ones((q.shape[-2], k.shape[-2]), dtype=torch.bool)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    logits = torch.where(mask, logits, ref.NEG)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    out = torch.matmul(p.to(torch.bfloat16).float(), v.float()) / p.sum(-1, keepdim=True)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "b,h,g,s,hd,kw",
+    [(2, 6, 3, 200, 64, dict(causal=True)),
+     (1, 4, 2, 256, 128, dict(causal=True, window=96, softcap=30.0))],
+    ids=["causal-hd64-ragged", "window-softcap-hd128"],
+)
+def test_flash_attention_bf16_rounding_within_tolerance(b, h, g, s, hd, kw):
+    """The tensor-core kernel rounds P to bf16 before P·V, where the plain
+    version keeps it in f32: a copy of the plain version with that rounding
+    stays inside the bf16 tolerance the GPU checks hold the kernel to."""
+    rng = np.random.default_rng(s + hd)
+    q = torch.from_numpy(rng.standard_normal((b, h, s, hd)).astype(np.float32)).to(torch.bfloat16)
+    k, v = (torch.from_numpy(rng.standard_normal((b, h // g, s, hd)).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    rounded = _kernel7_rounding(q, k, v, q_groups=g, **kw)
+    plain = ref.mha_reference(q, k, v, q_groups=g, **kw)
+    assert not torch.equal(rounded, plain)  # the rounding moves some outputs
+    torch.testing.assert_close(rounded, plain, **BF16_TOL)
+
+
+@pytest.mark.parametrize(
+    "dtype,hd,want",
+    [(torch.bfloat16, 64, True), (torch.bfloat16, 128, True), (torch.bfloat16, 16, True),
+     (torch.bfloat16, 96, True), (torch.bfloat16, 40, False), (torch.bfloat16, 144, False),
+     (torch.bfloat16, 256, False), (torch.float32, 64, False), (torch.float32, 128, False)],
+)
+def test_flash_attention_path_by_dtype_and_hd(dtype, hd, want):
+    assert fa.uses_tensor_cores(dtype, hd) is want
+
+
+def test_flash_attention_aligned_copies_only_misaligned_views():
+    """The tensor-core kernel's 16-byte copies need 16-byte pointers and
+    (batch, head, seq) strides: the models' transposed views pass as they
+    are, a view at an odd element offset is copied."""
+    base = torch.zeros(2, 40, 6, 64, dtype=torch.bfloat16)
+    view = base.transpose(1, 2)
+    assert fa._aligned(view) is view
+    odd = torch.zeros(2 * 6 * 40 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 6, 40, 64)
+    fixed = fa._aligned(odd)
+    assert fixed is not odd and fixed.data_ptr() % 16 == 0 and torch.equal(fixed, odd)
+
+
+# Kernel 7's mode in the gradient and refusal calls: the window and the soft
+# cap put their terms into the gradient.
+GRAD_FA_KW = dict(causal=True, window=16, softcap=5.0)
+
+
+def _kernel_inputs(name):
+    """Small f32 inputs of kernel 6, 7 or 8's wrapper, from a seed: rmsnorm
+    (x, scale); flash_attention (q, k, v) with 4 query heads over 2; ssd_scan
+    (x, da, b, c) with b and c shared by 2 heads."""
+    rng = np.random.default_rng(0)
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    if name == "rmsnorm":
+        return f(8, 64), f(64)
+    if name == "flash_attention":
+        return f(1, 4, 40, 32), f(1, 2, 40, 32), f(1, 2, 40, 32)
+    return f(1, 2, 40, 16), -rng.random((1, 2, 40)).astype(np.float32), f(1, 40, 8), f(1, 40, 8)
+
+
+def _kernel_call(name, dev, requires_grad=False):
+    """One call of kernel 6, 7 or 8's wrapper and of its plain version on
+    ``_kernel_inputs``."""
+    args = tuple(torch.from_numpy(a).to(dev).requires_grad_(requires_grad)
+                 for a in _kernel_inputs(name))
+    wrapper, plain, kw = {
+        "rmsnorm": (rms.rmsnorm, ref.rmsnorm_reference, {}),
+        "flash_attention": (fa.flash_attention, ref.mha_reference, dict(q_groups=2, **GRAD_FA_KW)),
+        "ssd_scan": (ssd.ssd_scan, ref.ssd_scan_reference, dict(chunk=16)),
+    }[name]
+    return args, lambda: wrapper(*args, **kw), lambda: plain(*args, **kw)
+
+
+def _jax_plain(name):
+    """The JAX package's plain version of the same function, on the port's
+    argument layout: grouped K/V and shared b/c repeated over the heads."""
+    if name == "rmsnorm":
+        return jref.rmsnorm_reference
+    if name == "flash_attention":
+        def attn(q, k, v):
+            g = q.shape[1] // k.shape[1]
+            k, v = (jnp.repeat(t[0], g, axis=0) for t in (k, v))
+            return jref.mha_reference(q[0], k, v, **GRAD_FA_KW)[None]
+        return attn
+
+    def scan(x, da, b, c):
+        h = x.shape[1]
+        return jref.ssd_reference(x[0], da[0], jnp.repeat(b, h, 0), jnp.repeat(c, h, 0))[0][None]
+    return scan
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "flash_attention", "ssd_scan"])
+def test_cpu_wrappers_stay_differentiable(name):
+    """On the CPU the wrappers stay differentiable: the gradient of
+    sum(out^2) with respect to every input equals ``jax.grad`` of the JAX
+    package's plain version on the same inputs, within the f32 tolerance
+    (kernel 8: the oracle's, since the JAX plain version is the sequential
+    scan, whose exact zero gradient for the first step's decay the chunked
+    scan meets up to rounding)."""
+    args, call, _ = _kernel_call(name, torch.device("cpu"), requires_grad=True)
+    got = torch.autograd.grad(call().square().sum(), args)
+    inputs = [jnp.asarray(a) for a in _kernel_inputs(name)]
+    plain = _jax_plain(name)
+    want = jax.grad(lambda *a: jnp.sum(plain(*a) ** 2), argnums=tuple(range(len(inputs))))(*inputs)
+    tol = ORACLE_TOL if name == "ssd_scan" else F32_TOL
+    for g_got, g_want in zip(got, want, strict=True):
+        np.testing.assert_allclose(_f32(g_got.detach()), np.asarray(g_want), **tol)
+
+
 # ---------------------------------------------------------------------------
 # On a GPU: the CUDA kernels against their plain versions.
 # ---------------------------------------------------------------------------
@@ -205,20 +347,81 @@ def test_cuda_rmsnorm_matches_plain(cuda, dtype, r, d):
     torch.testing.assert_close(got, ref.rmsnorm_reference(x, s), **_tol(dtype))
 
 
+# Kernel 7's GPU cases: MODES plus the window with the soft cap (gemma2's
+# local layers) and a window that leaves rows with no valid key.
+CUDA_MODES = {
+    **MODES,
+    "window+softcap": dict(causal=True, window=96, softcap=30.0),
+    "masked rows": dict(causal=True, window=8),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize(
-    "b,h,g,s,hd,mode",
-    [(8, 15, 3, 512, 64, "causal"), (2, 6, 3, 200, 64, "causal"), (1, 4, 2, 512, 128, "window"),
-     (1, 2, 1, 256, 256, "softcap"), (1, 3, 1, 128, 32, "full")],
+    "b,h,g,s,s_k,hd,mode",
+    [(8, 15, 3, 512, 512, 64, "causal"), (2, 6, 3, 200, 200, 64, "causal"),
+     (1, 4, 2, 512, 512, 128, "window"), (1, 2, 1, 256, 256, 256, "softcap"),
+     (1, 3, 1, 128, 128, 32, "full"),
+     # the tensor-core kernel's cases in bf16
+     (2, 4, 1, 256, 256, 64, "causal"), (1, 4, 2, 512, 512, 128, "window+softcap"),
+     (2, 6, 3, 200, 200, 128, "softcap"), (2, 6, 3, 100, 300, 64, "causal"),
+     (2, 6, 3, 300, 100, 64, "full"), (2, 2, 1, 64, 16, 64, "masked rows"),
+     (1, 3, 1, 77, 90, 96, "window+softcap")],
 )
-def test_cuda_flash_attention_matches_plain(cuda, dtype, b, h, g, s, hd, mode):
+def test_cuda_flash_attention_matches_plain(cuda, dtype, b, h, g, s, s_k, hd, mode):
     gen = torch.Generator(device=cuda).manual_seed(s)
     dt = DTYPES[dtype][0]
     q = torch.randn(b, h, s, hd, generator=gen, device=cuda).to(dt)
-    k, v = (torch.randn(b, h // g, s, hd, generator=gen, device=cuda).to(dt) for _ in range(2))
-    before = fa.flash_attention.launches
-    got = fa.flash_attention(q, k, v, q_groups=g, **MODES[mode])
+    k, v = (torch.randn(b, h // g, s_k, hd, generator=gen, device=cuda).to(dt) for _ in range(2))
+    before, before_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
+    got = fa.flash_attention(q, k, v, q_groups=g, **CUDA_MODES[mode])
     assert fa.flash_attention.launches == before + 1
-    want = ref.mha_reference(q, k, v, q_groups=g, **MODES[mode])
+    tc = dtype == "bf16" and hd % 16 == 0 and hd <= 128
+    assert fa.flash_attention.launches_tc == before_tc + int(tc)
+    want = ref.mha_reference(q, k, v, q_groups=g, **CUDA_MODES[mode])
     torch.testing.assert_close(got, want, **_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmsnorm", "flash_attention", "ssd_scan"])
+def test_cuda_wrappers_refuse_grad(cuda, name):
+    """With grad mode on, an input that requires grad raises; under
+    ``torch.no_grad()`` the same call launches the kernel."""
+    from repro_torch import kernels
+
+    _, call, plain = _kernel_call(name, cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="not ported yet"):
+        call()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got, want = call(), plain()
+    assert kernels.launch_counts()[name] == 1
+    torch.testing.assert_close(got, want, **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_loss_fn_refuses_grad(cuda):
+    """A 2-layer reduced smollm's ``loss_fn`` on the card: parameters that
+    require grad raise the refusal; under ``torch.no_grad()`` the loss is
+    finite and kernels 6 and 7 ran."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.fed.tasks import tree_leaves
+    from repro_torch.models import transformer
+
+    cfg = get_config("smollm-360m").reduced()
+    assert cfg.n_layers == 2
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = transformer.init_params(cfg, gen)
+    for t in tree_leaves(params):
+        t.requires_grad_(t.is_floating_point())
+    tokens = torch.randint(0, cfg.vocab, (2, 33), generator=gen, device=cuda)
+    batch = (tokens[:, :-1], tokens[:, 1:])
+    with pytest.raises(RuntimeError, match="not ported yet"):
+        transformer.loss_fn(params, cfg, batch)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        loss = transformer.loss_fn(params, cfg, batch)
+    counts = kernels.launch_counts()
+    assert bool(torch.isfinite(loss)) and counts["rmsnorm"] > 0 and counts["flash_attention"] > 0
