@@ -12,16 +12,20 @@ Phases, each failing loudly (non-zero exit, no result line):
    ``cuobjdump -sass``; none fails);
 3. kernels — hold each of the eight kernels against its plain PyTorch
    version on the card at the main path's shapes (and one large shape),
-   check that kernels 2–5's norms, error scalar or counts and sums are
-   bitwise repeatable, and time kernel, plain version, the library call
-   computing the same function (where there is one) and the bound; kernels 6
+   check that kernel 1's output and kernels 2–5's norms, error scalar or
+   counts and sums are bitwise repeatable, that kernel 2 is one device
+   kernel a call and gives the same bits on two streams at once, and time
+   kernel, plain version, the library call
+   computing the same function (where there is one) and the bound, after a
+   timing floor (a 1-element ``add_`` timed the same way); kernels 6
    (rmsnorm) and 7 (flash_attention) at the serving path's shapes, kernel 7
    in all four modes, at a ragged S, with grouped-query heads, at (m)'s
    shared-attention shape, bf16 and f32, each row naming the kernel that
    ran (tensor cores for bf16, CUDA cores for f32);
    kernel 8 (ssd_scan) at zamba2-1.2b's prefill shape as the model passes
    it, with b and c per row, at a ragged S, under strong decays, y and the
-   final state;
+   final state; kernel 6's host time a call at decode's shape, through the
+   wrapper and through ``torch.autograd.Function.apply``;
 4. path — ``repro_torch.api.run(spec)`` with no device argument (so on the
    GPU) for the paper's logistic-regression spec and the tiny-LM spec in
    oracle and deployable mode, three compressed specs (int8 / fp8 deltas,
@@ -42,9 +46,12 @@ Phases, each failing loudly (non-zero exit, no result line):
    exact kernel 6, 7 and 8 launch counts and every kernel-7 launch on the
    tensor cores; (l)'s prefill with kernel 7 on the tensor cores against
    the CUDA-core kernel;
-   autograd — the CUDA wrappers of kernels 6-8, alone and in a reduced
-   smollm's ``loss_fn``, refuse inputs that require grad and run under
-   ``torch.no_grad()``;
+   autograd — gradients through kernels 6-8 (kernel forward, PyTorch
+   backward) equal the CPU's in f32: each wrapper, then ``loss_fn`` of a
+   reduced smollm-360m and a reduced zamba2-1.2b, with the kernels counted in
+   the forward; ``vmap(grad_and_value(loss_fn))`` over two clients'
+   parameters equals a loop; bf16 gradients are finite, kernel 8's at a
+   decay of -0.75 a step;
 5. agreement — small runs on the GPU, uncompressed and int8-compressed, and
    runs (g) and (h) equal the same runs on the CPU (plain PyTorch path) fed
    the same recorded draws; a 2-layer full-width smollm-360m served in f32 on
@@ -238,6 +245,9 @@ def kernel_phase(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(512 * 2**20 // 4, dtype=torch.float32, device=dev).zero_
+    one = torch.zeros(1, device=dev)
+    print(f"timing floor: a 1-element add_ timed as the kernels are, "
+          f"{time_ms(torch, lambda: one.add_(1.0), flush):.5f} ms", flush=True)
     shapes = [  # (label, C, D): the main path's shapes, then one large ragged one
         ("oracle tiny_lm", 50, 114688),
         ("deployable tiny_lm", 10, 114688),
@@ -260,11 +270,13 @@ def kernel_phase(torch):
             w, lam = w2[0].contiguous(), (0.1 * w2[1]).contiguous()
             w2c = torch.stack([w, w - lam])
 
-            # Kernel 1 (M = 2) against its plain version.
+            # Kernel 1 (M = 2) against its plain version; bitwise repeatable.
             out = fwa.fused_multi_weighted_agg(g, w2c)
             want = ref.multi_weighted_agg_reference(g, w2c)
+            out_again = fwa.fused_multi_weighted_agg(g, w2c)
             torch.cuda.synchronize()
             torch.testing.assert_close(out, want, **tol)
+            check(torch.equal(out, out_again), "fused_multi_weighted_agg is not repeatable")
             err1 = float((out - want).abs().max())
             # Kernel 2 against its plain version; bitwise repeatable.
             d_out, sq = fwa.fused_cohort_agg_and_error(g, w, lam)
@@ -314,7 +326,9 @@ def kernel_phase(torch):
                 lib_name = "mv+square.sum (2 calls)" if name == "fused_weighted_agg" else "matmul"
                 report(name, f"{label} C={c} D={d} {str(dtype)[6:]}", row,
                        "n/a (no bf16 x f32 call)", extra + (f" library={lib_name}" if f32 else ""))
-            del g, out, want, d_out, d_want, d3, d3_want
+            if (label, dtype) == ("deployable tiny_lm", torch.float32):
+                cohort_args = (g, w, lam, d_out, sq)
+            del g, out, out_again, want, d_out, d_want, d3, d3_want
     rows.update(dequant_kernel_phase(torch, fwa, ref, gen, flush, max_err))
     max_err["waterfill_level_stats"] = 0.0
     rows.update(waterfill_kernel_phase(torch, gen, flush, max_err))
@@ -327,7 +341,42 @@ def kernel_phase(torch):
     max_err["ssd_scan"] = 0.0
     rows.update(ssd_kernel_phase(torch, gen, flush, max_err))
     path_shape["ssd_scan"] = ("prefill zamba2", "float32")
+    cohort_checks(torch, fwa, *cohort_args)  # last: it runs torch.profiler
     return rows, max_err, path_shape
+
+
+def cohort_checks(torch, fwa, g, w, lam, d_out, err) -> None:
+    """Kernel 2 at its path shape: one device kernel a call (torch.profiler;
+    its ticket counter sums the blocks' partials in the same launch), and
+    two calls on two side streams at once, each with its own counter, equal
+    the calls made in order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fwa.fused_cohort_agg_and_error(g, w, lam)
+        torch.cuda.synchronize()
+    names = [(e.key, e.count) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    check(names, "the profiler recorded no device kernel for fused_cohort_agg_and_error")
+    check(sum(n for _, n in names) == 1, f"fused_cohort_agg_and_error ran {names}")
+    print(f"fused_cohort_agg_and_error: one device kernel a call ({names[0][0][:60]})")
+    w_b = w.flip(0).contiguous()
+    want_b = fwa.fused_cohort_agg_and_error(g, w_b, lam)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    torch.cuda.synchronize()
+    for stream, ww in zip(streams, (w, w_b)):
+        with torch.cuda.stream(stream):
+            for _ in range(20):
+                res = fwa.fused_cohort_agg_and_error(g, ww, lam)
+            outs.append(res)
+    torch.cuda.synchronize()
+    for (d_s, e_s), (d_w, e_w) in zip(outs, ((d_out, err), want_b)):
+        check(torch.equal(d_s, d_w) and torch.equal(e_s, e_w),
+              "fused_cohort_agg_and_error on two streams differs from the calls in order")
+    print("fused_cohort_agg_and_error: 2 side streams x 20 calls at once == the calls in order, "
+          "bitwise", flush=True)
 
 
 def dequant_kernel_phase(torch, fwa, ref, gen, flush, max_err):
@@ -480,7 +529,31 @@ def rmsnorm_kernel_phase(torch, gen, flush, max_err):
             report("rmsnorm", f"{label} R={r} D={d} {str(dtype)[6:]}", row, "n/a",
                    " library=F.rms_norm(weight=1+scale)")
             del x, got, want
+    # What a host-bound decode step pays a call: the wrapper (no gradient
+    # needed, so the Function's forward) against torch.autograd.Function.apply.
+    x = torch.randn(8, 960, generator=gen, device=dev).bfloat16()
+    scale = torch.zeros(960, dtype=torch.bfloat16, device=dev)
+    direct = host_us(torch, lambda: rms.rmsnorm(x, scale))
+    applied = host_us(torch, lambda: rms._RMSNorm.apply(x, scale, 1e-6))
+    print(f"rmsnorm decode smollm R=8 D=960 bfloat16 host time a call: {direct:.2f} us through "
+          f"the wrapper, {applied:.2f} us through torch.autograd.Function.apply", flush=True)
     return rows
+
+
+def host_us(torch, fn, calls: int = 2000) -> float:
+    """Host time of one call in µs: the best of 5 loops of ``calls`` calls,
+    each ended by one synchronize."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / calls)
+    return best * 1e6
 
 
 def attention_pairs(s_q: int, s_k: int, causal: bool, window) -> int:
@@ -970,68 +1043,130 @@ def serve_path_phase(torch, kernels):
     return launches, {"k": engine, "m": eng_m}
 
 
+def _close_leaves(torch, got, want, what: str, rel: float = 1e-4) -> float:
+    """Each leaf of ``got`` (on the card) within ``rel`` of ``want`` (on the
+    CPU), relative and scaled by the leaf's largest entry; returns the
+    largest difference over that scale."""
+    from repro_torch.fed.tasks import tree_leaves
+
+    worst = 0.0
+    got, want = tree_leaves(got), tree_leaves(want)
+    check(len(got) == len(want), f"{what}: {len(got)} leaves against {len(want)}")
+    for g, w in zip(got, want):
+        g, w = (t.detach().float().cpu() for t in (g, w))
+        scale = max(float(w.abs().max()), 1e-30)
+        torch.testing.assert_close(g, w, rtol=rel, atol=rel * scale, msg=what)
+        worst = max(worst, float((g - w).abs().max()) / scale)
+    return worst
+
+
 def autograd_phase(torch):
-    """The CUDA wrappers of kernels 6-8 are forward-only: with grad mode on,
-    an input that requires grad raises; under ``torch.no_grad()`` the same
-    call launches the kernel.  Each wrapper alone, then ``loss_fn`` of a
-    2-layer reduced smollm-360m whose parameters require grad."""
+    """Gradients through kernels 6-8 on the card: the kernel runs the
+    forward (its launches counted), the wrapper's ``torch.autograd.Function``
+    runs the PyTorch backward.  In f32, each wrapper's gradients equal the
+    CPU's (plain forward, the same backward), and so do the gradients of
+    ``loss_fn`` for a reduced smollm-360m and a reduced zamba2-1.2b on the
+    same weights, within 1e-4 of each leaf's largest entry; then
+    ``torch.func.vmap(torch.func.grad_and_value(loss_fn))`` over two
+    clients' parameters equals a loop of ``grad_and_value`` (kernel 6 loops
+    over the clients' norm weights, kernels 7 and 8 fold them into B); then
+    bf16 gradients are finite, kernel 8's at a decay of -0.75 a step."""
     phase("autograd")
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.fed.tasks import tree_leaves
+    from repro_torch.fed.tasks import tree_leaves, tree_map
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.models import transformer
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    gen = torch.Generator().manual_seed(5)
+
+    def cuda(tree):
+        return tree_map(lambda t: t.to("cuda"), tree)
 
     def rand(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda").requires_grad_(True)
+        return torch.randn(*shape, generator=gen)
 
-    calls = {
-        "rmsnorm": lambda: rms.rmsnorm(rand(8, 960), rand(960)),
-        "flash_attention": lambda: fa.flash_attention(
-            rand(2, 15, 64, 64).bfloat16(), rand(2, 5, 64, 64).bfloat16(),
-            rand(2, 5, 64, 64).bfloat16(), q_groups=3),
-        "ssd_scan": lambda: ssd.ssd_scan(rand(1, 4, 64, 64), -rand(1, 4, 64).abs(),
-                                         rand(1, 64, 64), rand(1, 64, 64), chunk=32),
+    def scan(*a):
+        return ssd.ssd_scan(*a, chunk=32, return_state=True)
+
+    cases = {  # name: (f32 inputs on the CPU, call); (m)'s head sizes, a few rows
+        "rmsnorm": ((rand(8, 960), 0.1 * rand(960)), rms.rmsnorm),
+        "flash_attention": (
+            (rand(2, 15, 64, 64), rand(2, 5, 64, 64), rand(2, 5, 64, 64)),
+            lambda q, k, v: fa.flash_attention(q, k, v, q_groups=3, window=48, softcap=30.0)),
+        "ssd_scan": ((rand(1, 4, 96, 64), -0.1 * rand(1, 4, 96).abs(), rand(1, 96, 64),
+                      rand(1, 96, 64)), scan),
     }
 
-    def refuses(call) -> str:
-        try:
-            call()
-        except RuntimeError as e:
-            check("not ported yet" in str(e), f"unexpected error: {e}")
-            return str(e)
-        raise RuntimeError("a CUDA wrapper accepted inputs that require grad")
+    def grads(call, args, dev, dtype=torch.float32):
+        args = [a.to(dev, dtype).requires_grad_(True) for a in args]
+        out = call(*args)
+        outs = out if isinstance(out, tuple) else (out,)
+        return torch.autograd.grad(sum(o.float().square().sum() for o in outs), args)
 
-    for name, call in calls.items():
-        msg = refuses(call)
+    for name, (args, call) in cases.items():
         kernels.reset_launch_counts()
-        with torch.no_grad():
-            call()
+        got = grads(call, args, "cuda")
         torch.cuda.synchronize()
         n = kernels.launch_counts()[name]
-        check(n == 1, f"{name} under torch.no_grad(): {n} launches")
-        print(f"{name}: refuses inputs that require grad ({msg!r}); under torch.no_grad() "
-              f"{n} launch", flush=True)
+        check(n == 1, f"{name}: {n} forward launches with grad")
+        rel = _close_leaves(torch, list(got), list(grads(call, args, "cpu")), f"{name} gradients")
+        print(f"{name}: gradients on the card (kernel forward, {n} launch; torch backward) == "
+              f"the CPU's within 1e-4 of each input's largest entry (max rel diff {rel:.3g})",
+              flush=True)
 
-    cfg = get_config("smollm-360m").reduced()
-    params = transformer.init_params(cfg, gen)
-    for t in tree_leaves(params):
-        t.requires_grad_(t.is_floating_point())
-    tokens = torch.randint(0, cfg.vocab, (2, 33), generator=gen, device="cuda")
-    batch = (tokens[:, :-1], tokens[:, 1:])
-    msg = refuses(lambda: transformer.loss_fn(params, cfg, batch))
+    models = {"smollm-360m": get_config("smollm-360m").reduced(),
+              "zamba2-1.2b": get_config("zamba2-1.2b").reduced()}
+    for arch, cfg in models.items():
+        params = [transformer.init_params(cfg, torch.Generator().manual_seed(i), "cpu")
+                  for i in range(2)]
+        tokens = torch.randint(0, cfg.vocab, (2, 65), generator=gen)
+        batch = (tokens[:, :-1], tokens[:, 1:])
+        grad_fn = torch.func.grad_and_value(transformer.loss_fn)
+        kernels.reset_launch_counts()
+        gpu = grad_fn(cuda(params[0]), cfg, cuda(batch))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in kernels.launch_counts().items() if v}
+        want = {"rmsnorm", "flash_attention"} | ({"ssd_scan"} if "mamba2" in cfg.block_pattern else set())
+        check(set(counts) == want, f"{arch} loss_fn forward launches {counts}, expected {sorted(want)}")
+        cpu = grad_fn(params[0], cfg, batch)
+        rel = _close_leaves(torch, [gpu[1], *tree_leaves(gpu[0])], [cpu[1], *tree_leaves(cpu[0])],
+                            f"{arch} loss_fn gradients")
+        print(f"{arch} reduced ({cfg.n_layers} blocks) loss_fn: loss {float(gpu[1]):.6f} (CPU "
+              f"{float(cpu[1]):.6f}); gradients of {len(tree_leaves(cpu[0]))} leaves on the card "
+              f"== the CPU's (max rel diff {rel:.3g}); forward launches {counts}", flush=True)
+
+        stacked = cuda(tree_map(lambda *ts: torch.stack(ts), *params))
+        kernels.reset_launch_counts()
+        vg, vl = torch.func.vmap(grad_fn, in_dims=(0, None, None))(stacked, cfg, cuda(batch))
+        torch.cuda.synchronize()
+        vcounts = {k: v for k, v in kernels.launch_counts().items() if v}
+        check(set(vcounts) == want, f"{arch} vmapped loss_fn launches {vcounts}")
+        worst = 0.0
+        for i in range(2):
+            g_i, l_i = grad_fn(cuda(params[i]), cfg, cuda(batch))
+            worst = max(worst, _close_leaves(
+                torch, [vl[i], *(t[i] for t in tree_leaves(vg))], [l_i.cpu(), *tree_leaves(g_i)],
+                f"{arch} vmap(grad_and_value) client {i}"))
+        print(f"{arch}: vmap(grad_and_value(loss_fn)) over 2 clients on the card == a loop "
+              f"(max rel diff {worst:.3g}); launches {vcounts}", flush=True)
+
+    # bf16 on the card: finite gradients; kernel 8 under a decay of -0.75 a step.
     kernels.reset_launch_counts()
-    with torch.no_grad():
-        loss = transformer.loss_fn(params, cfg, batch)
-    counts = {k: v for k, v in kernels.launch_counts().items() if v}
-    check(bool(torch.isfinite(loss)) and counts.get("rmsnorm", 0) > 0
-          and counts.get("flash_attention", 0) > 0, f"loss_fn under torch.no_grad(): {loss}, {counts}")
-    print(f"loss_fn, {cfg.n_layers}-layer reduced smollm-360m, parameters requiring grad: refuses "
-          f"({msg!r}); under torch.no_grad() loss={float(loss):.4f} launches={counts}", flush=True)
+    bad = []
+    for name, (args, call) in cases.items():
+        if name == "ssd_scan":
+            args = (args[0], torch.full_like(args[1], -0.75), args[2], args[3])
+        for t in grads(call, args, "cuda", torch.bfloat16):
+            if not bool(torch.isfinite(t.float()).all()):
+                bad.append(name)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(not bad and all(counts[n] == 1 for n in cases), f"bf16 gradients: not finite {bad}, {counts}")
+    print(f"bf16 gradients on the card finite, kernel 8 at a decay of -0.75 a step; launches "
+          f"{ {n: counts[n] for n in cases} }", flush=True)
 
 
 def sampler_scale_phase(torch, kernels) -> int:

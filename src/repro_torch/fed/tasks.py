@@ -44,9 +44,12 @@ def tree_leaves(tree) -> list:
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts of identical structure."""
+    """``fn`` over the leaves of nested dicts, lists and tuples of identical
+    structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest, strict=True))
     return fn(tree, *rest)
 
 

@@ -1,4 +1,4 @@
-"""Flash attention (forward): kernel 7 of the port.
+"""Flash attention: kernel 7 of the port.
 
 Wrapper around the CUDA kernel in ``csrc/flash_attention.cu`` (design notes
 there), which replaces the JAX reference's Pallas TPU kernel
@@ -21,10 +21,21 @@ the plain PyTorch version (``kernels.ref.mha_reference``); on a CUDA device
 it launches a kernel or raises, with no fallback.  Of the two CUDA kernels
 the dtype and hd alone choose (``uses_tensor_cores``): bf16 with hd a
 multiple of 16 up to 128 runs on the tensor cores, f32 and any other hd on
-the CUDA cores.  The CUDA kernels are forward-only: with grad mode on, an
-input that requires grad raises (``_common.refuse_grad``).  Launches are
-counted in ``flash_attention.launches``, those of the tensor-core kernel
-also in ``flash_attention.launches_tc``.
+the CUDA cores.  Launches are counted in ``flash_attention.launches``,
+those of the tensor-core kernel also in ``flash_attention.launches_tc``.
+
+On both devices a call that needs a gradient, or runs under
+``torch.func.grad`` or ``vmap``, goes through one ``torch.autograd.Function``
+(``_common.needs_autograd``), so ``backward``, ``grad`` and ``vmap`` work
+on either; any other call runs the Function's forward directly.  The backward
+(``attention_backward``) is PyTorch code, a port of the reference's
+``repro/kernels/ops.py:_fa_bwd`` (the TPU has no backward kernel either):
+it recomputes the probabilities from q, k and the mask, takes the forward's
+output for the row terms, multiplies the soft cap's 1 - tanh^2 in and zeroes
+ds outside the mask, so a row with no valid key (whose output is the mean
+of v) sends its gradient to v alone.  It builds the (S_q, S_k) probabilities
+in f32.  The vmap rule folds the vmapped axis into B when q, k and v are
+all batched (one launch); otherwise it loops, one launch per index.
 """
 from __future__ import annotations
 
@@ -34,10 +45,16 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._common import refuse_grad
+from repro_torch.kernels._common import batch_first, needs_autograd, vmap_loop
 from repro_torch.kernels.build import load_library
 
-__all__ = ["flash_attention", "uses_tensor_cores", "launch_counts", "reset_launch_counts"]
+__all__ = [
+    "flash_attention",
+    "attention_backward",
+    "uses_tensor_cores",
+    "launch_counts",
+    "reset_launch_counts",
+]
 
 MAX_HEAD_DIM = 256  # the CUDA-core kernel
 MAX_TC_HEAD_DIM = 128  # the tensor-core kernel (bf16, hd a multiple of 16)
@@ -111,17 +128,80 @@ def flash_attention(
     (B, H / q_groups, S_k, hd); f32 or bf16, hd <= 256 on the GPU.  Returns
     q's shape and dtype (on the GPU with q's memory layout)."""
     _check(q, k, v, q_groups, window, softcap)
-    if q.device.type == "cpu":
-        return ref.mha_reference(
-            q, k, v, causal=causal, window=window, softcap=softcap, q_groups=int(q_groups)
-        )
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    refuse_grad("flash_attention", q, k, v)
-    hd = q.shape[-1]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes hd <= {MAX_HEAD_DIM}, got {hd}")
-    return _launch(q, k, v, causal, window, softcap, int(q_groups))
+    args = (q, k, v, bool(causal), None if window is None else int(window),
+            None if softcap is None else float(softcap), int(q_groups))
+    if needs_autograd(q, k, v):
+        return _FlashAttention.apply(*args)
+    return _FlashAttention.forward(*args)
+
+
+def attention_backward(q, k, v, out, d_out, *, causal, window, softcap, q_groups):
+    """Gradients (dq, dk, dv) of the attention above at (q, k, v), given
+    its output ``out`` and the output's cotangent ``d_out``: the reference's
+    ``_fa_bwd`` on the (..., heads, S, hd) layout, with dk and dv summed
+    over the ``q_groups`` query heads that read each key/value head.  f32
+    math; each gradient in its input's dtype."""
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    if q_groups > 1:
+        kf = kf.repeat_interleave(q_groups, dim=-3)
+        vf = vf.repeat_interleave(q_groups, dim=-3)
+    qf, do = q.to(torch.float32), d_out.to(torch.float32)
+    scale = q.shape[-1] ** -0.5
+    s_raw = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s_capped = s_raw if softcap is None else softcap * torch.tanh(s_raw / softcap)
+    mask = ref.attention_mask(q.shape[-2], k.shape[-2], causal, window, q.device)
+    p = torch.softmax(torch.where(mask, s_capped, ref.NEG), dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, vf.transpose(-1, -2))
+    d_rows = (do * out.to(torch.float32)).sum(-1, keepdim=True)
+    ds = p * (dp - d_rows)  # the gradient of the (masked, capped) logits
+    if softcap is not None:
+        ds = ds * (1.0 - torch.tanh(s_raw / softcap) ** 2)
+    ds = torch.where(mask, ds, 0.0)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    if q_groups > 1:
+        dk, dv = (t.unflatten(-3, (-1, q_groups)).sum(-3) for t in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel 7 (or its plain version on the CPU) with ``attention_backward``
+    and the vmap rule of the module's docstring."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, softcap, q_groups):
+        if q.device.type == "cpu":
+            return ref.mha_reference(
+                q, k, v, causal=causal, window=window, softcap=softcap, q_groups=q_groups
+            )
+        if q.shape[-1] > MAX_HEAD_DIM:
+            raise ValueError(f"the CUDA kernel takes hd <= {MAX_HEAD_DIM}, got {q.shape[-1]}")
+        return _launch(q, k, v, causal, window, softcap, q_groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, softcap, q_groups = inputs
+        ctx.save_for_backward(q, k, v, output)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap, q_groups=q_groups)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out = ctx.saved_tensors
+        return (*attention_backward(q, k, v, out, d_out, **ctx.kw), None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, *rest):
+        dims = in_dims[:3]
+        if any(d is None for d in dims):
+            return vmap_loop(_FlashAttention.apply, info, in_dims, q, k, v, *rest)
+        if q.dim() == 4:  # (H, S, hd) each: the vmapped axis is B
+            return _FlashAttention.apply(*(t.movedim(d, 0) for t, d in zip((q, k, v), dims)), *rest), 0
+        shape = q.movedim(dims[0], 0).shape
+        out = _FlashAttention.apply(*(batch_first(t, d) for t, d in zip((q, k, v), dims)), *rest)
+        return out.reshape(shape), 0
 
 
 def _launch(q, k, v, causal, window, softcap, q_groups) -> torch.Tensor:

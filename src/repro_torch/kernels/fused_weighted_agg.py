@@ -104,12 +104,14 @@ def _lib() -> ctypes.CDLL:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.fwa_num_tiles.argtypes = [i64, i32]
     lib.fwa_num_tiles.restype = i64
+    lib.fwa_cohort_blocks.argtypes = [ptr, i32, i32, i64]
+    lib.fwa_cohort_blocks.restype = i64
     lib.fwa_max_rows.argtypes = []
     lib.fwa_max_rows.restype = i32
     lib.fwa_multi_weighted_agg.argtypes = [ptr, i32, ptr, ptr, i32, i64, i32, ptr]
     lib.fwa_multi_weighted_agg.restype = i32
     lib.fwa_cohort_agg_and_error.argtypes = [
-        ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr,
+        ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr,
     ]
     lib.fwa_cohort_agg_and_error.restype = i32
     lib.fwa_weighted_agg.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i64, ptr]
@@ -153,6 +155,20 @@ def _raise_on(rc: int, kernel: str) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# Kernel 2's ticket counters, one per (device, stream): the last block of a
+# launch finds itself by an atomic ticket on the counter and sets it back to
+# 0, so launches in order on one stream share it, and launches on two
+# streams, which may overlap, never do.  Zeroed once, when first allocated.
+_COUNTERS: dict = {}
+
+
+def _counter(t: torch.Tensor, stream: int) -> torch.Tensor:
+    key = (t.device.index, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=t.device)
+    return _COUNTERS[key]
 
 
 def fused_weighted_agg(g: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -216,7 +232,8 @@ def fused_cohort_agg_and_error(
     weights (zero on padding slots); lam_c (C,) f32 objective weights at the
     cohort ids (zero on padding).  Returns (d (D,) f32, err () f32) with
     ``d = sum_c w_c g_c`` and ``err = ||sum_c (w_c - lam_c) g_c||^2``.  On
-    the GPU the result is bitwise repeatable (no float atomics)."""
+    the GPU it is one kernel launch, and the result is bitwise repeatable
+    (no float atomics: the last block sums the blocks' partials in order)."""
     c, d = _check_g(g)
     _check("w", w, (c,), (torch.float32,), g.device)
     _check("lam_c", lam_c, (c,), (torch.float32,), g.device)
@@ -226,11 +243,14 @@ def fused_cohort_agg_and_error(
     code = _DTYPE_CODES[g.dtype]
     d_out = torch.empty(d, dtype=torch.float32, device=g.device)
     err = torch.empty((), dtype=torch.float32, device=g.device)
-    partials = torch.empty(lib.fwa_num_tiles(d, code), dtype=torch.float32, device=g.device)
+    stream = _stream(g)
     with torch.cuda.device(g.device):
+        partials = torch.empty(
+            lib.fwa_cohort_blocks(g.data_ptr(), code, c, d), dtype=torch.float32, device=g.device
+        )
         rc = lib.fwa_cohort_agg_and_error(
             g.data_ptr(), code, w.data_ptr(), lam_c.data_ptr(), d_out.data_ptr(),
-            partials.data_ptr(), err.data_ptr(), c, d, _stream(g),
+            partials.data_ptr(), _counter(g, stream).data_ptr(), err.data_ptr(), c, d, stream,
         )
     _raise_on(rc, "fused_cohort_agg_and_error")
     fused_cohort_agg_and_error.launches += 1

@@ -1,8 +1,8 @@
 """Public wrappers for the port's kernels, after ``repro/kernels/ops.py``.
 
-Only the wrappers whose kernels exist in the port are here.  The reference's
-``flash_attention_trainable`` (with its backward) waits for the zoo
-federated round (``ROADMAP.md``).
+Every wrapper of the reference is here, ``flash_attention_trainable``
+included: its forward is kernel 7 and its gradient the PyTorch backward of
+``kernels.flash_attention`` (a port of the reference's ``_fa_bwd``).
 
 As everywhere in the port, a tensor on the CPU takes the kernel's plain
 PyTorch version and a tensor on a CUDA device launches the CUDA kernel.
@@ -20,12 +20,23 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 
 __all__ = [
     "flash_attention",
+    "flash_attention_trainable",
     "ssd_scan",
     "fused_weighted_agg",
     "rmsnorm",
     "aggregate_cohort_updates",
     "waterfill_level_stats",
 ]
+
+
+def flash_attention_trainable(q, k, v, causal=True, window=None, softcap=None):
+    """Flash attention with a gradient, the reference's signature and
+    meaning: q, k, v (H, S, hd); forward through kernel 7 (O(S) memory, no
+    S x S probabilities stored), backward recomputing attention from (q, k,
+    v, out) with the analytic gradient.  The reference's custom VJP is the
+    ``torch.autograd.Function`` behind ``flash_attention``, so this is that
+    call with the reference's positional flags."""
+    return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 def fused_weighted_agg(g: torch.Tensor, w: torch.Tensor, *, block_d: int = 2048):

@@ -23,6 +23,7 @@ __all__ = [
     "dequant_cohort_agg_reference",
     "waterfill_stats_reference",
     "rmsnorm_reference",
+    "attention_mask",
     "mha_reference",
     "ssd_reference",
     "ssd_scan_reference",
@@ -106,6 +107,19 @@ def rmsnorm_reference(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
+def attention_mask(s_q: int, s_k: int, causal: bool, window: int | None, device) -> torch.Tensor:
+    """(S_q, S_k) bool, True where query i may read key j: j <= i when
+    causal, j > i - window with a window."""
+    qpos = torch.arange(s_q, device=device)[:, None]
+    kpos = torch.arange(s_k, device=device)[None, :]
+    mask = torch.ones((s_q, s_k), dtype=torch.bool, device=device)
+    if causal:
+        mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
 def mha_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -130,14 +144,7 @@ def mha_reference(
     logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * scale
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
-    s_q, s_k = q.shape[-2], k.shape[-2]
-    qpos = torch.arange(s_q, device=q.device)[:, None]
-    kpos = torch.arange(s_k, device=q.device)[None, :]
-    mask = torch.ones((s_q, s_k), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = kpos <= qpos
-    if window is not None:
-        mask = mask & (kpos > qpos - window)
+    mask = attention_mask(q.shape[-2], k.shape[-2], causal, window, q.device)
     probs = torch.softmax(torch.where(mask, logits, NEG), dim=-1)
     return torch.matmul(probs, v.to(torch.float32)).to(q.dtype)
 

@@ -22,9 +22,22 @@ Beyond the TPU kernel's (BH, S, hd) and (BH, S, N) it takes:
 
 Dispatch is by the device of the tensors: on the CPU the wrapper computes
 the plain PyTorch version (``kernels.ref.ssd_scan_reference``); on a CUDA
-device it launches the kernel or raises, with no fallback.  The kernel is
-forward-only: with grad mode on, an input that requires grad raises
-(``_common.refuse_grad``).  Launches are counted in ``ssd_scan.launches``.
+device it launches the kernel or raises, with no fallback.  Launches are
+counted in ``ssd_scan.launches``.
+
+On both devices a call that needs a gradient, or runs under
+``torch.func.grad`` or ``vmap``, goes through one ``torch.autograd.Function``
+(``_common.needs_autograd``), so ``backward``, ``grad`` and ``vmap`` work
+on either; any other call runs the Function's forward directly.  The backward
+is PyTorch code (the TPU kernel has no backward kernel either):
+``torch.func.vjp`` of the plain version, recomputed from the saved inputs,
+pulled back from y's cotangent and, with ``return_state``, the final
+state's; an output that was not used gets zeros.  The plain version masks
+above the diagonal before its exp, so the gradient stays finite where
+cum_t - cum_s would overflow under strong decays.  The vmap rule folds the
+vmapped axis into the leading axis of x, da, b and c when all four are
+batched (one launch; b and c stay shared per batch row, as the ratio of
+x's rows to b's is unchanged); otherwise it loops, one launch per index.
 """
 from __future__ import annotations
 
@@ -34,7 +47,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._common import refuse_grad
+from repro_torch.kernels._common import batch_first, needs_autograd, vmap_loop
 from repro_torch.kernels.build import load_library
 
 __all__ = ["ssd_scan", "launch_counts", "reset_launch_counts"]
@@ -91,13 +104,17 @@ def ssd_scan(
     Returns y (x's shape and dtype; on the GPU with x's memory layout) and,
     with ``return_state``, the final state (BH, hd, N) f32."""
     _check(x, da, b, c, chunk)
-    if x.device.type == "cpu":
-        return ref.ssd_scan_reference(x, da, b, c, chunk=chunk, return_state=return_state)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
-    refuse_grad("ssd_scan", x, da, b, c)
+    args = (x, da, b, c, int(chunk), bool(return_state))
+    if needs_autograd(x, da, b, c):
+        return _SSDScan.apply(*args)
+    return _SSDScan.forward(*args)
+
+
+def _launch(x, da, b, c, chunk: int, return_state: bool):
     s, hd = x.shape[-2:]
-    q = min(int(chunk), s)
+    q = min(chunk, s)
     if q > MAX_CHUNK:
         raise ValueError(f"the CUDA kernel takes chunks of at most {MAX_CHUNK} steps, got {q}")
     x4 = x if x.dim() == 4 else x.unsqueeze(1)
@@ -126,6 +143,51 @@ def ssd_scan(
     ssd_scan.launches += 1
     y = y4 if x.dim() == 4 else y4.squeeze(1)
     return (y, state) if return_state else y
+
+
+class _SSDScan(torch.autograd.Function):
+    """Kernel 8 (or its plain version on the CPU) with the recomputing
+    backward and the vmap rule of the module's docstring."""
+
+    @staticmethod
+    def forward(x, da, b, c, chunk, return_state):
+        if x.device.type == "cpu":
+            return ref.ssd_scan_reference(x, da, b, c, chunk=chunk, return_state=return_state)
+        return _launch(x, da, b, c, chunk, return_state)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, da, b, c, chunk, return_state = inputs
+        ctx.save_for_backward(x, da, b, c)
+        ctx.chunk, ctx.return_state = chunk, return_state
+        ctx.set_materialize_grads(False)  # an unused output's cotangent is None
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        def plain(*inputs):
+            return ref.ssd_scan_reference(
+                *inputs, chunk=ctx.chunk, return_state=ctx.return_state
+            )
+
+        outputs, pullback = torch.func.vjp(plain, *ctx.saved_tensors)
+        if not ctx.return_state:
+            outputs = (outputs,)
+        cot = tuple(torch.zeros_like(o) if g is None else g for o, g in zip(outputs, cotangents))
+        return (*pullback(cot if ctx.return_state else cot[0]), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, da, b, c, chunk, return_state):
+        dims = in_dims[:4]
+        if any(d is None for d in dims):
+            return vmap_loop(_SSDScan.apply, info, in_dims, x, da, b, c, chunk, return_state)
+        shape = x.movedim(dims[0], 0).shape
+        out = _SSDScan.apply(
+            *(batch_first(t, d) for t, d in zip((x, da, b, c), dims)), chunk, return_state
+        )
+        if not return_state:
+            return out.reshape(shape), 0
+        y, state = out
+        return (y.reshape(shape), state.unflatten(0, (info.batch_size, -1))), (0, 0)
 
 
 def launch_counts() -> dict:

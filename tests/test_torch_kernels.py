@@ -306,6 +306,60 @@ def test_cuda_kernel_matches_plain(cuda, dtype, c, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "m,c,d", [(2, 50, 114688), (2, 100, 610), (4, 3, 1027), (1, 300, 4099), (2, 200, 8192),
+              (2, 20, 1 << 21), (3, 16, 100003)],
+)
+def test_cuda_multi_agg_bitwise_repeatable(cuda, dtype, m, c, d):
+    """Kernel 1 splits C over the warps of a block and adds their sums in a
+    fixed order: two calls give the same bits, at the main path's shapes,
+    at a ragged D, with more rows than 16 warps walk in one batch (loaded
+    into registers, and copied in two stages), at a D with more tiles
+    than the card holds blocks, and at a small C over a ragged D in f32
+    (each warp walking all rows of tiles of its own).  Kernel 2 at the same shapes (its grid
+    bounded by the blocks the card holds) against its plain version, its
+    error scalar bitwise repeatable."""
+    g, w = _inputs(c, d, m, seed=9)
+    g_t = torch.from_numpy(g).to(DTYPES[dtype][0]).to(cuda)
+    w_t = torch.from_numpy(w).to(cuda)
+    tol = BF16_TOL if dtype == "bf16" else F32_TOL
+    got = fwa.fused_multi_weighted_agg(g_t, w_t)
+    again = fwa.fused_multi_weighted_agg(g_t, w_t)
+    torch.testing.assert_close(got, ref.multi_weighted_agg_reference(g_t, w_t), **tol)
+    assert torch.equal(got, again)
+    w0, lam = w_t[0].contiguous(), (0.1 * w_t[-1]).contiguous()
+    d_got, e_got = fwa.fused_cohort_agg_and_error(g_t, w0, lam)
+    d_want, e_want = ref.cohort_agg_and_error_reference(g_t, w0, lam)
+    torch.testing.assert_close(d_got, d_want, **tol)
+    torch.testing.assert_close(e_got, e_want, rtol=1e-4, atol=0.0)
+    assert torch.equal(fwa.fused_cohort_agg_and_error(g_t, w0, lam)[1], e_got)
+
+
+@pytest.mark.cuda
+def test_cuda_cohort_agg_on_two_streams(cuda):
+    """Kernel 2's last block finds itself by a ticket counter, one per
+    (device, stream): launches on two streams at once give the bits of the
+    same launches made in order."""
+    g, w2 = _inputs(10, 114688, 2, seed=11)
+    g_t = torch.from_numpy(g).to(cuda)
+    ws = [torch.from_numpy(w2[i]).to(cuda) for i in range(2)]
+    lam = 0.1 * ws[1]
+    want = [fwa.fused_cohort_agg_and_error(g_t, w, lam) for w in ws]
+    streams = [torch.cuda.Stream() for _ in ws]
+    torch.cuda.synchronize()
+    got = []
+    for stream, w in zip(streams, ws):
+        with torch.cuda.stream(stream):
+            for _ in range(20):
+                out = fwa.fused_cohort_agg_and_error(g_t, w, lam)
+            got.append(out)
+    torch.cuda.synchronize()
+    for (d_got, e_got), (d_want, e_want) in zip(got, want):
+        assert torch.equal(d_got, d_want) and torch.equal(e_got, e_want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["int8", "fp8"])
 @pytest.mark.parametrize(
     "c,d,sb", [(50, 114688, 128), (10, 114688, 128), (100, 640, 128), (3, 1000, 40)]

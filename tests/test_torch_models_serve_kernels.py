@@ -7,8 +7,8 @@ views), and the wrappers' input checks.
 The CUDA kernels run only on a GPU: the tests marked ``cuda`` hold them
 against the plain versions there (kernel 7 on both its paths: the
 tensor-core kernel for bf16 with hd a multiple of 16 up to 128, the
-CUDA-core kernel otherwise), check that the CUDA wrappers refuse inputs
-that require grad, and skip elsewhere.  Run them on a CUDA
+CUDA-core kernel otherwise), check that gradients through the kernels (kernel
+forward, PyTorch backward) equal the CPU's, and skip elsewhere.  Run them on a CUDA
 machine with ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_models_serve_kernels.py``.
 """
 import numpy as np
@@ -252,8 +252,8 @@ def test_flash_attention_aligned_copies_only_misaligned_views():
     assert fixed is not odd and fixed.data_ptr() % 16 == 0 and torch.equal(fixed, odd)
 
 
-# Kernel 7's mode in the gradient and refusal calls: the window and the soft
-# cap put their terms into the gradient.
+# Kernel 7's mode in the gradient calls: the window and the soft cap put
+# their terms into the gradient.
 GRAD_FA_KW = dict(causal=True, window=16, softcap=5.0)
 
 
@@ -306,9 +306,11 @@ def _jax_plain(name):
 
 @pytest.mark.parametrize("name", ["rmsnorm", "flash_attention", "ssd_scan"])
 def test_cpu_wrappers_stay_differentiable(name):
-    """On the CPU the wrappers stay differentiable: the gradient of
-    sum(out^2) with respect to every input equals ``jax.grad`` of the JAX
-    package's plain version on the same inputs, within the f32 tolerance
+    """On the CPU the wrappers stay differentiable through their
+    ``torch.autograd.Function``'s backward (the code the card runs after
+    the kernel): the gradient of sum(out^2) with respect to every input
+    equals ``jax.grad`` of the JAX package's plain version on the same
+    inputs, within the f32 tolerance
     (kernel 8: the oracle's, since the JAX plain version is the sequential
     scan, whose exact zero gradient for the first step's decay the chunked
     scan meets up to rounding)."""
@@ -385,43 +387,49 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, b, h, g, s, s_k, hd, mo
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["rmsnorm", "flash_attention", "ssd_scan"])
-def test_cuda_wrappers_refuse_grad(cuda, name):
-    """With grad mode on, an input that requires grad raises; under
-    ``torch.no_grad()`` the same call launches the kernel."""
+def test_cuda_wrapper_gradients_match_cpu(cuda, name):
+    """On the card the kernel runs the forward (one launch) and the
+    wrapper's PyTorch backward the gradient: the gradients of sum(out^2)
+    equal the CPU's (plain forward, the same backward) on the same f32
+    inputs, within the f32 tolerance (kernel 8: the oracle's, as in
+    ``test_cpu_wrappers_stay_differentiable``: the first step's decay has
+    an exact zero gradient that both devices meet only up to rounding)."""
     from repro_torch import kernels
 
-    _, call, plain = _kernel_call(name, cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="not ported yet"):
-        call()
+    args, call, _ = _kernel_call(name, cuda, requires_grad=True)
     kernels.reset_launch_counts()
-    with torch.no_grad():
-        got, want = call(), plain()
+    got = torch.autograd.grad(call().square().sum(), args)
     assert kernels.launch_counts()[name] == 1
-    torch.testing.assert_close(got, want, **F32_TOL)
+    cpu_args, cpu_call, _ = _kernel_call(name, torch.device("cpu"), requires_grad=True)
+    want = torch.autograd.grad(cpu_call().square().sum(), cpu_args)
+    tol = ORACLE_TOL if name == "ssd_scan" else F32_TOL
+    for g_got, g_want in zip(got, want, strict=True):
+        torch.testing.assert_close(g_got.cpu(), g_want, **tol)
 
 
 @pytest.mark.cuda
-def test_cuda_loss_fn_refuses_grad(cuda):
-    """A 2-layer reduced smollm's ``loss_fn`` on the card: parameters that
-    require grad raise the refusal; under ``torch.no_grad()`` the loss is
-    finite and kernels 6 and 7 ran."""
+def test_cuda_loss_fn_gradients_match_cpu(cuda):
+    """A 2-layer reduced smollm's ``loss_fn`` on the card, kernels 6 and 7
+    counted in the forward: loss and gradients equal the CPU's on the same
+    f32 weights, within the f32 tolerance."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.fed.tasks import tree_leaves
+    from repro_torch.fed.tasks import tree_leaves, tree_map
     from repro_torch.models import transformer
 
     cfg = get_config("smollm-360m").reduced()
     assert cfg.n_layers == 2
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    params = transformer.init_params(cfg, gen)
-    for t in tree_leaves(params):
-        t.requires_grad_(t.is_floating_point())
-    tokens = torch.randint(0, cfg.vocab, (2, 33), generator=gen, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    params = transformer.init_params(cfg, gen, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 33), generator=gen)
     batch = (tokens[:, :-1], tokens[:, 1:])
-    with pytest.raises(RuntimeError, match="not ported yet"):
-        transformer.loss_fn(params, cfg, batch)
+    grad_fn = torch.func.grad_and_value(transformer.loss_fn)
     kernels.reset_launch_counts()
-    with torch.no_grad():
-        loss = transformer.loss_fn(params, cfg, batch)
+    params_gpu, batch_gpu = tree_map(lambda t: t.to(cuda), (params, batch))
+    g_gpu, l_gpu = grad_fn(params_gpu, cfg, batch_gpu)
     counts = kernels.launch_counts()
-    assert bool(torch.isfinite(loss)) and counts["rmsnorm"] > 0 and counts["flash_attention"] > 0
+    assert counts["rmsnorm"] == 2 * cfg.n_layers + 1 and counts["flash_attention"] == cfg.n_layers
+    g_cpu, l_cpu = grad_fn(params, cfg, batch)
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, **F32_TOL)
+    for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu), strict=True):
+        torch.testing.assert_close(a.cpu(), b, **F32_TOL)
