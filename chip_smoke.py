@@ -8,8 +8,8 @@ Phases, each failing loudly (non-zero exit, no result line):
 1. device — a CUDA GPU must be visible; print its name and power limit;
 2. build  — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a, one nvcc per source, all started together, and
-   print the build times and kernel 7's tensor-core instructions (HMMA in
-   ``cuobjdump -sass``; none fails);
+   print the build times and the tensor-core instructions of kernels 7 and
+   8 (HMMA in ``cuobjdump -sass``; none fails);
 3. kernels — hold each of the eight kernels against its plain PyTorch
    version on the card at the main path's shapes (and one large shape),
    check that kernel 1's output and kernels 2–5's norms, error scalar or
@@ -24,8 +24,9 @@ Phases, each failing loudly (non-zero exit, no result line):
    ran (tensor cores for bf16, CUDA cores for f32);
    kernel 8 (ssd_scan) at zamba2-1.2b's prefill shape as the model passes
    it, with b and c per row, at a ragged S, under strong decays, y and the
-   final state; kernel 6's host time a call at decode's shape, through the
-   wrapper and through ``torch.autograd.Function.apply``;
+   final state, each kernel-8 row with its bound at the TF32 tensor-core
+   rate and at the f32 rate; kernel 6's host time a call at decode's shape,
+   through the wrapper and through ``torch.autograd.Function.apply``;
 4. path — ``repro_torch.api.run(spec)`` with no device argument (so on the
    GPU) for the paper's logistic-regression spec and the tiny-LM spec in
    oracle and deployable mode, three compressed specs (int8 / fp8 deltas,
@@ -63,7 +64,8 @@ Phases, each failing loudly (non-zero exit, no result line):
 6. trace — host syncs in the round bodies and per decode step, then one
    tiny-LM round loop and one serving prefill and decode of (k) and of (m)
    under ``torch.profiler``: the device's busy share, the kernels that take
-   its time and, for (m), kernel 8's share of the prefill; (k)'s and (m)'s
+   its time, kernel 6's device time a launch in (k)'s and (m)'s decode
+   and, for (m), kernel 8's share of the prefill; (k)'s and (m)'s
    prefill with kernel 7 on the tensor cores against the CUDA-core kernel.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
@@ -84,6 +86,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 LIBRARIES = ("fused_weighted_agg", "sharded_waterfill", "rmsnorm", "flash_attention",
              "ssd_scan")  # csrc/<name>.cu
@@ -166,6 +169,10 @@ def build_phase():
     check(all(n > 0 for k, n in hmma.items() if "flash_fwd_tc_kernel" in k) and
           any("flash_fwd_tc_kernel" in k for k in hmma),
           "the tensor-core flash_attention kernels hold no HMMA instruction")
+    hmma = sass_counts(infos[LIBRARIES.index("ssd_scan")]["path"], "HMMA")
+    print(f"SASS HMMA per ssd_scan kernel: {hmma}")
+    check(bool(hmma) and all(n > 0 for n in hmma.values()),
+          "an ssd_scan kernel holds no HMMA instruction (kernel 8 runs on the tensor cores)")
 
 
 def sass_counts(library: str, opcode: str) -> dict:
@@ -494,7 +501,8 @@ def waterfill_kernel_phase(torch, gen, flush, max_err):
 def rmsnorm_kernel_phase(torch, gen, flush, max_err):
     """Kernel 6 at the serving path's shapes: (k)'s prefill (B*S, d_model)
     and decode (B, d_model), per-head rows of width hd (qk_norm's shape),
-    (l)'s prefill at d_model 4608, and a ragged D that takes the scalar
+    (l)'s prefill at d_model 4608, (m)'s prefill at d_model 2048 and its
+    Mamba2 gated norm over d_in 4096, and a ragged D that takes the scalar
     loads; bf16 and f32.  The bound counts x read and y written once and
     ~4 f32 operations an element; the library call is ``F.rms_norm`` with
     weight 1 + scale."""
@@ -507,6 +515,7 @@ def rmsnorm_kernel_phase(torch, gen, flush, max_err):
     rows = {}
     for label, r, d in (("prefill smollm", 4096, 960), ("decode smollm", 8, 960),
                         ("qk_norm rows", 61440, 64), ("prefill gemma2", 4096, 4608),
+                        ("prefill zamba2", 4096, 2048), ("gated norm zamba2", 4096, 4096),
                         ("ragged D", 4097, 962)):
         for dtype in (torch.bfloat16, torch.float32):
             tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
@@ -672,7 +681,10 @@ def ssd_kernel_phase(torch, gen, flush, max_err):
     ``ref.ssd_reference`` (1e-3 in f32, the tests' tolerance for a chunked
     sum against a step-by-step one; 3e-2 in bf16).  The bound: x, da, b, c
     read once, y and the state written once, against ``ssd_ops`` over the
-    f32 rate.  No PyTorch call computes the scan."""
+    TF32 tensor-core rate (the units the kernel uses; the split's extra
+    products are not counted as work); each row also prints the bound at
+    the f32 rate off the tensor cores (the CUDA-core kernel's).  No PyTorch call computes
+    the scan."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -730,16 +742,19 @@ def ssd_kernel_phase(torch, gen, flush, max_err):
         es_x, es_bc = x.element_size(), bm.element_size()
         n_bytes = (2 * b * h * s * hd * es_x + b * h * s * 4 + 2 * bm.shape[0] * s * n * es_bc
                    + b * h * hd * n * 4)
+        ops = ssd_ops(s, hd, n, q, b * h, bm.shape[0])
         row = measure(torch, flush, lambda: ssd.ssd_scan(x, da, bm, cm, chunk=q, return_state=True),
                       lambda: ref.ssd_scan_reference(x, da, bm, cm, chunk=q, return_state=True),
-                      None, n_bytes, ssd_ops(s, hd, n, q, b * h, bm.shape[0]), errs[0][0])
+                      None, n_bytes, ops, errs[0][0], TF32_FLOPS_PER_S)
+        bound_f32 = max(n_bytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S) * 1e3
         row["shape"] = {"B": b, "H": h, "S": s, "hd": hd, "N": n, "Q": q, "dtype": str(x_dt)[6:],
                         "bc_dtype": str(bc_dt)[6:], "bc_shared": shared}
         rows[("ssd_scan", label, str(x_dt)[6:])] = row
         report("ssd_scan", f"{label} B={b} H={h} S={s} hd={hd} N={n} Q={q} x {str(x_dt)[6:]} "
                f"b/c {str(bc_dt)[6:]}{' shared' if shared else ' per row'}", row,
                "n/a (no PyTorch call computes the SSD scan)",
-               f" y_rel={errs[0][1]:.3g} state_rel={errs[1][1]:.3g} state_err={errs[1][0]:.3g}{oracle_txt}")
+               f" y_rel={errs[0][1]:.3g} state_rel={errs[1][1]:.3g} state_err={errs[1][0]:.3g}{oracle_txt}"
+               f" bound_ms_f32_rate={bound_f32:.5f}")
         del x, da, xbc, bm, cm, y, st, y_want, st_want
     return rows
 
@@ -923,9 +938,9 @@ def prefill_ab(torch, engine, label: str) -> None:
                 walls.append(time.perf_counter() - t0)
             prof = profile_kernels(torch, lambda: engine.start(prompts),
                                    f"{label} prefill 8x512, kernel 7 on the {path}", "one prefill", top=3)
-            k7 = sum(us for key, us in prof.items() if "flash_fwd" in key)
+            k7 = sum(v[0] for key, v in prof.items() if "flash_fwd" in key)
             print(f"{label} prefill with kernel 7 on the {path}: wall_s={sorted(walls)[1]:.4f} "
-                  f"(median of 3, outside the profiler) kernel_s={sum(prof.values()) / 1e6:.4f} "
+                  f"(median of 3, outside the profiler) kernel_s={sum(v[0] for v in prof.values()) / 1e6:.4f} "
                   f"kernel7_ms={k7 / 1e3:.3f}", flush=True)
     finally:
         fa.uses_tensor_cores = chooser
@@ -1324,7 +1339,8 @@ def count_sampler_syncs(torch, rounds: int = 2) -> list:
 def profile_kernels(torch, fn, label: str, note: str, top: int = 8) -> dict:
     """Run ``fn`` under torch.profiler and print the device's busy share of
     the wall time and the kernels that take the device time.  Returns the
-    device µs of each kernel (empty where the profiler saw none)."""
+    device µs and the launches of each kernel, by name (empty where the
+    profiler saw none)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1349,15 +1365,17 @@ def profile_kernels(torch, fn, label: str, note: str, top: int = 8) -> dict:
     )
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    return {e.key: e.self_device_time_total for e in kernels}
+    return {e.key: (e.self_device_time_total, e.count) for e in kernels}
 
 
 def serve_trace(torch, engine, label: str) -> dict:
     """A served engine again ((k)'s or (m)'s): host syncs in 8 decode steps
     (``torch.cuda`` sync debug mode; the one synchronize that ends each
     ``step`` call is not an implicit sync and is not flagged), then one
-    prefill and 16 decode steps under the profiler.  Returns the syncs and
-    the prefill's device µs per kernel."""
+    prefill and 16 decode steps under the profiler, and kernel 6's device
+    time a launch in those decode steps (the profiler's, free of the event
+    timer's floor).  Returns the syncs and the prefill's device µs and
+    launches per kernel."""
     import warnings
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1377,10 +1395,15 @@ def serve_trace(torch, engine, label: str) -> dict:
     prefill = profile_kernels(torch, lambda: engine.start(prompts), f"{label} prefill 8x512",
                               f"one prefill: {engine.cfg.n_layers} blocks", top=10)
     t0 = engine.decode_seconds
-    profile_kernels(torch, lambda: engine.step(16), f"{label} decode", "16 decode steps of 8 tokens",
-                    top=10)
+    decode = profile_kernels(torch, lambda: engine.step(16), f"{label} decode",
+                             "16 decode steps of 8 tokens", top=10)
     print(f"{label} decode under the profiler: "
           f"{16 * engine.batch / (engine.decode_seconds - t0):.1f} tokens/s")
+    rms = [v for key, v in decode.items() if "rmsnorm" in key]
+    if rms:
+        us, n = sum(v[0] for v in rms), sum(v[1] for v in rms)
+        print(f"{label} decode: kernel 6 (rmsnorm) device time a launch {us / n:.3f} us "
+              f"over {n} launches in 16 steps (profiler)")
     return syncs, prefill
 
 
@@ -1409,9 +1432,10 @@ def trace_phase(torch, engines):
     prefill_ab(torch, engines["m"], "(m)")
     check(not syncs, f"(m): {len(syncs)} host syncs in 8 decode steps")
     if prefill:
-        ssd_us = sum(us for key, us in prefill.items() if "ssd_scan_kernel" in key)
-        print(f"(m) prefill: kernel 8 (ssd_scan) {ssd_us / 1e3:.3f} ms of {sum(prefill.values()) / 1e3:.3f} "
-              f"ms of kernel time ({ssd_us / sum(prefill.values()):.1%})")
+        ssd_us = sum(v[0] for key, v in prefill.items() if "ssd_scan_kernel" in key)
+        total_us = sum(v[0] for v in prefill.values())
+        print(f"(m) prefill: kernel 8 (ssd_scan) {ssd_us / 1e3:.3f} ms of {total_us / 1e3:.3f} "
+              f"ms of kernel time ({ssd_us / total_us:.1%})")
 
 
 def _leaves(tree):

@@ -53,6 +53,7 @@ from repro_torch.kernels.build import load_library
 __all__ = ["ssd_scan", "launch_counts", "reset_launch_counts"]
 
 MAX_CHUNK = 128  # the CUDA kernel's largest chunk (its (Q, Q) score tile)
+MAX_STATE = 128  # the CUDA kernel's largest N (its state update's row tiles a warp)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -122,6 +123,8 @@ def _launch(x, da, b, c, chunk: int, return_state: bool):
     da4 = (da if da.dim() == 3 else da.unsqueeze(1)).to(torch.float32)
     b, c = (t if t.stride(-1) == 1 else t.contiguous() for t in (b, c))
     bh, n = x4.shape[0] * x4.shape[1], b.shape[2]
+    if n > MAX_STATE:
+        raise ValueError(f"the CUDA kernel takes a state of at most {MAX_STATE} columns, got N={n}")
     if max(bh, s) >= 2**31:
         raise ValueError(f"unsupported shape x {tuple(x.shape)}")
     y4 = torch.empty_like(x4)  # a dense x keeps its layout (preserve_format)

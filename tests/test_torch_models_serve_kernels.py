@@ -338,7 +338,15 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("r,d", [(4096, 960), (8, 960), (37, 64), (5, 7)])
+@pytest.mark.parametrize(
+    "r,d",
+    # prefill and decode rows, narrow rows (a sub-warp each: qk_norm's
+    # (61440, 64)), wide rows (a block a row: (8, 2048), (8, 4608)), rows
+    # past a block's registers (the looped path: (3, 20000)), rows that
+    # take scalar loads
+    [(4096, 960), (8, 960), (37, 64), (5, 7), (61440, 64), (8, 2048), (8, 4608),
+     (3, 20000), (4097, 962)],
+)
 def test_cuda_rmsnorm_matches_plain(cuda, dtype, r, d):
     gen = torch.Generator(device=cuda).manual_seed(r)
     x = torch.randn(r, d, generator=gen, device=cuda).to(DTYPES[dtype][0])

@@ -159,6 +159,122 @@ def test_strong_decays_give_no_nan(da_value):
     )
 
 
+def _tf32(v):
+    """The kernel's TF32 on the CPU: f32 kept to 10 mantissa bits by
+    truncation (the 13 low bits of the pattern masked off)."""
+    bits = v.to(torch.float32).contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _split(v):
+    hi = _tf32(v)
+    return hi, _tf32(v - hi)
+
+
+def _mma(acc, a, b, exact_a, exact_b, split=True):
+    """(main, corr) + a @ b as the CUDA kernel's m16n8k8 TF32 tiles give it:
+    k in steps of 8, each step adding lo*hi and hi*lo of the split operands
+    to the f32 sum ``corr`` and hi*hi to the f32 sum ``main`` (the terms of
+    an operand exact in TF32, bf16 values, are left out); ``split=False`` is
+    plain TF32, hi*hi alone."""
+    main, corr = acc
+    a_hi, a_lo = (a, None) if exact_a or not split else _split(a)
+    b_hi, b_lo = (b, None) if exact_b or not split else _split(b)
+    if not split:
+        a_hi, b_hi = _tf32(a), _tf32(b)
+    for k0 in range(0, a.shape[-1], 8):
+        ks = slice(k0, k0 + 8)
+        if a_lo is not None:
+            corr = corr + a_lo[..., ks] @ b_hi[..., ks, :]
+        if b_lo is not None:
+            corr = corr + a_hi[..., ks] @ b_lo[..., ks, :]
+        main = main + a_hi[..., ks] @ b_hi[..., ks, :]
+    return main, corr
+
+
+def _kernel_rehearsal(x, da, b, c, chunk, split=True):
+    """Kernel 8's arithmetic (``csrc/ssd_scan.cu``) in plain torch: x (BH, S,
+    hd) f32, da (BH, S), b and c (R, S, N) shared by BH / R heads, bf16 (exact
+    in TF32) or f32.  Per chunk: the cumsum and its exps; C B^T once for the
+    heads that share it; G = C B^T * exp2((cum_t - cum_s) log2 e) [s <= t],
+    results under 2^-126 flushed to 0;
+    y = exp(cum_t) (C S^T), then + G X on the same two sums, added at the
+    end; S^T <- exp(cum_last) S^T + B^T (X * exp(cum_last - cum_s)).
+    Returns y and the final state (BH, hd, N)."""
+    exact = b.dtype == torch.bfloat16
+    bh, s, hd = x.shape
+    r, n = b.shape[0], b.shape[2]
+    g = bh // r
+    q = min(chunk, s)
+    xf, daf = x.float().reshape(r, g, s, hd), da.float().reshape(r, g, s)
+    bf, cf = b.float(), c.float()
+    state = torch.zeros(r, g, n, hd)  # S^T
+    above = ~torch.ones(q, q, dtype=torch.bool).tril()
+    ys = []
+    for s0 in range(0, s, q):
+        qn, pad = min(q, s - s0), q - min(q, s - s0)
+        xq = torch.nn.functional.pad(xf[:, :, s0 : s0 + qn], (0, 0, 0, pad))
+        dq = torch.nn.functional.pad(daf[:, :, s0 : s0 + qn], (0, pad))
+        bq, cq = (torch.nn.functional.pad(t[:, s0 : s0 + qn], (0, 0, 0, pad)) for t in (bf, cf))
+        cum = torch.cumsum(dq, -1)
+        last = cum[..., -1:]
+        zero = torch.zeros(r, q, q)
+        cbt = sum(_mma((zero, zero), cq, bq.transpose(-1, -2), exact, exact, split))
+        arg = ((cum[..., :, None] - cum[..., None, :]) * 1.4426950408889634).masked_fill(above, -np.inf)
+        decay = torch.exp2(arg)
+        gm = cbt[:, None] * torch.where(decay < 2.0**-126, 0.0, decay)  # ex2.approx.ftz
+        zero = torch.zeros(r, g, q, hd)
+        acc = _mma((zero, zero), cq[:, None], state, exact, False, split)
+        acc = tuple(t * torch.exp(cum)[..., None] for t in acc)
+        ys.append(sum(_mma(acc, gm, xq, False, False, split))[:, :, :qn])
+        zero = torch.zeros(r, g, n, hd)
+        upd = _mma((zero, zero), bq.transpose(-1, -2)[:, None],
+                   xq * torch.exp(last - cum)[..., None], exact, False, split)
+        state = torch.exp(last)[..., None] * state + sum(upd)
+    return torch.cat(ys, 2).reshape(bh, s, hd), state.transpose(-1, -2).reshape(bh, hd, n)
+
+
+@pytest.mark.parametrize("bc", ["bf16", "f32"])
+@pytest.mark.parametrize("da_value", [None, -0.75])
+def test_kernel_arithmetic_rehearsal_matches_pallas(bc, da_value):
+    """The CUDA kernel's precision choice, rehearsed on the CPU before it runs
+    on a card: its arithmetic (``_kernel_rehearsal``: TF32 tiles, the
+    hi/lo split of every f32 operand, bf16 b/c exact in TF32) gives y within
+    1e-4 of the Pallas kernel's (interpret mode) and the final state within
+    1e-4 of the sequential oracle's, each relative to the largest value, at
+    the realistic decays and at -0.75 a step, with b and c shared by two
+    heads and a ragged last chunk.  Plain TF32 (no split) lands at least ten
+    times further off, so the split is what holds the bound."""
+    bsz, h, s, hd, n, chunk = 2, 2, 256, 32, 16, 128
+    x, da, b, c = _inputs(bsz * h, s, hd, n, seed=21, da_value=da_value)
+    b, c = b[::h], c[::h]  # one b/c row per batch row, shared by its h heads
+    if bc == "bf16":  # the values bf16 holds, so both packages see the same
+        b, c = (np.asarray(torch.from_numpy(t).bfloat16().float()) for t in (b, c))
+    xt, dat = torch.from_numpy(x), torch.from_numpy(da)
+    bt, ct = (torch.from_numpy(np.ascontiguousarray(t)) for t in (b, c))
+    if bc == "bf16":
+        bt, ct = bt.bfloat16(), ct.bfloat16()
+        assert torch.equal(_tf32(bt.float()), bt.float())  # exact in TF32
+    b_rows, c_rows = (np.repeat(t, h, axis=0) for t in (b, c))
+    y_want = _f32(jax_ssd(*(jnp.asarray(t) for t in (x, da, b_rows, c_rows)), chunk=chunk,
+                          interpret=True))
+    _, st_want = jref.ssd_reference(*(jnp.asarray(t) for t in (x, da, b_rows, c_rows)))
+    st_want = _f32(st_want)
+    errs = {}
+    for split in (True, False):
+        y, st = _kernel_rehearsal(xt, dat, bt, ct, chunk, split=split)
+        errs[split] = (np.abs(_f32(y) - y_want).max() / np.abs(y_want).max(),
+                       np.abs(_f32(st) - st_want).max() / np.abs(st_want).max())
+    assert max(errs[True]) <= 1e-4, errs
+    assert max(errs[True]) * 10 <= max(errs[False]), errs
+    # A ragged last chunk (S = 200): against the port's plain version.
+    y, st = _kernel_rehearsal(xt[:, :200], dat[:, :200], bt[:, :200], ct[:, :200], chunk)
+    y_p, st_p = ref.ssd_scan_reference(xt[:, :200], dat[:, :200], bt[:, :200], ct[:, :200],
+                                       chunk=chunk, return_state=True)
+    assert float((y - y_p).abs().max() / y_p.abs().max()) <= 1e-4
+    assert float((st - st_p).abs().max() / st_p.abs().max()) <= 1e-4
+
+
 def test_ssd_kernel_matches_model_chunked_path():
     """tests/test_kernels.py:75's counterpart: kernel 8 on per-head
     flattened inputs with explicit decays (b, c repeated, as the reference
@@ -326,19 +442,38 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize(
-    "bsz,h,s,hd,n,chunk",
-    [(8, 64, 512, 64, 64, 128), (2, 3, 200, 64, 64, 128), (4, 1, 128, 128, 16, 128),
-     (1, 2, 200, 16, 8, 8), (1, 1, 13, 7, 5, 13)],
+    "bsz,h,s,hd,n,chunk,variant",
+    [(8, 64, 512, 64, 64, 128, "shared"), (2, 3, 200, 64, 64, 128, "shared"),
+     (4, 1, 128, 128, 16, 128, "shared"), (1, 2, 200, 16, 8, 8, "shared"),
+     (1, 1, 13, 7, 5, 13, "shared"),
+     # b/c in f32 whatever x's dtype (the split products of C B^T), b/c a
+     # row each (G = 1), a decay of -0.75 a step, and head counts that leave
+     # the last head group of a block short or hold one head.  The kernel
+     # picks 4, 2 or 1 heads a block by how well the grid fills the SMs, so
+     # the batches are wide enough that an H100 (132 SMs) takes groups of 2
+     # for H = 3 (2 + 1) and H = 5 (2 + 2 + 1), and of 4 for H = 6 (4 + 2).
+     (8, 64, 256, 64, 64, 128, "f32 b/c"), (66, 3, 64, 64, 64, 64, "f32 b/c"),
+     (2, 8, 256, 64, 64, 128, "per-row b/c"), (2, 64, 512, 64, 64, 128, "strong decay"),
+     (33, 5, 96, 64, 64, 64, "strong decay"), (66, 6, 64, 96, 32, 64, "shared"),
+     (4, 1, 256, 64, 64, 128, "f32 b/c")],
 )
-def test_cuda_ssd_scan_matches_plain(cuda, dtype, bsz, h, s, hd, n, chunk):
+def test_cuda_ssd_scan_matches_plain(cuda, dtype, bsz, h, s, hd, n, chunk, variant):
     """zamba2's prefill shape with x as the model's (B, H, S, hd) view and b,
     c shared by the heads, a ragged S, hd split across blocks, the model's
-    small chunk, and odd widths; y and the final state."""
+    small chunk, and odd widths; b/c in f32, b/c per row, strong decays and
+    head counts the kernel's head groups do not divide; y and the final
+    state."""
     gen = torch.Generator(device=cuda).manual_seed(s)
     dt = DTYPES[dtype][0]
+    bc_dt = torch.float32 if variant == "f32 b/c" else dt
     x = torch.randn(bsz, s, h, hd, generator=gen, device=cuda).to(dt).transpose(1, 2)
-    da = -0.1 * torch.rand(bsz, s, h, generator=gen, device=cuda).transpose(1, 2)
-    b, c = (0.5 * torch.randn(bsz, s, n, generator=gen, device=cuda).to(dt) for _ in range(2))
+    if variant == "strong decay":
+        da = torch.full((bsz, s, h), -0.75, device=cuda).transpose(1, 2)
+    else:
+        da = -0.1 * torch.rand(bsz, s, h, generator=gen, device=cuda).transpose(1, 2)
+    b, c = (0.5 * torch.randn(bsz, s, n, generator=gen, device=cuda).to(bc_dt) for _ in range(2))
+    if variant == "per-row b/c":
+        b, c = (t.repeat_interleave(h, dim=0) for t in (b, c))
     before = ssd_mod.ssd_scan.launches
     y, st = ssd_mod.ssd_scan(x, da, b, c, chunk=chunk, return_state=True)
     assert ssd_mod.ssd_scan.launches == before + 1
