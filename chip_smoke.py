@@ -13,11 +13,15 @@ Phases, each failing loudly (non-zero exit, no result line):
 3. kernels — hold each of the eight kernels against its plain PyTorch
    version on the card at the main path's shapes (and one large shape),
    check that kernel 1's output and kernels 2–5's norms, error scalar or
-   counts and sums are bitwise repeatable, that kernel 2 is one device
-   kernel a call and gives the same bits on two streams at once, and time
+   counts and sums are bitwise repeatable, that kernels 2, 4 and 5 are one
+   device kernel a call and kernels 2 and 4 give the same bits on two
+   streams at once, and time
    kernel, plain version, the library call
    computing the same function (where there is one) and the bound, after a
-   timing floor (a 1-element ``add_`` timed the same way); kernels 6
+   timing floor (a 1-element ``add_`` timed the same way); kernel 4 with
+   its share of the bytes bound and the HBM rate of its binding probe;
+   kernel 5 over sorted scores (the solve's input) at the solve's sizes,
+   shuffled and ragged at M = 10^6, against its bytes bound; kernels 6
    (rmsnorm) and 7 (flash_attention) at the serving path's shapes, kernel 7
    in all four modes, at a ragged S, with grouped-query heads, at (m)'s
    shared-attention shape, bf16 and f32, each row naming the kernel that
@@ -253,8 +257,9 @@ def kernel_phase(torch):
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(512 * 2**20 // 4, dtype=torch.float32, device=dev).zero_
     one = torch.zeros(1, device=dev)
-    print(f"timing floor: a 1-element add_ timed as the kernels are, "
-          f"{time_ms(torch, lambda: one.add_(1.0), flush):.5f} ms", flush=True)
+    floor_ms = time_ms(torch, lambda: one.add_(1.0), flush)
+    print(f"timing floor: a 1-element add_ timed as the kernels are, {floor_ms:.5f} ms",
+          flush=True)
     shapes = [  # (label, C, D): the main path's shapes, then one large ragged one
         ("oracle tiny_lm", 50, 114688),
         ("deployable tiny_lm", 10, 114688),
@@ -338,7 +343,7 @@ def kernel_phase(torch):
             del g, out, out_again, want, d_out, d_want, d3, d3_want
     rows.update(dequant_kernel_phase(torch, fwa, ref, gen, flush, max_err))
     max_err["waterfill_level_stats"] = 0.0
-    rows.update(waterfill_kernel_phase(torch, gen, flush, max_err))
+    rows.update(waterfill_kernel_phase(torch, gen, flush, max_err, floor_ms))
     path_shape["waterfill_level_stats"] = ("path", "float32")
     max_err["rmsnorm"] = max_err["flash_attention"] = 0.0
     rows.update(rmsnorm_kernel_phase(torch, gen, flush, max_err))
@@ -348,26 +353,46 @@ def kernel_phase(torch):
     max_err["ssd_scan"] = 0.0
     rows.update(ssd_kernel_phase(torch, gen, flush, max_err))
     path_shape["ssd_scan"] = ("prefill zamba2", "float32")
-    cohort_checks(torch, fwa, *cohort_args)  # last: it runs torch.profiler
+    cohort_checks(torch, fwa, gen, *cohort_args)  # last: it runs torch.profiler
     return rows, max_err, path_shape
 
 
-def cohort_checks(torch, fwa, g, w, lam, d_out, err) -> None:
-    """Kernel 2 at its path shape: one device kernel a call (torch.profiler;
-    its ticket counter sums the blocks' partials in the same launch), and
-    two calls on two side streams at once, each with its own counter, equal
-    the calls made in order."""
+def one_device_kernel(torch, name: str, fn) -> None:
+    """``fn`` runs exactly one device kernel (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fwa.fused_cohort_agg_and_error(g, w, lam)
+        fn()
         torch.cuda.synchronize()
     names = [(e.key, e.count) for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    check(names, "the profiler recorded no device kernel for fused_cohort_agg_and_error")
-    check(sum(n for _, n in names) == 1, f"fused_cohort_agg_and_error ran {names}")
-    print(f"fused_cohort_agg_and_error: one device kernel a call ({names[0][0][:60]})")
+    check(names, f"the profiler recorded no device kernel for {name}")
+    check(sum(n for _, n in names) == 1, f"{name} ran {names}")
+    print(f"{name}: one device kernel a call ({names[0][0][:60]})")
+
+
+def cohort_checks(torch, fwa, gen, g, w, lam, d_out, err) -> None:
+    """Kernels 2, 4 and 5 at their path shapes: one device kernel a call
+    (each ticket counter sums the blocks' partials in the same launch), and
+    kernels 2 and 4 called on two side streams at once, each stream with
+    its own counter, equal the calls made in order."""
+    from repro_torch.kernels import sharded_waterfill as swf
+
+    dev = g.device
+    q, scales = fwa.quantize_stacked(torch.randn(50, 114688, generator=gen, device=dev))
+    w50 = torch.rand(50, generator=gen, device=dev)
+    lam50 = torch.rand(50, generator=gen, device=dev)
+    scores = torch.sort(torch.empty(1_000_000, device=dev).exponential_(generator=gen)).values
+    levels = torch.exp2(torch.linspace(-12.0, 6.0, 128, device=dev))
+    floors = levels * 0.01
+    one_device_kernel(torch, "fused_cohort_agg_and_error",
+                      lambda: fwa.fused_cohort_agg_and_error(g, w, lam))
+    one_device_kernel(torch, "fused_dequant_cohort_agg",
+                      lambda: fwa.fused_dequant_cohort_agg(q, scales, w50, lam50))
+    one_device_kernel(torch, "waterfill_level_stats",
+                      lambda: swf.waterfill_level_stats(scores, levels, floors))
     w_b = w.flip(0).contiguous()
     want_b = fwa.fused_cohort_agg_and_error(g, w_b, lam)
     streams = [torch.cuda.Stream() for _ in range(2)]
@@ -383,6 +408,21 @@ def cohort_checks(torch, fwa, g, w, lam, d_out, err) -> None:
         check(torch.equal(d_s, d_w) and torch.equal(e_s, e_w),
               "fused_cohort_agg_and_error on two streams differs from the calls in order")
     print("fused_cohort_agg_and_error: 2 side streams x 20 calls at once == the calls in order, "
+          "bitwise", flush=True)
+    w50_b = w50.flip(0).contiguous()
+    wants = [fwa.fused_dequant_cohort_agg(q, scales, ww, lam50) for ww in (w50, w50_b)]
+    torch.cuda.synchronize()
+    outs = []
+    for stream, ww in zip(streams, (w50, w50_b)):
+        with torch.cuda.stream(stream):
+            for _ in range(20):
+                res = fwa.fused_dequant_cohort_agg(q, scales, ww, lam50)
+            outs.append(res)
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              "fused_dequant_cohort_agg on two streams differs from the calls in order")
+    print("fused_dequant_cohort_agg: 2 side streams x 20 calls at once == the calls in order, "
           "bitwise", flush=True)
 
 
@@ -428,6 +468,7 @@ def dequant_kernel_phase(torch, fwa, ref, gen, flush, max_err):
             rows[("fused_dequant_cohort_agg", label, qdtype)] = row
             report("fused_dequant_cohort_agg", f"{label} C={c} D_pad={d} sb={sb} {qdtype}", row,
                    "n/a (no library call takes per-block scales)",
+                   f" bytes_bound_share={n_bytes / HBM_BYTES_PER_S * 1e3 / row['kernel_ms']:.1%}"
                    f" err_scalar_rel={float((got[1] - want[1]).abs() / want[1].abs()):.3g}"
                    f" norms_rel={float(((got[2] - want[2]).abs() / want[2].abs()).max()):.3g}")
             del q, scales, got, want, again
@@ -447,28 +488,36 @@ def dequant_kernel_phase(torch, fwa, ref, gen, flush, max_err):
         run = lambda: fwa.fused_dequant_cohort_agg(q, scales, w, lam)  # noqa: E731
         cold, hot = time_ms(torch, run, flush), time_ms(torch, run, warm)
         print(f"fused_dequant_cohort_agg binding probe C={c} D_pad={d} {qdtype}: "
-              f"from HBM {cold:.5f} ms ({n_bytes / cold / 1e6:.0f} GB/s), "
+              f"from HBM {cold:.5f} ms ({n_bytes / cold / 1e6:.0f} GB/s, "
+              f"{n_bytes / cold * 1e3 / HBM_BYTES_PER_S:.1%} of the HBM rate), "
               f"from L2 {hot:.5f} ms ({n_bytes / hot / 1e6:.0f} GB/s)", flush=True)
         del q, scales
     return rows
 
 
-def waterfill_kernel_phase(torch, gen, flush, max_err):
-    """Kernel 5 at the sharded solve's shape (M = 10^6 scores, the 128-level
-    ladder), at the logreg spec's N, and at a ragged M with +inf entries and
-    L = 100.  Counts exactly equal, mid_sum at rtol 1e-5, bitwise repeatable.
-    The bound counts the compares (two per pair) and the adds this run's
-    data needs (one per count, one per middle-set sum), over the f32 rate."""
+def waterfill_kernel_phase(torch, gen, flush, max_err, floor_ms):
+    """Kernel 5 at the sharded solve's shapes: the 128-level ladder over
+    sorted scores, as ``core/solver.py`` passes them (M = 10^6 is the path
+    row; 10^5, 10^4 and the logreg spec's N = 100 the solve's other sizes),
+    then M = 10^6 shuffled (the kernel sorts each chunk) and a ragged M with
+    +inf entries and L = 100.  Counts exactly equal, mid_sum at rtol 1e-5,
+    bitwise repeatable.  The bound is the bytes: M scores and 5 L-vectors
+    (levels, floors, the three outputs).  The report also prints the
+    compare-all algorithm's operations (two compares a pair and the adds
+    the data needs; the first design's work) and the timing floor."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import sharded_waterfill as swf
 
     dev = torch.device("cuda")
     rows = {}
-    for label, m, n_levels in (("path", 1_000_000, 128), ("logreg N", 100, 128),
-                               ("ragged +inf", 1_000_003, 100)):
+    for label, m, n_levels in (("path", 1_000_000, 128), ("solve N=1e5", 100_000, 128),
+                               ("solve N=1e4", 10_000, 128), ("logreg N", 100, 128),
+                               ("shuffled", 1_000_000, 128), ("ragged +inf", 1_000_003, 100)):
         scores = torch.empty(m, device=dev).exponential_(generator=gen)
         if label == "ragged +inf":
             scores[torch.randperm(m, device=dev, generator=gen)[: m // 10]] = float("inf")
+        elif label != "shuffled":
+            scores = torch.sort(scores).values
         # A ladder spanning the scores, as the solve's first pass does.
         levels = torch.exp2(torch.linspace(-12.0, 6.0, n_levels, device=dev))
         floors = levels * 0.01
@@ -483,17 +532,19 @@ def waterfill_kernel_phase(torch, gen, flush, max_err):
             check(float(got[0].max()) <= m - m // 10, "+inf scores were counted")
         err = float((got[2] - want[2]).abs().max())
         max_err["waterfill_level_stats"] = max(max_err["waterfill_level_stats"], err)
-        n_bytes = m * 4 + 2 * n_levels * 4 + 3 * n_levels * 4
-        ops = 2 * m * n_levels + 2 * int(got[0].sum())
+        n_bytes = m * 4 + 5 * n_levels * 4
+        compare_all_ops = 2 * m * n_levels + 2 * int(got[0].sum())
         row = measure(torch, flush, lambda: swf.waterfill_level_stats(scores, levels, floors),
                       lambda: ref.waterfill_stats_reference(scores, levels, floors),
-                      None, n_bytes, ops, err)
-        row["shape"] = {"M": m, "L": n_levels}
+                      None, n_bytes, 0, err)
+        row["shape"] = {"M": m, "L": n_levels, "sorted": label not in ("shuffled", "ragged +inf")}
         rows[("waterfill_level_stats", label, "float32")] = row
         rel = float(((got[2] - want[2]).abs() / want[2].abs().clamp(min=1e-30)).max())
         report("waterfill_level_stats", f"{label} M={m} L={n_levels}", row,
                "n/a (no one PyTorch call computes the three statistics)",
-               f" mid_sum_rel={rel:.3g} ops={ops:.3g}")
+               f" mid_sum_rel={rel:.3g} compare_all_ops={compare_all_ops:.3g} "
+               f"(at the f32 rate {compare_all_ops / F32_FLOPS_PER_S * 1e3:.5f} ms) "
+               f"timing_floor_ms={floor_ms:.5f}")
         del scores, got, again, want
     return rows
 

@@ -1,11 +1,30 @@
-"""What the wrappers of kernels 6-8 share beside the build: when a call
-goes through their ``torch.autograd.Function``, and the pieces of its
-``vmap`` rules."""
+"""What the kernel wrappers share beside the build: the ticket counters of
+the kernels that finish a cross-block sum in their own launch (kernels 2,
+4 and 5), and for kernels 6-8 when a call goes through their
+``torch.autograd.Function`` and the pieces of its ``vmap`` rules."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["needs_autograd", "batch_first", "vmap_loop"]
+__all__ = ["ticket_counters", "needs_autograd", "batch_first", "vmap_loop"]
+
+# Ticket counters, one int32 buffer per (device, stream).  A kernel's last
+# block to finish finds itself by an atomic ticket on a counter and sets it
+# back to 0, so every launch finds its counters at 0: launches in order on
+# one stream share them, and launches on two streams, which may overlap,
+# never do.  Zeroed when allocated; grown (a new zeroed buffer, on the same
+# stream) when a launch needs more than the stream's buffer holds.
+_COUNTERS: dict = {}
+
+
+def ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters, all 0 between launches, for launches
+    on ``stream`` (a raw CUDA stream handle) of ``device``."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(max(n, 1), dtype=torch.int32, device=device)
+    return buf
 
 
 def needs_autograd(*tensors) -> bool:

@@ -19,13 +19,13 @@
 // used for 2M flops, about 1 flop per byte for f32 (the card needs ~20 f32
 // flops per byte before the ALUs, not HBM at 3.35 TB/s, are the limit), so
 // the time is the bytes of g over the memory rate.  The compressed kernel is
-// the exception to watch: one byte per element carries a widening, a scale
-// multiply and three FMAs, about 8 operations per byte, and Hopper converts
-// an int8 or fp8 value to f32 at a quarter of the FMA rate or less, so at
-// full HBM rate the conversions come close to the issue limit.  It uses the
-// plain conversions (I2F; the paired fp8 -> half2 cvt, then half -> f32);
-// faster widening (byte-permute tricks) is left for when a measurement shows
-// the conversions binding.
+// the one to watch: one byte per element carries a widening and three FMAs
+// (d, the error row, the row's norm), about 5 operations per byte, and
+// Hopper converts an int8 value to f32 (I2F) at an eighth of the FMA rate,
+// so at the full HBM rate the conversions alone would take most of the
+// conversion pipe.  Kernel 4 widens int8 by a byte permute instead (the code
+// plus 128 as the low byte of the float 2^23, minus 2^23 + 128: exact, on the
+// integer and FMA pipes), and fp8 by the paired e4m3x2 -> f16x2 convert.
 //
 // Design.  The TPU kernels walk a sequential grid over D and carry their
 // sums (the squared error, the (C,) norms) in VMEM scratch from step to step.
@@ -33,11 +33,12 @@
 //   * every element of g is loaded exactly once, by one thread, which keeps
 //     its accumulators in registers in f32 and reads g with 16-byte vector
 //     loads when every row starts 16-byte aligned (V = 16 bytes / the element
-//     size: 4 f32, 8 bf16, 16 int8 or fp8); otherwise with V scalar loads
-//     spaced a warp (kernels 1-2) or kThreads (kernels 3-4) apart, still
-//     coalesced across the warp, masking the ragged edge, so any D and any
-//     scale block are valid;
-//   * kernels 1 and 2 split C inside the block: a tile is one warp's width
+//     size: 4 f32, 8 bf16, 16 int8 or fp8; kernel 4 also needs the scale
+//     block a multiple of 16); otherwise with V scalar loads spaced a warp
+//     (kernels 1, 2 and 4) or kThreads (kernel 3) apart, still coalesced
+//     across the warp, masking the ragged edge, so any D and any scale block
+//     are valid;
+//   * kernels 1, 2 and 4 split C inside the block: a tile is one warp's width
 //     of vectors (32 * V columns) and a block up to 16 warps; each warp
 //     walks about 8 of the C rows of the tile into its own accumulators,
 //     and the warps' sums are added through shared memory in warp order.
@@ -49,23 +50,44 @@
 //     go one to a warp, each warp walking all C rows; otherwise (the
 //     oracle's C = 50 over tiny_lm's 896 tiles) a block splits C.
 //     Kernel 1 launches a block for every tile (4 tiles where the warps
-//     own theirs); kernel 2 at most the blocks resident at once, each
+//     own theirs); kernels 2 and 4 at most the blocks resident at once, each
 //     walking its share of the tiles with the next batch in flight.  The
 //     logreg shape (C = 100, D = 610) is 5 tiles of 13 warps, one batch a
 //     warp (f32); kernel 1 needs no pass across blocks;
-//   * kernels 3 and 4 give each block one tile of kThreads * V columns and
-//     loop over all C rows, staging the weights through shared memory
-//     kWChunk columns at a time;
+//   * kernel 4 copies each row's scale with its codes (cp.async, 4 bytes a
+//     lane: the lane's 16 columns lie in one scale block), reads a batch
+//     from shared memory 4 rows at a time (codes, scales and weights of the
+//     4 rows loaded before the first is widened), takes the scale into the
+//     row's weights, w * s and (w - lam) * s, and skips the batch's rows
+//     past the warp's; int8 squares are summed exactly by dp4a.  A lane's
+//     squared row sums of a batch are reduced over the warp once a batch (a
+//     reduce-scatter: 9 shuffles for 8 rows) and added to the warp's row
+//     norms in shared memory, off the loads' path.  On the scalar path each
+//     value is multiplied by its own scale (the block index by a
+//     precomputed reciprocal), loaded with the unit;
+//   * kernel 3 gives each block one tile of kThreads * V columns and loops
+//     over all C rows, staging the weights through shared memory kWChunk
+//     columns at a time;
 //   * no float atomics anywhere: a cross-block sum is written as one partial
 //     per block and summed in a fixed order, so repeated runs are bitwise
-//     equal.  Kernel 2 does it in its one launch: the last block to finish,
-//     found by an integer atomic ticket after a __threadfence, sums the
-//     partials in index order.  Kernels 3 and 4 (per-row norms, kernel 4's
-//     error) write an (n_tiles, n_sums) buffer that a second pass sums
-//     column by column.  A row's norm partial within a block is a warp-
-//     shuffle sum per row, then a fixed-order sum over the block's warps
-//     through shared memory.
-// Not used: TMA, wgmma; cp.async only in kernels 1 and 2.
+//     equal.  Kernels 2 and 4 do it in their one launch: the last block to
+//     finish, found by an integer atomic ticket (kernel 2: after a
+//     __threadfence; kernel 4: acquire-release), sums the partials in index
+//     order (kernel 4's (C + 1)-wide rows, the norms and the error, column
+//     by column, with 16-byte loads split over the block's threads and the
+//     row slices added in order).  Kernel 3 (per-row
+//     norms) writes an (n_tiles, C) buffer that a second pass sums column by
+//     column.  A row's norm partial within a kernel-3 block is a warp-shuffle
+//     sum per row, then a fixed-order sum over the block's warps through
+//     shared memory.
+// Kernel 4 takes C up to the shared memory its row norms need (4 bytes a
+// row a warp beside the stages: about 16,000 rows on an H100).  What holds
+// kernel 4 back at huge D (PERF.md §6): the SMs, not HBM nor the
+// widening.  The int8 walk issues about 80 instructions a 16-code row at 116
+// registers (16 warps an SM); in one-off builds, I2F in place of the byte
+// permutes and 2 or 8 rows a sub-batch in place of 4 timed the same, and
+// kernel 2's own cp.async path also fell well short of the HBM rate there.
+// Not used: TMA, wgmma; cp.async only in kernels 1, 2 and 4.
 //
 // Interface: plain C functions, loaded with ctypes.  They launch on the
 // given stream, allocate nothing, and return cudaGetLastError() (0 = ok).
@@ -77,12 +99,14 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;  // threads per block of kernels 3 and 4
+constexpr int kThreads = 128;  // threads per block of kernel 3
 constexpr int kWChunk = 256;   // weight columns staged in shared memory per pass
 constexpr int kSumThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
 
@@ -129,29 +153,41 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
   }
 }
 
-__device__ __forceinline__ void load_vec(const int8_t* p, float* out) {
-  const int4 v = *reinterpret_cast<const int4*>(p);
-  const char4* b = reinterpret_cast<const char4*>(&v);
+// Kernel 4's 16 codes (one 16-byte vector) as f32, and the sum of their
+// squares.  int8: the code + 128 as the low byte of the float 2^23, minus
+// 2^23 + 128 (byte permutes and adds, no I2F), and the squares by dp4a,
+// both exact.  fp8: the paired convert to half (exact: half covers e4m3's
+// range and precision, and so does f32), then FMAs.
+template <typename T>
+__device__ __forceinline__ float widen_codes(int4 v, float* out);
+
+template <>
+__device__ __forceinline__ float widen_codes<int8_t>(int4 v, float* out) {
+  const int raw[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    out[4 * k] = static_cast<float>(b[k].x);
-    out[4 * k + 1] = static_cast<float>(b[k].y);
-    out[4 * k + 2] = static_cast<float>(b[k].z);
-    out[4 * k + 3] = static_cast<float>(b[k].w);
-  }
+  for (int k = 0; k < 16; ++k)
+    out[k] = __uint_as_float(__byte_perm(static_cast<uint32_t>(raw[k / 4]) ^ 0x80808080u,
+                                         0x4b000000u, 0x7540u | (k % 4))) -
+             8388736.f;
+  return static_cast<float>(
+      __dp4a(raw[0], raw[0], __dp4a(raw[1], raw[1], __dp4a(raw[2], raw[2], __dp4a(raw[3], raw[3], 0)))));
 }
 
-// e4m3 -> half is exact (half covers e4m3's range and precision), and so is
-// half -> f32.
-__device__ __forceinline__ void load_vec(const Fp8* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_fp8x2_storage_t* h = reinterpret_cast<const __nv_fp8x2_storage_t*>(&v);
+template <>
+__device__ __forceinline__ float widen_codes<Fp8>(int4 v, float* out) {
+  const uint32_t words[4] = {static_cast<uint32_t>(v.x), static_cast<uint32_t>(v.y),
+                             static_cast<uint32_t>(v.z), static_cast<uint32_t>(v.w)};
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(h[k], __NV_E4M3)));
+    const auto pair = static_cast<__nv_fp8x2_storage_t>(words[k / 2] >> (16 * (k % 2)));
+    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3)));
     out[2 * k] = f.x;
     out[2 * k + 1] = f.y;
   }
+  float q2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) q2 = fmaf(out[k], out[k], q2);
+  return q2;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -181,7 +217,66 @@ __device__ __forceinline__ float block_sum(float s, float* scratch) {
   return t;
 }
 
-// Kernels 1 and 2: C split over the warps of a block.  A tile is 32 * V
+// Kernel 4's element types: codes with a scale per (row, scale block).
+template <typename T>
+constexpr bool kIsCode = std::is_same_v<T, int8_t> || std::is_same_v<T, Fp8>;
+
+// Kernel 4's scales: (C, nb) f32, one per row and block of sb columns, with
+// the multiplier and shift that divide a column index below 2^31 by sb
+// (mul = 0: divide).
+struct Scales {
+  const float* p;
+  int64_t nb;
+  int64_t sb;
+  uint32_t mul;
+  int shift;
+};
+
+Scales make_scales(const float* p, int64_t nb, int64_t sb) {
+  Scales sc{p, nb, sb, 0u, 0};
+  if (sb >= 2 && sb <= INT32_MAX) {  // round-up reciprocal: exact for dividends < 2^31
+    int log2_ceil = 0;
+    while ((int64_t{1} << log2_ceil) < sb) ++log2_ceil;
+    const int p2 = 31 + log2_ceil;
+    sc.mul = static_cast<uint32_t>(((uint64_t{1} << p2) + sb - 1) / sb);
+    sc.shift = p2 - 32;
+  }
+  return sc;
+}
+
+// The scale block of column col: col / sb.
+__device__ __forceinline__ int64_t scale_block(int64_t col, const Scales& sc) {
+  if (sc.sb == 1) return col;
+  if (sc.mul != 0u && col <= INT32_MAX)
+    return __umulhi(static_cast<uint32_t>(col), sc.mul) >> sc.shift;
+  return col / sc.sb;
+}
+
+// Sum R values a lane over the warp, row u's being the lanes' v[u]: a
+// reduce-scatter (lanes that differ in bit 16 swap halves of the rows, then
+// bit 8, ... down to one row a lane), then plain shuffles over the lanes
+// left.  Returns the sum of row (lane >> (5 - log2 R)) & (R - 1), which the
+// lanes with (lane & (32 / R - 1)) == 0 own.  R is a power of two <= 32.
+template <int R>
+__device__ __forceinline__ float reduce_rows(float (&v)[R], int lane) {
+  int o = 16;
+#pragma unroll
+  for (int h = R / 2; h >= 1; h /= 2, o /= 2) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = upper ? v[i] : v[i + h];
+      const float keep = upper ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, o);
+    }
+  }
+  float t = v[0];
+#pragma unroll
+  for (; o >= 1; o /= 2) t += __shfl_xor_sync(kFull, t, o);
+  return t;
+}
+
+// Kernels 1, 2 and 4: C split over the warps of a block.  A tile is 32 * V
 // columns (one warp's width of 16-byte vectors); warp w of a block walks
 // rows [w * rpw, (w + 1) * rpw) of each of its block's tiles, and the
 // warps' sums of a tile are added through shared memory in warp order.
@@ -210,8 +305,22 @@ constexpr int kMaxAggWarps = 16;
 constexpr int kOwnWarps = 4;  // warps a block where each warp owns its tiles
 constexpr int kRowsPerWarp = 8;  // the rows a warp walks when C allows
 constexpr int kRowBatch = 8;
-constexpr int kSlotBytes = 32 * 16;  // one row of a warp's batch in shared memory
+constexpr int kSlotBytes = 32 * 16;  // one row of a warp's batch in shared memory (codes: + scales)
 constexpr int kSumBatch = 16;  // partials a thread of kernel 2's last block loads at once
+
+// A row's slot in a warp's stage: a 16-byte vector a lane, and for kernel
+// 4 the lane's scale of the row after the 32 vectors.
+template <typename T>
+__host__ __device__ constexpr int slot_bytes() {
+  return kSlotBytes + (kIsCode<T> ? 32 * static_cast<int>(sizeof(float)) : 0);
+}
+
+// Rows of a warp's unit of work: kRowBatch through shared memory; with
+// scalars 32 values a lane, since a lane holds two units.
+template <typename T, int L>
+__host__ __device__ constexpr int unit_rows() {
+  return L == Vec<T>::N ? kRowBatch : 32 / Vec<T>::N;
+}
 
 // How a launch of kernel 1 or 2 splits its work (the host's plan).
 struct AggPlan {
@@ -234,24 +343,38 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// 4 bytes global -> shared.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {  // all but the newest N groups
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Copy rows c0 .. min(c0 + kRowBatch, r1) - 1 of the tile at tile0 into
-// `stage`, row u to the lane's slot at u * kSlotBytes + lane * 16; a lane
+// `stage`, row u to the lane's slot at u * slot_bytes + lane * 16; a lane
 // past D copies the row's last vector, which staged_values ignores.
+// Kernel 4 (codes) also copies the lane's scale of each row (its 16
+// columns lie in one scale block) to u * slot_bytes + kSlotBytes + lane * 4.
 template <typename T>
 __device__ __forceinline__ void issue_batch(const T* __restrict__ g, int64_t D, int c0, int r1,
-                                            int64_t tile0, int lane, unsigned char* stage) {
+                                            int64_t tile0, int lane, unsigned char* stage,
+                                            const Scales& sc) {
   constexpr int V = Vec<T>::N;
-  const int64_t col = tile0 + lane * V;
+  constexpr int kSlot = slot_bytes<T>();
+  const int64_t col = tile0 + lane * V < D ? tile0 + lane * V : D - V;
+  int64_t blk = 0;
+  if constexpr (kIsCode<T>) blk = scale_block(col, sc);
 #pragma unroll
   for (int u = 0; u < kRowBatch; ++u) {
-    if (c0 + u < r1)
-      cp_async16(smem_u32(stage + u * kSlotBytes + lane * 16),
-                 g + static_cast<int64_t>(c0 + u) * D + (col < D ? col : D - V));
+    if (c0 + u < r1) {
+      cp_async16(smem_u32(stage + u * kSlot + lane * 16), g + static_cast<int64_t>(c0 + u) * D + col);
+      if constexpr (kIsCode<T>)
+        cp_async4(smem_u32(stage + u * kSlot + kSlotBytes + lane * 4),
+                  sc.p + static_cast<int64_t>(c0 + u) * sc.nb + blk);
+    }
   }
 }
 
@@ -266,11 +389,28 @@ __device__ __forceinline__ void staged_values(int64_t D, int c0, int r1, int64_t
 #pragma unroll
   for (int u = 0; u < kRowBatch; ++u) {
     if (in && c0 + u < r1) {
-      load_vec(reinterpret_cast<const T*>(stage + u * kSlotBytes + lane * 16), x[u]);
+      load_vec(reinterpret_cast<const T*>(stage + u * slot_bytes<T>() + lane * 16), x[u]);
     } else {
 #pragma unroll
       for (int k = 0; k < V; ++k) x[u][k] = 0.f;
     }
+  }
+}
+
+// Kernel 4, scalars: x[u][j] *= the scale of g[c0 + u, tile0 + j * 32 +
+// lane] (the scale blocks found once for the unit's rows).
+template <typename T, int R>
+__device__ __forceinline__ void scale_values(const Scales& sc, int64_t D, int c0, int r1,
+                                             int64_t tile0, int lane, float (&x)[R][Vec<T>::N]) {
+  constexpr int V = Vec<T>::N;
+  int64_t blk[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) blk[j] = scale_block(min(tile0 + j * 32 + lane, D - 1), sc);
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const float* row = sc.p + static_cast<int64_t>(min(c0 + u, r1 - 1)) * sc.nb;
+#pragma unroll
+    for (int j = 0; j < V; ++j) x[u][j] *= row[blk[j]];
   }
 }
 
@@ -320,23 +460,32 @@ __device__ __forceinline__ void scalar_values(const T* __restrict__ g, int64_t D
   }
 }
 
+// No per-row callback (kernels 1 and 2).
+struct NoRows {
+  template <typename A>
+  __device__ void operator()(int, const A&) const {}
+};
+
 // Walk the block's tiles (with plan.own, the warp's own): acc[m][j * L + e]
 // = sum over the warp's rows c of wt_m(c) * g[c, tile0 + j * 32 * L +
 // lane * L + e], in row order, then on_tile(tile0, acc), which every warp
 // of the block reaches together unless the warps own their tiles.
-// Kernel 1's weights are w[m * C + c]; kernel 2's (kCohort, M = 2) w[c]
-// and w[c] - lam[c].  `stages` is the warp's plan.stages stages.
-template <typename T, int M, int L, bool kCohort, typename OnTile>
+// Kernel 1's weights are w[m * C + c]; kernels 2 and 4's (kCohort, M = 2)
+// w[c] and w[c] - lam[c].  `stages` is the warp's plan.stages stages.
+// Kernel 4 (codes): g[c, col] = float(code) * scale, and after each unit of
+// rows c0 .. c0 + R - 1, on_rows(c0, sq) with sq[u] the lane's sum of
+// g[c0 + u, col]^2 over its columns of the tile (every lane calls it).
+template <typename T, int M, int L, bool kCohort, typename OnTile, typename OnRows = NoRows>
 __device__ __forceinline__ void walk_tiles(const T* __restrict__ g, const float* __restrict__ w,
                                            const float* __restrict__ lam, int C, int64_t D,
-                                           AggPlan plan, unsigned char* stages, OnTile on_tile) {
+                                           AggPlan plan, unsigned char* stages, OnTile on_tile,
+                                           Scales sc = {}, OnRows on_rows = {}) {
   constexpr int V = Vec<T>::N;
   constexpr int kTile = 32 * V;
+  constexpr bool kCode = kIsCode<T>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
   const int r0 = plan.own ? 0 : warp * plan.rpw, r1 = min(C, r0 + plan.rpw);
-  // Rows a unit: kRowBatch through shared memory; with scalars 32 values a
-  // lane, since a lane holds two units.
-  constexpr int R = L == V ? kRowBatch : 32 / V;
+  constexpr int R = unit_rows<T, L>();
   const int n_batches = (plan.rpw + R - 1) / R;  // the same in every warp
   const int64_t n_tiles = (D + kTile - 1) / kTile;
   // The warp's tiles: first, first + stride, ... (the block's, or its own);
@@ -346,7 +495,7 @@ __device__ __forceinline__ void walk_tiles(const T* __restrict__ g, const float*
   int b = 0;
   int64_t next_tile = n_batches > 1 ? tile : tile + stride;  // the unit after (tile, b)
   int next_b = n_batches > 1 ? 1 : 0;
-  const int stage_bytes = plan.batch_rows * kSlotBytes;
+  const int stage_bytes = plan.batch_rows * slot_bytes<T>();
   int s = 0;  // the current unit's stage
   float acc[M][V];
 #pragma unroll
@@ -354,9 +503,9 @@ __device__ __forceinline__ void walk_tiles(const T* __restrict__ g, const float*
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[m][k] = 0.f;
   }
-  float x[R][V];  // the current unit's values
+  float x[R][V];  // the current unit's values (kernel 4's vectors: read a row at a time)
   if constexpr (L == V) {
-    if (tile < n_tiles) issue_batch<T>(g, D, r0, r1, tile * kTile, lane, stages);
+    if (tile < n_tiles) issue_batch<T>(g, D, r0, r1, tile * kTile, lane, stages, sc);
     cp_async_commit();
   } else {
     if (tile < n_tiles) scalar_values<T, R>(g, D, r0, r1, tile * kTile, lane, x);
@@ -369,33 +518,95 @@ __device__ __forceinline__ void walk_tiles(const T* __restrict__ g, const float*
       if (plan.stages == 2) {  // the next unit in flight while this one is multiplied
         if (next_tile < n_tiles)
           issue_batch<T>(g, D, r0 + next_b * R, r1, next_tile * kTile, lane,
-                         stages + (s ^ 1) * stage_bytes);
+                         stages + (s ^ 1) * stage_bytes, sc);
         cp_async_commit();  // possibly empty: one group an iteration
         cp_async_wait<1>();
       } else {  // one stage: the warp's only unit
         cp_async_wait<0>();
       }
-      staged_values<T>(D, c0, r1, tile0, lane, stages + s * stage_bytes, x);
+      if constexpr (!kCode) staged_values<T>(D, c0, r1, tile0, lane, stages + s * stage_bytes, x);
     } else {
       if (next_tile < n_tiles)
         scalar_values<T, R>(g, D, r0 + next_b * R, r1, next_tile * kTile, lane, x_next);
+      if constexpr (kCode) scale_values<T, R>(sc, D, c0, r1, tile0, lane, x);
     }
+    if constexpr (kCode) {
+      // Rows in sub-batches of kSub: a sub-batch's codes, scales and weights
+      // are all loaded before its first row is widened (loaded row by row,
+      // each row waited on its loads); the scale goes into the weights where
+      // one scale covers the lane's columns.  Rows past the warp's are
+      // skipped (uniform over the warp).
+      constexpr int kSub = R < 4 ? R : 4;
+      const unsigned char* stage = stages + s * stage_bytes;
+      const bool in = tile0 + lane * V < D;
+      float sq[R];
 #pragma unroll
-    for (int u2 = 0; u2 < R; ++u2) {
-      const int c = c0 + u2;
-      const bool row = c < r1;
-      float wt[M];
-      if (kCohort) {
-        wt[0] = row ? w[c] : 0.f;
-        wt[M - 1] = row ? w[c] - lam[c] : 0.f;
-      } else {
+      for (int h = 0; h < R; h += kSub) {
+        float wa[kSub], wb[kSub], sc_u[kSub];
+        int4 raw[kSub];
 #pragma unroll
-        for (int m = 0; m < M; ++m) wt[m] = row ? w[static_cast<int64_t>(m) * C + c] : 0.f;
+        for (int u = 0; u < kSub; ++u) {
+          // Rows past the warp's load its last row's (the stage holds only
+          // the batch's rows) and are skipped below.
+          const int uu = min(h + u, r1 - 1 - c0);
+          wa[u] = w[c0 + uu];
+          wb[u] = lam[c0 + uu];
+          if constexpr (L == V) {
+            const unsigned char* slot = stage + uu * slot_bytes<T>();
+            raw[u] = *reinterpret_cast<const int4*>(slot + lane * 16);
+            sc_u[u] = *reinterpret_cast<const float*>(slot + kSlotBytes + lane * 4);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSub; ++u) {
+          sq[h + u] = 0.f;
+          if (c0 + h + u >= r1) continue;
+          float v[V];
+          float scale = 1.f, q2 = 0.f;
+          if constexpr (L == V) {
+            if (in) {
+              q2 = widen_codes<T>(raw[u], v);
+            } else {
+#pragma unroll
+              for (int k = 0; k < V; ++k) v[k] = 0.f;
+            }
+            scale = sc_u[u];
+          } else {
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              v[k] = x[h + u][k];
+              q2 = fmaf(v[k], v[k], q2);
+            }
+          }
+          const float w0 = wa[u] * scale;
+          const float w1 = (wa[u] - wb[u]) * scale;
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            acc[0][k] = fmaf(w0, v[k], acc[0][k]);
+            acc[M - 1][k] = fmaf(w1, v[k], acc[M - 1][k]);
+          }
+          sq[h + u] = q2 * (scale * scale);
+        }
       }
+      on_rows(c0, sq);
+    } else {
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
+      for (int u2 = 0; u2 < R; ++u2) {
+        const int c = c0 + u2;
+        const bool row = c < r1;
+        float wt[M];
+        if (kCohort) {
+          wt[0] = row ? w[c] : 0.f;
+          wt[M - 1] = row ? w[c] - lam[c] : 0.f;
+        } else {
 #pragma unroll
-        for (int k = 0; k < V; ++k) acc[m][k] = fmaf(wt[m], x[u2][k], acc[m][k]);
+          for (int m = 0; m < M; ++m) wt[m] = row ? w[static_cast<int64_t>(m) * C + c] : 0.f;
+        }
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) acc[m][k] = fmaf(wt[m], x[u2][k], acc[m][k]);
+        }
       }
     }
     if constexpr (L != V) {
@@ -446,12 +657,102 @@ __device__ __forceinline__ float sum_warps(const float* red, int i) {
   return s;
 }
 
-// Dynamic shared memory of kernels 1 and 2: each warp's stages, then the
-// tile sums of one row (none where the warps own their tiles).
+// Dynamic shared memory of kernels 1, 2 and 4: each warp's stages, then the
+// tile sums of one row (none where the warps own their tiles).  Kernel 4's
+// last block reuses that front for its column sums (16 bytes a thread), and
+// after it come the warps' row norms (plan.rpw floats a warp).
+template <typename T>
+__host__ __device__ constexpr size_t agg_front_bytes(int n_warps, AggPlan plan) {
+  const size_t walk = static_cast<size_t>(n_warps) * plan.stages * plan.batch_rows * slot_bytes<T>() +
+                      (plan.own ? 0 : static_cast<size_t>(n_warps) * 32 * Vec<T>::N * sizeof(float));
+  const size_t sums = static_cast<size_t>(n_warps) * 32 * 16;
+  return kIsCode<T> && sums > walk ? sums : walk;
+}
+
 template <typename T>
 constexpr size_t agg_smem_bytes(int n_warps, AggPlan plan) {
-  return static_cast<size_t>(n_warps) * plan.stages * plan.batch_rows * kSlotBytes +
-         (plan.own ? 0 : static_cast<size_t>(n_warps) * 32 * Vec<T>::N * sizeof(float));
+  return agg_front_bytes<T>(n_warps, plan) +
+         (kIsCode<T> ? static_cast<size_t>(n_warps) * plan.rpw * sizeof(float) : 0);
+}
+
+// True in every thread of the block that took the last of `expected`
+// tickets on *counter; that block sets the counter back to 0 for the next
+// launch on the stream.  After the barrier, thread 0 takes the ticket with
+// an acquire-release atomic at device scope: it releases the whole block's
+// writes (cumulative over the barrier) and, for the last block, acquires
+// every other block's (the SM's L1 is invalidated), so that block may read
+// them with plain loads after the second barrier.
+__device__ __forceinline__ bool last_arrival(unsigned int* counter, unsigned int expected) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int ticket;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(ticket) : "l"(counter) : "memory");
+    last = ticket == expected - 1;
+    if (last) *counter = 0u;
+  }
+  __syncthreads();
+  return last;
+}
+
+// Kernel 4's last block: sums[j] = sum over the n_rows rows of
+// partials[:, j] for j <= C, partials (n_rows, stride) with stride a
+// multiple of 4.  Thread t sums column quad t % nq over rows t / nq,
+// t / nq + P, ... (P = blockDim / nq row slices) with 16-byte loads, and the
+// slices are added in order through `red` (blockDim float4 of shared
+// memory); where nq >= blockDim, each thread sums whole quads.
+__device__ void sum_partial_columns(const float* partials, int n_rows, int stride,
+                                    int C, float* __restrict__ sums, float4* red) {
+  const int t = threadIdx.x, bd = blockDim.x, nq = stride / 4;
+  const float4* p4 = reinterpret_cast<const float4*>(partials);
+  auto emit = [&](int q, float4 v) {
+    const float c4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (4 * q + i <= C) sums[4 * q + i] = c4[i];
+    }
+  };
+  // kSumBatch rows' loads in flight before any add (rows past n_rows load
+  // the last row, then add nothing): plain loads, after last_arrival's
+  // acquire.
+  auto column = [&](int q, int first, int step) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r0 = first; r0 < n_rows; r0 += kSumBatch * step) {
+      float4 v[kSumBatch];
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u)
+        v[u] = p4[static_cast<int64_t>(min(r0 + u * step, n_rows - 1)) * nq + q];
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) {
+        if (r0 + u * step < n_rows) {
+          a.x += v[u].x;
+          a.y += v[u].y;
+          a.z += v[u].z;
+          a.w += v[u].w;
+        }
+      }
+    }
+    return a;
+  };
+  if (nq >= bd) {
+    for (int q = t; q < nq; q += bd) emit(q, column(q, 0, 1));
+    return;
+  }
+  const int slices = bd / nq, q = t % nq, p = t / nq;
+  if (p < slices) red[p * nq + q] = column(q, p, slices);
+  __syncthreads();
+  if (t < nq) {
+    float4 tot = red[t];
+    for (int i = 1; i < slices; ++i) {
+      const float4 v = red[i * nq + t];
+      tot.x += v.x;
+      tot.y += v.y;
+      tot.z += v.z;
+      tot.w += v.w;
+    }
+    emit(t, tot);
+  }
 }
 
 template <typename T, int M, int L>
@@ -487,28 +788,39 @@ __global__ void __launch_bounds__(kMaxAggWarps * 32)
       });
 }
 
-// Kernel 2 in one launch: each block writes d over its tiles and its
-// partial of the error row's squared norm to partials[blockIdx.x]; the
-// last block to finish (an integer ticket on *counter after a
-// __threadfence) sums all partials in index order into *err and sets
-// *counter back to 0 for the next launch on the stream.
+// Kernels 2 and 4 in one launch: each block writes d over its tiles and
+// its partial of the error row's squared norm (kernel 4: its (C + 1)-wide
+// row of partials, the C row norms and then the error, at partials[blockIdx.x
+// * stride]); the last block to finish (an integer ticket on *counter after
+// a __threadfence) sums all partials in index order into out (kernel 2: the
+// error; kernel 4: the C norms, then the error) and sets *counter back to 0
+// for the next launch on the stream.
 template <typename T, int L>
 __global__ void __launch_bounds__(kMaxAggWarps * 32)
-    cohort_agg_kernel(const T* __restrict__ g, const float* __restrict__ w,
+    cohort_agg_kernel(const T* __restrict__ g, Scales sc, const float* __restrict__ w,
                       const float* __restrict__ lam, float* __restrict__ d,
                       float* __restrict__ partials, unsigned int* __restrict__ counter,
-                      float* __restrict__ err, int C, int64_t D, AggPlan plan) {
+                      float* __restrict__ out, int C, int64_t D, AggPlan plan) {
   constexpr int V = Vec<T>::N;
   constexpr int kTile = 32 * V;
+  constexpr int R = unit_rows<T, L>();
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float scratch[kMaxAggWarps];
   __shared__ bool last;
-  const int n_warps = blockDim.x >> 5, lane = threadIdx.x & 31;
-  const int stage_bytes = plan.stages * plan.batch_rows * kSlotBytes;
+  const int n_warps = blockDim.x >> 5, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int stage_bytes = plan.stages * plan.batch_rows * slot_bytes<T>();
   float* red = reinterpret_cast<float*>(smem + n_warps * stage_bytes);
+  // Kernel 4: the warp's row norms, rows r0 .. r1 - 1 at row_sq[c - r0].
+  float* row_sq = reinterpret_cast<float*>(smem + agg_front_bytes<T>(n_warps, plan)) +
+                  warp * plan.rpw;
+  const int r0 = plan.own ? 0 : warp * plan.rpw, r1 = min(C, r0 + plan.rpw);
+  if constexpr (kIsCode<T>) {
+    for (int i = lane; i < plan.rpw; i += 32) row_sq[i] = 0.f;
+    __syncwarp();
+  }
   float sq = 0.f;  // columns past D sum to zero and add nothing
   walk_tiles<T, 2, L, true>(
-      g, w, lam, C, D, plan, smem + (threadIdx.x >> 5) * stage_bytes,
+      g, w, lam, C, D, plan, smem + warp * stage_bytes,
       [&](int64_t tile0, const float (&acc)[2][V]) {
         if (plan.own) {
 #pragma unroll
@@ -532,8 +844,34 @@ __global__ void __launch_bounds__(kMaxAggWarps * 32)
           const float e = sum_warps<V>(red, i);
           sq = fmaf(e, e, sq);
         }
+      },
+      sc,
+      [&](int c0, float (&rows)[R]) {
+        const float v = reduce_rows<R>(rows, lane);
+        const int c = c0 + ((lane * R) >> 5);
+        if ((lane & (32 / R - 1)) == 0 && c < r1) row_sq[c - r0] += v;
       });
   sq = block_sum(sq, scratch);
+  if constexpr (kIsCode<T>) {
+    // The block's row of partials: each row's norm over its warps, in warp
+    // order (one warp a row where the warps split C), then the error.
+    const int stride = (C + 4) & ~3;
+    float* mine = partials + static_cast<int64_t>(blockIdx.x) * stride;
+    const float* all_rows = row_sq - warp * plan.rpw;
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      float v = 0.f;
+      for (int w8 = 0; w8 < n_warps; ++w8) {
+        const int w0 = plan.own ? 0 : w8 * plan.rpw;
+        if (c >= w0 && c < w0 + plan.rpw) v += all_rows[w8 * plan.rpw + c - w0];
+      }
+      mine[c] = v;
+    }
+    if (threadIdx.x == 0) mine[C] = sq;
+    if (!last_arrival(counter, gridDim.x)) return;
+    sum_partial_columns(partials, gridDim.x, stride, C, out, reinterpret_cast<float4*>(smem));
+    return;
+  }
   if (threadIdx.x == 0) {
     partials[blockIdx.x] = sq;
     __threadfence();  // the partial is visible before the ticket is taken
@@ -554,60 +892,33 @@ __global__ void __launch_bounds__(kMaxAggWarps * 32)
   }
   t = block_sum(t, scratch);
   if (threadIdx.x == 0) {
-    *err = t;
+    *out = t;
     *counter = 0u;
   }
 }
 
-// Kernels 3 and 4: d = sum_c w_c g_c, the per-row squared norms ||g_c||^2
-// and, with kErr, the error row's squared norm, in one read of g.  With
-// kScaled, g is (C, D) codes and g[c, col] = float(code) * scales[c, col / sb].
-// Block b writes its partial sums to partials[b * n_sums + j]: j < C the norm
-// of row j over the block's columns, j = C (with kErr) the error.
-template <typename T, bool kScaled, bool kErr, bool kAligned>
+// Kernel 3: d = sum_c w_c g_c and the per-row squared norms ||g_c||^2, in
+// one read of g.  Block b writes its partial norms to partials[b * C + j],
+// the norm of row j over the block's columns.
+template <typename T, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
-    agg_norms_kernel(const T* __restrict__ g, const float* __restrict__ scales, int64_t nb,
-                     int64_t sb, const float* __restrict__ w, const float* __restrict__ lam,
+    agg_norms_kernel(const T* __restrict__ g, const float* __restrict__ w,
                      float* __restrict__ d, float* __restrict__ partials, int C, int64_t D) {
   constexpr int V = Vec<T>::N;
-  constexpr int kRows = kErr ? 2 : 1;
   constexpr int kWarps = kThreads / 32;
-  __shared__ float ws[kRows][kWChunk];
+  __shared__ float ws[kWChunk];
   __shared__ float row_sq[kWarps][kWChunk];
-  __shared__ float warp_sums[kWarps];
-  const int n_sums = C + (kErr ? 1 : 0);
   const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * (kThreads * V);
   // Aligned: the thread's columns are col0 + k.  Scalar: col0 + k * kThreads.
   const int64_t col0 = tile0 + (kAligned ? static_cast<int64_t>(threadIdx.x) * V : threadIdx.x);
-  // The scale block of each of the thread's columns, the same in every row
-  // (clamped into range for masked columns, whose values are zero anyway).
-  int64_t blk[kAligned ? 1 : V];
-  if (kScaled) {
-    if (kAligned) {
-      blk[0] = (col0 < D ? col0 : D - 1) / sb;
-    } else {
+  float acc[V];
 #pragma unroll
-      for (int k = 0; k < V; ++k) {
-        const int64_t col = col0 + k * kThreads;
-        blk[k] = (col < D ? col : D - 1) / sb;
-      }
-    }
-  }
-  float acc[kRows][V];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int k = 0; k < V; ++k) acc[r][k] = 0.f;
-  }
+  for (int k = 0; k < V; ++k) acc[k] = 0.f;
 
   for (int c0 = 0; c0 < C; c0 += kWChunk) {
     const int nc = min(kWChunk, C - c0);
     __syncthreads();  // the previous chunk's weights and row sums are no longer read
-    for (int i = threadIdx.x; i < nc; i += kThreads) {
-      const float wc = w[c0 + i];
-      ws[0][i] = wc;
-      if (kErr) ws[kRows - 1][i] = wc - lam[c0 + i];
-    }
+    for (int i = threadIdx.x; i < nc; i += kThreads) ws[i] = w[c0 + i];
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < nc; ++c) {
@@ -621,30 +932,19 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int k = 0; k < V; ++k) x[k] = 0.f;
         }
-        if (kScaled) {
-          const float s = scales[row * nb + blk[0]];
-#pragma unroll
-          for (int k = 0; k < V; ++k) x[k] *= s;
-        }
       } else {
 #pragma unroll
         for (int k = 0; k < V; ++k) {
           const int64_t col = col0 + k * kThreads;
           x[k] = col < D ? to_f32(p[col]) : 0.f;
-          if (kScaled) x[k] *= scales[row * nb + blk[kAligned ? 0 : k]];
         }
       }
       float sq = 0.f;
-      const float w0 = ws[0][c];
+      const float w0 = ws[c];
 #pragma unroll
       for (int k = 0; k < V; ++k) {
-        acc[0][k] = fmaf(w0, x[k], acc[0][k]);
+        acc[k] = fmaf(w0, x[k], acc[k]);
         sq = fmaf(x[k], x[k], sq);
-      }
-      if (kErr) {
-        const float w1 = ws[kRows - 1][c];
-#pragma unroll
-        for (int k = 0; k < V; ++k) acc[kRows - 1][k] = fmaf(w1, x[k], acc[kRows - 1][k]);
       }
       sq = warp_sum(sq);
       if ((threadIdx.x & 31) == 0) row_sq[threadIdx.x >> 5][c] = sq;
@@ -654,7 +954,7 @@ __global__ void __launch_bounds__(kThreads)
       float s = 0.f;
 #pragma unroll
       for (int j = 0; j < kWarps; ++j) s += row_sq[j][i];
-      partials[static_cast<int64_t>(blockIdx.x) * n_sums + c0 + i] = s;
+      partials[static_cast<int64_t>(blockIdx.x) * C + c0 + i] = s;
     }
   }
 
@@ -663,22 +963,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < V; k += 4)
         *reinterpret_cast<float4*>(d + col0 + k) =
-            make_float4(acc[0][k], acc[0][k + 1], acc[0][k + 2], acc[0][k + 3]);
+            make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
     }
   } else {
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       const int64_t col = col0 + k * kThreads;
-      if (col < D) d[col] = acc[0][k];
+      if (col < D) d[col] = acc[k];
     }
-  }
-  if (kErr) {
-    // Columns past D hold zero accumulators and add nothing to the error.
-    float e = 0.f;
-#pragma unroll
-    for (int k = 0; k < V; ++k) e = fmaf(acc[kRows - 1][k], acc[kRows - 1][k], e);
-    e = block_sum(e, warp_sums);
-    if (threadIdx.x == 0) partials[static_cast<int64_t>(blockIdx.x) * n_sums + C] = e;
   }
 }
 
@@ -717,35 +1009,53 @@ int64_t n_tiles(int64_t D, int dtype) {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // Blocks of one kernel resident on the current device at once, for a
-// block size and dynamic shared memory (asked once each; the kernel is
-// first allowed the largest shared memory a plan takes).
+// block size and dynamic shared memory (asked once each).  The kernel is
+// first allowed the largest shared memory a launch of it takes: for kernels
+// 1 and 2 the largest plan's, for kernel 4, whose row norms grow with C,
+// all the device gives a block.
 template <auto Kernel, typename T>
-int resident_blocks(int n_warps, AggPlan plan) {
-  static int cache[kMaxAggWarps + 1][3][2][64] = {};  // by warps, stages, own and device
+int resident_blocks(int n_warps, size_t smem) {
+  struct Entry {
+    int dev, n_warps;
+    size_t smem;
+    int n;
+  };
+  static Entry cache[64] = {};
+  static int next = 0;
+  static bool allowed[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
-  int& n = cache[n_warps][plan.stages][plan.own][dev & 63];
-  if (n == 0) {
-    cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(agg_smem_bytes<T>(kMaxAggWarps, {0, kRowBatch, 2, 0})));
-    int per_sm = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, Kernel, n_warps * 32, agg_smem_bytes<T>(n_warps, plan));
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    n = std::max(1, per_sm * sms);
+  if (!allowed[dev & 63]) {
+    int max_smem = static_cast<int>(agg_smem_bytes<T>(kMaxAggWarps, {0, kRowBatch, 2, 0}));
+    if constexpr (kIsCode<T>) {
+      cudaFuncAttributes attr;
+      cudaFuncGetAttributes(&attr, Kernel);
+      cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      max_smem -= static_cast<int>(attr.sharedSizeBytes);
+    }
+    cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    allowed[dev & 63] = true;
   }
+  for (const Entry& e : cache) {
+    if (e.n > 0 && e.dev == dev && e.n_warps == n_warps && e.smem == smem) return e.n;
+  }
+  int per_sm = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, n_warps * 32, smem);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int n = std::max(1, per_sm * sms);
+  cache[next++ % 64] = {dev, n_warps, smem, n};
   return n;
 }
 
-// A launch of kernel 1 or 2 (Kernel, element type T, chunk width L) for C
+// A launch of kernel 1, 2 or 4 (Kernel, element type T, chunk width L) for C
 // rows of D columns.  Tiles enough to fill the card (huge D), or at most
 // two batches of rows with a block for every SM, take blocks of kOwnWarps
 // warps, each warp walking all C rows of tiles of its own; otherwise a
 // block's warps split C, about kRowsPerWarp rows a warp, at
 // least min_warps and at most kMaxAggWarps warps, no warp without rows.
 // Every tile gets a warp (or a block), or, with `bounded`, the grid is at
-// most the blocks resident at once (kernel 2, whose last block sums one
-// partial a block).  Vectors take two stages where a warp has more than
+// most the blocks resident at once (kernels 2 and 4, whose last block sums
+// a row of partials a block).  Vectors take two stages where a warp has more than
 // one unit of work.
 struct Launch {
   AggPlan plan;
@@ -777,19 +1087,20 @@ Launch agg_launch(int C, int64_t D, int min_warps, bool bounded) {
   l.plan.batch_rows = std::min(l.plan.rpw, kRowBatch);
   const bool async = L == Vec<T>::N;
   l.plan.stages = async ? (l.plan.rpw > kRowBatch ? 2 : 1) : 0;
-  if (bounded && l.grid > resident_blocks<Kernel, T>(l.n_warps, l.plan)) {
+  if (bounded && l.grid > resident_blocks<Kernel, T>(l.n_warps, agg_smem_bytes<T>(l.n_warps, l.plan))) {
     if (async) l.plan.stages = 2;
-    l.grid = resident_blocks<Kernel, T>(l.n_warps, l.plan);
+    l.grid = resident_blocks<Kernel, T>(l.n_warps, agg_smem_bytes<T>(l.n_warps, l.plan));
   }
   l.smem = agg_smem_bytes<T>(l.n_warps, l.plan);
-  if (l.smem > 48 * 1024) resident_blocks<Kernel, T>(l.n_warps, l.plan);  // allows it
+  if (l.smem > 48 * 1024) resident_blocks<Kernel, T>(l.n_warps, l.smem);  // allows it
   return l;
 }
 
-// Whether every row of g starts 16-byte aligned (L = V) or not (L = 1).
+// Whether every row of g starts 16-byte aligned (L = V) or not (L = 1);
+// for kernel 4 also whether a vector of codes lies in one scale block of sb.
 template <typename T>
-bool vector_rows(const void* g, int64_t D) {
-  return D % Vec<T>::N == 0 && aligned16(g);
+bool vector_rows(const void* g, int64_t D, int64_t sb = Vec<T>::N) {
+  return D % Vec<T>::N == 0 && sb % Vec<T>::N == 0 && aligned16(g);
 }
 
 template <typename T, int M, int L>
@@ -820,8 +1131,8 @@ int dispatch_multi(const void* g, const float* w, float* out, int C, int64_t D, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 2 takes at least 4 warps a block where C has the rows, so its
-// last block sums the partials with at least 128 threads.
+// Kernels 2 and 4 take at least 4 warps a block where C has the rows, so
+// their last block sums the partials with at least 128 threads.
 constexpr int kCohortMinWarps = 4;
 
 template <typename T, int L>
@@ -830,40 +1141,46 @@ Launch cohort_launch(int C, int64_t D) {
 }
 
 template <typename T, int L>
-void launch_cohort(const void* g, const float* w, const float* lam, float* d, float* partials,
-                   unsigned int* counter, float* err, int C, int64_t D, cudaStream_t s) {
+void launch_cohort(const void* g, Scales sc, const float* w, const float* lam, float* d,
+                   float* partials, unsigned int* counter, float* out, int C, int64_t D,
+                   cudaStream_t s) {
   const Launch l = cohort_launch<T, L>(C, D);
   cohort_agg_kernel<T, L><<<static_cast<unsigned int>(l.grid), l.n_warps * 32, l.smem, s>>>(
-      static_cast<const T*>(g), w, lam, d, partials, counter, err, C, D, l.plan);
+      static_cast<const T*>(g), sc, w, lam, d, partials, counter, out, C, D, l.plan);
 }
 
 template <typename T>
-int dispatch_cohort(const void* g, const float* w, const float* lam, float* d, float* partials,
-                    unsigned int* counter, float* err, int C, int64_t D, cudaStream_t s) {
-  if (vector_rows<T>(g, D))
-    launch_cohort<T, Vec<T>::N>(g, w, lam, d, partials, counter, err, C, D, s);
+int dispatch_cohort(const void* g, Scales sc, const float* w, const float* lam, float* d,
+                    float* partials, unsigned int* counter, float* out, int C, int64_t D,
+                    cudaStream_t s) {
+  if (vector_rows<T>(g, D, kIsCode<T> ? sc.sb : Vec<T>::N))
+    launch_cohort<T, Vec<T>::N>(g, sc, w, lam, d, partials, counter, out, C, D, s);
   else
-    launch_cohort<T, 1>(g, w, lam, d, partials, counter, err, C, D, s);
+    launch_cohort<T, 1>(g, sc, w, lam, d, partials, counter, out, C, D, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 2's grid for (C, D, g's dtype and base pointer).
+// Kernel 2's or 4's grid for (C, D, g's dtype and base pointer; kernel 4's
+// scale block).
 template <typename T>
-int64_t cohort_blocks(const void* g, int C, int64_t D) {
-  return vector_rows<T>(g, D) ? cohort_launch<T, Vec<T>::N>(C, D).grid
-                              : cohort_launch<T, 1>(C, D).grid;
+int64_t cohort_blocks(const void* g, int C, int64_t D, int64_t sb = Vec<T>::N) {
+  return vector_rows<T>(g, D, sb) ? cohort_launch<T, Vec<T>::N>(C, D).grid
+                                  : cohort_launch<T, 1>(C, D).grid;
 }
 
-template <typename T, bool kScaled, bool kErr>
-void launch_agg_norms(const void* g, const float* scales, int64_t nb, int64_t sb,
-                      const float* w, const float* lam, float* d, float* partials, int C,
-                      int64_t D, bool aligned, int64_t blocks, cudaStream_t s) {
+// Kernel 4's row of partials a block: the C norms and the error, padded to
+// whole 16-byte vectors.
+int dequant_stride(int C) { return (C + 4) & ~3; }
+
+template <typename T>
+void launch_agg_norms(const void* g, const float* w, float* d, float* partials, int C, int64_t D,
+                      bool aligned, int64_t blocks, cudaStream_t s) {
   const T* gt = static_cast<const T*>(g);
   const unsigned int grid = static_cast<unsigned int>(blocks);
   if (aligned)
-    agg_norms_kernel<T, kScaled, kErr, true><<<grid, kThreads, 0, s>>>(gt, scales, nb, sb, w, lam, d, partials, C, D);
+    agg_norms_kernel<T, true><<<grid, kThreads, 0, s>>>(gt, w, d, partials, C, D);
   else
-    agg_norms_kernel<T, kScaled, kErr, false><<<grid, kThreads, 0, s>>>(gt, scales, nb, sb, w, lam, d, partials, C, D);
+    agg_norms_kernel<T, false><<<grid, kThreads, 0, s>>>(gt, w, d, partials, C, D);
 }
 
 // The second pass: out[j] = sum over the n_rows tiles of partials[:, j].
@@ -878,8 +1195,8 @@ int sum_columns(const float* partials, int64_t n_rows, int n_cols, float* out, c
 
 extern "C" {
 
-// Number of column tiles (blocks) of kernels 3 and 4 for D columns of the
-// given dtype: the rows of the partials buffers they take.
+// Number of column tiles (blocks) of kernel 3 for D columns of the given
+// dtype: the rows of the partials buffer it takes.
 long long fwa_num_tiles(long long D, int dtype) { return n_tiles(D, dtype); }
 
 // Number of blocks kernel 2 launches for g (C, D) of the given dtype at
@@ -888,6 +1205,17 @@ long long fwa_num_tiles(long long D, int dtype) { return n_tiles(D, dtype); }
 long long fwa_cohort_blocks(const void* g, int dtype, int C, long long D) {
   if (dtype == kF32) return cohort_blocks<float>(g, C, D);
   return cohort_blocks<__nv_bfloat16>(g, C, D);
+}
+
+// Floats of scratch fwa_dequant_cohort_agg takes for q (C, D) codes of the
+// given dtype at this base pointer, with nb scale blocks a row, on the
+// current device: its grid times the row of partials a block.
+long long fwa_dequant_partials(const void* q, int dtype, int nb, int C, long long D) {
+  if (C < 1 || D < 1 || nb < 1) return 0;
+  const int64_t sb = D / nb;
+  const int64_t blocks =
+      dtype == kI8 ? cohort_blocks<int8_t>(q, C, D, sb) : cohort_blocks<Fp8>(q, C, D, sb);
+  return blocks * dequant_stride(C);
 }
 
 // Largest M fwa_multi_weighted_agg takes.
@@ -912,8 +1240,8 @@ int fwa_cohort_agg_and_error(const void* g, int dtype, const float* w, const flo
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return dispatch_cohort<float>(g, w, lam, d, partials, counter, err, C, D, s);
-  return dispatch_cohort<__nv_bfloat16>(g, w, lam, d, partials, counter, err, C, D, s);
+    return dispatch_cohort<float>(g, {}, w, lam, d, partials, counter, err, C, D, s);
+  return dispatch_cohort<__nv_bfloat16>(g, {}, w, lam, d, partials, counter, err, C, D, s);
 }
 
 // partials: fwa_num_tiles(D, dtype) * C floats of scratch.
@@ -925,30 +1253,26 @@ int fwa_weighted_agg(const void* g, int dtype, const float* w, float* d, float* 
   const bool aligned = D % vec_width(dtype) == 0 && aligned16(g) && aligned16(d);
   const int64_t blocks = n_tiles(D, dtype);
   if (dtype == kF32)
-    launch_agg_norms<float, false, false>(g, nullptr, 1, 1, w, nullptr, d, partials, C, D, aligned, blocks, s);
+    launch_agg_norms<float>(g, w, d, partials, C, D, aligned, blocks, s);
   else
-    launch_agg_norms<__nv_bfloat16, false, false>(g, nullptr, 1, 1, w, nullptr, d, partials, C, D, aligned, blocks, s);
+    launch_agg_norms<__nv_bfloat16>(g, w, d, partials, C, D, aligned, blocks, s);
   return sum_columns(partials, blocks, C, sq, s);
 }
 
 // q: (C, D) int8 or fp8 codes; scales: (C, nb) f32 with D % nb == 0.
-// partials: fwa_num_tiles(D, dtype) * (C + 1) floats of scratch.
+// partials: fwa_dequant_partials(q, dtype, nb, C, D) floats of scratch,
+// 16-byte aligned.  counter: as fwa_cohort_agg_and_error's.
 // sums: C + 1 floats, the C squared norms, then the error.
 int fwa_dequant_cohort_agg(const void* q, int dtype, const float* scales, int nb,
                            const float* w, const float* lam, float* d, float* partials,
-                           float* sums, int C, long long D, void* stream) {
+                           unsigned int* counter, float* sums, int C, long long D, void* stream) {
   if (C < 1 || D < 1 || nb < 1 || D % nb != 0 || (dtype != kI8 && dtype != kFP8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t sb = D / nb;
-  const int V = vec_width(dtype);
-  const bool aligned = D % V == 0 && sb % V == 0 && aligned16(q) && aligned16(d);
-  const int64_t blocks = n_tiles(D, dtype);
+  const Scales sc = make_scales(scales, nb, D / nb);
   if (dtype == kI8)
-    launch_agg_norms<int8_t, true, true>(q, scales, nb, sb, w, lam, d, partials, C, D, aligned, blocks, s);
-  else
-    launch_agg_norms<Fp8, true, true>(q, scales, nb, sb, w, lam, d, partials, C, D, aligned, blocks, s);
-  return sum_columns(partials, blocks, C + 1, sums, s);
+    return dispatch_cohort<int8_t>(q, sc, w, lam, d, partials, counter, sums, C, D, s);
+  return dispatch_cohort<Fp8>(q, sc, w, lam, d, partials, counter, sums, C, D, s);
 }
 
 }  // extern "C"

@@ -24,6 +24,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._common import ticket_counters
 from repro_torch.kernels.build import load_library
 
 __all__ = [
@@ -116,8 +117,10 @@ def _lib() -> ctypes.CDLL:
     lib.fwa_cohort_agg_and_error.restype = i32
     lib.fwa_weighted_agg.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i64, ptr]
     lib.fwa_weighted_agg.restype = i32
+    lib.fwa_dequant_partials.argtypes = [ptr, i32, i32, i32, i64]
+    lib.fwa_dequant_partials.restype = i64
     lib.fwa_dequant_cohort_agg.argtypes = [
-        ptr, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr,
+        ptr, i32, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr,
     ]
     lib.fwa_dequant_cohort_agg.restype = i32
     return lib
@@ -155,20 +158,6 @@ def _raise_on(rc: int, kernel: str) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-# Kernel 2's ticket counters, one per (device, stream): the last block of a
-# launch finds itself by an atomic ticket on the counter and sets it back to
-# 0, so launches in order on one stream share it, and launches on two
-# streams, which may overlap, never do.  Zeroed once, when first allocated.
-_COUNTERS: dict = {}
-
-
-def _counter(t: torch.Tensor, stream: int) -> torch.Tensor:
-    key = (t.device.index, stream)
-    if key not in _COUNTERS:
-        _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=t.device)
-    return _COUNTERS[key]
 
 
 def fused_weighted_agg(g: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -250,7 +239,8 @@ def fused_cohort_agg_and_error(
         )
         rc = lib.fwa_cohort_agg_and_error(
             g.data_ptr(), code, w.data_ptr(), lam_c.data_ptr(), d_out.data_ptr(),
-            partials.data_ptr(), _counter(g, stream).data_ptr(), err.data_ptr(), c, d, stream,
+            partials.data_ptr(), ticket_counters(g.device, stream, 1).data_ptr(), err.data_ptr(),
+            c, d, stream,
         )
     _raise_on(rc, "fused_cohort_agg_and_error")
     fused_cohort_agg_and_error.launches += 1
@@ -269,7 +259,8 @@ def fused_dequant_cohort_agg(
     ``g = float(q) * scale`` per block, returns (d (D_pad,) f32,
     err () f32, sq_norms (C,) f32): ``d = sum_c w_c g_c``,
     ``err = ||sum_c (w_c - lam_c) g_c||^2`` and ``sq_norms[c] = ||g_c||^2``.
-    On the GPU err and the norms are bitwise repeatable."""
+    On the GPU it is one kernel launch, and err and the norms are bitwise
+    repeatable (the last block sums the partials in order)."""
     c, d = _check_g(q, _QUANT_DTYPES, "q")
     if not isinstance(scales, torch.Tensor) or scales.dim() != 2:
         raise ValueError("scales must be a 2-D (C, nb) tensor")
@@ -284,15 +275,19 @@ def fused_dequant_cohort_agg(
     lib = _lib()
     code = _DTYPE_CODES[q.dtype]
     d_out = torch.empty(d, dtype=torch.float32, device=q.device)
-    # sums[:C] are the norms, sums[C] the error; partials is (n_tiles, C + 1).
+    # sums[:C] are the norms, sums[C] the error; partials holds a (C + 1)-wide
+    # row (padded to 16 bytes) for each block of the launch.
     sums = torch.empty(c + 1, dtype=torch.float32, device=q.device)
-    partials = torch.empty(
-        lib.fwa_num_tiles(d, code) * (c + 1), dtype=torch.float32, device=q.device
-    )
+    stream = _stream(q)
     with torch.cuda.device(q.device):
+        partials = torch.empty(
+            lib.fwa_dequant_partials(q.data_ptr(), code, nb, c, d), dtype=torch.float32,
+            device=q.device,
+        )
         rc = lib.fwa_dequant_cohort_agg(
             q.data_ptr(), code, scales.data_ptr(), nb, w.data_ptr(), lam_c.data_ptr(),
-            d_out.data_ptr(), partials.data_ptr(), sums.data_ptr(), c, d, _stream(q),
+            d_out.data_ptr(), partials.data_ptr(), ticket_counters(q.device, stream, 1).data_ptr(),
+            sums.data_ptr(), c, d, stream,
         )
     _raise_on(rc, "fused_dequant_cohort_agg")
     fused_dequant_cohort_agg.launches += 1

@@ -23,6 +23,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels._common import ticket_counters
 from repro_torch.kernels.build import load_library
 
 __all__ = ["waterfill_level_stats", "launch_counts", "reset_launch_counts"]
@@ -32,8 +33,10 @@ __all__ = ["waterfill_level_stats", "launch_counts", "reset_launch_counts"]
 def _lib() -> ctypes.CDLL:
     lib = load_library("sharded_waterfill")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.wf_num_blocks.argtypes = [i64]
-    lib.wf_num_blocks.restype = i64
+    lib.wf_scratch_bytes.argtypes = [i64, i32]
+    lib.wf_scratch_bytes.restype = i64
+    lib.wf_num_counters.argtypes = [i64]
+    lib.wf_num_counters.restype = i64
     lib.wf_level_stats.argtypes = [ptr, i64, ptr, ptr, i32, ptr, ptr, ptr, ptr]
     lib.wf_level_stats.restype = i32
     return lib
@@ -58,9 +61,10 @@ def _check_vector(name: str, t, device=None) -> int:
 def waterfill_level_stats(
     scores: torch.Tensor, levels: torch.Tensor, floors: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """scores (M,) f32, in any order, +inf entries inert; levels / floors
-    (L,) f32.  Returns ``(n_below, n_floor, mid_sum)``, each (L,) f32 (module
-    docstring).  Counts are exact up to 2**24 scores.  On the GPU the result
+    """scores (M,) f32, in any order, +inf and NaN entries counted below no
+    level; levels / floors (L,) f32, in any order.  Returns ``(n_below,
+    n_floor, mid_sum)``, each (L,) f32 (module docstring).  Counts are exact
+    up to 2**24 scores.  On the GPU it is one kernel launch, and the result
     is bitwise repeatable (no float atomics)."""
     m = _check_vector("scores", scores)
     n_levels = _check_vector("levels", levels, scores.device)
@@ -73,17 +77,17 @@ def waterfill_level_stats(
     lib = _lib()
     dev = scores.device
     out = torch.empty((3, n_levels), dtype=torch.float32, device=dev)
-    blocks = lib.wf_num_blocks(m)
-    cnt_part = mid_part = None
-    if blocks > 1:
-        cnt_part = torch.empty(blocks * 2 * n_levels, dtype=torch.int32, device=dev)
-        mid_part = torch.empty(blocks * n_levels, dtype=torch.float32, device=dev)
+    n_scratch, n_counters = lib.wf_scratch_bytes(m, n_levels), lib.wf_num_counters(m)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = counters = None
+        if n_scratch:  # more than one block: the partials and their tickets
+            scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+            counters = ticket_counters(dev, stream, n_counters)
         rc = lib.wf_level_stats(
             scores.data_ptr(), m, levels.data_ptr(), floors.data_ptr(), n_levels,
-            None if cnt_part is None else cnt_part.data_ptr(),
-            None if mid_part is None else mid_part.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            None if scratch is None else scratch.data_ptr(),
+            None if counters is None else counters.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"waterfill_level_stats CUDA launch failed: cudaError {rc}")

@@ -362,9 +362,17 @@ def test_cuda_cohort_agg_on_two_streams(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["int8", "fp8"])
 @pytest.mark.parametrize(
-    "c,d,sb", [(50, 114688, 128), (10, 114688, 128), (100, 640, 128), (3, 1000, 40)]
+    "c,d,sb",
+    [(50, 114688, 128), (10, 114688, 128), (100, 640, 128), (3, 1000, 40), (1, 114688, 128),
+     (9, 114688, 128), (1, 1000, 40), (9, 4104, 24), (50, 8200, 8), (100, 114688, 128),
+     (12, 1 << 20, 128), (4, 1 << 20, 8), (300, 4096, 64)],
 )
 def test_cuda_dequant_kernel_matches_plain(cuda, dtype, c, d, sb):
+    """Kernel 4 against its plain version, err and the norms bitwise
+    repeatable, one launch a call: the compressed path's shapes, C = 1, 9,
+    50, 100 and 300 (more rows than a batch a warp), scale blocks that are
+    not a multiple of 16 codes (the scalar path), and a D with tiles enough
+    for each warp to own its own."""
     g, w2 = _inputs(c, d, 2, seed=7)
     q, scales = fwa.quantize_stacked(torch.from_numpy(g).to(cuda), dtype=dtype, scale_block=sb)
     w, lam = torch.from_numpy(w2[0]).to(cuda), torch.from_numpy(0.1 * w2[1]).to(cuda)
@@ -377,3 +385,27 @@ def test_cuda_dequant_kernel_matches_plain(cuda, dtype, c, d, sb):
     again = fwa.fused_dequant_cohort_agg(q, scales, w, lam)
     assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
     assert fwa.launch_counts()["fused_dequant_cohort_agg"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "fp8"])
+def test_cuda_dequant_on_two_streams(cuda, dtype):
+    """Kernel 4's last block finds itself by the per-(device, stream) ticket
+    counter it shares with kernel 2: launches on two streams at once give
+    the bits of the same launches made in order."""
+    g, w2 = _inputs(50, 114688, 2, seed=12)
+    q, scales = fwa.quantize_stacked(torch.from_numpy(g).to(cuda), dtype=dtype)
+    ws = [torch.from_numpy(w2[i]).to(cuda) for i in range(2)]
+    lam = 0.1 * ws[1]
+    want = [fwa.fused_dequant_cohort_agg(q, scales, w, lam) for w in ws]
+    streams = [torch.cuda.Stream() for _ in ws]
+    torch.cuda.synchronize()
+    got = []
+    for stream, w in zip(streams, ws):
+        with torch.cuda.stream(stream):
+            for _ in range(20):
+                out = fwa.fused_dequant_cohort_agg(q, scales, w, lam)
+            got.append(out)
+    torch.cuda.synchronize()
+    for outs, wants in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(outs, wants))

@@ -43,6 +43,7 @@ from repro_torch.kernels import ref, sharded_waterfill  # noqa: E402
 from repro_torch.launch.mesh import ShardSpec  # noqa: E402
 from test_torch_compression import _leaves  # noqa: E402
 from test_torch_slice import METRIC_TOL, PARAM_TOL, _spec, jax_replay  # noqa: E402
+from test_torch_waterfill import edge_inputs  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 F32_TOL = dict(rtol=1e-5, atol=1e-7)  # the solver's f32 tolerance
@@ -348,10 +349,26 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n_levels", [(100, 128), (2048, 128), (1_000_003, 100), (300_000, 300)])
-def test_cuda_kernel_matches_plain(cuda, m, n_levels):
-    """Counts exact, mid_sum within 1e-5 relative, bitwise repeatable."""
-    scores, levels, floors = _stats_inputs(m, n_levels, m, n_inf=m // 50)
+@pytest.mark.parametrize(
+    "case,m,n_levels",
+    [("gamma", 100, 128), ("gamma", 2048, 128), ("gamma", 1_000_003, 100),
+     ("gamma", 300_000, 300), ("sorted", 1_000_000, 128), ("sorted", 100_000, 128),
+     ("almost_sorted", 100_000, 128), ("shuffled", 1_000_000, 128), ("ties", 50_000, 128),
+     ("floors_ge_levels", 20_000, 128), ("shuffled_levels", 70_001, 128),
+     ("special", 30_000, 64), ("special", 2_000, 8), ("special", 200, 8),
+     ("shuffled", 256, 128)],
+)
+def test_cuda_kernel_matches_plain(cuda, case, m, n_levels):
+    """Counts exact, mid_sum within 1e-5 relative, bitwise repeatable, one
+    launch a call: gamma scores with +inf entries, then
+    ``test_torch_waterfill.edge_inputs``' cases (sorted, the sort-free path;
+    one pair out of order a chunk; shuffled; ties at levels and floors;
+    floors at or above levels; a shuffled ladder; -inf, NaN, +-0.0), and
+    single blocks of at most 256 scores (every level against every score)."""
+    if case == "gamma":
+        scores, levels, floors = _stats_inputs(m, n_levels, m, n_inf=m // 50)
+    else:
+        scores, levels, floors = edge_inputs(case, m, n_levels, seed=m)
     s, lv, fl = (torch.from_numpy(x).to(cuda) for x in (scores, levels, floors))
     sharded_waterfill.reset_launch_counts()
     got = torch.stack(sharded_waterfill.waterfill_level_stats(s, lv, fl))
