@@ -13,8 +13,8 @@ Phases, each failing loudly (non-zero exit, no result line):
 3. kernels — hold each of the eight kernels against its plain PyTorch
    version on the card at the main path's shapes (and one large shape),
    check that kernel 1's output and kernels 2–5's norms, error scalar or
-   counts and sums are bitwise repeatable, that kernels 2, 4 and 5 are one
-   device kernel a call and kernels 2 and 4 give the same bits on two
+   counts and sums are bitwise repeatable, that kernels 2-5 are one
+   device kernel a call and kernels 2-4 give the same bits on two
    streams at once, and time
    kernel, plain version, the library call
    computing the same function (where there is one) and the bound, after a
@@ -51,6 +51,12 @@ Phases, each failing loudly (non-zero exit, no result line):
    exact kernel 6, 7 and 8 launch counts and every kernel-7 launch on the
    tensor cores; (l)'s prefill with kernel 7 on the tensor cores against
    the CUDA-core kernel;
+   samplers — each of the nine registry samplers (K-Vib, the paper's
+   baselines with the RSP procedure, the oracle, clustered K-Vib) through
+   ``api.run`` on the logistic-regression oracle spec, and vrb on the
+   deployable tiny LM, on the card and on the CPU from one replayed
+   source: equal draws, parameters and metrics within 1e-5, kernel 1 (or
+   2) once a round, seconds a round on the card;
    autograd — gradients through kernels 6-8 (kernel forward, PyTorch
    backward) equal the CPU's in f32: each wrapper, then ``loss_fn`` of a
    reduced smollm-360m and a reduced zamba2-1.2b, with the kernels counted in
@@ -339,8 +345,15 @@ def kernel_phase(torch):
                 report(name, f"{label} C={c} D={d} {str(dtype)[6:]}", row,
                        "n/a (no bf16 x f32 call)", extra + (f" library={lib_name}" if f32 else ""))
             if (label, dtype) == ("deployable tiny_lm", torch.float32):
-                cohort_args = (g, w, lam, d_out, sq)
+                cohort_args = (g, w, lam)
             del g, out, out_again, want, d_out, d_want, d3, d3_want
+    k3 = {dt: rows[("fused_weighted_agg", "oracle logreg", dt)]
+          for dt in ("torch.float32", "torch.bfloat16")}
+    print(f"fused_weighted_agg oracle logreg (100, 610): f32 kernel_ms="
+          f"{k3['torch.float32']['kernel_ms']:.5f} library_ms="
+          f"{k3['torch.float32']['library_ms']:.5f} (torch.mv + square().sum(1)); bf16 "
+          f"kernel_ms={k3['torch.bfloat16']['kernel_ms']:.5f} plain_ms="
+          f"{k3['torch.bfloat16']['plain_ms']:.5f}", flush=True)
     rows.update(dequant_kernel_phase(torch, fwa, ref, gen, flush, max_err))
     max_err["waterfill_level_stats"] = 0.0
     rows.update(waterfill_kernel_phase(torch, gen, flush, max_err, floor_ms))
@@ -373,11 +386,32 @@ def one_device_kernel(torch, name: str, fn) -> None:
     print(f"{name}: one device kernel a call ({names[0][0][:60]})")
 
 
-def cohort_checks(torch, fwa, gen, g, w, lam, d_out, err) -> None:
-    """Kernels 2, 4 and 5 at their path shapes: one device kernel a call
-    (each ticket counter sums the blocks' partials in the same launch), and
-    kernels 2 and 4 called on two side streams at once, each stream with
-    its own counter, equal the calls made in order."""
+def on_two_streams(torch, name: str, fn, inputs) -> None:
+    """``fn(x)`` for each x of ``inputs``, called 20 times on a side stream
+    of its own, the streams at once, gives the bits of the calls made in
+    order on the default stream."""
+    wants = [fn(x) for x in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    outs = []
+    for stream, x in zip(streams, inputs):
+        with torch.cuda.stream(stream):
+            for _ in range(20):
+                res = fn(x)
+            outs.append(res)
+    torch.cuda.synchronize()
+    for got, want in zip(outs, wants):
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{name} on two streams differs from the calls in order")
+    print(f"{name}: {len(inputs)} side streams x 20 calls at once == the calls in order, bitwise",
+          flush=True)
+
+
+def cohort_checks(torch, fwa, gen, g, w, lam) -> None:
+    """Kernels 2-5 at their path shapes: one device kernel a call (each
+    ticket counter sums the blocks' partials in the same launch), and
+    kernels 2-4 called on two side streams at once, each stream with its
+    own counter, equal the calls made in order."""
     from repro_torch.kernels import sharded_waterfill as swf
 
     dev = g.device
@@ -389,41 +423,18 @@ def cohort_checks(torch, fwa, gen, g, w, lam, d_out, err) -> None:
     floors = levels * 0.01
     one_device_kernel(torch, "fused_cohort_agg_and_error",
                       lambda: fwa.fused_cohort_agg_and_error(g, w, lam))
+    one_device_kernel(torch, "fused_weighted_agg", lambda: fwa.fused_weighted_agg(g, w))
     one_device_kernel(torch, "fused_dequant_cohort_agg",
                       lambda: fwa.fused_dequant_cohort_agg(q, scales, w50, lam50))
     one_device_kernel(torch, "waterfill_level_stats",
                       lambda: swf.waterfill_level_stats(scores, levels, floors))
-    w_b = w.flip(0).contiguous()
-    want_b = fwa.fused_cohort_agg_and_error(g, w_b, lam)
-    streams = [torch.cuda.Stream() for _ in range(2)]
-    outs = []
-    torch.cuda.synchronize()
-    for stream, ww in zip(streams, (w, w_b)):
-        with torch.cuda.stream(stream):
-            for _ in range(20):
-                res = fwa.fused_cohort_agg_and_error(g, ww, lam)
-            outs.append(res)
-    torch.cuda.synchronize()
-    for (d_s, e_s), (d_w, e_w) in zip(outs, ((d_out, err), want_b)):
-        check(torch.equal(d_s, d_w) and torch.equal(e_s, e_w),
-              "fused_cohort_agg_and_error on two streams differs from the calls in order")
-    print("fused_cohort_agg_and_error: 2 side streams x 20 calls at once == the calls in order, "
-          "bitwise", flush=True)
-    w50_b = w50.flip(0).contiguous()
-    wants = [fwa.fused_dequant_cohort_agg(q, scales, ww, lam50) for ww in (w50, w50_b)]
-    torch.cuda.synchronize()
-    outs = []
-    for stream, ww in zip(streams, (w50, w50_b)):
-        with torch.cuda.stream(stream):
-            for _ in range(20):
-                res = fwa.fused_dequant_cohort_agg(q, scales, ww, lam50)
-            outs.append(res)
-    torch.cuda.synchronize()
-    for got, want in zip(outs, wants):
-        check(all(torch.equal(a, b) for a, b in zip(got, want)),
-              "fused_dequant_cohort_agg on two streams differs from the calls in order")
-    print("fused_dequant_cohort_agg: 2 side streams x 20 calls at once == the calls in order, "
-          "bitwise", flush=True)
+    weights = (w, w.flip(0).contiguous())
+    on_two_streams(torch, "fused_cohort_agg_and_error",
+                   lambda ww: fwa.fused_cohort_agg_and_error(g, ww, lam), weights)
+    on_two_streams(torch, "fused_weighted_agg", lambda ww: fwa.fused_weighted_agg(g, ww), weights)
+    on_two_streams(torch, "fused_dequant_cohort_agg",
+                   lambda ww: fwa.fused_dequant_cohort_agg(q, scales, ww, lam50),
+                   (w50, w50.flip(0).contiguous()))
 
 
 def dequant_kernel_phase(torch, fwa, ref, gen, flush, max_err):
@@ -938,6 +949,130 @@ def path_phase(torch):
     for k, v in serve_launches.items():
         launches[k] += v
     return launches, engines
+
+
+# -- 4b. samplers ---------------------------------------------------------------
+
+# The samplers phase runs each registry sampler with its defaults (a
+# horizon of 5 would set K-Vib's and vrb's mixing theta to 1 at N = 100,
+# i.e. uniform), clustered K-Vib with the logreg spec's N = 100 clients in
+# 10 clusters.
+SAMPLER_KWARGS = {"clustered_kvib": {"cluster_ids": tuple(i % 10 for i in range(100))}}
+
+
+def replay_tables(torch, np, built, seed: int) -> dict:
+    """A run's draws as numpy tables from ``seed``: initial parameters, the
+    ISP uniforms and cohort priorities, the RSP draws' uniforms and clients,
+    and the batch indices."""
+    from repro_torch.fed.tasks import params_to_numpy
+
+    rng = np.random.default_rng(seed)
+    cfg, n = built.fed_config, built.dataset.n_clients
+    t, k, r, b = cfg.rounds, cfg.budget, cfg.local_steps, cfg.batch_size
+    sizes = built.dataset.sizes.numpy()
+    init = built.task.init(torch.Generator().manual_seed(seed), "cpu")
+    return dict(
+        init_params=params_to_numpy(init),
+        uniforms=rng.uniform(size=(t, n)).astype(np.float32),
+        priorities=rng.uniform(size=(t, n)).astype(np.float32),
+        batch_idx=(rng.uniform(size=(t, n, r, b)) * sizes[:, None, None]).astype(np.int64),
+        rsp_uniforms=rng.uniform(size=(t, k)).astype(np.float32),
+        rsp_indices=np.stack([rng.permutation(n)[:k] for _ in range(t)]),
+    )
+
+
+def samplers_phase(torch, card: str) -> dict:
+    """Each of the nine registry samplers on the paper's logreg oracle spec
+    (N=100, K=10, D=610, 5 rounds), and vrb on the deployable tiny LM, run
+    by ``api.run`` on the card and on the CPU from one ``ReplaySource``:
+    the draws' masks and counts equal on the two devices, the final
+    parameters within 1e-5 of each leaf's largest magnitude, and loss,
+    squared error and regret costs within 1e-5 relative; the card's run
+    launches kernel 1 (oracle) or kernel 2 (deployable) once a round and
+    nothing else.  Prints seconds a round on the card.  Returns the
+    launches of the card's runs."""
+    phase("samplers")
+    import numpy as np
+
+    from repro_torch import api, kernels
+    from repro_torch.core import samplers as smp
+    from repro_torch.rng import ReplaySource
+
+    specs = {label: spec for label, spec, _ in path_specs(api)}
+    runs = [
+        (f"{name} logreg oracle",
+         with_sections(api, specs["logreg oracle"],
+                       sampler={"name": name, "kwargs": SAMPLER_KWARGS.get(name, {})}),
+         "fused_multi_weighted_agg")
+        for name in smp.sampler_names()
+    ]
+    runs.append(("vrb tiny_lm deployable",
+                 with_sections(api, specs["tiny_lm deployable"],
+                               sampler={"name": "vrb", "kwargs": {}}),
+                 "fused_cohort_agg_and_error"))
+    real_sample_from = smp.Sampler.sample_from
+    launches = {k: 0 for k in kernels.launch_counts()}
+    per_round = {}
+    for label, spec, kernel in runs:
+        tables = replay_tables(torch, np, api.build(spec, "cpu"), seed=0)
+        hists, draws = {}, {}
+        for dev in ("cuda", "cpu"):
+            log = draws[dev] = []
+
+            def recording(self, probs, draw_input, log=log):
+                res = real_sample_from(self, probs, draw_input)
+                log.append((res.mask.clone(), res.counts.clone()))
+                return res
+
+            smp.Sampler.sample_from = recording
+            try:
+                kernels.reset_launch_counts()
+                hists[dev] = api.run(spec, dev, random_source=ReplaySource(**tables, device=dev))
+                counts = kernels.launch_counts()
+            finally:
+                smp.Sampler.sample_from = real_sample_from
+            if dev == "cuda":
+                want = {k: ROUNDS * (k == kernel) for k in counts}
+                check(counts == want, f"samplers {label}: launches {counts}, expected {want}")
+                for k, v in counts.items():
+                    launches[k] += v
+        gpu, cpu = hists["cuda"], hists["cpu"]
+        check(len(draws["cuda"]) == len(draws["cpu"]) == ROUNDS, f"samplers {label}: draws")
+        for (m_g, c_g), (m_c, c_c) in zip(draws["cuda"], draws["cpu"]):
+            check(torch.equal(m_g.cpu(), m_c) and torch.equal(c_g.cpu(), c_c),
+                  f"samplers {label}: GPU and CPU draws differ")
+        check(gpu.cohort_size == cpu.cohort_size, f"samplers {label}: cohort sizes differ")
+        fields = ["train_loss"]
+        if spec.execution.oracle_metrics:
+            fields.append("estimator_sq_error")
+            np.testing.assert_allclose(gpu.regret.costs, cpu.regret.costs, rtol=1e-5, atol=0)
+            np.testing.assert_allclose(gpu.regret.opt_costs, cpu.regret.opt_costs, rtol=1e-5, atol=0)
+        for field in fields:
+            np.testing.assert_allclose(getattr(gpu, field), getattr(cpu, field), rtol=1e-5, atol=0)
+        rel = 0.0
+        for a, b in zip(_leaves(gpu.final_params), _leaves(cpu.final_params)):
+            scale = float(np.abs(b).max())
+            check(bool(np.isfinite(a).all()), f"samplers {label}: non-finite parameters")
+            diff = float(np.abs(a - b).max())
+            check(diff <= 1e-5 * scale, f"samplers {label}: parameters off by {diff} of {scale}")
+            rel = max(rel, diff / max(scale, 1e-30))
+        per_round[label] = gpu.wall_time_s / ROUNDS
+        print(f"samplers {label}: GPU == CPU draws (masks, counts) in all {ROUNDS} rounds; "
+              f"params max diff {rel:.3g} of the leaf's scale; cohort {gpu.cohort_size}; "
+              f"regret costs {['%.6g' % c for c in gpu.regret.costs]}; "
+              f"{per_round[label]:.5f} s/round on the card", flush=True)
+    print(f"samplers: s/round on the card ({card}): "
+          + json.dumps({k: round(v, 5) for k, v in per_round.items()}), flush=True)
+    # The RSP draws (the default source's streams) add no host sync to the
+    # round: as many as K-Vib's round makes on the same spec.
+    syncs = {label: count_round_syncs(torch, api, spec) for label, spec, _ in runs
+             if label in ("kvib logreg oracle", "vrb logreg oracle", "uniform_rsp logreg oracle")}
+    print("samplers: host syncs in 2 rounds of the round body: "
+          + json.dumps({k: len(v) for k, v in syncs.items()}), flush=True)
+    for label, found in syncs.items():
+        check(len(found) <= len(syncs["kvib logreg oracle"]),
+              f"samplers {label}: host syncs {sorted(set(found))[:4]}")
+    return launches
 
 
 def _serve_checks(torch, label, engine, counts, want, new_tokens):
@@ -1695,6 +1830,8 @@ def main() -> int:
     build_phase()
     rows, max_err, path_shape = kernel_phase(torch)
     launches, engines = path_phase(torch)
+    for k, v in samplers_phase(torch, card).items():
+        launches[k] += v
     autograd_phase(torch)
     agreement_phase(torch)
     trace_phase(torch, engines)

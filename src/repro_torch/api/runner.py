@@ -5,8 +5,10 @@ the federated dataset (on the run's device), the sampler and the
 ``FedConfig``; ``run`` calls ``fed.server.run_federated`` with them.  Both
 run on the GPU unless ``device="cpu"`` is passed (``repro_torch.device``).
 
-Served: ``kind="task"``, with any of an enabled ``fault`` section, an
-enabled ``compression`` section and ``execution.sampler_axis``.  Not ported
+Served: ``kind="task"`` with any of the nine registry samplers
+(``core.sampler_names()``), in oracle and deployable modes, with any of an
+enabled ``fault`` section, an enabled ``compression`` section and
+``execution.sampler_axis``.  Not ported
 (``NotImplementedError``, naming the ``ROADMAP.md`` item): ``kind="zoo"``.
 """
 from __future__ import annotations

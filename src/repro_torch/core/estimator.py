@@ -47,14 +47,18 @@ def client_weights(
     draw: SampleResult, lam: torch.Tensor, procedure: str, budget: int
 ) -> torch.Tensor:
     """Scalar aggregation coefficient per client (zero for unsampled): the
-    estimator is ``d = sum_i w_i g_i``.  The 1e-30 floor only guards the
-    masked-out lanes."""
-    if procedure == "isp":
+    estimator is ``d = sum_i w_i g_i``.  ISP and uniform RSP without
+    replacement: ``lam / p`` for the included clients; RSP with
+    replacement: ``counts * lam / (K q)``, q the per-draw probability.  A
+    draw whose probabilities were composed upstream (the fault layer's
+    ``stragglers.available_draw``) gets the corrected weights as they are.
+    The 1e-30 floors only guard the masked-out lanes."""
+    if procedure in ("isp", "rsp_wor"):
         return torch.where(draw.mask, lam / torch.clamp(draw.marginals, min=1e-30), 0.0)
-    raise NotImplementedError(
-        f"procedure {procedure!r} is not ported (only 'isp'); see ROADMAP.md "
-        "queue 1, 'Samplers'"
-    )
+    if procedure == "rsp_wr":
+        q = torch.clamp(draw.draw_probs, min=1e-30)
+        return draw.counts.to(lam.dtype) * lam / (budget * q)
+    raise ValueError(f"unknown procedure {procedure!r}")
 
 
 def aggregate_stacked(updates, weights: torch.Tensor):

@@ -1,40 +1,53 @@
-"""Client samplers: K-Vib (Algorithm 2) and the uniform ISP baseline.
+"""Client samplers: K-Vib (Algorithm 2) and the paper's baselines.
 
 Port of ``repro/core/samplers.py``.  A sampler is a frozen configuration
 object with pure functions over an explicit state::
 
     sampler = KVib(n=N, budget=K, horizon=T)
     state   = sampler.init(device)
-    probs   = sampler.probabilities(state)          # marginal inclusion probs
-    draw    = sampler.sample_from(probs, uniforms)  # SampleResult
+    probs   = sampler.probabilities(state)           # marginals, or RSP's per-draw p
+    draw    = sampler.sample_from(probs, draw_input) # SampleResult
     state   = sampler.update(state, draw, feedback)
 
 ``feedback`` is the paper's ``pi_t(i) = lambda_i * ||g_i^t||`` for the
 clients in the cohort (zeros elsewhere); the importance correction by the
 sampling probability happens inside ``update``.
 
-Randomness is injected: ``sample_from`` takes the (N,) uniforms of the
-independent Bernoulli draw from the run's random source
-(``repro_torch.rng``) instead of a key, so a test can replay the
-reference's own draws.  Every state field is a tensor on the run's device
-(the round counter included), so a round never reads the device from the
-host.
+Two sampling procedures, as in the reference (Section 2 of the paper):
 
-With ``shard=ShardSpec(...)`` (``launch.mesh``) K-Vib's water-filling
-solve runs split over the layout's process group
-(``solver.isp_probabilities(..., shard=...)``).  The reference also pins
-every (N,) value to the shard layout (``shard_constrain`` /
+* ISP (``procedure="isp"``): an independent Bernoulli draw per client;
+* RSP: K draws from a distribution over clients, with replacement
+  (``"rsp_wr"``: Vrb, Mabs, Avare, Osmd; ``SampleResult.counts`` counts a
+  client's draws) or uniform without replacement (``"rsp_wor"``: vanilla
+  FedAvg's ``UniformRSP``).
+
+Randomness is injected: ``sample_from`` takes its draw's input from the
+run's random source (``repro_torch.rng``) instead of a key, by procedure
+(``draw_input``): the (N,) uniforms of the Bernoulli draw, the (K,) uniforms
+of the draw with replacement, or the (K,) clients of the draw without.  A
+test can then replay the reference's own draws.  Every state field is a
+tensor on the run's device (the round counter included), so a round never
+reads the device from the host.
+
+With ``shard=ShardSpec(...)`` (``launch.mesh``) the water-filling solves of
+K-Vib, ClusteredKVib and OptimalISP run split over the layout's process
+group (``solver.isp_probabilities(..., shard=...)``).  The reference also
+pins every (N,) value to the shard layout (``shard_constrain`` /
 ``shard_state``); the port places nothing, so those hooks are identities
 here, and every rank holds the whole (N,) state.
 
-Only ``uniform_isp`` and ``kvib`` are ported; ``make_sampler`` raises
-``NotImplementedError`` for the reference's other registry names.
+The serializable-state contract of the reference holds here too
+(``assert_serializable_state``): every leaf of a state is a tensor, none is
+float64 or complex128, and static configuration lives on the sampler, not
+in its state.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import solver
@@ -45,19 +58,65 @@ __all__ = [
     "SamplerState",
     "Sampler",
     "UniformISP",
+    "UniformRSP",
     "KVib",
+    "Vrb",
+    "Mabs",
+    "Avare",
+    "OptimalISP",
+    "Osmd",
+    "ClusteredKVib",
+    "draw_input",
     "make_sampler",
     "sampler_names",
+    "assert_serializable_state",
 ]
+
+
+def _state_leaves(state) -> list:
+    if dataclasses.is_dataclass(state) and not isinstance(state, type):
+        return [x for f in dataclasses.fields(state) for x in _state_leaves(getattr(state, f.name))]
+    if isinstance(state, dict):
+        return [x for k in sorted(state) for x in _state_leaves(state[k])]
+    if isinstance(state, (list, tuple)):
+        return [x for v in state for x in _state_leaves(v)]
+    return [state]
+
+
+def assert_serializable_state(state) -> None:
+    """The reference's serializable-state contract: raises ``ValueError``
+    on a state with no leaves, and ``TypeError`` if a leaf is not a tensor
+    (a Python scalar in the state would not survive a checkpoint) or is
+    float64 / complex128 (doubles the checkpoint and breaks bitwise resume
+    across platforms).  torch has no weak types, the reference's third
+    refusal."""
+    leaves = _state_leaves(state)
+    if not leaves:
+        raise ValueError(
+            "sampler state has no tensor leaves; nothing would survive a checkpoint round trip"
+        )
+    for i, leaf in enumerate(leaves):
+        if not isinstance(leaf, torch.Tensor):
+            raise TypeError(
+                f"sampler-state leaf {i} is {type(leaf).__name__}, not a tensor: a Python "
+                "scalar in the state is dropped from checkpoints (serializable-state contract)"
+            )
+        if leaf.dtype in (torch.float64, torch.complex128):
+            raise TypeError(
+                f"sampler-state leaf {i} has dtype {leaf.dtype}: 64-bit float leaves double "
+                "checkpoint size and break bitwise resume (serializable-state dtype contract)"
+            )
 
 
 class SampleResult(NamedTuple):
     """Outcome of one sampling step.
 
-    mask:      (N,) bool — client included.
-    counts:    (N,) int32 — mask as integers (ISP draws each client once).
+    mask:      (N,) bool — client included (the union of the draws for RSP).
+    counts:    (N,) int32 — number of draws of each client (RSP with
+               replacement); mask as integers for ISP and RSP without.
     marginals: (N,) float — inclusion probability P(i in S).
-    draw_probs:(N,) float — marginals / K (diagnostic only for ISP).
+    draw_probs:(N,) float — per-draw distribution (sums to 1) for RSP;
+               marginals / K for ISP (diagnostic only).
     """
 
     mask: torch.Tensor
@@ -80,12 +139,60 @@ def _isp_draw(uniforms: torch.Tensor, marginals: torch.Tensor) -> SampleResult:
     )
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(N,) int32 number of times each client appears in ``idx`` (integer
+    atomics on the card: exact and repeatable).  Not ``torch.bincount``,
+    which reads the largest index back to the host on the card."""
+    counts = torch.zeros(n, dtype=torch.int32, device=idx.device)
+    return counts.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.int32, device=idx.device))
+
+
+def _rsp_wr_draw(uniforms: torch.Tensor, draw_probs: torch.Tensor, budget: int) -> SampleResult:
+    """K draws with replacement from a normalized distribution, draw k the
+    first client whose cumulative probability reaches ``total * (1 - u_k)``
+    (``jax.random.choice(key, n, (K,), p=p)`` with ``u`` its uniforms).  The
+    prefix sums are taken in f64 and rounded to f32, so the card and the
+    CPU search the same values."""
+    n = draw_probs.shape[0]
+    cum = torch.cumsum(draw_probs, 0, dtype=torch.float64).to(torch.float32)
+    idx = torch.searchsorted(cum, cum[-1] * (1.0 - uniforms))
+    counts = _counts(idx, n)
+    marginals = 1.0 - (1.0 - draw_probs) ** budget
+    return SampleResult(mask=counts > 0, counts=counts, marginals=marginals, draw_probs=draw_probs)
+
+
+def _rsp_wor_uniform_draw(indices: torch.Tensor, n: int, budget: int) -> SampleResult:
+    """K distinct clients drawn uniformly (``indices`` from the random
+    source): marginals K/N exactly."""
+    counts = _counts(indices, n)
+    device = indices.device
+    return SampleResult(
+        mask=counts > 0,
+        counts=counts,
+        marginals=torch.full((n,), budget / n, dtype=torch.float32, device=device),
+        draw_probs=torch.full((n,), 1.0 / n, dtype=torch.float32, device=device),
+    )
+
+
+def draw_input(source, procedure: str, t: int, n: int, budget: int) -> torch.Tensor:
+    """Round t's input of ``Sampler.sample_from`` from a random source
+    (``repro_torch.rng``), by procedure: (N,) Bernoulli uniforms for ISP,
+    (K,) uniforms for RSP with replacement, (K,) clients for RSP without."""
+    if procedure == "isp":
+        return source.isp_uniforms(t, n)
+    if procedure == "rsp_wr":
+        return source.rsp_uniforms(t, budget)
+    if procedure == "rsp_wor":
+        return source.rsp_wor_indices(t, n, budget)
+    raise ValueError(f"unknown procedure {procedure!r}")
+
+
 @dataclasses.dataclass
 class SamplerState:
     """Generic sampler state: cumulative statistics + round counter."""
 
     stats: torch.Tensor  # (N,) cumulative (importance-weighted) squared feedback
-    aux: torch.Tensor  # (N,) sampler-specific (K-Vib: running gamma)
+    aux: torch.Tensor  # (N,) sampler-specific (K-Vib: running gamma; Avare: estimates)
     t: torch.Tensor  # 0-d int32 round counter
 
 
@@ -95,7 +202,7 @@ class Sampler:
 
     n: int
     budget: int
-    procedure: str = "isp"
+    procedure: str = "isp"  # "isp" | "rsp_wr" | "rsp_wor"
     shard: ShardSpec | None = None  # (N,)-axis shard layout (module docstring)
 
     def shard_constrain(self, x: torch.Tensor) -> torch.Tensor:
@@ -120,10 +227,14 @@ class Sampler:
             (self.n,), self.budget / self.n, dtype=torch.float32, device=state.stats.device
         )
 
-    def sample_from(self, probs: torch.Tensor, uniforms: torch.Tensor) -> SampleResult:
-        """Independent Bernoulli draw from already-solved probabilities, with
-        the (N,) uniforms taken from the run's random source."""
-        return _isp_draw(uniforms, probs)
+    def sample_from(self, probs: torch.Tensor, draw_input: torch.Tensor) -> SampleResult:
+        """Draw a cohort from already-solved probabilities, with the draw's
+        input from the run's random source (``draw_input``, by procedure)."""
+        if self.procedure == "isp":
+            return _isp_draw(draw_input, probs)
+        if self.procedure == "rsp_wr":
+            return _rsp_wr_draw(draw_input, probs / torch.clamp(probs.sum(), min=1e-30), self.budget)
+        return _rsp_wor_uniform_draw(draw_input, self.n, self.budget)
 
     def update(
         self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
@@ -134,6 +245,20 @@ class Sampler:
 @dataclasses.dataclass(frozen=True)
 class UniformISP(Sampler):
     """Independent Bernoulli(K/N) — the naive-ISP baseline of Section 3."""
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformRSP(Sampler):
+    """Vanilla FedAvg sampling: K uniform without replacement."""
+
+    procedure: str = "rsp_wor"
+
+
+def _g_sq(draw: SampleResult, feedback: torch.Tensor) -> torch.Tensor:
+    """G^2 of the first-round auto-gamma, G the mean observed feedback
+    (paper Section 6, "FL and sampler hyperparameters")."""
+    g_est = torch.where(draw.mask, feedback, 0.0).sum() / torch.clamp(draw.mask.sum(), min=1)
+    return g_est**2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,38 +308,249 @@ class KVib(Sampler):
         stats = state.stats + contrib
         aux = state.aux
         if self.gamma is None:
-            # First-round auto-gamma: G ~ mean of observed feedback (paper
-            # Section 6 "FL and sampler hyperparameters").
-            g_est = torch.where(draw.mask, feedback, 0.0).sum() / torch.clamp(
-                draw.mask.sum(), min=1
-            )
-            gamma_auto = g_est**2 * self.n / (self._theta() * self.budget)
+            gamma_auto = _g_sq(draw, feedback) * self.n / (self._theta() * self.budget)
             aux = torch.where(state.t == 0, gamma_auto.expand_as(aux), aux)
         return SamplerState(stats=stats, aux=aux, t=state.t + 1)
 
 
-_REGISTRY = {"uniform_isp": UniformISP, "kvib": KVib}
-# The reference's other samplers; each waits for its slice (ROADMAP.md).
-_NOT_PORTED = (
-    "avare", "clustered_kvib", "mabs", "optimal_isp", "osmd", "uniform_rsp", "vrb",
-)
+@dataclasses.dataclass(frozen=True)
+class Vrb(Sampler):
+    """Variance-Reducer-Bandit (Borsos et al., 2018), an RSP baseline: FTRL
+    on the probability simplex, p_i ~ sqrt(cumulative squared feedback +
+    gamma), mixed with theta-uniform, K draws with replacement."""
+
+    procedure: str = "rsp_wr"
+    horizon: int = 500
+    theta: float | None = None
+    gamma: float | None = None
+
+    def _theta(self) -> float:
+        if self.theta is not None:
+            return float(self.theta)
+        return float(min(1.0, (self.n / self.horizon) ** (1.0 / 3.0)))
+
+    def init(self, device) -> SamplerState:
+        st = super().init(device)
+        gamma0 = 0.0 if self.gamma is None else float(self.gamma)
+        return dataclasses.replace(st, aux=torch.full_like(st.aux, gamma0))
+
+    def probabilities(self, state: SamplerState) -> torch.Tensor:
+        gamma = torch.clamp(state.aux[0], min=1e-12)
+        w = torch.sqrt(state.stats + gamma)
+        p = w / torch.clamp(w.sum(), min=1e-30)
+        theta = self._theta()
+        return (1.0 - theta) * p + theta / self.n
+
+    def update(
+        self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
+    ) -> SamplerState:
+        # Each draw of client i adds feedback^2 / q_i (counts-aware).
+        q = torch.clamp(draw.draw_probs, min=1e-30)
+        contrib = draw.counts.to(feedback.dtype) * feedback**2 / q
+        stats = state.stats + contrib / max(self.budget, 1)
+        aux = state.aux
+        if self.gamma is None:
+            gamma_auto = _g_sq(draw, feedback) * self.n / max(self._theta(), 1e-6)
+            aux = torch.where(state.t == 0, gamma_auto.expand_as(aux), aux)
+        return SamplerState(stats=stats, aux=aux, t=state.t + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mabs(Sampler):
+    """Multi-armed-bandit sampler (Salehi et al., 2017), EXP3-style RSP:
+    multiplicative weights on importance-weighted squared feedback with
+    stepsize eta, theta-uniform mixing."""
+
+    procedure: str = "rsp_wr"
+    eta: float = 0.4
+    theta: float = 0.1
+
+    def probabilities(self, state: SamplerState) -> torch.Tensor:
+        w = torch.exp(state.stats - state.stats.max())
+        p = w / torch.clamp(w.sum(), min=1e-30)
+        return (1.0 - self.theta) * p + self.theta / self.n
+
+    def update(
+        self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
+    ) -> SamplerState:
+        q = torch.clamp(draw.draw_probs, min=1e-30)
+        # A normalized reward in [0, ~1] per draw, for EXP3's stability.
+        fb2 = feedback**2
+        scale = torch.clamp(torch.where(draw.mask, fb2, 0.0).max(), min=1e-30)
+        reward = draw.counts.to(feedback.dtype) * (fb2 / scale) / q
+        stats = state.stats + self.eta * reward / max(self.budget, 1) / self.n
+        return SamplerState(stats=stats, aux=state.aux, t=state.t + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Avare(Sampler):
+    """Avare (El Hanchi & Stephens, 2020), an RSP baseline: the latest
+    feedback of each client as its estimate (+inf until it is drawn, so
+    unexplored clients get the largest estimate), sampled proportionally
+    with a floor p_min_frac / N."""
+
+    procedure: str = "rsp_wr"
+    p_min_frac: float = 0.2
+
+    def init(self, device) -> SamplerState:
+        st = super().init(device)
+        return dataclasses.replace(st, aux=torch.full_like(st.aux, float("inf")))
+
+    def probabilities(self, state: SamplerState) -> torch.Tensor:
+        explored = torch.isfinite(state.aux)
+        est = torch.where(explored, state.aux, 0.0)
+        opt = torch.where(explored, est, torch.where(explored, est, 0.0).max() + 1e-6)
+        opt = torch.where(explored.any(), opt, torch.ones_like(opt))
+        p = opt / torch.clamp(opt.sum(), min=1e-30)
+        p = torch.clamp(p, min=self.p_min_frac / self.n)
+        return p / p.sum()
+
+    def update(
+        self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
+    ) -> SamplerState:
+        aux = torch.where(draw.mask, feedback, state.aux)
+        return SamplerState(stats=state.stats, aux=aux, t=state.t + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimalISP(Sampler):
+    """The oracle of Lemma 2.2: water-fills the last round's full feedback
+    (diagnostics only; a server without full participation cannot run it)."""
+
+    def update(
+        self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
+    ) -> SamplerState:
+        return SamplerState(stats=feedback, aux=state.aux, t=state.t + 1)
+
+    def probabilities(self, state: SamplerState) -> torch.Tensor:
+        p_opt = solver.isp_probabilities_unchecked(state.stats, self.budget, shard=self.shard)
+        uniform = torch.full_like(p_opt, self.budget / self.n)
+        return torch.where((state.stats > 0).any(), p_opt, uniform)
+
+
+@dataclasses.dataclass(frozen=True)
+class Osmd(Sampler):
+    """OSMD-style sampler (Zhao et al. 2021, paper Appendix E.3), an RSP
+    baseline: one mirror-descent step a round on the negative-entropy
+    geometry (multiplicative update, then a floor p_min_frac / N and
+    renormalization), the distribution itself the state."""
+
+    procedure: str = "rsp_wr"
+    lr: float = 0.5
+    p_min_frac: float = 0.2
+
+    def init(self, device) -> SamplerState:
+        st = super().init(device)
+        return dataclasses.replace(st, stats=torch.full_like(st.stats, 1.0 / self.n))
+
+    def probabilities(self, state: SamplerState) -> torch.Tensor:
+        return state.stats
+
+    def update(
+        self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
+    ) -> SamplerState:
+        p = state.stats
+        q = torch.clamp(draw.draw_probs, min=1e-30)
+        # The gradient of E[pi^2 / p] at the drawn clients, importance-weighted.
+        grad = -draw.counts.to(torch.float32) * feedback**2 / (q * p**2)
+        grad = grad / max(self.budget, 1)
+        scale = torch.clamp(grad.abs().max(), min=1e-30)
+        p_new = torch.softmax(torch.log(p) - self.lr * grad / scale, 0)
+        p_new = torch.clamp(p_new, min=self.p_min_frac / self.n)
+        return SamplerState(stats=p_new / p_new.sum(), aux=state.aux, t=state.t + 1)
+
+
+@functools.lru_cache(maxsize=16)
+def _cluster_layout(cluster_ids: tuple, device: torch.device):
+    """The clients ordered by cluster (stable), and for each client the
+    bounds of its cluster's run in that order and the cluster's size."""
+    cid = np.asarray(cluster_ids, np.int64)
+    order = np.argsort(cid, kind="stable")
+    m = int(cid.max()) + 1
+    sizes = np.bincount(cid, minlength=m)
+    ends = np.cumsum(sizes)
+    as_t = functools.partial(torch.as_tensor, device=device)
+    return (
+        as_t(order),
+        as_t((ends - sizes)[cid]),
+        as_t(ends[cid]),
+        as_t(sizes[cid].astype(np.float32)),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusteredKVib(Sampler):
+    """Cluster-aware K-Vib (paper Section 7; cf. Fraboni et al. 2021): the
+    FTRL statistics are pooled within clusters of clients (``cluster_ids``,
+    values in [0, m); empty: every client alone), so a client inherits its
+    cluster's feedback history before it is sampled.  The draw stays ISP."""
+
+    cluster_ids: tuple = ()
+    horizon: int = 500
+    theta: float | None = None
+    gamma: float | None = None
+
+    def _theta(self) -> float:
+        if self.theta is not None:
+            return float(self.theta)
+        return float(min(1.0, (self.n / (self.horizon * self.budget)) ** (1.0 / 3.0)))
+
+    def init(self, device) -> SamplerState:
+        st = super().init(device)
+        gamma0 = 0.0 if self.gamma is None else float(self.gamma)
+        return dataclasses.replace(st, aux=torch.full_like(st.aux, gamma0))
+
+    def _cluster_mean_stats(self, stats: torch.Tensor) -> torch.Tensor:
+        """Each client's cluster mean of ``stats``: a cluster's sum is the
+        difference of two f64 prefix sums over the clients in cluster
+        order (no float atomics, so the card repeats its bits)."""
+        if not self.cluster_ids:
+            return stats
+        order, start, end, size = _cluster_layout(tuple(self.cluster_ids), stats.device)
+        prefix = torch.cumsum(stats[order], 0, dtype=torch.float64)
+        prefix = torch.cat([prefix.new_zeros(1), prefix])
+        return (prefix[end] - prefix[start]).to(torch.float32) / size
+
+    def probabilities(self, state: SamplerState) -> torch.Tensor:
+        gamma = torch.clamp(state.aux[0], min=1e-12)
+        scores = torch.sqrt(self._cluster_mean_stats(state.stats) + gamma)
+        p = solver.isp_probabilities_unchecked(scores, self.budget, shard=self.shard)
+        return solver.mix_probabilities(p, self._theta(), self.budget)
+
+    def update(
+        self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
+    ) -> SamplerState:
+        contrib = torch.where(
+            draw.mask, feedback**2 / torch.clamp(draw.marginals, min=1e-30), 0.0
+        )
+        aux = state.aux
+        if self.gamma is None:
+            gamma_auto = _g_sq(draw, feedback) * self.n / (self._theta() * self.budget)
+            aux = torch.where(state.t == 0, gamma_auto.expand_as(aux), aux)
+        return SamplerState(stats=state.stats + contrib, aux=aux, t=state.t + 1)
+
+
+_REGISTRY = {
+    "uniform_isp": UniformISP,
+    "uniform_rsp": UniformRSP,
+    "kvib": KVib,
+    "vrb": Vrb,
+    "mabs": Mabs,
+    "avare": Avare,
+    "optimal_isp": OptimalISP,
+    "osmd": Osmd,
+    "clustered_kvib": ClusteredKVib,
+}
 
 
 def make_sampler(name: str, n: int, budget: int, **kw) -> Sampler:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"sampler {name!r} is not ported to repro_torch yet; see ROADMAP.md "
-            "queue 1, 'Samplers' (ported: " + ", ".join(sorted(_REGISTRY)) + ")"
-        )
     try:
         cls = _REGISTRY[name]
     except KeyError as e:
-        raise ValueError(
-            f"unknown sampler {name!r}; options: {sorted(_REGISTRY)}"
-        ) from e
+        raise ValueError(f"unknown sampler {name!r}; options: {sorted(_REGISTRY)}") from e
     return cls(n=n, budget=budget, **kw)
 
 
 def sampler_names() -> list[str]:
-    """Registry names ``make_sampler`` accepts."""
+    """Registry names ``make_sampler`` accepts (and ``api.SamplerSpec.name``)."""
     return sorted(_REGISTRY)

@@ -1,7 +1,8 @@
 """Shared padded-cohort contract: selection, padding, and weight semantics.
 
 Port of ``repro/fed/cohort.py`` (see its module docstring for the full
-contract).  A round's ISP draw ``S`` (the ``mask``) maps onto a static
+contract).  A round's draw ``S`` (the ``mask``; for an RSP draw the union
+of its K draws, whose counts are already in the weights) maps onto a static
 buffer of C slots:
 
 * ids     — (C,) client indices; the first ``min(|S|, C)`` slots hold

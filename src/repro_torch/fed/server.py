@@ -5,9 +5,11 @@ Port of ``repro/fed/server.py``.  ``repro_torch.api.run(spec)`` builds the
 
 Each round (``_build_round_body``):
 
-1. the sampler solves its marginals (K-Vib: water-filling + mixing);
-2. an independent Bernoulli draw picks the clients, with uniforms from the
-   run's random source (``repro_torch.rng``);
+1. the sampler solves its marginals (K-Vib: water-filling + mixing), or
+   for an RSP sampler its per-draw distribution;
+2. the sampler's draw picks the clients (an independent Bernoulli draw for
+   ISP, K draws for RSP), its input taken by procedure from the run's
+   random source (``repro_torch.rng``, ``core.samplers.draw_input``);
 3. ``estimator.client_weights`` forms the estimator weights;
 4. clients run local SGD, vmapped (``torch.func.vmap``) over all N clients
    in oracle mode or over the C cohort slots in deployable mode;
@@ -19,7 +21,8 @@ Each round (``_build_round_body``):
    replace the clients' update norms as the sampler's feedback;
 6. the server optimizer applies the estimate;
 7. the sampler updates and, in oracle mode, ``regret.round_costs`` records
-   the round's online costs.
+   the round's online costs at the draw's inclusion probabilities (RSP:
+   ``K * draw_probs`` clipped to (0, 1], as the reference approximates them).
 
 Per-round metrics stay on the device in (T,)-preallocated buffers and reach
 the host once, at the end.  ``compiled=False`` runs the same body but copies
@@ -63,7 +66,7 @@ import torch
 
 from repro_torch.core import estimator, regret, stragglers
 from repro_torch.core.regret import RegretTracker
-from repro_torch.core.samplers import Sampler
+from repro_torch.core.samplers import Sampler, draw_input
 from repro_torch.data.pipeline import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.fed import client as fed_client
@@ -221,7 +224,9 @@ def _build_round_body(
             params, opt_state, s_state = carry
         # Solve p~ once; reuse it for the draw AND the regret diagnostics.
         p_marg = sampler.probabilities(s_state)
-        draw = sampler.sample_from(p_marg, source.isp_uniforms(t, n))
+        draw = sampler.sample_from(
+            p_marg, draw_input(source, sampler.procedure, t, n, sampler.budget)
+        )
         if avail_on:
             # Composing q into the draw's probabilities makes the plain
             # client_weights below the availability-corrected 1/(q p) weights.
@@ -305,7 +310,13 @@ def _build_round_body(
         s_state = sampler.update(s_state, draw, feedback)
 
         if cfg.oracle_metrics:
-            cost, opt_cost = regret.round_costs(feedback_full, p_marg, sampler.budget)
+            if sampler.procedure == "isp":
+                p_eff = p_marg
+            else:
+                # K x the per-draw distribution approximates the inclusion
+                # marginal; clipped to (0, 1] as the reference clips it.
+                p_eff = torch.clamp(sampler.budget * draw.draw_probs, 1e-30, 1.0)
+            cost, opt_cost = regret.round_costs(feedback_full, p_eff, sampler.budget)
             metrics.update(sq_error=sq_err, cost=cost, opt_cost=opt_cost)
             if cfg.track_scores:
                 metrics["scores"] = feedback_full

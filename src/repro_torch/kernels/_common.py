@@ -1,6 +1,6 @@
 """What the kernel wrappers share beside the build: the ticket counters of
-the kernels that finish a cross-block sum in their own launch (kernels 2,
-4 and 5), and for kernels 6-8 when a call goes through their
+the kernels that finish a cross-block sum in their own launch (kernels
+2-5), and for kernels 6-8 when a call goes through their
 ``torch.autograd.Function`` and the pieces of its ``vmap`` rules."""
 from __future__ import annotations
 

@@ -4,6 +4,7 @@
 //
 //   fwa_weighted_agg          <- fused_weighted_agg (:134, pallas_call :146)
 //       d (D,) f32 = sum_c w_c g_c and sq (C,) f32 = ||g_c||^2, one read of g.
+//       Bound: bytes, C * D * es + (C + D + C) * 4 (g, w, d, sq).
 //   fwa_multi_weighted_agg    <- fused_multi_weighted_agg (:174, pallas_call :189)
 //       out (M, D) f32 = w (M, C) f32 x g (C, D) f32|bf16, one read of g.
 //       Oracle mode runs it with M = 2 (estimate row, estimate - target row).
@@ -35,10 +36,9 @@
 //     loads when every row starts 16-byte aligned (V = 16 bytes / the element
 //     size: 4 f32, 8 bf16, 16 int8 or fp8; kernel 4 also needs the scale
 //     block a multiple of 16); otherwise with V scalar loads spaced a warp
-//     (kernels 1, 2 and 4) or kThreads (kernel 3) apart, still coalesced
-//     across the warp, masking the ragged edge, so any D and any scale block
+//     apart, still coalesced across the warp, masking the ragged edge, so any D and any scale block
 //     are valid;
-//   * kernels 1, 2 and 4 split C inside the block: a tile is one warp's width
+//   * kernels 1-4 split C inside the block: a tile is one warp's width
 //     of vectors (32 * V columns) and a block up to 16 warps; each warp
 //     walks about 8 of the C rows of the tile into its own accumulators,
 //     and the warps' sums are added through shared memory in warp order.
@@ -50,7 +50,7 @@
 //     go one to a warp, each warp walking all C rows; otherwise (the
 //     oracle's C = 50 over tiny_lm's 896 tiles) a block splits C.
 //     Kernel 1 launches a block for every tile (4 tiles where the warps
-//     own theirs); kernels 2 and 4 at most the blocks resident at once, each
+//     own theirs); kernels 2-4 at most the blocks resident at once, each
 //     walking its share of the tiles with the next batch in flight.  The
 //     logreg shape (C = 100, D = 610) is 5 tiles of 13 warps, one batch a
 //     warp (f32); kernel 1 needs no pass across blocks;
@@ -59,35 +59,33 @@
 //     from shared memory 4 rows at a time (codes, scales and weights of the
 //     4 rows loaded before the first is widened), takes the scale into the
 //     row's weights, w * s and (w - lam) * s, and skips the batch's rows
-//     past the warp's; int8 squares are summed exactly by dp4a.  A lane's
-//     squared row sums of a batch are reduced over the warp once a batch (a
-//     reduce-scatter: 9 shuffles for 8 rows) and added to the warp's row
-//     norms in shared memory, off the loads' path.  On the scalar path each
-//     value is multiplied by its own scale (the block index by a
-//     precomputed reciprocal), loaded with the unit;
-//   * kernel 3 gives each block one tile of kThreads * V columns and loops
-//     over all C rows, staging the weights through shared memory kWChunk
-//     columns at a time;
+//     past the warp's; int8 squares are summed exactly by dp4a.  On the
+//     scalar path each value is multiplied by its own scale (the block
+//     index by a precomputed reciprocal), loaded with the unit;
+//   * kernels 3 and 4 keep the per-row norms: a lane's squared row sums of
+//     a batch are reduced over the warp once a batch (a reduce-scatter: 9
+//     shuffles for 8 rows) and added to the warp's row norms in shared
+//     memory, off the loads' path.  Kernel 3 is kernel 2's walk with one
+//     weight row (M = 1) and these norms in place of the error: the TPU
+//     kernel's sequential grid carried the (C,) norms in VMEM from tile to
+//     tile; here each block writes its row of C partial norms;
 //   * no float atomics anywhere: a cross-block sum is written as one partial
 //     per block and summed in a fixed order, so repeated runs are bitwise
-//     equal.  Kernels 2 and 4 do it in their one launch: the last block to
+//     equal.  Kernels 2-4 do it in their one launch: the last block to
 //     finish, found by an integer atomic ticket (kernel 2: after a
-//     __threadfence; kernel 4: acquire-release), sums the partials in index
-//     order (kernel 4's (C + 1)-wide rows, the norms and the error, column
-//     by column, with 16-byte loads split over the block's threads and the
-//     row slices added in order).  Kernel 3 (per-row
-//     norms) writes an (n_tiles, C) buffer that a second pass sums column by
-//     column.  A row's norm partial within a kernel-3 block is a warp-shuffle
-//     sum per row, then a fixed-order sum over the block's warps through
-//     shared memory.
-// Kernel 4 takes C up to the shared memory its row norms need (4 bytes a
-// row a warp beside the stages: about 16,000 rows on an H100).  What holds
+//     __threadfence; kernels 3 and 4: acquire-release), sums the partials
+//     in index order (kernel 3's C-wide and kernel 4's (C + 1)-wide rows,
+//     the norms and kernel 4's error, column by column, with 16-byte loads
+//     split over the block's threads and the row slices added in order).
+// Kernels 3 and 4 take C up to the shared memory their row norms need (4
+// bytes a row a warp beside the stages: about 13,000 rows where the warps
+// own their tiles, more where they split C, on an H100).  What holds
 // kernel 4 back at huge D (PERF.md §6): the SMs, not HBM nor the
 // widening.  The int8 walk issues about 80 instructions a 16-code row at 116
 // registers (16 warps an SM); in one-off builds, I2F in place of the byte
 // permutes and 2 or 8 rows a sub-batch in place of 4 timed the same, and
 // kernel 2's own cp.async path also fell well short of the HBM rate there.
-// Not used: TMA, wgmma; cp.async only in kernels 1, 2 and 4.
+// Not used: TMA, wgmma.
 //
 // Interface: plain C functions, loaded with ctypes.  They launch on the
 // given stream, allocate nothing, and return cudaGetLastError() (0 = ok).
@@ -103,9 +101,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // threads per block of kernel 3
-constexpr int kWChunk = 256;   // weight columns staged in shared memory per pass
-constexpr int kSumThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
@@ -472,9 +467,10 @@ struct NoRows {
 // of the block reaches together unless the warps own their tiles.
 // Kernel 1's weights are w[m * C + c]; kernels 2 and 4's (kCohort, M = 2)
 // w[c] and w[c] - lam[c].  `stages` is the warp's plan.stages stages.
-// Kernel 4 (codes): g[c, col] = float(code) * scale, and after each unit of
-// rows c0 .. c0 + R - 1, on_rows(c0, sq) with sq[u] the lane's sum of
-// g[c0 + u, col]^2 over its columns of the tile (every lane calls it).
+// Kernel 3 (kCohort, M = 1) takes w[c] alone.  Kernel 4 (codes): g[c, col]
+// = float(code) * scale.  Kernels 3 and 4 (an on_rows callback): after each
+// unit of rows c0 .. c0 + R - 1, on_rows(c0, sq) with sq[u] the lane's sum
+// of g[c0 + u, col]^2 over its columns of the tile (every lane calls it).
 template <typename T, int M, int L, bool kCohort, typename OnTile, typename OnRows = NoRows>
 __device__ __forceinline__ void walk_tiles(const T* __restrict__ g, const float* __restrict__ w,
                                            const float* __restrict__ lam, int C, int64_t D,
@@ -483,6 +479,7 @@ __device__ __forceinline__ void walk_tiles(const T* __restrict__ g, const float*
   constexpr int V = Vec<T>::N;
   constexpr int kTile = 32 * V;
   constexpr bool kCode = kIsCode<T>;
+  constexpr bool kRowSums = !std::is_same_v<OnRows, NoRows>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
   const int r0 = plan.own ? 0 : warp * plan.rpw, r1 = min(C, r0 + plan.rpw);
   constexpr int R = unit_rows<T, L>();
@@ -590,6 +587,7 @@ __device__ __forceinline__ void walk_tiles(const T* __restrict__ g, const float*
       }
       on_rows(c0, sq);
     } else {
+      float sq[R];  // rows past r1 and columns past D are zero and add nothing
 #pragma unroll
       for (int u2 = 0; u2 < R; ++u2) {
         const int c = c0 + u2;
@@ -597,7 +595,7 @@ __device__ __forceinline__ void walk_tiles(const T* __restrict__ g, const float*
         float wt[M];
         if (kCohort) {
           wt[0] = row ? w[c] : 0.f;
-          wt[M - 1] = row ? w[c] - lam[c] : 0.f;
+          if constexpr (M > 1) wt[M - 1] = row ? w[c] - lam[c] : 0.f;
         } else {
 #pragma unroll
           for (int m = 0; m < M; ++m) wt[m] = row ? w[static_cast<int64_t>(m) * C + c] : 0.f;
@@ -607,7 +605,13 @@ __device__ __forceinline__ void walk_tiles(const T* __restrict__ g, const float*
 #pragma unroll
           for (int k = 0; k < V; ++k) acc[m][k] = fmaf(wt[m], x[u2][k], acc[m][k]);
         }
+        if constexpr (kRowSums) {
+          sq[u2] = 0.f;
+#pragma unroll
+          for (int k = 0; k < V; ++k) sq[u2] = fmaf(x[u2][k], x[u2][k], sq[u2]);
+        }
       }
+      if constexpr (kRowSums) on_rows(c0, sq);
     }
     if constexpr (L != V) {
 #pragma unroll
@@ -657,23 +661,32 @@ __device__ __forceinline__ float sum_warps(const float* red, int i) {
   return s;
 }
 
-// Dynamic shared memory of kernels 1, 2 and 4: each warp's stages, then the
-// tile sums of one row (none where the warps own their tiles).  Kernel 4's
-// last block reuses that front for its column sums (16 bytes a thread), and
-// after it come the warps' row norms (plan.rpw floats a warp).
+// Dynamic shared memory of kernels 1-4: each warp's stages, then the tile
+// sums of one row (none where the warps own their tiles).  With row norms
+// (kernels 3 and 4) the last block reuses that front for its column sums
+// (16 bytes a thread), and after it come the warps' row norms (plan.rpw
+// floats a warp).
 template <typename T>
-__host__ __device__ constexpr size_t agg_front_bytes(int n_warps, AggPlan plan) {
+__host__ __device__ constexpr size_t agg_front_bytes(int n_warps, AggPlan plan, bool norms) {
   const size_t walk = static_cast<size_t>(n_warps) * plan.stages * plan.batch_rows * slot_bytes<T>() +
                       (plan.own ? 0 : static_cast<size_t>(n_warps) * 32 * Vec<T>::N * sizeof(float));
   const size_t sums = static_cast<size_t>(n_warps) * 32 * 16;
-  return kIsCode<T> && sums > walk ? sums : walk;
+  return norms && sums > walk ? sums : walk;
 }
 
 template <typename T>
-constexpr size_t agg_smem_bytes(int n_warps, AggPlan plan) {
-  return agg_front_bytes<T>(n_warps, plan) +
-         (kIsCode<T> ? static_cast<size_t>(n_warps) * plan.rpw * sizeof(float) : 0);
+constexpr size_t agg_smem_bytes(int n_warps, AggPlan plan, bool norms) {
+  return agg_front_bytes<T>(n_warps, plan, norms) +
+         (norms ? static_cast<size_t>(n_warps) * plan.rpw * sizeof(float) : 0);
 }
+
+// Kernel 3 (M = 1) and kernel 4 (codes) carry the per-row norms.
+template <typename T, int M>
+constexpr bool kRowNorms = kIsCode<T> || M == 1;
+
+// Kernel 3's and 4's row of partials a block: the C norms (kernel 4: and
+// the error), padded to whole 16-byte vectors.
+__host__ __device__ constexpr int partials_stride(int n_out) { return (n_out + 3) & ~3; }
 
 // True in every thread of the block that took the last of `expected`
 // tickets on *counter; that block sets the counter back to 0 for the next
@@ -696,21 +709,21 @@ __device__ __forceinline__ bool last_arrival(unsigned int* counter, unsigned int
   return last;
 }
 
-// Kernel 4's last block: sums[j] = sum over the n_rows rows of
-// partials[:, j] for j <= C, partials (n_rows, stride) with stride a
+// Kernel 3's or 4's last block: sums[j] = sum over the n_rows rows of
+// partials[:, j] for j < n_out, partials (n_rows, stride) with stride a
 // multiple of 4.  Thread t sums column quad t % nq over rows t / nq,
 // t / nq + P, ... (P = blockDim / nq row slices) with 16-byte loads, and the
 // slices are added in order through `red` (blockDim float4 of shared
 // memory); where nq >= blockDim, each thread sums whole quads.
 __device__ void sum_partial_columns(const float* partials, int n_rows, int stride,
-                                    int C, float* __restrict__ sums, float4* red) {
+                                    int n_out, float* __restrict__ sums, float4* red) {
   const int t = threadIdx.x, bd = blockDim.x, nq = stride / 4;
   const float4* p4 = reinterpret_cast<const float4*>(partials);
   auto emit = [&](int q, float4 v) {
     const float c4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if (4 * q + i <= C) sums[4 * q + i] = c4[i];
+      if (4 * q + i < n_out) sums[4 * q + i] = c4[i];
     }
   };
   // kSumBatch rows' loads in flight before any add (rows past n_rows load
@@ -788,14 +801,15 @@ __global__ void __launch_bounds__(kMaxAggWarps * 32)
       });
 }
 
-// Kernels 2 and 4 in one launch: each block writes d over its tiles and
-// its partial of the error row's squared norm (kernel 4: its (C + 1)-wide
-// row of partials, the C row norms and then the error, at partials[blockIdx.x
-// * stride]); the last block to finish (an integer ticket on *counter after
-// a __threadfence) sums all partials in index order into out (kernel 2: the
-// error; kernel 4: the C norms, then the error) and sets *counter back to 0
-// for the next launch on the stream.
-template <typename T, int L>
+// Kernels 2, 3 and 4 in one launch: each block writes d over its tiles and
+// its partial of the error row's squared norm (kernel 2), or its row of
+// partials at partials[blockIdx.x * stride] (kernel 3: the C row norms;
+// kernel 4: the C row norms, then the error); the last block to finish (an
+// integer ticket on *counter) sums all partials in index order into out
+// (kernel 2: the error; kernel 3: the C norms; kernel 4: the C norms, then
+// the error) and sets *counter back to 0 for the next launch on the stream.
+// M = 2 carries the error row (kernels 2 and 4), M = 1 only d (kernel 3).
+template <typename T, int L, int M>
 __global__ void __launch_bounds__(kMaxAggWarps * 32)
     cohort_agg_kernel(const T* __restrict__ g, Scales sc, const float* __restrict__ w,
                       const float* __restrict__ lam, float* __restrict__ d,
@@ -804,58 +818,60 @@ __global__ void __launch_bounds__(kMaxAggWarps * 32)
   constexpr int V = Vec<T>::N;
   constexpr int kTile = 32 * V;
   constexpr int R = unit_rows<T, L>();
+  constexpr bool kNorms = kRowNorms<T, M>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float scratch[kMaxAggWarps];
   __shared__ bool last;
   const int n_warps = blockDim.x >> 5, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int stage_bytes = plan.stages * plan.batch_rows * slot_bytes<T>();
   float* red = reinterpret_cast<float*>(smem + n_warps * stage_bytes);
-  // Kernel 4: the warp's row norms, rows r0 .. r1 - 1 at row_sq[c - r0].
-  float* row_sq = reinterpret_cast<float*>(smem + agg_front_bytes<T>(n_warps, plan)) +
+  // Kernels 3 and 4: the warp's row norms, rows r0 .. r1 - 1 at row_sq[c - r0].
+  float* row_sq = reinterpret_cast<float*>(smem + agg_front_bytes<T>(n_warps, plan, kNorms)) +
                   warp * plan.rpw;
   const int r0 = plan.own ? 0 : warp * plan.rpw, r1 = min(C, r0 + plan.rpw);
-  if constexpr (kIsCode<T>) {
+  if constexpr (kNorms) {
     for (int i = lane; i < plan.rpw; i += 32) row_sq[i] = 0.f;
     __syncwarp();
   }
   float sq = 0.f;  // columns past D sum to zero and add nothing
-  walk_tiles<T, 2, L, true>(
-      g, w, lam, C, D, plan, smem + warp * stage_bytes,
-      [&](int64_t tile0, const float (&acc)[2][V]) {
-        if (plan.own) {
+  auto on_tile = [&](int64_t tile0, const float (&acc)[M][V]) {
+    if (plan.own) {
 #pragma unroll
-          for (int k = 0; k < V; ++k) {
-            const int64_t col = tile0 + tile_col<V, L>(k, lane);
-            if (col < D) d[col] = acc[0][k];
-            sq = fmaf(acc[1][k], acc[1][k], sq);
-          }
-          return;
-        }
-        __syncthreads();  // the previous tile's sums are read
-        stage_warp_sums<V, L>(acc[0], red);
-        __syncthreads();
-        for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-          if (tile0 + i < D) d[tile0 + i] = sum_warps<V>(red, i);
-        }
-        __syncthreads();
-        stage_warp_sums<V, L>(acc[1], red);
-        __syncthreads();
-        for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-          const float e = sum_warps<V>(red, i);
-          sq = fmaf(e, e, sq);
-        }
-      },
-      sc,
-      [&](int c0, float (&rows)[R]) {
-        const float v = reduce_rows<R>(rows, lane);
-        const int c = c0 + ((lane * R) >> 5);
-        if ((lane & (32 / R - 1)) == 0 && c < r1) row_sq[c - r0] += v;
-      });
-  sq = block_sum(sq, scratch);
-  if constexpr (kIsCode<T>) {
+      for (int k = 0; k < V; ++k) {
+        const int64_t col = tile0 + tile_col<V, L>(k, lane);
+        if (col < D) d[col] = acc[0][k];
+        if constexpr (M == 2) sq = fmaf(acc[1][k], acc[1][k], sq);
+      }
+      return;
+    }
+    __syncthreads();  // the previous tile's sums are read
+    stage_warp_sums<V, L>(acc[0], red);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
+      if (tile0 + i < D) d[tile0 + i] = sum_warps<V>(red, i);
+    }
+    if constexpr (M == 2) {
+      __syncthreads();
+      stage_warp_sums<V, L>(acc[1], red);
+      __syncthreads();
+      for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
+        const float e = sum_warps<V>(red, i);
+        sq = fmaf(e, e, sq);
+      }
+    }
+  };
+  if constexpr (kNorms) {
+    walk_tiles<T, M, L, true>(g, w, lam, C, D, plan, smem + warp * stage_bytes, on_tile, sc,
+                              [&](int c0, float (&rows)[R]) {
+                                const float v = reduce_rows<R>(rows, lane);
+                                const int c = c0 + ((lane * R) >> 5);
+                                if ((lane & (32 / R - 1)) == 0 && c < r1) row_sq[c - r0] += v;
+                              });
     // The block's row of partials: each row's norm over its warps, in warp
-    // order (one warp a row where the warps split C), then the error.
-    const int stride = (C + 4) & ~3;
+    // order (one warp a row where the warps split C), then kernel 4's error.
+    const int n_out = C + (M == 2);
+    const int stride = partials_stride(n_out);
+    if constexpr (M == 2) sq = block_sum(sq, scratch);
     float* mine = partials + static_cast<int64_t>(blockIdx.x) * stride;
     const float* all_rows = row_sq - warp * plan.rpw;
     __syncthreads();
@@ -867,143 +883,38 @@ __global__ void __launch_bounds__(kMaxAggWarps * 32)
       }
       mine[c] = v;
     }
-    if (threadIdx.x == 0) mine[C] = sq;
+    if constexpr (M == 2) {
+      if (threadIdx.x == 0) mine[C] = sq;
+    }
     if (!last_arrival(counter, gridDim.x)) return;
-    sum_partial_columns(partials, gridDim.x, stride, C, out, reinterpret_cast<float4*>(smem));
-    return;
-  }
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = sq;
-    __threadfence();  // the partial is visible before the ticket is taken
-    last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  // Thread t adds partials t, t + blockDim.x, ... in that order, kSumBatch
-  // loads in flight at a time, from L2, where the other blocks' are.
-  const int n = gridDim.x, bd = blockDim.x;
-  float t = 0.f;
-  for (int i0 = threadIdx.x; i0 < n; i0 += kSumBatch * bd) {
-    float p[kSumBatch];
-#pragma unroll
-    for (int u = 0; u < kSumBatch; ++u) p[u] = __ldcg(partials + min(i0 + u * bd, n - 1));
-#pragma unroll
-    for (int u = 0; u < kSumBatch; ++u) t += i0 + u * bd < n ? p[u] : 0.f;
-  }
-  t = block_sum(t, scratch);
-  if (threadIdx.x == 0) {
-    *out = t;
-    *counter = 0u;
-  }
-}
-
-// Kernel 3: d = sum_c w_c g_c and the per-row squared norms ||g_c||^2, in
-// one read of g.  Block b writes its partial norms to partials[b * C + j],
-// the norm of row j over the block's columns.
-template <typename T, bool kAligned>
-__global__ void __launch_bounds__(kThreads)
-    agg_norms_kernel(const T* __restrict__ g, const float* __restrict__ w,
-                     float* __restrict__ d, float* __restrict__ partials, int C, int64_t D) {
-  constexpr int V = Vec<T>::N;
-  constexpr int kWarps = kThreads / 32;
-  __shared__ float ws[kWChunk];
-  __shared__ float row_sq[kWarps][kWChunk];
-  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * (kThreads * V);
-  // Aligned: the thread's columns are col0 + k.  Scalar: col0 + k * kThreads.
-  const int64_t col0 = tile0 + (kAligned ? static_cast<int64_t>(threadIdx.x) * V : threadIdx.x);
-  float acc[V];
-#pragma unroll
-  for (int k = 0; k < V; ++k) acc[k] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += kWChunk) {
-    const int nc = min(kWChunk, C - c0);
-    __syncthreads();  // the previous chunk's weights and row sums are no longer read
-    for (int i = threadIdx.x; i < nc; i += kThreads) ws[i] = w[c0 + i];
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < nc; ++c) {
-      const int64_t row = c0 + c;
-      const T* p = g + row * D;
-      float x[V];
-      if (kAligned) {
-        if (col0 < D) {
-          load_vec(p + col0, x);
-        } else {
-#pragma unroll
-          for (int k = 0; k < V; ++k) x[k] = 0.f;
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          const int64_t col = col0 + k * kThreads;
-          x[k] = col < D ? to_f32(p[col]) : 0.f;
-        }
-      }
-      float sq = 0.f;
-      const float w0 = ws[c];
-#pragma unroll
-      for (int k = 0; k < V; ++k) {
-        acc[k] = fmaf(w0, x[k], acc[k]);
-        sq = fmaf(x[k], x[k], sq);
-      }
-      sq = warp_sum(sq);
-      if ((threadIdx.x & 31) == 0) row_sq[threadIdx.x >> 5][c] = sq;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nc; i += kThreads) {
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < kWarps; ++j) s += row_sq[j][i];
-      partials[static_cast<int64_t>(blockIdx.x) * C + c0 + i] = s;
-    }
-  }
-
-  if (kAligned) {
-    if (col0 < D) {
-#pragma unroll
-      for (int k = 0; k < V; k += 4)
-        *reinterpret_cast<float4*>(d + col0 + k) =
-            make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
-    }
+    sum_partial_columns(partials, gridDim.x, stride, n_out, out, reinterpret_cast<float4*>(smem));
   } else {
+    walk_tiles<T, M, L, true>(g, w, lam, C, D, plan, smem + warp * stage_bytes, on_tile, sc);
+    sq = block_sum(sq, scratch);
+    if (threadIdx.x == 0) {
+      partials[blockIdx.x] = sq;
+      __threadfence();  // the partial is visible before the ticket is taken
+      last = atomicAdd(counter, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    // Thread t adds partials t, t + blockDim.x, ... in that order, kSumBatch
+    // loads in flight at a time, from L2, where the other blocks' are.
+    const int n = gridDim.x, bd = blockDim.x;
+    float t = 0.f;
+    for (int i0 = threadIdx.x; i0 < n; i0 += kSumBatch * bd) {
+      float p[kSumBatch];
 #pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int64_t col = col0 + k * kThreads;
-      if (col < D) d[col] = acc[k];
+      for (int u = 0; u < kSumBatch; ++u) p[u] = __ldcg(partials + min(i0 + u * bd, n - 1));
+#pragma unroll
+      for (int u = 0; u < kSumBatch; ++u) t += i0 + u * bd < n ? p[u] : 0.f;
+    }
+    t = block_sum(t, scratch);
+    if (threadIdx.x == 0) {
+      *out = t;
+      *counter = 0u;
     }
   }
-}
-
-// Block b: out[b] = sum over t < n_rows of p[t * n_cols + b], in a fixed order.
-__global__ void __launch_bounds__(kSumThreads)
-    sum_columns_kernel(const float* __restrict__ p, int64_t n_rows, int n_cols,
-                       float* __restrict__ out) {
-  __shared__ float warp_sums[kSumThreads / 32];
-  float s = 0.f;
-  for (int64_t t = threadIdx.x; t < n_rows; t += kSumThreads) s += p[t * n_cols + blockIdx.x];
-  s = warp_sum(s);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float u = 0.f;
-#pragma unroll
-    for (int i = 0; i < kSumThreads / 32; ++i) u += warp_sums[i];
-    out[blockIdx.x] = u;
-  }
-}
-
-int vec_width(int dtype) {
-  switch (dtype) {
-    case kBF16: return Vec<__nv_bfloat16>::N;
-    case kI8: return Vec<int8_t>::N;
-    case kFP8: return Vec<Fp8>::N;
-    default: return Vec<float>::N;
-  }
-}
-
-int64_t n_tiles(int64_t D, int dtype) {
-  const int64_t cols = static_cast<int64_t>(kThreads) * vec_width(dtype);
-  return (D + cols - 1) / cols;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -1011,10 +922,10 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 // Blocks of one kernel resident on the current device at once, for a
 // block size and dynamic shared memory (asked once each).  The kernel is
 // first allowed the largest shared memory a launch of it takes: for kernels
-// 1 and 2 the largest plan's, for kernel 4, whose row norms grow with C,
-// all the device gives a block.
+// 1 and 2 the largest plan's, for kernels 3 and 4 (`norms`), whose row
+// norms grow with C, all the device gives a block.
 template <auto Kernel, typename T>
-int resident_blocks(int n_warps, size_t smem) {
+int resident_blocks(int n_warps, size_t smem, bool norms) {
   struct Entry {
     int dev, n_warps;
     size_t smem;
@@ -1026,8 +937,8 @@ int resident_blocks(int n_warps, size_t smem) {
   int dev = 0;
   cudaGetDevice(&dev);
   if (!allowed[dev & 63]) {
-    int max_smem = static_cast<int>(agg_smem_bytes<T>(kMaxAggWarps, {0, kRowBatch, 2, 0}));
-    if constexpr (kIsCode<T>) {
+    int max_smem = static_cast<int>(agg_smem_bytes<T>(kMaxAggWarps, {0, kRowBatch, 2, 0}, false));
+    if (norms) {
       cudaFuncAttributes attr;
       cudaFuncGetAttributes(&attr, Kernel);
       cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -1047,15 +958,16 @@ int resident_blocks(int n_warps, size_t smem) {
   return n;
 }
 
-// A launch of kernel 1, 2 or 4 (Kernel, element type T, chunk width L) for C
+// A launch of kernel 1, 2, 3 or 4 (Kernel, element type T, chunk width L,
+// row norms or not) for C
 // rows of D columns.  Tiles enough to fill the card (huge D), or at most
 // two batches of rows with a block for every SM, take blocks of kOwnWarps
 // warps, each warp walking all C rows of tiles of its own; otherwise a
 // block's warps split C, about kRowsPerWarp rows a warp, at
 // least min_warps and at most kMaxAggWarps warps, no warp without rows.
 // Every tile gets a warp (or a block), or, with `bounded`, the grid is at
-// most the blocks resident at once (kernels 2 and 4, whose last block sums
-// a row of partials a block).  Vectors take two stages where a warp has more than
+// most the blocks resident at once (kernels 2-4, whose last block sums a
+// row of partials a block).  Vectors take two stages where a warp has more than
 // one unit of work.
 struct Launch {
   AggPlan plan;
@@ -1065,7 +977,7 @@ struct Launch {
 };
 
 template <auto Kernel, typename T, int L>
-Launch agg_launch(int C, int64_t D, int min_warps, bool bounded) {
+Launch agg_launch(int C, int64_t D, int min_warps, bool bounded, bool norms) {
   const int64_t n_tiles = (D + 32 * Vec<T>::N - 1) / (32 * Vec<T>::N);
   int sms = 0, dev = 0;
   cudaGetDevice(&dev);
@@ -1087,12 +999,15 @@ Launch agg_launch(int C, int64_t D, int min_warps, bool bounded) {
   l.plan.batch_rows = std::min(l.plan.rpw, kRowBatch);
   const bool async = L == Vec<T>::N;
   l.plan.stages = async ? (l.plan.rpw > kRowBatch ? 2 : 1) : 0;
-  if (bounded && l.grid > resident_blocks<Kernel, T>(l.n_warps, agg_smem_bytes<T>(l.n_warps, l.plan))) {
+  const auto resident = [&] {
+    return resident_blocks<Kernel, T>(l.n_warps, agg_smem_bytes<T>(l.n_warps, l.plan, norms), norms);
+  };
+  if (bounded && l.grid > resident()) {
     if (async) l.plan.stages = 2;
-    l.grid = resident_blocks<Kernel, T>(l.n_warps, agg_smem_bytes<T>(l.n_warps, l.plan));
+    l.grid = resident();
   }
-  l.smem = agg_smem_bytes<T>(l.n_warps, l.plan);
-  if (l.smem > 48 * 1024) resident_blocks<Kernel, T>(l.n_warps, l.smem);  // allows it
+  l.smem = agg_smem_bytes<T>(l.n_warps, l.plan, norms);
+  if (l.smem > 48 * 1024) resident();  // allows it
   return l;
 }
 
@@ -1105,7 +1020,7 @@ bool vector_rows(const void* g, int64_t D, int64_t sb = Vec<T>::N) {
 
 template <typename T, int M, int L>
 void launch_multi(const void* g, const float* w, float* out, int C, int64_t D, cudaStream_t s) {
-  const Launch l = agg_launch<multi_agg_kernel<T, M, L>, T, L>(C, D, 1, false);
+  const Launch l = agg_launch<multi_agg_kernel<T, M, L>, T, L>(C, D, 1, false, false);
   multi_agg_kernel<T, M, L><<<static_cast<unsigned int>(l.grid), l.n_warps * 32, l.smem, s>>>(
       static_cast<const T*>(g), w, out, C, D, l.plan);
 }
@@ -1131,80 +1046,64 @@ int dispatch_multi(const void* g, const float* w, float* out, int C, int64_t D, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernels 2 and 4 take at least 4 warps a block where C has the rows, so
-// their last block sums the partials with at least 128 threads.
+// Kernels 2-4 take at least 4 warps a block where C has the rows, so their
+// last block sums the partials with at least 128 threads.
 constexpr int kCohortMinWarps = 4;
 
-template <typename T, int L>
+template <typename T, int L, int M>
 Launch cohort_launch(int C, int64_t D) {
-  return agg_launch<cohort_agg_kernel<T, L>, T, L>(C, D, kCohortMinWarps, true);
+  return agg_launch<cohort_agg_kernel<T, L, M>, T, L>(C, D, kCohortMinWarps, true,
+                                                        kRowNorms<T, M>);
 }
 
-template <typename T, int L>
+template <typename T, int L, int M>
 void launch_cohort(const void* g, Scales sc, const float* w, const float* lam, float* d,
                    float* partials, unsigned int* counter, float* out, int C, int64_t D,
                    cudaStream_t s) {
-  const Launch l = cohort_launch<T, L>(C, D);
-  cohort_agg_kernel<T, L><<<static_cast<unsigned int>(l.grid), l.n_warps * 32, l.smem, s>>>(
+  const Launch l = cohort_launch<T, L, M>(C, D);
+  cohort_agg_kernel<T, L, M><<<static_cast<unsigned int>(l.grid), l.n_warps * 32, l.smem, s>>>(
       static_cast<const T*>(g), sc, w, lam, d, partials, counter, out, C, D, l.plan);
 }
 
-template <typename T>
+template <typename T, int M>
 int dispatch_cohort(const void* g, Scales sc, const float* w, const float* lam, float* d,
                     float* partials, unsigned int* counter, float* out, int C, int64_t D,
                     cudaStream_t s) {
   if (vector_rows<T>(g, D, kIsCode<T> ? sc.sb : Vec<T>::N))
-    launch_cohort<T, Vec<T>::N>(g, sc, w, lam, d, partials, counter, out, C, D, s);
+    launch_cohort<T, Vec<T>::N, M>(g, sc, w, lam, d, partials, counter, out, C, D, s);
   else
-    launch_cohort<T, 1>(g, sc, w, lam, d, partials, counter, out, C, D, s);
+    launch_cohort<T, 1, M>(g, sc, w, lam, d, partials, counter, out, C, D, s);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernel 2's or 4's grid for (C, D, g's dtype and base pointer; kernel 4's
-// scale block).
-template <typename T>
+// Kernel 2's, 3's (M = 1) or 4's grid for (C, D, g's dtype and base
+// pointer; kernel 4's scale block).
+template <typename T, int M>
 int64_t cohort_blocks(const void* g, int C, int64_t D, int64_t sb = Vec<T>::N) {
-  return vector_rows<T>(g, D, sb) ? cohort_launch<T, Vec<T>::N>(C, D).grid
-                                  : cohort_launch<T, 1>(C, D).grid;
-}
-
-// Kernel 4's row of partials a block: the C norms and the error, padded to
-// whole 16-byte vectors.
-int dequant_stride(int C) { return (C + 4) & ~3; }
-
-template <typename T>
-void launch_agg_norms(const void* g, const float* w, float* d, float* partials, int C, int64_t D,
-                      bool aligned, int64_t blocks, cudaStream_t s) {
-  const T* gt = static_cast<const T*>(g);
-  const unsigned int grid = static_cast<unsigned int>(blocks);
-  if (aligned)
-    agg_norms_kernel<T, true><<<grid, kThreads, 0, s>>>(gt, w, d, partials, C, D);
-  else
-    agg_norms_kernel<T, false><<<grid, kThreads, 0, s>>>(gt, w, d, partials, C, D);
-}
-
-// The second pass: out[j] = sum over the n_rows tiles of partials[:, j].
-int sum_columns(const float* partials, int64_t n_rows, int n_cols, float* out, cudaStream_t s) {
-  int rc = static_cast<int>(cudaGetLastError());  // the first pass's launch
-  if (rc != 0) return rc;
-  sum_columns_kernel<<<n_cols, kSumThreads, 0, s>>>(partials, n_rows, n_cols, out);
-  return static_cast<int>(cudaGetLastError());
+  return vector_rows<T>(g, D, sb) ? cohort_launch<T, Vec<T>::N, M>(C, D).grid
+                                  : cohort_launch<T, 1, M>(C, D).grid;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of column tiles (blocks) of kernel 3 for D columns of the given
-// dtype: the rows of the partials buffer it takes.
-long long fwa_num_tiles(long long D, int dtype) { return n_tiles(D, dtype); }
-
 // Number of blocks kernel 2 launches for g (C, D) of the given dtype at
 // this base pointer on the current device: the length of the partials
 // buffer fwa_cohort_agg_and_error takes.
 long long fwa_cohort_blocks(const void* g, int dtype, int C, long long D) {
-  if (dtype == kF32) return cohort_blocks<float>(g, C, D);
-  return cohort_blocks<__nv_bfloat16>(g, C, D);
+  if (dtype == kF32) return cohort_blocks<float, 2>(g, C, D);
+  return cohort_blocks<__nv_bfloat16, 2>(g, C, D);
+}
+
+// Floats of scratch fwa_weighted_agg takes for g (C, D) of the given dtype
+// at this base pointer on the current device: its grid times the row of
+// partials a block.
+long long fwa_weighted_agg_partials(const void* g, int dtype, int C, long long D) {
+  if (C < 1 || D < 1) return 0;
+  const int64_t blocks =
+      dtype == kF32 ? cohort_blocks<float, 1>(g, C, D) : cohort_blocks<__nv_bfloat16, 1>(g, C, D);
+  return blocks * partials_stride(C);
 }
 
 // Floats of scratch fwa_dequant_cohort_agg takes for q (C, D) codes of the
@@ -1214,8 +1113,8 @@ long long fwa_dequant_partials(const void* q, int dtype, int nb, int C, long lon
   if (C < 1 || D < 1 || nb < 1) return 0;
   const int64_t sb = D / nb;
   const int64_t blocks =
-      dtype == kI8 ? cohort_blocks<int8_t>(q, C, D, sb) : cohort_blocks<Fp8>(q, C, D, sb);
-  return blocks * dequant_stride(C);
+      dtype == kI8 ? cohort_blocks<int8_t, 2>(q, C, D, sb) : cohort_blocks<Fp8, 2>(q, C, D, sb);
+  return blocks * partials_stride(C + 1);
 }
 
 // Largest M fwa_multi_weighted_agg takes.
@@ -1240,23 +1139,21 @@ int fwa_cohort_agg_and_error(const void* g, int dtype, const float* w, const flo
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return dispatch_cohort<float>(g, {}, w, lam, d, partials, counter, err, C, D, s);
-  return dispatch_cohort<__nv_bfloat16>(g, {}, w, lam, d, partials, counter, err, C, D, s);
+    return dispatch_cohort<float, 2>(g, {}, w, lam, d, partials, counter, err, C, D, s);
+  return dispatch_cohort<__nv_bfloat16, 2>(g, {}, w, lam, d, partials, counter, err, C, D, s);
 }
 
-// partials: fwa_num_tiles(D, dtype) * C floats of scratch.
+// partials: fwa_weighted_agg_partials(g, dtype, C, D) floats of scratch,
+// 16-byte aligned.  counter: as fwa_cohort_agg_and_error's.  sq: the C
+// squared row norms.
 int fwa_weighted_agg(const void* g, int dtype, const float* w, float* d, float* partials,
-                     float* sq, int C, long long D, void* stream) {
+                     unsigned int* counter, float* sq, int C, long long D, void* stream) {
   if (C < 1 || D < 1 || (dtype != kF32 && dtype != kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool aligned = D % vec_width(dtype) == 0 && aligned16(g) && aligned16(d);
-  const int64_t blocks = n_tiles(D, dtype);
   if (dtype == kF32)
-    launch_agg_norms<float>(g, w, d, partials, C, D, aligned, blocks, s);
-  else
-    launch_agg_norms<__nv_bfloat16>(g, w, d, partials, C, D, aligned, blocks, s);
-  return sum_columns(partials, blocks, C, sq, s);
+    return dispatch_cohort<float, 1>(g, {}, w, nullptr, d, partials, counter, sq, C, D, s);
+  return dispatch_cohort<__nv_bfloat16, 1>(g, {}, w, nullptr, d, partials, counter, sq, C, D, s);
 }
 
 // q: (C, D) int8 or fp8 codes; scales: (C, nb) f32 with D % nb == 0.
@@ -1271,8 +1168,8 @@ int fwa_dequant_cohort_agg(const void* q, int dtype, const float* scales, int nb
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Scales sc = make_scales(scales, nb, D / nb);
   if (dtype == kI8)
-    return dispatch_cohort<int8_t>(q, sc, w, lam, d, partials, counter, sums, C, D, s);
-  return dispatch_cohort<Fp8>(q, sc, w, lam, d, partials, counter, sums, C, D, s);
+    return dispatch_cohort<int8_t, 2>(q, sc, w, lam, d, partials, counter, sums, C, D, s);
+  return dispatch_cohort<Fp8, 2>(q, sc, w, lam, d, partials, counter, sums, C, D, s);
 }
 
 }  // extern "C"

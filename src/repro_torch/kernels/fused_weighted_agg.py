@@ -103,8 +103,8 @@ def dequantize_stacked(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = load_library("fused_weighted_agg")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.fwa_num_tiles.argtypes = [i64, i32]
-    lib.fwa_num_tiles.restype = i64
+    lib.fwa_weighted_agg_partials.argtypes = [ptr, i32, i32, i64]
+    lib.fwa_weighted_agg_partials.restype = i64
     lib.fwa_cohort_blocks.argtypes = [ptr, i32, i32, i64]
     lib.fwa_cohort_blocks.restype = i64
     lib.fwa_max_rows.argtypes = []
@@ -115,7 +115,7 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr,
     ]
     lib.fwa_cohort_agg_and_error.restype = i32
-    lib.fwa_weighted_agg.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i64, ptr]
+    lib.fwa_weighted_agg.argtypes = [ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr]
     lib.fwa_weighted_agg.restype = i32
     lib.fwa_dequant_partials.argtypes = [ptr, i32, i32, i32, i64]
     lib.fwa_dequant_partials.restype = i64
@@ -165,8 +165,9 @@ def fused_weighted_agg(g: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, 
 
     g (C, D) f32|bf16 stacked flattened client updates; w (C,) f32 weights.
     Returns (d (D,) f32, sq_norms (C,) f32) with ``d = sum_c w_c g_c`` and
-    ``sq_norms[c] = ||g_c||^2``.  On the GPU the norms are bitwise repeatable
-    (no float atomics)."""
+    ``sq_norms[c] = ||g_c||^2``.  On the GPU it is one kernel launch, and the
+    norms are bitwise repeatable (no float atomics: the last block sums the
+    blocks' partial norms in order)."""
     c, d = _check_g(g)
     _check("w", w, (c,), (torch.float32,), g.device)
     if g.device.type == "cpu":
@@ -175,11 +176,15 @@ def fused_weighted_agg(g: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, 
     code = _DTYPE_CODES[g.dtype]
     d_out = torch.empty(d, dtype=torch.float32, device=g.device)
     sq = torch.empty(c, dtype=torch.float32, device=g.device)
-    partials = torch.empty(lib.fwa_num_tiles(d, code) * c, dtype=torch.float32, device=g.device)
+    stream = _stream(g)
     with torch.cuda.device(g.device):
+        partials = torch.empty(
+            lib.fwa_weighted_agg_partials(g.data_ptr(), code, c, d), dtype=torch.float32,
+            device=g.device,
+        )
         rc = lib.fwa_weighted_agg(
             g.data_ptr(), code, w.data_ptr(), d_out.data_ptr(), partials.data_ptr(),
-            sq.data_ptr(), c, d, _stream(g),
+            ticket_counters(g.device, stream, 1).data_ptr(), sq.data_ptr(), c, d, stream,
         )
     _raise_on(rc, "fused_weighted_agg")
     fused_weighted_agg.launches += 1

@@ -8,6 +8,13 @@ can hand it the reference's own draws.  A source supplies:
 * ``init_params(task)``: the round-0 parameters;
 * ``isp_uniforms(t, n)``: round t's (N,) uniforms of the Bernoulli draw
   (a client is included when its uniform < its marginal);
+* ``rsp_uniforms(t, budget)``: round t's (K,) uniforms of the draw with
+  replacement: draw k picks the first client whose cumulative probability
+  reaches ``total * (1 - u_k)``, as ``jax.random.choice(key, n, (K,), p=p)``
+  does with ``u = jax.random.uniform(key, (K,))``;
+* ``rsp_wor_indices(t, n, budget)``: round t's (K,) distinct clients of the
+  uniform draw without replacement (the reference's first K of
+  ``jax.random.permutation(key, n)``);
 * ``cohort_priorities(t, n)``: round t's (N,) uniform priorities for the
   deployable cohort's overflow drop;
 * ``batch_indices(t, sizes, local_steps, batch_size)``: round t's
@@ -54,6 +61,10 @@ class RandomSource(Protocol):
     def init_params(self, task) -> dict: ...
 
     def isp_uniforms(self, t: int, n: int) -> torch.Tensor: ...
+
+    def rsp_uniforms(self, t: int, budget: int) -> torch.Tensor: ...
+
+    def rsp_wor_indices(self, t: int, n: int, budget: int) -> torch.Tensor: ...
 
     def cohort_priorities(self, t: int, n: int) -> torch.Tensor: ...
 
@@ -129,14 +140,26 @@ class PhiloxSource:
     def async_latency(self, t: int, dist: str) -> torch.Tensor:
         return self._standard((), dist, "async")
 
-    def gumbel(self, t: int, shape: tuple) -> torch.Tensor:
-        if "gumbel" not in self._gen:
-            # Seeded apart from the round's streams (whose seeds are
-            # seed * 7 + k), so adding this stream moved none of them.
+    def _late_stream(self, name: str, k: int) -> torch.Generator:
+        """A stream added after the round's seven, created at first use and
+        seeded apart from them (their seeds are seed * 7 + k), so adding it
+        moved none of them."""
+        if name not in self._gen:
             gen = torch.Generator(device=self.device)
-            gen.manual_seed((1 << 40) + self._seed)
-            self._gen["gumbel"] = gen
-        u = torch.rand(tuple(shape), generator=self._gen["gumbel"], device=self.device)
+            gen.manual_seed((k << 40) + self._seed)
+            self._gen[name] = gen
+        return self._gen[name]
+
+    def rsp_uniforms(self, t: int, budget: int) -> torch.Tensor:
+        return torch.rand(budget, generator=self._late_stream("rsp", 2), device=self.device)
+
+    def rsp_wor_indices(self, t: int, n: int, budget: int) -> torch.Tensor:
+        gen = self._late_stream("rsp_wor", 3)
+        return torch.randperm(n, generator=gen, device=self.device)[:budget]
+
+    def gumbel(self, t: int, shape: tuple) -> torch.Tensor:
+        gen = self._late_stream("gumbel", 1)
+        u = torch.rand(tuple(shape), generator=gen, device=self.device)
         tiny = torch.finfo(torch.float32).tiny
         return -torch.log(-torch.log(u.clamp_(min=tiny)))
 
@@ -148,6 +171,8 @@ class ReplaySource:
     (the reference's layout, see ``fed.tasks.params_from_reference``);
     ``uniforms`` and ``priorities``: (T, N) float32; ``batch_idx``:
     (T, N, R, B) integers.  ``priorities`` may be None for oracle runs.
+    The RSP draws' tables, each None when the run does not draw it:
+    ``rsp_uniforms`` (T, K) float32 and ``rsp_indices`` (T, K) integers.
     The fault layer's tables, each None when the run does not draw it:
     ``avail_uniforms`` (T, N), ``latencies`` (T, W) standard variates with
     W = N (oracle) or C (deployable), ``async_latencies`` (T,) standard
@@ -160,6 +185,7 @@ class ReplaySource:
     def __init__(
         self, init_params=None, uniforms=None, priorities=None, batch_idx=None, device="cpu", *,
         avail_uniforms=None, latencies=None, async_latencies=None, gumbel=None,
+        rsp_uniforms=None, rsp_indices=None,
     ):
         self.device = torch.device(device)
         self._init = init_params
@@ -173,6 +199,11 @@ class ReplaySource:
         self._lat = self._table(latencies)
         self._async = self._table(async_latencies)
         self._gumbel = self._table(gumbel)
+        self._rsp_u = self._table(rsp_uniforms)
+        self._rsp_idx = (
+            None if rsp_indices is None
+            else torch.as_tensor(np.asarray(rsp_indices, np.int64), device=self.device)
+        )
 
     def _table(self, values):
         if values is None:
@@ -190,6 +221,12 @@ class ReplaySource:
 
     def isp_uniforms(self, t: int, n: int) -> torch.Tensor:
         return self._recorded(self._u, "ISP uniforms")[t, :n]
+
+    def rsp_uniforms(self, t: int, budget: int) -> torch.Tensor:
+        return self._recorded(self._rsp_u, "RSP uniforms")[t, :budget]
+
+    def rsp_wor_indices(self, t: int, n: int, budget: int) -> torch.Tensor:
+        return self._recorded(self._rsp_idx, "RSP indices")[t, :budget]
 
     def cohort_priorities(self, t: int, n: int) -> torch.Tensor:
         return self._recorded(self._prio, "cohort priorities")[t, :n]

@@ -388,6 +388,32 @@ def test_cuda_dequant_kernel_matches_plain(cuda, dtype, c, d, sb):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "c,d",
+    [(1, 610), (9, 1027), (100, 610), (300, 4099), (1, 114688), (10, 114688), (50, 114688),
+     (9, 1 << 20), (20, 1 << 21), (3, 1 << 21)],
+)
+def test_cuda_weighted_agg_matches_plain(cuda, dtype, c, d):
+    """Kernel 3 against its plain version, its norms bitwise repeatable, one
+    launch a call: C = 1, 9, 100 and 300 (more rows than 16 warps walk in
+    one batch), unaligned D (610, 1027, 4099: the scalar path), tiny_lm's
+    shapes (C = 10 in f32: each warp owns its tiles), and D with tiles
+    enough for each warp to own its own (2^20, 2^21)."""
+    g, w2 = _inputs(c, d, 1, seed=13)
+    g_t = torch.from_numpy(g).to(DTYPES[dtype][0]).to(cuda)
+    w = torch.from_numpy(w2[0]).to(cuda)
+    before = fwa.launch_counts()["fused_weighted_agg"]
+    d_got, sq_got = fwa.fused_weighted_agg(g_t, w)
+    d_want, sq_want = ref.weighted_agg_reference(g_t, w)
+    torch.testing.assert_close(d_got, d_want, **(BF16_TOL if dtype == "bf16" else F32_TOL))
+    torch.testing.assert_close(sq_got, sq_want, rtol=1e-4, atol=0.0)
+    again = fwa.fused_weighted_agg(g_t, w)
+    assert torch.equal(again[0], d_got) and torch.equal(again[1], sq_got)
+    assert fwa.launch_counts()["fused_weighted_agg"] == before + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["int8", "fp8"])
 def test_cuda_dequant_on_two_streams(cuda, dtype):
     """Kernel 4's last block finds itself by the per-(device, stream) ticket
@@ -405,6 +431,29 @@ def test_cuda_dequant_on_two_streams(cuda, dtype):
         with torch.cuda.stream(stream):
             for _ in range(20):
                 out = fwa.fused_dequant_cohort_agg(q, scales, w, lam)
+            got.append(out)
+    torch.cuda.synchronize()
+    for outs, wants in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(outs, wants))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,d", [(10, 114688), (100, 610)])
+def test_cuda_weighted_agg_on_two_streams(cuda, c, d):
+    """Kernel 3's last block finds itself by the per-(device, stream) ticket
+    counter it shares with kernels 2, 4 and 5: launches on two streams at
+    once give the bits of the same launches made in order."""
+    g, w2 = _inputs(c, d, 2, seed=14)
+    g_t = torch.from_numpy(g).to(cuda)
+    ws = [torch.from_numpy(w2[i]).to(cuda) for i in range(2)]
+    want = [fwa.fused_weighted_agg(g_t, w) for w in ws]
+    streams = [torch.cuda.Stream() for _ in ws]
+    torch.cuda.synchronize()
+    got = []
+    for stream, w in zip(streams, ws):
+        with torch.cuda.stream(stream):
+            for _ in range(20):
+                out = fwa.fused_weighted_agg(g_t, w)
             got.append(out)
     torch.cuda.synchronize()
     for outs, wants in zip(got, want):

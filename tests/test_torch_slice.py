@@ -64,8 +64,9 @@ _STANDARD = {  # the latency family's standard variate, as the reference draws i
 
 
 def jax_replay(built, device="cpu") -> ReplaySource:
-    """The reference run's draws, along its own key chain; with a fault
-    section also the fault layer's (``fold_in(k_sample, 101/102/103)``)."""
+    """The reference run's draws, along its own key chain: the ISP uniforms
+    and the RSP draws' inputs from ``k_sample``, and with a fault section
+    also the fault layer's (``fold_in(k_sample, 101/102/103)``)."""
     cfg = built.fed_config
     n = built.dataset.n_clients
     r, b = cfg.local_steps, cfg.batch_size
@@ -79,11 +80,17 @@ def jax_replay(built, device="cpu") -> ReplaySource:
     def client_idx(i, keys):
         return jax.vmap(lambda k: jax.random.randint(k, (b,), 0, sizes[i]))(keys)
 
-    uniforms, priorities, idx = [], [], []
+    budget = cfg.budget
+    uniforms, priorities, idx, rsp_u, rsp_idx = [], [], [], [], []
     faults = {"avail_uniforms": [], "latencies": [], "async_latencies": []}
     for _ in range(cfg.rounds):
         key, k_data, k_sample = jax.random.split(key, 3)
         uniforms.append(np.asarray(jax.random.uniform(k_sample, (n,))))
+        # The RSP draws' inputs: jax.random.choice(k_sample, n, (K,), p=p)
+        # searches at these uniforms; without replacement it takes the first
+        # K of this permutation.
+        rsp_u.append(np.asarray(jax.random.uniform(k_sample, (budget,))))
+        rsp_idx.append(np.asarray(jax.random.permutation(k_sample, n))[:budget])
         priorities.append(
             np.asarray(jax.random.uniform(jax.random.fold_in(k_sample, 1), (n,)))
         )
@@ -101,6 +108,8 @@ def jax_replay(built, device="cpu") -> ReplaySource:
                 np.asarray(std(jax.random.fold_in(k_sample, 103), ()))
             )
     extra = {k: np.stack(v) for k, v in faults.items()} if fault is not None and cfg.rounds else {}
+    if cfg.rounds:
+        extra.update(rsp_uniforms=np.stack(rsp_u), rsp_indices=np.stack(rsp_idx))
     return ReplaySource(
         init, np.stack(uniforms), np.stack(priorities), np.stack(idx), device, **extra
     )
@@ -203,13 +212,9 @@ def test_spec_json_loads_unchanged(tmp_path):
     "section",
     [
         {"task": {"kind": "zoo", "name": "smollm-360m"}},
-        {"sampler": {"name": "osmd"}},
-        {"sampler": {"name": "mabs"}},
-        {"sampler": {"name": "avare"}},
         {"execution": {"oracle_metrics": False, "exact_oracle_equiv": True}},
-        {"sampler": {"name": "vrb"}},
     ],
-    ids=["zoo", "osmd", "mabs", "avare", "exact_oracle_equiv", "vrb"],
+    ids=["zoo", "exact_oracle_equiv"],
 )
 def test_unported_parts_raise(section):
     spec = api.ExperimentSpec.from_dict(
