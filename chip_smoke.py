@@ -20,6 +20,7 @@ Phases, each failing loudly (non-zero exit, no result line):
    computing the same function (where there is one) and the bound, after a
    timing floor (a 1-element ``add_`` timed the same way); kernel 4 with
    its share of the bytes bound and the HBM rate of its binding probe;
+   kernel 1 also at the femnist example's oracle shape (200, 44,308);
    kernel 5 over sorted scores (the solve's input) at the solve's sizes,
    shuffled and ragged at M = 10^6, against its bytes bound; kernels 6
    (rmsnorm) and 7 (flash_attention) at the serving path's shapes, kernel 7
@@ -57,6 +58,17 @@ Phases, each failing loudly (non-zero exit, no result line):
    deployable tiny LM, on the card and on the CPU from one replayed
    source: equal draws, parameters and metrics within 1e-5, kernel 1 (or
    2) once a round, seconds a round on the card;
+   examples — the paper's four examples (``repro_torch.examples``) on the
+   card at full width, rounds cut (quickstart at its defaults,
+   synthetic_regret 60 rounds and one seed, budget_sweep 60 rounds,
+   femnist_style 30 rounds), then ``repro_torch.bench.tables`` on their
+   JSON: every fig2 / fig3b / fig4 row present and finite, kernel 1 once a
+   round, each spec's wall seconds after a warm-up;
+   checkpoint — the deployable tiny LM with K-Vib, the logreg oracle with
+   vrb and (i), each stopped after one 2-round segment and resumed through
+   a fresh ``CheckpointManager``: History and final parameters bitwise the
+   uninterrupted card run; ``exact_oracle_equiv`` at C = N against the
+   oracle logreg run, with the largest parameter gap;
    autograd — gradients through kernels 6-8 (kernel forward, PyTorch
    backward) equal the CPU's in f32: each wrapper, then ``loss_fn`` of a
    reduced smollm-360m and a reduced zamba2-1.2b, with the kernels counted in
@@ -270,6 +282,7 @@ def kernel_phase(torch):
         ("oracle tiny_lm", 50, 114688),
         ("deployable tiny_lm", 10, 114688),
         ("oracle logreg", 100, 610),
+        ("femnist v1 mlp", 200, 44308),  # the femnist example's oracle round at v1
         ("large ragged", 20, 2**24 + 3),
     ]
     path_shape = {  # the shape each kernel's JSON row reports
@@ -354,6 +367,11 @@ def kernel_phase(torch):
           f"{k3['torch.float32']['library_ms']:.5f} (torch.mv + square().sum(1)); bf16 "
           f"kernel_ms={k3['torch.bfloat16']['kernel_ms']:.5f} plain_ms="
           f"{k3['torch.bfloat16']['plain_ms']:.5f}", flush=True)
+    k1 = rows[("fused_multi_weighted_agg", "femnist v1 mlp", "torch.float32")]
+    print(f"fused_multi_weighted_agg femnist v1 (2, 200) x (200, 44308) f32: kernel_ms="
+          f"{k1['kernel_ms']:.5f} bound_ms={k1['bound_ms']:.5f} ({k1['bound_by']}) "
+          f"library_ms={k1['library_ms']:.5f} (torch.matmul) plain_ms={k1['plain_ms']:.5f}",
+          flush=True)
     rows.update(dequant_kernel_phase(torch, fwa, ref, gen, flush, max_err))
     max_err["waterfill_level_stats"] = 0.0
     rows.update(waterfill_kernel_phase(torch, gen, flush, max_err, floor_ms))
@@ -1073,6 +1091,166 @@ def samplers_phase(torch, card: str) -> dict:
         check(len(found) <= len(syncs["kvib logreg oracle"]),
               f"samplers {label}: host syncs {sorted(set(found))[:4]}")
     return launches
+
+
+# -- 4c. examples -----------------------------------------------------------------
+
+# The examples phase runs the paper's four examples (``repro_torch.examples``)
+# at their full widths, with rounds cut: every spec is an oracle run, so
+# kernel 1 launches once a round and nothing else does.
+EXAMPLE_RUNS = [
+    ("quickstart", [], "quickstart.json"),
+    ("synthetic_regret", ["--rounds", "60", "--seeds", "1"], "synthetic.json"),
+    ("budget_sweep", ["--rounds", "60"], "budget.json"),
+    ("femnist_style", ["--rounds", "30"], "femnist.json"),
+]
+
+
+def example_walls(name: str, res: dict) -> dict:
+    """Each spec's wall seconds from an example's results."""
+    if name == "quickstart":
+        return {s: v["wall_time_s"] for s, v in res["summary"].items()}
+    if name == "synthetic_regret":
+        return {s: runs[0]["wall_s"] for s, runs in res["runs"].items()}
+    if name == "budget_sweep":
+        return {f"{s} K={k}": w for s, by_k in res["wall_s"].items() for k, w in by_k.items()}
+    return {f"{lv} {s}": r["wall_s"] for lv, v in res["levels"].items()
+            for s, r in v["samplers"].items()}
+
+
+def examples_phase(torch, card: str) -> dict:
+    """Each port example on the card (default device), its JSON under
+    ``results/torch/smoke/``, then ``bench.tables`` on it: every
+    fig2 / fig3b / fig4 row present, its numbers finite.  One 2-round run
+    of each model shape first warms the card up (not timed); prints each
+    spec's wall seconds.  Returns the launches."""
+    phase("examples")
+    import importlib
+    import re
+
+    from repro_torch import api, kernels
+    from repro_torch.bench import tables
+
+    mods = {name: importlib.import_module(f"repro_torch.examples.{name}")
+            for name, _, _ in EXAMPLE_RUNS}
+    out = ROOT / "results" / "torch" / "smoke"
+    qs, fem = mods["quickstart"], mods["femnist_style"]
+    for spec in (qs.spec_for(qs.parse_args(["--rounds", "2"]), "kvib"),
+                 fem.spec_for(fem.parse_args(["--rounds", "2"]), "v1", "kvib")):
+        api.run(spec)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    rounds, walls = 0, {}
+    for name, argv, fname in EXAMPLE_RUNS:
+        t0 = time.perf_counter()
+        res = mods[name].main(argv + ["--out", str(out / fname)])
+        cfg = res["config"]
+        check(cfg["device"] is None, f"examples {name}: ran on {cfg['device']}, not the default")
+        walls[name] = example_walls(name, res)
+        rounds += cfg["rounds"] * len(walls[name])
+        print(f"examples {name}: {len(walls[name])} specs x {cfg['rounds']} rounds in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+    counts = kernels.launch_counts()
+    want = {k: rounds * (k == "fused_multi_weighted_agg") for k in counts}
+    check(counts == want, f"examples: kernel launches {counts}, expected {want}")
+    rows = {name: derived for name, _, derived in tables.main(["--results-dir", str(out)])}
+    syn, bud, fem_s = (mods[n].parse_args([]) for n in ("synthetic_regret", "budget_sweep",
+                                                         "femnist_style"))
+    expected = ([f"fig2_regretT_{s}" for s in mods["synthetic_regret"].SAMPLERS]
+                + [f"fig3b_{s}" for s in bud.samplers]
+                + [f"fig4_{lv}_{s}" for lv in mods["femnist_style"].LEVELS for s in fem_s.samplers])
+    check(sorted(rows) == sorted(expected), f"examples: table rows {sorted(rows)}")
+    for name, derived in rows.items():
+        nums = re.findall(r"[-+]?(?:\d+\.\d*|\d+|nan|inf)", derived.replace("K=", "K "))
+        check(nums and all(math.isfinite(float(x)) for x in nums),
+              f"examples: row {name} is not finite: {derived}")
+    print(f"examples: wall seconds a spec on the card ({card}), warm-up excluded: "
+          + json.dumps({n: {k: round(v, 4) for k, v in w.items()} for n, w in walls.items()}),
+          flush=True)
+    return counts
+
+
+# -- 4d. checkpoint ---------------------------------------------------------------
+
+
+def checkpoint_phase(torch) -> dict:
+    """Preempt and resume on the card: the deployable tiny LM with K-Vib
+    (kernel 2), the logreg oracle with vrb (kernel 1) and (i) (int8 + error
+    feedback + Bernoulli availability + the async ring, kernel 4), each
+    with ``ckpt_every=2``, stopped after one segment (``max_segments=1``)
+    and resumed by ``api.run`` through a fresh ``CheckpointManager``:
+    History and final parameters bitwise the uninterrupted card run.  Then
+    ``exact_oracle_equiv`` at C = N against the oracle logreg run: equal
+    draws, and the largest parameter gap.  Returns the launches."""
+    phase("checkpoint")
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import api, kernels
+    from repro_torch.checkpoint import CheckpointManager, config_fingerprint
+    from repro_torch.fed.server import build_segment_runner
+    from repro_torch.fed.state import run_segmented
+
+    specs = {label: spec for label, spec, _ in path_specs(api)}
+    every = {"execution": {"ckpt_every": 2}}
+    cases = [
+        ("tiny_lm deployable kvib", with_sections(api, specs["tiny_lm deployable"], **every)),
+        ("logreg oracle vrb", with_sections(api, specs["logreg oracle"], **every,
+                                            sampler={"name": "vrb", "kwargs": {}})),
+        ("(i) tiny_lm oracle int8+EF bernoulli+async",
+         with_sections(api, specs["(i) tiny_lm oracle int8+EF bernoulli+async"], **every)),
+    ]
+    kernels.reset_launch_counts()
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        for k, (label, spec) in enumerate(cases):
+            full = api.run(spec)
+            built = api.build(spec)
+            cfg, fp, path = built.fed_config, config_fingerprint(spec), f"{root}/{k}"
+            segment, st0 = build_segment_runner(built.task, built.dataset, built.sampler, cfg)
+            pre = run_segmented(st0, cfg.rounds, segment, ckpt_every=cfg.ckpt_every,
+                                manager=CheckpointManager(path, fingerprint=fp), max_segments=1)
+            check(pre.round == 2, f"checkpoint {label}: preempted at round {pre.round}")
+            t0 = time.perf_counter()
+            resumed = api.run(spec, ckpt_manager=CheckpointManager(path, fingerprint=fp))
+            resume_s = time.perf_counter() - t0
+            for field in ("train_loss", "cohort_size", "cohort_dropped", "deadline_dropped",
+                          "estimator_sq_error"):
+                check(getattr(resumed, field) == getattr(full, field),
+                      f"checkpoint {label}: {field} differs from the uninterrupted run")
+            if cfg.oracle_metrics:
+                check(resumed.regret.costs == full.regret.costs, f"checkpoint {label}: regret")
+            for a, b in zip(_leaves(resumed.final_params), _leaves(full.final_params)):
+                check(np.array_equal(a, b), f"checkpoint {label}: final parameters differ")
+            size = sum(f.stat().st_size for f in Path(path).iterdir())
+            print(f"checkpoint {label}: preempted after round 2, resumed through a fresh "
+                  f"manager: History and final parameters bitwise the uninterrupted card run "
+                  f"(resume {resume_s:.3f} s, checkpoint directory {size} bytes)", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    oracle = specs["logreg oracle"]
+    exact = with_sections(api, oracle, execution={"oracle_metrics": False,
+                                                  "exact_oracle_equiv": True},
+                          federation={"cohort": 100})
+    o, e = api.run(oracle), api.run(exact)
+    check(o.cohort_size == e.cohort_size, "exact_oracle_equiv: draws differ from the oracle run")
+    gap, rel, bitwise = 0.0, 0.0, True
+    for a, b in zip(_leaves(e.final_params), _leaves(o.final_params)):
+        diff = float(np.abs(a - b).max())
+        gap, bitwise = max(gap, diff), bitwise and np.array_equal(a, b)
+        rel = max(rel, diff / max(float(np.abs(b).max()), 1e-30))
+    check(rel <= 1e-5, f"exact_oracle_equiv: parameters off the oracle run by {rel} of a leaf")
+    print(f"exact_oracle_equiv (logreg, C = N = 100) against the oracle run on the card: "
+          f"cohorts equal, bitwise={bitwise}, largest parameter gap {gap:.3g} "
+          f"({rel:.3g} of the leaf's scale)", flush=True)
+    counts = kernels.launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(fused_cohort_agg_and_error=2 * ROUNDS, fused_dequant_cohort_agg=2 * ROUNDS,
+                fused_multi_weighted_agg=4 * ROUNDS)
+    check(counts == want, f"checkpoint: kernel launches {counts}, expected {want}")
+    return counts
 
 
 def _serve_checks(torch, label, engine, counts, want, new_tokens):
@@ -1831,6 +2009,10 @@ def main() -> int:
     rows, max_err, path_shape = kernel_phase(torch)
     launches, engines = path_phase(torch)
     for k, v in samplers_phase(torch, card).items():
+        launches[k] += v
+    for k, v in examples_phase(torch, card).items():
+        launches[k] += v
+    for k, v in checkpoint_phase(torch).items():
         launches[k] += v
     autograd_phase(torch)
     agreement_phase(torch)

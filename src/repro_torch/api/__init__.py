@@ -5,8 +5,12 @@
     spec = api.ExperimentSpec.load("experiment.json")  # same JSON as repro.api
     history = api.run(spec)                 # on the GPU
     history = api.run(spec, device="cpu")   # plain PyTorch path
+
+``register_task`` / ``register_dataset`` add factories to the spec
+registries; ``run(spec, ckpt_manager=...)`` checkpoints and resumes a run,
+``restore_template(spec)`` is the state a checkpoint restores into.
 """
-from repro_torch.api.runner import BuiltExperiment, build, dataset_names, run, task_names
+from repro_torch.api.runner import BuiltExperiment, build, restore_template, run
 from repro_torch.api.spec import (
     CompressionSpec,
     ExecutionSpec,
@@ -16,7 +20,11 @@ from repro_torch.api.spec import (
     SamplerSpec,
     ServeSpec,
     TaskSpec,
+    dataset_names,
+    register_dataset,
+    register_task,
     server_opt_names,
+    task_names,
 )
 
 __all__ = [
@@ -31,6 +39,9 @@ __all__ = [
     "BuiltExperiment",
     "build",
     "run",
+    "restore_template",
+    "register_task",
+    "register_dataset",
     "task_names",
     "dataset_names",
     "server_opt_names",

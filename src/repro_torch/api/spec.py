@@ -18,6 +18,7 @@ Serialization contract (as in the reference):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from typing import Any, Mapping
 
@@ -36,8 +37,86 @@ __all__ = [
     "CompressionSpec",
     "ServeSpec",
     "ExperimentSpec",
+    "register_task",
+    "register_dataset",
+    "task_names",
+    "dataset_names",
     "server_opt_names",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Component registries: name -> factory, as in the reference.  The built-in
+# entries cover the paper experiments; ``register_task`` /
+# ``register_dataset`` add scenario-specific factories
+# (``repro_torch.examples.femnist_style`` registers its vision-like
+# generator) while the spec stays a plain name + kwargs record.  A dataset
+# factory returns a ``FederatedDataset`` on any device; the build layer
+# moves it to the run's device.
+# ---------------------------------------------------------------------------
+
+_TASKS: dict = {}
+_DATASETS: dict = {}
+
+
+def _builtin_tasks() -> dict:
+    from repro_torch.fed import tasks
+
+    return {
+        "logreg": tasks.logistic_regression,
+        "mlp": tasks.mlp_classifier,
+        "tiny_lm": tasks.tiny_lm,
+    }
+
+
+def _builtin_datasets() -> dict:
+    from repro_torch.data import synthetic_classification, synthetic_tokens
+
+    # Built on the CPU (numpy first in any case); the runner moves them.
+    return {
+        "synthetic_classification": functools.partial(synthetic_classification, device="cpu"),
+        "synthetic_tokens": functools.partial(synthetic_tokens, device="cpu"),
+    }
+
+
+def _task_registry() -> dict:
+    if not _TASKS:
+        _TASKS.update(_builtin_tasks())
+    return _TASKS
+
+
+def _dataset_registry() -> dict:
+    if not _DATASETS:
+        _DATASETS.update(_builtin_datasets())
+    return _DATASETS
+
+
+def register_task(name: str, factory) -> None:
+    """Register a ``Task`` factory under ``name`` for ``TaskSpec.name``.
+
+    The factory is called with ``TaskSpec.kwargs``.  Registration is additive
+    process state: a spec referencing a custom name deserializes fine but can
+    only be *built* in a process that registered the factory."""
+    _task_registry()[str(name)] = factory
+
+
+def register_dataset(name: str, factory) -> None:
+    """Register a dataset factory under ``name`` for ``TaskSpec.dataset``.
+
+    Factories must be deterministic pure functions of their kwargs (seed
+    included in the kwargs) returning a ``repro_torch.data.FederatedDataset``:
+    the build layer memoizes construction per process and device, so sweeps
+    that re-reference the same (dataset, kwargs) cell share one dataset."""
+    _dataset_registry()[str(name)] = factory
+
+
+def task_names() -> list[str]:
+    return sorted(_task_registry())
+
+
+def dataset_names() -> list[str]:
+    return sorted(_dataset_registry())
+
 
 _SERVER_OPTS: dict[str, type[ServerOptimizer]] = {
     "fedavg": FedAvgServer,

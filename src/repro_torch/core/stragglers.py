@@ -53,6 +53,7 @@ __all__ = [
     "latency_draw",
     "deadline_survival",
     "fault_state_init",
+    "abstract_fault_state",
     "async_step",
     "flush_pending",
     "flat_dim",
@@ -254,6 +255,12 @@ def fault_state_init(fault, n: int, d_dim: int, compression, device) -> dict:
             buf["delta"] = torch.zeros((b, int(d_dim)), dtype=torch.float32, device=device)
         state["buf"] = buf
     return state
+
+
+def abstract_fault_state(fault, n: int, d_dim: int = 0, compression=None) -> dict:
+    """``fault_state_init``'s tensors on the ``meta`` device: their shapes
+    and dtypes, no allocation."""
+    return fault_state_init(fault, n, d_dim, compression, torch.device("meta"))
 
 
 # -- buffered-asynchronous aggregation (FaultSpec.async_buffer) --------------

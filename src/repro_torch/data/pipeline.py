@@ -4,7 +4,8 @@ Clients hold ragged datasets; for batched (vmapped) simulation all clients are
 padded to the largest size and carry their valid count.  Batches are drawn
 uniformly with replacement from each client's valid region, by indices that
 the caller supplies (``repro_torch.rng``), so a run's randomness has one
-injection point.
+injection point; ``batch_all_clients`` (the examples' eval batch) takes an
+explicit generator or the indices themselves.
 
 The generators are the reference's seeded numpy code, so their arrays equal
 ``repro.data.pipeline``'s bit for bit.
@@ -56,6 +57,32 @@ class FederatedDataset:
         (C, R, B, ...) and labels (C, R, B)."""
         rows = ids.reshape(-1, 1, 1)
         return self.features[rows, idx], self.labels[rows, idx]
+
+    def batch_all_clients(
+        self, batch_size: int, *, generator: torch.Generator | None = None, idx=None
+    ):
+        """(N, B, ...) features and (N, B) labels, one batch per client:
+        client i's indices drawn uniformly from ``[0, sizes[i])`` with
+        ``generator`` (on the dataset's device), or taken from ``idx``
+        (N, B)."""
+        if idx is None:
+            u = torch.rand(
+                (self.n_clients, int(batch_size)), generator=generator, device=self.device
+            )
+            hi = self.sizes.reshape(-1, 1)
+            # f32 rounding can carry u * size up to size itself: clamp.
+            idx = torch.minimum((u * hi).long(), hi - 1)
+        else:
+            idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        rows = torch.arange(self.n_clients, device=self.device).reshape(-1, 1)
+        return self.features[rows, idx], self.labels[rows, idx]
+
+    def to(self, device) -> "FederatedDataset":
+        """The same dataset on ``device`` (``self`` when already there)."""
+        dev = torch.device(device)
+        if self.device == dev:
+            return self
+        return FederatedDataset(self.features.to(dev), self.labels.to(dev), self.sizes.to(dev))
 
 
 def _to_dataset(feats: np.ndarray, labels: np.ndarray, sizes: np.ndarray, device):

@@ -50,11 +50,18 @@ The carry is ``(params, opt_state, sampler_state)``, then the fault state
 then with error feedback the (D,) f32 residual ``{"resid": ...}``, zero at
 round 0, as the reference's ``TrainState`` orders them.
 
-Not ported yet (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item): ``exact_oracle_equiv``, score-history host offload,
-and checkpointing (``ckpt_every`` is accepted and ignored while no
-checkpoint manager is given: segmentation is bitwise-neutral in the
-reference).
+The compiled path (``compiled=True``) runs through ``fed.state``: the
+round-0 ``TrainState`` (``build_segment_runner``) advances in segments of
+``cfg.ckpt_every`` rounds (``run_segmented``), bitwise the same for any
+segmentation; with a ``repro_torch.checkpoint.CheckpointManager`` the run
+restores the latest committed state first and publishes one at every
+boundary, so a preempted run re-invoked with the same config and manager
+gives the uninterrupted run's ``History``.  The async ring flushes at the
+end of the horizon only.  ``exact_oracle_equiv`` (deployable mode)
+scatters the cohort's deltas and weights back to N rows and aggregates
+them with the oracle contraction (kernel 1 at (2, N) x (N, D)), bitwise the
+oracle run at C = N; ``score_history_host_offload`` keeps a device ring of
+``ckpt_every`` score rows, drained to the host at each boundary.
 """
 from __future__ import annotations
 
@@ -71,11 +78,17 @@ from repro_torch.data.pipeline import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.fed import client as fed_client
 from repro_torch.fed import cohort as fed_cohort
+from repro_torch.fed.state import (
+    TrainState,
+    init_metric_buffers,
+    make_segment_fn,
+    run_segmented,
+)
 from repro_torch.fed.tasks import Task, params_to_numpy
 from repro_torch.optim.fedopt import FedAvgServer, ServerOptimizer
 from repro_torch.rng import PhiloxSource, RandomSource
 
-__all__ = ["FedConfig", "History", "init_carry", "run_federated"]
+__all__ = ["FedConfig", "History", "init_carry", "build_segment_runner", "run_federated"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,11 +108,11 @@ class FedConfig:
     compiled: bool = True  # False: per-round host copies of the metrics
     # Deployable-mode static cohort buffer size C; None -> min(2 * budget, N).
     cohort: int | None = None
-    exact_oracle_equiv: bool = False  # not ported
+    exact_oracle_equiv: bool = False  # deployable: N-width scatter + oracle contraction
     track_scores: bool = True  # oracle-mode (T, N) score history
     score_history_bytes_limit: int = 1 << 30
-    score_history_host_offload: bool = False  # not ported
-    ckpt_every: int = 0  # bitwise-neutral segmentation; ignored without a manager
+    score_history_host_offload: bool = False  # (ckpt_every, N) device ring, drained
+    ckpt_every: int = 0  # bitwise-neutral segmentation; a manager saves at each boundary
     faults: object | None = None  # an api.FaultSpec (enabled) or None
     # An api.CompressionSpec (int8/fp8 deltas, error feedback) or None.
     compression: object | None = None
@@ -139,35 +152,31 @@ class History:
         return out
 
 
-def _check_supported(cfg: FedConfig, ckpt_manager, n_clients: int) -> None:
-    if cfg.compression is not None and not cfg.oracle_metrics and cfg.exact_oracle_equiv:
-        raise ValueError(
-            "compression is incompatible with exact_oracle_equiv: the N-width "
-            "scatter path exists to reproduce the oracle contraction bitwise, "
-            "which quantization cannot; use the cohort-width aggregation "
-            "(exact_oracle_equiv=False)"
-        )
-    missing = []
-    if cfg.exact_oracle_equiv and not cfg.oracle_metrics:
-        missing.append(
-            "exact_oracle_equiv (ROADMAP.md queue 1, 'Server loop + TrainState')"
-        )
-    if cfg.score_history_host_offload:
-        missing.append(
-            "score_history_host_offload (ROADMAP.md queue 1, 'Server loop + TrainState')"
-        )
-    if ckpt_manager is not None:
-        missing.append("a checkpoint manager (ROADMAP.md queue 1, 'Checkpointing')")
-    if missing:
-        raise NotImplementedError("not ported to repro_torch yet: " + "; ".join(missing))
+def _score_history_plan(cfg: FedConfig, n_clients: int):
+    """Rows of the oracle (T, N) score-history buffer on the device, or None
+    without one: ``cfg.rounds``, or ``ckpt_every`` with host offload (a ring
+    drained at each segment boundary).  Raises instead of allocating a
+    full-horizon buffer over ``cfg.score_history_bytes_limit``."""
+    if not (cfg.oracle_metrics and cfg.track_scores):
+        return None
     full_bytes = int(cfg.rounds) * int(n_clients) * 4
-    if cfg.oracle_metrics and cfg.track_scores and full_bytes > cfg.score_history_bytes_limit:
+    if cfg.score_history_host_offload:
+        if cfg.ckpt_every <= 0:
+            raise ValueError(
+                "score_history_host_offload=True needs ckpt_every > 0 (the "
+                "device ring holds one segment of score rows); got "
+                f"ckpt_every={cfg.ckpt_every}"
+            )
+        return min(int(cfg.ckpt_every), int(cfg.rounds))
+    if full_bytes > cfg.score_history_bytes_limit:
         raise ValueError(
             f"track_scores=True would allocate a ({cfg.rounds}, {n_clients}) f32 "
             f"score-history buffer ({full_bytes / 2**20:.0f} MiB) on the device, "
             f"over score_history_bytes_limit={cfg.score_history_bytes_limit / 2**20:.0f} "
-            "MiB.  Raise the limit or set track_scores=False."
+            "MiB.  Set score_history_host_offload=True (chunked host drain), raise "
+            "the limit, or set track_scores=False."
         )
+    return int(cfg.rounds)
 
 
 def _build_clients(task: Task, cfg: FedConfig):
@@ -285,7 +294,16 @@ def _build_round_body(
             # Unbiased cohort estimate of the full weighted loss.
             metrics["train_loss"] = torch.where(sel.valid, sel.weights * losses_c, 0.0).sum()
             metrics["cohort_size"] = sel.valid.to(torch.int32).sum()
-            if comp is not None:
+            if cfg.exact_oracle_equiv:
+                # Scatter to (N, ...) and reuse the oracle contraction:
+                # bitwise the oracle run when |S| <= C (zero terms cannot
+                # change the sums), at O(N * D) memory.
+                d_est, sq_err = estimator.aggregate_and_error(
+                    fed_cohort.scatter_cohort(deltas_c, sel, n),
+                    fed_cohort.scatter_cohort(sel.weights, sel, n),
+                    lam,
+                )
+            elif comp is not None:
                 d_est, sq_err, norms_c, new_resid = estimator.aggregate_compressed(
                     deltas_c, sel.weights, lam_c, comp, c_state.get("resid")
                 )
@@ -385,6 +403,109 @@ def _flush_async(params, opt_state, f_state: dict, cfg: FedConfig):
     return params
 
 
+def _metric_shapes(cfg: FedConfig, n: int, has_eval: bool, score_rows: int) -> dict:
+    """Every per-round metric of the round body, before round 0: name ->
+    ``(shape, dtype)``, the scores with ``score_rows``, their buffer's rows
+    (``fed.state.init_metric_buffers``)."""
+    f32, i64 = torch.float32, torch.int64
+    shapes = {"train_loss": ((), f32), "cohort_size": ((), i64)}
+    if cfg.faults is not None and cfg.faults.deadline is not None:
+        shapes["deadline_dropped"] = ((), i64)
+    if cfg.oracle_metrics:
+        shapes.update(sq_error=((), f32), cost=((), f32), opt_cost=((), f32))
+        if cfg.track_scores:
+            shapes["scores"] = ((n,), f32, score_rows)
+    else:
+        shapes["dropped"] = ((), i64)
+    if has_eval:
+        shapes["accuracy"] = ((), f32)
+    return shapes
+
+
+def _setup(task, dataset, sampler, cfg, eval_data, dev, random_source):
+    """The run's dataset and eval batch on ``dev``, its random source, the
+    round-0 carry and the round body."""
+    if cfg.compression is not None and not cfg.oracle_metrics and cfg.exact_oracle_equiv:
+        raise ValueError(
+            "compression is incompatible with exact_oracle_equiv: the N-width "
+            "scatter path exists to reproduce the oracle contraction bitwise, "
+            "which quantization cannot; use the cohort-width aggregation "
+            "(exact_oracle_equiv=False)"
+        )
+    dataset = dataset.to(dev)
+    if eval_data is not None:
+        eval_data = tuple(
+            (a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))).to(dev)
+            for a in eval_data
+        )
+    source = PhiloxSource(cfg.seed, dev) if random_source is None else random_source
+    carry = init_carry(task, sampler, cfg, source, dev)
+    body = _build_round_body(task, dataset, sampler, cfg, eval_data, source)
+    return dataset, eval_data, source, carry, body
+
+
+def build_segment_runner(
+    task: Task,
+    dataset: FederatedDataset,
+    sampler: Sampler,
+    cfg: FedConfig,
+    eval_data: tuple | None = None,
+    *,
+    device=None,
+    random_source: RandomSource | None = None,
+):
+    """``(segment_fn, round-0 TrainState)`` of the compiled path.
+
+    The state holds the initial parameters (from the random source), the
+    optimizer's and sampler's initial states, zero metric buffers for the
+    whole horizon, round 0, the source's state, and the fault and
+    error-feedback carries; it is also the restore template of
+    ``CheckpointManager.restore_or_init``.  ``segment_fn(state, n)`` runs
+    rounds ``state.round .. state.round + n - 1`` (``fed.state``)."""
+    dev = resolve_device(device)
+    dataset, eval_data, source, carry, body = _setup(
+        task, dataset, sampler, cfg, eval_data, dev, random_source
+    )
+    fault_on = cfg.faults is not None
+    ef_on = cfg.compression is not None and bool(cfg.compression.error_feedback)
+    score_rows = _score_history_plan(cfg, dataset.n_clients)
+    shapes = _metric_shapes(cfg, dataset.n_clients, eval_data is not None, score_rows)
+    state = TrainState(
+        params=carry[0],
+        opt_state=carry[1],
+        sampler=carry[2],
+        metrics=init_metric_buffers(shapes, cfg.rounds, dev),
+        round=0,
+        source=source.state_dict(),
+        faults=carry[3] if fault_on else (),
+        compression=carry[-1] if ef_on else (),
+    )
+    return make_segment_fn(body, source, with_faults=fault_on, with_compression=ef_on), state
+
+
+def _run_eager(task, dataset, sampler, cfg, eval_data, dev, random_source):
+    """``compiled=False``: the same body, each round's metrics copied to the
+    host as it ends (the reference's debuggable loop); no ``TrainState``."""
+    if not (cfg.oracle_metrics and cfg.track_scores and cfg.score_history_host_offload):
+        _score_history_plan(cfg, dataset.n_clients)
+    dataset, eval_data, _, carry, body = _setup(
+        task, dataset, sampler, cfg, eval_data, dev, random_source
+    )
+    per_round = []
+    for t in range(cfg.rounds):
+        carry, m = body(t, carry)
+        per_round.append({k: v.cpu().numpy() for k, v in m.items()})
+    if per_round:
+        metrics = {k: np.stack([m[k] for m in per_round]) for k in per_round[0]}
+    else:
+        shapes = _metric_shapes(cfg, dataset.n_clients, eval_data is not None, 0)
+        metrics = {k: np.zeros((0,) + tuple(v[0])) for k, v in shapes.items()}
+    params = carry[0]
+    if cfg.faults is not None and int(cfg.faults.async_buffer) > 0:
+        params = _flush_async(params, carry[1], carry[3], cfg)
+    return params, metrics
+
+
 def run_federated(
     task: Task,
     dataset: FederatedDataset,
@@ -401,53 +522,55 @@ def run_federated(
 
     ``random_source`` supplies every draw (default ``PhiloxSource(cfg.seed,
     device)``); ``eval_data`` is an optional (x, y) batch for the accuracy
-    curve (``cfg.eval_every`` schedule)."""
+    curve (``cfg.eval_every`` schedule).  ``ckpt_manager`` (a
+    ``repro_torch.checkpoint.CheckpointManager``, compiled path only, with
+    ``cfg.ckpt_every > 0``): restore the latest committed ``TrainState``
+    before running and publish one at every segment boundary."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
-    _check_supported(cfg, ckpt_manager, dataset.n_clients)
-    if dataset.device != dev:
-        dataset = FederatedDataset(
-            dataset.features.to(dev), dataset.labels.to(dev), dataset.sizes.to(dev)
-        )
-    if eval_data is not None:
-        eval_data = tuple(
-            (a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))).to(dev)
-            for a in eval_data
-        )
-    source = PhiloxSource(cfg.seed, dev) if random_source is None else random_source
-
-    carry = init_carry(task, sampler, cfg, source, dev)
-    body = _build_round_body(task, dataset, sampler, cfg, eval_data, source)
-
-    buffers: dict = {}
-    per_round: list = []
-    for t in range(cfg.rounds):
-        carry, m = body(t, carry)
-        if cfg.compiled:
-            for k, v in m.items():
-                if k not in buffers:
-                    buffers[k] = torch.empty(
-                        (cfg.rounds,) + tuple(v.shape), dtype=v.dtype, device=dev
-                    )
-                buffers[k][t] = v
-        else:
-            # Host copy every round — the reference loop's defining trait.
-            per_round.append({k: v.cpu().numpy() for k, v in m.items()})
-    if cfg.rounds == 0:
-        keys = ["train_loss", "cohort_size"]
-        keys += ["sq_error", "cost", "opt_cost"] if cfg.oracle_metrics else ["dropped"]
-        if cfg.faults is not None and cfg.faults.deadline is not None:
-            keys += ["deadline_dropped"]
-        keys += ["accuracy"] if eval_data is not None else []
-        metrics = {k: np.zeros(0) for k in keys}
-    elif cfg.compiled:
-        metrics = {k: b.cpu().numpy() for k, b in buffers.items()}
+    if not cfg.compiled:
+        if ckpt_manager is not None:
+            raise ValueError(
+                "checkpointing exists only for the compiled execution path "
+                "(execution.compiled=False has no checkpointable TrainState)"
+            )
+        params, metrics = _run_eager(task, dataset, sampler, cfg, eval_data, dev, random_source)
     else:
-        metrics = {k: np.stack([m[k] for m in per_round]) for k in per_round[0]}
+        if ckpt_manager is not None and cfg.ckpt_every <= 0:
+            # One whole-horizon segment would publish nothing before the end.
+            raise ValueError(
+                "run_federated(ckpt_manager=...) needs cfg.ckpt_every > 0; "
+                f"got ckpt_every={cfg.ckpt_every}"
+            )
+        segment, state = build_segment_runner(
+            task, dataset, sampler, cfg, eval_data, device=dev, random_source=random_source
+        )
+        if ckpt_manager is not None:
+            state, _ = ckpt_manager.restore_or_init(state)
+        on_segment = None
+        offload = cfg.oracle_metrics and cfg.track_scores and cfg.score_history_host_offload
+        if offload:
+            # Segments start at multiples of ckpt_every, so a segment's rows
+            # sit at the front of the ring.  Rounds run before a restore (by
+            # an earlier process) stay zero.
+            scores_host = np.zeros((cfg.rounds, dataset.n_clients), np.float32)
+            drained_to = int(state.round)
 
-    params = carry[0]
-    if cfg.faults is not None and int(cfg.faults.async_buffer) > 0:
-        params = _flush_async(params, carry[1], carry[3], cfg)
+            def on_segment(st, done):
+                nonlocal drained_to
+                scores_host[drained_to:done] = st.metrics["scores"][: done - drained_to].cpu().numpy()
+                drained_to = done
+
+        state = run_segmented(
+            state, cfg.rounds, segment, ckpt_every=cfg.ckpt_every, manager=ckpt_manager,
+            on_segment=on_segment,
+        )
+        params = state.params
+        if cfg.faults is not None and int(cfg.faults.async_buffer) > 0:
+            params = _flush_async(params, state.opt_state, state.faults, cfg)
+        metrics = {k: b.cpu().numpy() for k, b in state.metrics.items()}
+        if offload:
+            metrics["scores"] = scores_host
     hist = _materialize_history(metrics, cfg, has_eval=eval_data is not None)
     hist.final_params = params_to_numpy(params)
     hist.wall_time_s = time.perf_counter() - t0

@@ -191,7 +191,10 @@ class _TinyLM(nn.Module):
 
     def forward(self, tokens):
         s = tokens.shape[1]
-        h = self.emb[tokens.long()]
+        # F.embedding, not self.emb[tokens]: the indexing backward
+        # accumulates repeated tokens in a thread-dependent order on the CPU,
+        # so two runs of one spec would differ in the last bits.
+        h = F.embedding(tokens.long(), self.emb)
         mask = torch.ones(s, s, dtype=torch.bool, device=tokens.device).tril()
         for blk in self.children():
             h = blk(h, mask)

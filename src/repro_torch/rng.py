@@ -39,8 +39,12 @@ for ``"exponential"``, U[0, 1) for ``"uniform"``, N(0, 1) for
 ``"lognormal"``.
 
 ``PhiloxSource`` is the default: one ``torch.Generator`` per stream on the
-run's device (Philox on CUDA), seeded from the run's seed.  ``ReplaySource``
-plays back recorded tables.  Draws are made on the device and never read
+run's device (Philox on CUDA), seeded from the run's seed.  Its draws come
+in round order, so its ``state_dict()`` (each stream's
+``Generator.get_state()``) is what a checkpoint carries in place of the
+reference's PRNG key (``fed.state.TrainState.source``); a resumed run
+reloads it with ``load_state_dict``.  ``ReplaySource`` plays back recorded
+tables indexed by round and has an empty state.  Draws are made on the device and never read
 back, so a round stays free of host syncs.
 """
 from __future__ import annotations
@@ -80,6 +84,10 @@ class RandomSource(Protocol):
 
     def gumbel(self, t: int, shape: tuple) -> torch.Tensor: ...
 
+    def state_dict(self) -> dict: ...
+
+    def load_state_dict(self, state: dict) -> None: ...
+
 
 def _check_dist(dist: str) -> None:
     if dist not in _LATENCY_DISTS:
@@ -91,6 +99,7 @@ class PhiloxSource:
     in round order."""
 
     _STREAMS = ("init", "sample", "cohort", "data", "avail", "latency", "async")
+    _LATE = {"gumbel": 1, "rsp": 2, "rsp_wor": 3}  # stream -> its seed offset k
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
@@ -156,6 +165,19 @@ class PhiloxSource:
     def rsp_wor_indices(self, t: int, n: int, budget: int) -> torch.Tensor:
         gen = self._late_stream("rsp_wor", 3)
         return torch.randperm(n, generator=gen, device=self.device)[:budget]
+
+    def state_dict(self) -> dict:
+        """Every stream's ``get_state()`` (a CPU uint8 tensor, also for a
+        CUDA generator), the late streams included: creating one moves no
+        other stream."""
+        for name, k in self._LATE.items():
+            self._late_stream(name, k)
+        return {name: gen.get_state() for name, gen in sorted(self._gen.items())}
+
+    def load_state_dict(self, state: dict) -> None:
+        for name, st in state.items():
+            gen = self._gen.get(name) or self._late_stream(name, self._LATE[name])
+            gen.set_state(st)
 
     def gumbel(self, t: int, shape: tuple) -> torch.Tensor:
         gen = self._late_stream("gumbel", 1)
@@ -255,6 +277,13 @@ class ReplaySource:
     def async_latency(self, t: int, dist: str) -> torch.Tensor:
         _check_dist(dist)
         return self._recorded(self._async, "async latencies")[t]
+
+    def state_dict(self) -> dict:
+        return {}  # every table is indexed by round
+
+    def load_state_dict(self, state: dict) -> None:
+        if state:
+            raise ValueError(f"a ReplaySource has no state; got keys {sorted(state)}")
 
     def gumbel(self, t: int, shape: tuple) -> torch.Tensor:
         g = self._recorded(self._gumbel, "Gumbel noise")[t]
