@@ -69,6 +69,18 @@ Phases, each failing loudly (non-zero exit, no result line):
    a fresh ``CheckpointManager``: History and final parameters bitwise the
    uninterrupted card run; ``exact_oracle_equiv`` at C = N against the
    oracle logreg run, with the largest parameter gap;
+   zoo — the zoo federated round through ``api.run(spec)`` with
+   ``kind="zoo"``: (n) smollm-360m and (o) zamba2-1.2b at full width and
+   depth (client_parallel, C = 8), (p) gemma2-27b at full width one
+   (attn_local, attn) pattern deep (cohort_sequential, C = 4), bf16, each
+   with exact launches of kernels 6-8 a round and kernel 7 on the tensor
+   cores; at reduced width int8 + error feedback (kernel 4) and
+   ``sampler_axis`` (kernel 5); a 2-layer full-width smollm round in f32 on
+   the card and the CPU from one replayed source; a preempted and resumed
+   zoo run, bitwise; ``repro_torch.examples.fed_lm`` (tiny and zoo) and the
+   fig5 rows; one round of (n) and of (o) under the profiler (forward
+   kernels against the PyTorch backwards of kernels 6-8, GEMMs,
+   elementwise);
    autograd — gradients through kernels 6-8 (kernel forward, PyTorch
    backward) equal the CPU's in f32: each wrapper, then ``loss_fn`` of a
    reduced smollm-360m and a reduced zamba2-1.2b, with the kernels counted in
@@ -1153,7 +1165,8 @@ def examples_phase(torch, card: str) -> dict:
     counts = kernels.launch_counts()
     want = {k: rounds * (k == "fused_multi_weighted_agg") for k in counts}
     check(counts == want, f"examples: kernel launches {counts}, expected {want}")
-    rows = {name: derived for name, _, derived in tables.main(["--results-dir", str(out)])}
+    rows = {name: derived for name, _, derived in tables.main(["--results-dir", str(out)])
+            if not name.startswith("fig5")}  # fed_lm runs in the zoo phase
     syn, bud, fem_s = (mods[n].parse_args([]) for n in ("synthetic_regret", "budget_sweep",
                                                          "femnist_style"))
     expected = ([f"fig2_regretT_{s}" for s in mods["synthetic_regret"].SAMPLERS]
@@ -1251,6 +1264,423 @@ def checkpoint_phase(torch) -> dict:
                 fused_multi_weighted_agg=4 * ROUNDS)
     check(counts == want, f"checkpoint: kernel launches {counts}, expected {want}")
     return counts
+
+
+# -- 4e. zoo --------------------------------------------------------------------
+
+# The zoo round's runs: bf16 at the configs'
+# widths, synthetic_tokens at the arch's vocab, seq 64, local batch 2, R = 2
+# local steps (the reference launcher's defaults), K-Vib.
+ZOO_SEQ, ZOO_BATCH, ZOO_STEPS = 64, 2, 2
+GEMMA_PATTERN = dict(  # gemma2-27b at full width, one (attn_local, attn) pattern deep
+    n_layers=2, d_model=4608, n_heads=32, n_kv_heads=16, d_ff=36864, vocab=256000,
+    head_dim=128, sliding_window=4096, param_dtype="bfloat16")
+HYBRID_4 = dict(n_layers=4, block_pattern=["mamba2", "mamba2", "mamba2", "shared_attn"])
+ZOO_RUNS = {  # label: (arch, reduced() kwargs or None for the full config, rounds, N, K, C)
+    "(n) smollm-360m": ("smollm-360m", None, 3, 32, 6, 8),
+    "(o) zamba2-1.2b": ("zamba2-1.2b", None, 2, 32, 6, 8),
+    "(p) gemma2-27b one pattern": ("gemma2-27b", GEMMA_PATTERN, 2, 32, 3, 4),
+}
+# The GPU-against-CPU round: smollm-360m's widths, two layers, f32.
+AGREE_KW = dict(n_layers=2, d_model=960, n_heads=15, n_kv_heads=5, d_ff=2560, vocab=49152)
+
+
+def zoo_spec(api, arch: str, *, rounds: int, clients: int, budget: int, cohort: int,
+             kwargs: dict | None = None, seq: int = ZOO_SEQ, **sections):
+    """A ``kind="zoo"`` spec: the full config (``kwargs`` None) or
+    ``ArchConfig.reduced(**kwargs)``."""
+    d = {
+        "task": {"kind": "zoo", "name": arch, "reduced": kwargs is not None,
+                 "kwargs": kwargs or {}, "dataset": "synthetic_tokens",
+                 "dataset_kwargs": {"n_clients": clients, "seq_len": seq}},
+        "sampler": {"name": "kvib", "kwargs": {"horizon": rounds}},
+        "federation": {"rounds": rounds, "budget": budget, "cohort": cohort,
+                       "local_steps": ZOO_STEPS, "batch_size": ZOO_BATCH, "local_lr": 0.05},
+        "execution": {"seed": 0},
+    }
+    for section, over in sections.items():
+        d[section] = {**d.get(section, {}), **over}
+    return api.ExperimentSpec.from_dict(d)
+
+
+def forward_calls(cfg) -> dict:
+    """Kernels 6-8's calls in one forward of ``cfg``: kernel 6 two times a
+    block plus once (the final norm), kernel 7 once an attention block
+    (``shared_attn`` invocations included), kernel 8 once a mamba2 block."""
+    kinds = list(cfg.block_pattern) * cfg.pattern_repeats()
+    return {"rmsnorm": 2 * len(kinds) + 1,
+            "flash_attention": sum(k in ("attn", "attn_local", "shared_attn") for k in kinds),
+            "ssd_scan": kinds.count("mamba2")}
+
+
+def zoo_launches_per_round(cfg, c: int) -> dict:
+    """Kernels 6-8's launches in one zoo round of C slots and R local steps
+    (``forward_calls`` a forward).  client_parallel: the first local step
+    runs the C clients on the shared parameters, one launch a call (the
+    vmapped axis folds into the rows / B); later steps have diverged
+    parameters, and kernel 6's vmap rule loops over the clients' norm
+    scales (C launches a call) while kernels 7 and 8 still fold.
+    cohort_sequential: one client at a time, every call once a step."""
+    calls, r = forward_calls(cfg), ZOO_STEPS
+    if cfg.round_mode == "cohort_sequential":
+        return {k: v * r * c for k, v in calls.items()}
+    return {"rmsnorm": calls["rmsnorm"] * (1 + (r - 1) * c),
+            "flash_attention": calls["flash_attention"] * r, "ssd_scan": calls["ssd_scan"] * r}
+
+
+def zoo_run(torch, api, kernels, label: str, spec, extra: dict | None = None):
+    """One zoo run through ``api.run(spec)`` (the GPU by default): kernel
+    launches exact (kernels 6-8 every round, plus ``extra`` a run), every
+    bf16 kernel-7 launch on the tensor cores, finite losses and parameters,
+    cohorts within C.  Returns (History, launches)."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+
+    built = api.build(spec)
+    cfg, rs = built.arch_config, built.round_spec
+    check(built.device.type == "cuda", f"{label}: default device is {built.device}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    fa.flash_attention.launches_tc = 0
+    hist = api.run(spec, built=built)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    rounds = spec.federation.rounds
+    per_round = zoo_launches_per_round(cfg, rs.cohort)
+    want = {k: 0 for k in counts}
+    want.update({k: rounds * v for k, v in per_round.items()})
+    want.update(extra or {})
+    check(counts == want, f"{label}: kernel launches {counts}, expected {want}")
+    if cfg.param_dtype == torch.bfloat16:
+        check(fa.flash_attention.launches_tc == counts["flash_attention"],
+              f"{label}: {fa.flash_attention.launches_tc} of {counts['flash_attention']} "
+              "kernel-7 launches on the tensor cores")
+    check(len(hist.train_loss) == rounds and all(math.isfinite(x) for x in hist.train_loss),
+          f"{label}: loss {hist.train_loss}")
+    check(all(0 <= c <= rs.cohort for c in hist.cohort_size) and sum(hist.cohort_size) > 0,
+          f"{label}: cohorts {hist.cohort_size}")
+    for leaf in _leaves(hist.final_params):
+        check(bool(np.isfinite(leaf).all()), f"{label}: non-finite parameters")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(leaf.size for leaf in _leaves(hist.final_params))
+    print(f"{label}: {n_params:,} parameters ({cfg.param_dtype}, {cfg.n_layers} blocks, "
+          f"{cfg.round_mode}) N={built.dataset.n_clients} C={rs.cohort} R={rs.local_steps} "
+          f"B={rs.local_batch} S={ZOO_SEQ} rounds={rounds}: wall_s={hist.wall_time_s:.3f} "
+          f"loss {[round(x, 4) for x in hist.train_loss]} cohort={hist.cohort_size} "
+          f"dropped={hist.cohort_dropped} peak_mem_gb={peak:.2f} launches a round "
+          f"{ {k: v for k, v in per_round.items() if v} } (all {rounds} rounds: "
+          f"{ {k: v for k, v in counts.items() if v} }; kernel 7 on the tensor cores "
+          f"{fa.flash_attention.launches_tc})", flush=True)
+    return hist, counts
+
+
+ZOO_GROUPS = {  # kernel-name substrings -> the profile's groups
+    "k6 forward (rmsnorm)": ("rmsnorm",), "k7 forward (flash_fwd)": ("flash_fwd",),
+    "k8 forward (ssd_scan)": ("ssd_scan",),
+    "GEMMs": ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas"),
+    "elementwise": ("elementwise",), "reductions": ("reduce",),
+}
+
+
+def _profiled_round(torch, segment, state):
+    """One round under torch.profiler with a ``record_function`` range
+    around each of kernels 6-8's backwards (set for this measurement only).
+    Returns (state, wall s, {group: device µs}, {backward: (device µs,
+    calls)}, launches, the kernels outside the groups by name)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import ssd_scan as ssd
+
+    ranges = {"k6 backward": rms._RMSNorm, "k7 backward": fa._FlashAttention,
+              "k8 backward": ssd._SSDScan}
+    saved = {name: cls.backward for name, cls in ranges.items()}
+
+    def ranged(name, fn):
+        def backward(ctx, *grads):
+            with record_function(f"zoo::{name}"):
+                return fn(ctx, *grads)
+        return staticmethod(backward)
+
+    try:
+        for name, cls in ranges.items():
+            cls.backward = ranged(name, saved[name])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state = segment(state, 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for name, cls in ranges.items():
+            cls.backward = saved[name]
+    # A range's own "kernel" is its span on the device timeline (queueing
+    # included): count only the kernels its ops launched.
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    back = {name: [0.0, 0] for name in ranges}
+    for e in prof.events():
+        if e.device_type == cpu and e.name.startswith("zoo::"):
+            acc = back[e.name[len("zoo::"):]]
+            acc[0] += sum(c.device_time_total for c in e.cpu_children)
+            acc[1] += 1
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == cuda and e.self_device_time_total > 0
+               and not e.key.startswith("zoo::")]
+    split = {g: 0.0 for g in ZOO_GROUPS}
+    other = {}
+    for e in kernels:
+        name = e.key.lower()
+        group = next((g for g, keys in ZOO_GROUPS.items() if any(k in name for k in keys)), None)
+        if group is None:
+            other[e.key] = other.get(e.key, 0.0) + e.self_device_time_total
+        else:
+            split[group] += e.self_device_time_total
+    return (state, wall, split, {k: tuple(v) for k, v in back.items()},
+            sum(e.count for e in kernels), other)
+
+
+def zoo_round_profile(torch, api, label: str, spec, card: str) -> None:
+    """One zoo round of ``spec`` alone (its segment, after a warm-up round),
+    with the stacked layers taken apart by one ``torch.unbind`` a leaf (the
+    model's way) and, for comparison, by indexing one layer at a time (the
+    way before: each layer's gradient is a zero-filled copy of its whole
+    stack, summed over the layers), in turns unbind, index, index, unbind:
+    the host-clock wall seconds a round (median of 3 each).  Then one round
+    of each under torch.profiler: launches, the device's busy share, and
+    the device time of kernels 6-8's forwards, of their PyTorch backwards
+    (kernel 6's closed form, kernel 7's ``attention_backward``, kernel 8's
+    ``vjp`` of the plain chunked scan: the kernels launched inside a
+    ``record_function`` range around each ``backward``), of the GEMMs and
+    of the elementwise kernels."""
+    from repro_torch.api import runner
+    from repro_torch.models import transformer
+
+    built = api.build(spec)
+    segment, state = runner._zoo_segment_and_state(built)
+    state = segment(state, 1)  # warm-up round
+    unbind = transformer._unstack
+
+    def index(tree, reps):
+        return [transformer._rep(tree, r) for r in range(reps)]
+
+    walls = {"unbind": [], "index": []}
+    try:
+        for way in ("unbind", "index", "index", "unbind"):
+            transformer._unstack = unbind if way == "unbind" else index
+            for _ in range(2 if len(walls[way]) else 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state = segment(state, 1)
+                torch.cuda.synchronize()
+                walls[way].append(time.perf_counter() - t0)
+        med = {way: sorted(w)[1] for way, w in walls.items()}
+        print(f"zoo profile {label} ({card}): wall s a round, stacked layers by one unbind "
+              f"{med['unbind']:.4f} against indexing a layer at a time {med['index']:.4f} (median "
+              f"of 3 each, outside the profiler: {json.dumps(walls)})", flush=True)
+        for way in ("index", "unbind"):
+            transformer._unstack = unbind if way == "unbind" else index
+            state, wall, split, back, launches, other = _profiled_round(torch, segment, state)
+            total = sum(split.values()) + sum(other.values())
+            if not total:
+                print(f"zoo profile {label}: the profiler recorded no kernel time (not measured)")
+                continue
+            print(f"zoo profile {label}, layers by {way}, one round under the profiler: "
+                  f"wall_s={wall:.4f} kernel_s={total / 1e6:.4f} busy_share={total / 1e6 / wall:.3%} "
+                  f"launches={launches}", flush=True)
+            for group, us in split.items():
+                print(f"  {us / 1e3:10.3f} ms  {us / total:6.1%}  {group}")
+            print(f"  {sum(other.values()) / 1e3:10.3f} ms  {sum(other.values()) / total:6.1%}  "
+                  f"other kernels: " + ", ".join(
+                      f"{k[:60]} {v / 1e3:.3f} ms" for k, v in sorted(other.items(), key=lambda kv: -kv[1])[:4]))
+            for name, (us, calls) in back.items():
+                print(f"  {us / 1e3:10.3f} ms  {us / total:6.1%}  {name} (PyTorch, {calls} calls: the "
+                      f"kernels launched inside its range)")
+    finally:
+        transformer._unstack = unbind
+
+
+def zoo_agreement(torch, api, np) -> None:
+    """A 2-layer smollm-360m at full width (d_model 960, 15/5 heads, d_ff
+    2560, vocab 49,152) in f32, one zoo round on the card and on the CPU from
+    one ``ReplaySource`` (the draws of a CPU ``PhiloxSource``, initial
+    weights from a CPU generator): equal cohorts, losses within 1e-5,
+    parameters within 1e-4 of each leaf's largest entry."""
+    from repro_torch.models import transformer
+    from repro_torch.fed.tasks import params_to_numpy
+    from repro_torch.rng import PhiloxSource, ReplaySource
+
+    spec = zoo_spec(api, "smollm-360m", rounds=1, clients=8, budget=2, cohort=3, kwargs=AGREE_KW)
+    built = api.build(spec, "cpu")
+    n, rs = built.dataset.n_clients, built.round_spec
+    src = PhiloxSource(3, "cpu")
+    tables = dict(uniforms=src.isp_uniforms(0, n)[None].numpy(),
+                  priorities=src.cohort_priorities(0, n)[None].numpy(),
+                  batch_idx=src.batch_indices(0, built.dataset.sizes, rs.local_steps,
+                                              rs.local_batch)[None].numpy())
+    init = params_to_numpy(transformer.init_params(
+        built.arch_config, torch.Generator().manual_seed(4), "cpu"))
+    t0 = time.perf_counter()
+    cpu = api.run(spec, "cpu", random_source=ReplaySource(init, **tables))
+    cpu_s = time.perf_counter() - t0
+    dev = api.build(spec).device  # the default: the GPU
+    gpu = api.run(spec, random_source=ReplaySource(init, device=dev, **tables))
+    check(gpu.cohort_size == cpu.cohort_size and gpu.cohort_dropped == cpu.cohort_dropped,
+          f"zoo agreement: cohorts {gpu.cohort_size} against {cpu.cohort_size}")
+    check(abs(gpu.train_loss[0] - cpu.train_loss[0]) <= 1e-5 * abs(cpu.train_loss[0]),
+          f"zoo agreement: loss {gpu.train_loss} against {cpu.train_loss}")
+    worst = 0.0
+    for g, c in zip(_leaves(gpu.final_params), _leaves(cpu.final_params)):
+        scale = max(float(np.abs(c).max()), 1e-30)
+        worst = max(worst, float(np.abs(g - c).max()) / scale)
+    check(worst <= 1e-4, f"zoo agreement: parameters off the CPU's by {worst:.3g} of a leaf")
+    print(f"zoo agreement: 2-layer full-width smollm-360m, f32, one round (C=3, R=2): card == CPU "
+          f"on one replayed source (cohort {gpu.cohort_size}, loss {gpu.train_loss[0]:.6f} / "
+          f"{cpu.train_loss[0]:.6f}, parameters within {worst:.3g} of each leaf's scale; CPU "
+          f"round {cpu_s:.1f} s)", flush=True)
+
+
+def zoo_resume(torch, api, np, spec) -> None:
+    """``spec`` (with ``ckpt_every=1``) stopped after one segment and resumed
+    through ``api.run`` and a fresh ``CheckpointManager``: History and final
+    parameters bitwise the uninterrupted card run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import runner
+    from repro_torch.checkpoint import CheckpointManager, config_fingerprint
+    from repro_torch.fed.state import run_segmented
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_zoo_ckpt_")
+    try:
+        fp = config_fingerprint(spec)
+        full = api.run(spec)
+        segment, st0 = runner._zoo_segment_and_state(api.build(spec))
+        pre = run_segmented(st0, spec.federation.rounds, segment, ckpt_every=1,
+                            manager=CheckpointManager(root, fingerprint=fp), max_segments=1)
+        check(pre.round == 1, f"zoo resume: preempted at round {pre.round}")
+        resumed = api.run(spec, ckpt_manager=CheckpointManager(root, fingerprint=fp))
+        for field in ("train_loss", "cohort_size", "cohort_dropped", "deadline_dropped"):
+            check(getattr(resumed, field) == getattr(full, field),
+                  f"zoo resume: {field} differs from the uninterrupted run")
+        for a, b in zip(_leaves(resumed.final_params), _leaves(full.final_params)):
+            check(np.array_equal(a, b), "zoo resume: final parameters differ")
+        size = sum(f.stat().st_size for f in Path(root).iterdir())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"zoo resume: preempted after round 1 of {spec.federation.rounds}, resumed through a "
+          f"fresh manager: History and final parameters bitwise the uninterrupted card run "
+          f"(checkpoint directory {size} bytes)", flush=True)
+
+
+def fed_lm_on_card(torch, kernels, out: Path) -> dict:
+    """``repro_torch.examples.fed_lm`` on the card, rounds cut: ``--model
+    tiny`` and ``--model zoo --archs smollm ssm`` (the task stack in oracle
+    mode: every client trains, kernel 1 once a round; the zoo tasks'
+    forwards launch kernels 6-8, one launch a call with the clients vmapped
+    over shared parameters), then ``bench.tables``: its fig5 rows for
+    either JSON, every run present and finite.  Returns the launches."""
+    import re
+
+    from repro_torch.bench import tables
+    from repro_torch.configs import get_config
+    from repro_torch.examples import fed_lm
+
+    rounds, samplers = 20, ["uniform_isp", "kvib"]
+    argv = ["--rounds", str(rounds), "--samplers", *samplers]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tiny = fed_lm.main(argv + ["--out", str(out / "fed_lm.json")])
+    tiny_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zoo = fed_lm.main(argv + ["--out", str(out / "zoo" / "fed_lm.json"), "--model", "zoo",
+                              "--archs", "smollm", "ssm"])
+    zoo_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check(tiny["config"]["device"] is None and zoo["config"]["device"] is None,
+          "fed_lm: not run on the default device")
+    runs = len(samplers) * rounds
+    want = {k: 0 for k in counts}
+    want["fused_multi_weighted_agg"] = 3 * runs
+    for arch in ("smollm", "ssm"):
+        name, over = fed_lm.ZOO_ARCHS[arch]
+        for k, v in forward_calls(get_config(name).reduced(**over)).items():
+            want[k] += v * runs
+    check(counts == want, f"fed_lm: kernel launches {counts}, expected {want}")
+    rows = {name: derived for name, _, derived in tables.main(["--results-dir", str(out)])
+            if name.startswith("fig5")}
+    rows.update({name: derived for name, _, derived in tables.table_fed_lm(str(out / "zoo"))})
+    want_rows = [f"fig5_lm_{s}" for s in samplers] + [
+        f"fig5_lm_{s}/{a}" for s in samplers for a in ("smollm", "ssm")]
+    check(sorted(rows) == sorted(want_rows), f"fed_lm: fig5 rows {sorted(rows)}")
+    for name, derived in rows.items():
+        nums = re.findall(r"[-+]?(?:\d+\.\d*|\d+|nan|inf)", derived)
+        check(nums and all(math.isfinite(float(x)) for x in nums), f"fed_lm: row {name}: {derived}")
+    walls = {k: round(v["wall_s"], 4) for res in (tiny, zoo) for k, v in res["runs"].items()}
+    print(f"fed_lm on the card, {rounds} rounds a spec: --model tiny {tiny_s:.2f} s, --model zoo "
+          f"--archs smollm ssm {zoo_s:.2f} s; wall s a spec {walls}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return counts
+
+
+def zoo_phase(torch, card: str) -> dict:
+    """The zoo round on the card through ``repro_torch.api.run(spec)`` (no
+    device argument): (n) smollm-360m at full width and depth
+    (client_parallel, N=32, K=6, C=8, 3 rounds); (o) zamba2-1.2b at full
+    width and depth (client_parallel, N=32, K=6, C=8, 2 rounds); (p)
+    gemma2-27b at full width cut to one (attn_local, attn) pattern
+    (cohort_sequential, its config's mode; N=32, K=3, C=4, 2 rounds): each
+    with exact per-round launches of kernels 6-8, every kernel-7 launch on
+    the tensor cores.  Then at reduced width (the 4-block f32 hybrid):
+    int8 + error feedback (kernel 4 once a round) and ``sampler_axis``
+    (kernel 5 five times a round); a 2-layer full-width smollm round in f32
+    on the card and on the CPU; a preempted and resumed zoo run, bitwise;
+    the fed_lm example and its fig5 rows; and one round of (n) and of (o)
+    under the profiler.  Returns the launches."""
+    phase("zoo")
+    import numpy as np
+
+    from repro_torch import api, kernels
+
+    launches = {k: 0 for k in kernels.launch_counts()}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    runs = {label: zoo_spec(api, arch, kwargs=kw, rounds=t, clients=n, budget=k, cohort=c)
+            for label, (arch, kw, t, n, k, c) in ZOO_RUNS.items()}
+    for label, spec in runs.items():
+        hist, counts = zoo_run(torch, api, kernels, label, spec)
+        add(counts)
+        del hist
+        torch.cuda.empty_cache()
+    hyb = dict(vocab=512, **HYBRID_4)
+    small = dict(rounds=3, clients=16, budget=3, cohort=4, kwargs=hyb)
+    _, counts = zoo_run(
+        torch, api, kernels, "(q) zamba2 4-block hybrid int8+EF",
+        zoo_spec(api, "zamba2-1.2b", compression={"delta_dtype": "int8"}, **small),
+        extra={"fused_dequant_cohort_agg": 3})
+    add(counts)
+    _, counts = zoo_run(
+        torch, api, kernels, "(r) zamba2 4-block hybrid sampler_axis",
+        zoo_spec(api, "zamba2-1.2b", execution={"sampler_axis": "data"}, **small),
+        extra={"waterfill_level_stats": LADDER_PASSES * 3})
+    add(counts)
+    zoo_agreement(torch, api, np)
+    zoo_resume(torch, api, np, zoo_spec(
+        api, "zamba2-1.2b", execution={"ckpt_every": 1},
+        fault={"availability": "bernoulli", "availability_kwargs": {"q": 0.8}, "async_buffer": 2},
+        **small))
+    add(fed_lm_on_card(torch, kernels, ROOT / "results" / "torch" / "smoke"))
+    kernels.reset_launch_counts()  # the profiled rounds are measurements, not the path
+    for label in ("(n) smollm-360m", "(o) zamba2-1.2b"):
+        spec = with_sections(api, runs[label], federation={"rounds": 5},
+                             sampler={"kwargs": {"horizon": 5}})
+        zoo_round_profile(torch, api, label, spec, card)
+        torch.cuda.empty_cache()
+    return launches
 
 
 def _serve_checks(torch, label, engine, counts, want, new_tokens):
@@ -1805,6 +2235,8 @@ def trace_phase(torch, engines):
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
 
 
@@ -2013,6 +2445,8 @@ def main() -> int:
     for k, v in examples_phase(torch, card).items():
         launches[k] += v
     for k, v in checkpoint_phase(torch).items():
+        launches[k] += v
+    for k, v in zoo_phase(torch, card).items():
         launches[k] += v
     autograd_phase(torch)
     agreement_phase(torch)

@@ -1,24 +1,34 @@
-"""``build(spec)`` / ``run(spec)``: the port's front door.
+"""``build(spec)`` / ``run(spec)``: the port's front door over both stacks.
 
 ``build`` resolves an ``ExperimentSpec``'s registry names
-(``api.spec.register_task`` / ``register_dataset``) into the task, the
-federated dataset (on the run's device), the sampler and the ``FedConfig``;
-``run`` calls ``fed.server.run_federated`` with them.  Both run on the GPU
-unless ``device="cpu"`` is passed (``repro_torch.device``).
+(``api.spec.register_task`` / ``register_dataset``, ``configs.get_config``)
+into the concrete objects a stack consumes, with the federated dataset on
+the run's device; ``run`` dispatches on ``task.kind``:
 
-Served: ``kind="task"`` with any of the nine registry samplers
-(``core.sampler_names()``), in oracle and deployable modes, with any of an
-enabled ``fault`` section, an enabled ``compression`` section and
-``execution.sampler_axis``, and with a ``repro_torch.checkpoint``
+* ``"task"`` — the simulation stack: ``fed.server.run_federated(task,
+  dataset, sampler, fed_config)``, with any of the nine registry samplers
+  (``core.sampler_names()``), in oracle and deployable modes, with an
+  enabled ``fault`` section, an enabled ``compression`` section and
+  ``execution.sampler_axis``;
+* ``"zoo"`` — the zoo round (``fed.round.build_fed_scan_segment``) over an
+  architecture of ``repro_torch.configs`` (the dense configs and zamba2;
+  the moe, xlstm, vlm and audio ones raise ``NotImplementedError``), driven
+  by ``fed.state.run_segmented`` like the reference's
+  ``launch.train --compiled``, with the same sections.  It runs on one
+  card: ``execution.mesh_shape`` other than None or all ones raises
+  ``NotImplementedError``.
+
+Both run on the GPU unless ``device="cpu"`` is passed
+(``repro_torch.device``), and both take a ``repro_torch.checkpoint``
 ``CheckpointManager`` whose fingerprint should be
 ``config_fingerprint(spec)``; ``restore_template(spec)`` is the fresh
-round-0 ``TrainState`` a checkpoint of the spec restores into.  Not ported
-(``NotImplementedError``, naming the ``ROADMAP.md`` item): ``kind="zoo"``.
+round-0 ``TrainState`` a checkpoint of the spec restores into.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import time
 from typing import Any
 
 from repro_torch.api.spec import (
@@ -28,11 +38,15 @@ from repro_torch.api.spec import (
     dataset_names,
     task_names,
 )
+from repro_torch.core import stragglers
 from repro_torch.core.samplers import make_sampler
 from repro_torch.data.pipeline import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.fed.server import FedConfig, History, build_segment_runner, run_federated
+from repro_torch.fed.state import run_segmented
+from repro_torch.fed.tasks import params_to_numpy, tree_map
 from repro_torch.launch.mesh import ShardSpec
+from repro_torch.rng import PhiloxSource
 
 __all__ = ["BuiltExperiment", "build", "run", "restore_template"]
 
@@ -62,24 +76,22 @@ def _build_dataset(name: str, factory, kwargs: dict, device) -> FederatedDataset
 
 @dataclasses.dataclass(frozen=True)
 class BuiltExperiment:
-    """The resolved pieces of one ``kind="task"`` spec: exactly the
-    ``run_federated`` argument tuple, with the dataset on ``device``."""
+    """The resolved pieces of one spec, the dataset on ``device``.
+
+    kind="task": ``task``, ``fed_config``: exactly the ``run_federated``
+    argument tuple.  kind="zoo": ``arch_config`` (``models.common.
+    ArchConfig``) and ``round_spec`` (``fed.round.RoundSpec``); its ``spec``
+    has ``cohort=None`` resolved to ``max(1, min(2K, N))``."""
 
     spec: ExperimentSpec
     kind: str
     dataset: Any
     sampler: Any
-    task: Any
-    fed_config: FedConfig
     device: Any
-
-
-def _check_ported(spec: ExperimentSpec) -> None:
-    if spec.task.kind == "zoo":
-        raise NotImplementedError(
-            "kind='zoo' is not ported to repro_torch yet; see ROADMAP.md "
-            "queue 1, 'Zoo models + pod-scale round'"
-        )
+    task: Any = None  # kind="task"
+    fed_config: FedConfig | None = None  # kind="task"
+    arch_config: Any = None  # kind="zoo"
+    round_spec: Any = None  # kind="zoo"
 
 
 def _sampler_shard(spec: ExperimentSpec) -> ShardSpec | None:
@@ -91,40 +103,105 @@ def _sampler_shard(spec: ExperimentSpec) -> ShardSpec | None:
     return None if axis is None else ShardSpec.from_process_group(axis)
 
 
-def build(spec: ExperimentSpec, device=None) -> BuiltExperiment:
-    """Resolve a spec into the concrete experiment objects on ``device``."""
-    _check_ported(spec)
-    dev = resolve_device(device)
-    tasks, datasets = _task_registry(), _dataset_registry()
+def _make_sampler(spec: ExperimentSpec, n_clients: int):
+    return make_sampler(
+        spec.sampler.name,
+        n=n_clients,
+        budget=spec.federation.budget,
+        shard=_sampler_shard(spec),
+        **dict(spec.sampler.kwargs),
+    )
+
+
+def _check_dataset(spec: ExperimentSpec) -> None:
+    if spec.task.dataset not in _dataset_registry():
+        raise ValueError(
+            f"unknown dataset {spec.task.dataset!r}; registered: {dataset_names()} "
+            "(repro_torch.api.register_dataset adds custom factories)"
+        )
+
+
+def _build_task(spec: ExperimentSpec, dev) -> BuiltExperiment:
+    tasks = _task_registry()
     if spec.task.name not in tasks:
         raise ValueError(
             f"unknown task {spec.task.name!r}; registered: {task_names()} "
             "(repro_torch.api.register_task adds custom factories)"
         )
-    if spec.task.dataset not in datasets:
-        raise ValueError(
-            f"unknown dataset {spec.task.dataset!r}; registered: {dataset_names()} "
-            "(repro_torch.api.register_dataset adds custom factories)"
-        )
+    _check_dataset(spec)
     task = tasks[spec.task.name](**dict(spec.task.kwargs))
     ds = _build_dataset(
-        spec.task.dataset, datasets[spec.task.dataset], dict(spec.task.dataset_kwargs), dev
-    )
-    sampler = make_sampler(
-        spec.sampler.name,
-        n=ds.n_clients,
-        budget=spec.federation.budget,
-        shard=_sampler_shard(spec),
-        **dict(spec.sampler.kwargs),
+        spec.task.dataset, _dataset_registry()[spec.task.dataset],
+        dict(spec.task.dataset_kwargs), dev,
     )
     return BuiltExperiment(
         spec=spec,
         kind="task",
         dataset=ds,
-        sampler=sampler,
+        sampler=_make_sampler(spec, ds.n_clients),
+        device=dev,
         task=task,
         fed_config=spec.fed_config(),
+    )
+
+
+def _build_zoo(spec: ExperimentSpec, dev) -> BuiltExperiment:
+    from repro_torch.configs import get_config, has_arch, list_archs
+
+    shape = spec.execution.mesh_shape
+    if shape is not None and any(int(x) != 1 for x in shape):
+        raise NotImplementedError(
+            f"execution.mesh_shape={shape}: the port runs the zoo round on one "
+            "card (mesh shape None or all ones); see ROADMAP.md section 1, item "
+            "6, 'Multi-rank placement'"
+        )
+    if not has_arch(spec.task.name):
+        raise ValueError(f"unknown zoo arch {spec.task.name!r}; options: {list_archs()}")
+    cfg = get_config(spec.task.name)
+    if spec.task.reduced:
+        cfg = cfg.reduced(**dict(spec.task.kwargs))
+    _check_dataset(spec)
+    ds_kw = dict(spec.task.dataset_kwargs)
+    if spec.task.dataset == "synthetic_tokens":
+        # The reference launcher's defaults: vocab from the arch, seed from
+        # the run seed, total_seqs sized to the client count.
+        ds_kw.setdefault("vocab", cfg.vocab)
+        ds_kw.setdefault("seed", spec.execution.seed)
+        if "n_clients" in ds_kw:
+            ds_kw.setdefault("total_seqs", max(32 * int(ds_kw["n_clients"]), 512))
+    ds = _build_dataset(spec.task.dataset, _dataset_registry()[spec.task.dataset], ds_kw, dev)
+    fed = spec.federation
+    if fed.cohort is None:
+        fed = dataclasses.replace(fed, cohort=max(1, min(2 * fed.budget, ds.n_clients)))
+        spec = dataclasses.replace(spec, federation=fed)
+    return BuiltExperiment(
+        spec=spec,
+        kind="zoo",
+        dataset=ds,
+        sampler=_make_sampler(spec, ds.n_clients),
         device=dev,
+        arch_config=cfg,
+        round_spec=spec.round_spec(),
+    )
+
+
+def build(spec: ExperimentSpec, device=None) -> BuiltExperiment:
+    """Resolve a spec into the concrete experiment objects on ``device``."""
+    dev = resolve_device(device)
+    if spec.task.kind == "zoo":
+        return _build_zoo(spec, dev)
+    return _build_task(spec, dev)
+
+
+def _specs_compatible(a: ExperimentSpec, b: ExperimentSpec) -> bool:
+    """Equality modulo the one build-time resolution: ``cohort=None`` may
+    have been replaced by its concrete default in a built spec."""
+    fa, fb = a.federation, b.federation
+    if fa.cohort is None or fb.cohort is None:
+        fa = dataclasses.replace(fa, cohort=None)
+        fb = dataclasses.replace(fb, cohort=None)
+    return (a.task, a.sampler, fa, a.execution, a.fault, a.compression, a.serve) == (
+        b.task, b.sampler, fb, b.execution, b.fault, b.compression, b.serve,
     )
 
 
@@ -132,9 +209,65 @@ def _built_for(spec: ExperimentSpec, device, built: BuiltExperiment | None) -> B
     dev = resolve_device(device)
     if built is None:
         return build(spec, dev)
-    if built.spec != spec or built.device != dev:
+    if not _specs_compatible(built.spec, spec) or built.device != dev:
         raise ValueError("run(built=...) got a BuiltExperiment from a different spec or device")
     return built
+
+
+def _zoo_segment_and_state(built: BuiltExperiment, random_source=None):
+    """(segment_fn, round-0 TrainState) of the zoo round.  The parameters
+    are ``models.transformer.init_params`` drawn from the random source's
+    init stream (default: ``PhiloxSource`` seeded with ``execution.seed``),
+    or a replayed source's recorded weights."""
+    from repro_torch.fed.round import ZooModel, build_fed_scan_segment
+
+    spec, dev = built.spec, built.device
+    source = PhiloxSource(spec.execution.seed, dev) if random_source is None else random_source
+    params = source.init_params(ZooModel(built.arch_config))
+    segment, make_state = build_fed_scan_segment(
+        built.arch_config, built.round_spec, built.sampler, built.dataset, source=source,
+        device=dev,
+    )
+    return segment, make_state(params, built.sampler.init(dev), spec.federation.rounds)
+
+
+def _run_zoo(built: BuiltExperiment, ckpt_manager, publish, random_source) -> History:
+    spec = built.spec
+    t0 = time.perf_counter()
+    ckpt_every = spec.execution.ckpt_every
+    if ckpt_manager is not None and ckpt_every <= 0:
+        raise ValueError(
+            "run(spec, ckpt_manager=...) needs execution.ckpt_every > 0; "
+            f"got ckpt_every={ckpt_every}"
+        )
+    segment, state = _zoo_segment_and_state(built, random_source)
+    if ckpt_manager is not None:
+        state, _ = ckpt_manager.restore_or_init(state)
+    rounds = spec.federation.rounds
+    state = run_segmented(
+        state, rounds, segment, ckpt_every=ckpt_every, manager=ckpt_manager, publish=publish
+    )
+    params = state.params
+    fault = spec.fault
+    if fault.enabled and int(fault.async_buffer) > 0:
+        # End-of-horizon flush of the still-pending stale deltas (segment
+        # boundaries keep the ring in the carry).
+        buf = state.faults["buf"]
+        if bool(buf["valid"].any()):
+            pending = stragglers.flush_pending(buf, rounds, float(fault.staleness_discount))
+            d_pend = stragglers.vec_to_tree(pending, params)
+            params = tree_map(lambda p, g: p - g, params, d_pend)
+    metrics = {k: b.cpu().numpy() for k, b in state.metrics.items()}
+    hist = History()
+    hist.rounds = list(range(rounds))
+    hist.train_loss = [float(x) for x in metrics["loss"]]
+    hist.cohort_size = [int(x) for x in metrics["cohort_size"]]
+    hist.cohort_dropped = [int(x) for x in metrics["dropped"]]
+    if "deadline_dropped" in metrics:
+        hist.deadline_dropped = [int(x) for x in metrics["deadline_dropped"]]
+    hist.final_params = params_to_numpy(params)
+    hist.wall_time_s = time.perf_counter() - t0
+    return hist
 
 
 def run(
@@ -145,20 +278,39 @@ def run(
     built: BuiltExperiment | None = None,
     random_source=None,
     ckpt_manager=None,
+    publish=None,
 ) -> History:
     """Execute a spec end to end on ``device`` (default: the GPU).
 
-    ``eval_data`` — optional (x, y) evaluation batch for the accuracy curve.
-    ``built`` — a prior ``build(spec, device)`` result to reuse.
+    ``eval_data`` — optional (x, y) evaluation batch for the accuracy curve
+    (simulation stack only).
+    ``built`` — a prior ``build(spec, device)`` result to reuse (its spec
+    may have ``cohort`` resolved).
     ``random_source`` — every draw of the run (``repro_torch.rng``); default
     Philox generators seeded from ``spec.execution.seed``.
     ``ckpt_manager`` — a ``repro_torch.checkpoint.CheckpointManager``:
     restore the latest committed state, then publish one at every
     ``execution.ckpt_every`` boundary; the sampler's ``ShardSpec`` is
-    recorded as its ``layout`` (provenance only)."""
+    recorded as its ``layout`` (provenance only).
+    ``publish`` — ``(state, rounds_done)`` callback fired after each
+    boundary's manifest commit (zoo stack; needs ``ckpt_manager``): the
+    train side of a serving hand-off."""
     built = _built_for(spec, device, built)
     if ckpt_manager is not None and getattr(ckpt_manager, "layout", None) is None:
         ckpt_manager.layout = built.sampler.shard
+    if built.kind == "zoo":
+        if eval_data is not None:
+            raise ValueError(
+                "eval_data is only supported on the simulation stack "
+                "(kind='task'); the zoo stack's metrics are train loss / "
+                "cohort size / drops"
+            )
+        return _run_zoo(built, ckpt_manager, publish, random_source)
+    if publish is not None:
+        raise ValueError(
+            "run(spec, publish=...) is a zoo-stack feature (kind='zoo'): "
+            "the serve hand-off follows the segmented TrainState manager"
+        )
     return run_federated(
         built.task,
         built.dataset,
@@ -173,9 +325,12 @@ def run(
 
 def restore_template(spec: ExperimentSpec, *, built: BuiltExperiment | None = None, device=None):
     """The fresh round-0 ``TrainState`` a checkpoint of this spec restores
-    into (``CheckpointManager.restore(template)``), without eval data.
-    ``run(spec, ckpt_manager=...)`` builds the same one internally."""
+    into (``CheckpointManager.restore(template)``), for either stack, the
+    simulation stack's without eval data.  ``run(spec, ckpt_manager=...)``
+    builds the same one internally."""
     built = _built_for(spec, device, built)
+    if built.kind == "zoo":
+        return _zoo_segment_and_state(built)[1]
     cfg = built.fed_config
     if not cfg.compiled:
         raise ValueError(

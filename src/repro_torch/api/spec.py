@@ -4,10 +4,8 @@ The port's own copy of ``repro/api/spec.py``'s dataclasses: that module
 imports the JAX server, so the port cannot import it.  The copy reads the
 same JSON (every section, ``fault``, ``compression`` and ``serve`` included),
 rejects unknown keys the same way, and round-trips ``to_dict`` identically,
-so a spec saved by either package loads in the other unchanged.  Sections
-describing parts that are not ported yet (``kind="zoo"``, ``serve``) still
-parse; ``repro_torch.api`` raises ``NotImplementedError`` when asked to
-build a zoo spec.
+so a spec saved by either package loads in the other unchanged.  The
+``serve`` section, whose serving loop is not ported yet, still parses.
 
 Serialization contract (as in the reference):
 
@@ -183,10 +181,10 @@ class TaskSpec:
         ``"task"`` — a simulation-scale ``repro_torch.fed.tasks.Task`` resolved
         from the task registry (``name`` + ``kwargs``); runs through
         ``repro_torch.fed.server.run_federated``.
-        ``"zoo"`` — an architecture from ``repro.configs`` (``name`` is the
-        registry arch name, ``reduced``/``kwargs`` configure
-        ``ArchConfig.reduced(**kwargs)``); runs through the pod-scale
-        compiled stack (``fed.round.build_fed_scan_segment``).
+        ``"zoo"`` — an architecture from ``repro_torch.configs`` (``name``
+        is the registry arch name, ``reduced``/``kwargs`` configure
+        ``ArchConfig.reduced(**kwargs)``); runs through the zoo round
+        (``repro_torch.fed.round.build_fed_scan_segment``).
     dataset / dataset_kwargs:
         Dataset factory name (dataset registry) and its kwargs.  For zoo
         archs, ``vocab``, ``seed``, and ``total_seqs`` default from the arch
@@ -275,8 +273,9 @@ class ExecutionSpec:
     """How (not what) to execute: seeds, compilation, fidelity, checkpoints.
 
     ``mesh_shape`` (zoo stack only): explicit host-mesh shape, e.g.
-    ``(2, 1)`` for 2-way data parallelism; ``None`` uses
-    ``repro.launch.mesh.make_host_mesh()``'s device-derived default.
+    ``(2, 1)`` for 2-way data parallelism.  The port runs on one card: only
+    ``None`` or all ones, the degenerate mesh, run; any other shape raises
+    ``NotImplementedError`` (multi-rank placement is not ported).
 
     ``sampler_axis``: name of the axis to shard the sampler's (N,) client
     axis over — the million-client switch.  ``None`` (default) keeps the
@@ -637,6 +636,36 @@ class ExperimentSpec:
             track_scores=ex.track_scores,
             ckpt_every=ex.ckpt_every,
             score_history_host_offload=ex.score_history_host_offload,
+            faults=self.fault if self.fault.enabled else None,
+            compression=self.compression if self.compression.enabled else None,
+        )
+
+    def round_spec(self):
+        """The zoo round's ``RoundSpec`` this spec denotes (zoo kind).
+
+        ``cohort=None`` resolves at build time (``repro_torch.api.build``),
+        where the client count is known; here it must already be concrete."""
+        from repro_torch.fed.round import RoundSpec
+
+        fed = self.federation
+        if fed.cohort is None:
+            raise ValueError(
+                "FederationSpec.cohort is None; resolve it against the client "
+                "count first (repro_torch.api.build does this automatically)"
+            )
+        if fed.server_opt != "fedavg":
+            raise ValueError(
+                f"server_opt {fed.server_opt!r} is only supported on the "
+                "simulation stack (kind='task'); the zoo round applies a "
+                "stateless x - server_lr * d update (fedavg)"
+            )
+        server_lr = float(dict(fed.server_opt_kwargs).get("lr", 1.0))
+        return RoundSpec(
+            cohort=int(fed.cohort),
+            local_steps=fed.local_steps,
+            local_lr=fed.local_lr,
+            server_lr=server_lr,
+            local_batch=fed.batch_size,
             faults=self.fault if self.fault.enabled else None,
             compression=self.compression if self.compression.enabled else None,
         )

@@ -3,10 +3,11 @@
     python -m repro_torch.bench.tables [--results-dir results/torch]
 
 Port of ``benchmarks/run.py``'s ``table_synthetic`` (fig2),
-``table_budget`` (fig3b) and ``table_femnist`` (fig4): the same
-``name,us_per_call,derived`` CSV rows, with the same row names and formats,
-read from the JSON of ``repro_torch.examples.synthetic_regret``,
-``budget_sweep`` and ``femnist_style``.
+``table_budget`` (fig3b), ``table_femnist`` (fig4) and ``table_fed_lm``
+(fig5): the same ``name,us_per_call,derived`` CSV rows, with the same row
+names and formats, read from the JSON of
+``repro_torch.examples.synthetic_regret``, ``budget_sweep``,
+``femnist_style`` and ``fed_lm``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import os
 
 import numpy as np
 
-__all__ = ["row", "table_synthetic", "table_budget", "table_femnist", "TABLES", "main"]
+__all__ = [
+    "row", "table_synthetic", "table_budget", "table_femnist", "table_fed_lm", "TABLES", "main",
+]
 
 RESULTS = os.path.join("results", "torch")
 
@@ -81,7 +84,19 @@ def table_femnist(results_dir: str = RESULTS) -> list:
     return rows
 
 
-TABLES = {"fig2": table_synthetic, "fig3b": table_budget, "fig4": table_femnist}
+def table_fed_lm(results_dir: str = RESULTS) -> list:
+    data = _load(results_dir, "fed_lm.json")
+    if data is None:
+        return [row("fig5_fed_lm", 0, "MISSING - run python -m repro_torch.examples.fed_lm")]
+    return [
+        row(f"fig5_lm_{name}", 0, f"loss {run['loss'][0]:.3f}->{run['loss'][-1]:.3f}")
+        for name, run in data["runs"].items()
+    ]
+
+
+TABLES = {
+    "fig2": table_synthetic, "fig3b": table_budget, "fig4": table_femnist, "fig5": table_fed_lm,
+}
 
 
 def main(argv=None) -> list:

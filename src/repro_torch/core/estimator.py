@@ -78,38 +78,33 @@ def full_aggregate_stacked(updates, lam: torch.Tensor):
 
 
 def flatten_stacked(updates, dtype: torch.dtype | None = torch.float32):
-    """Stacked dict (leading axis C) -> (C, D) in tree order + the
-    (key path, shape, dtype) spec to rebuild a (D,) vector.  The buffer is
-    ``dtype``, or with ``dtype=None`` the leaves' promoted dtype."""
-    spec = []
-
-    def walk(tree, path):
-        for k in sorted(tree):
-            v = tree[k]
-            if isinstance(v, dict):
-                walk(v, path + (k,))
-            else:
-                spec.append((path + (k,), tuple(v.shape[1:]), v.dtype))
-
-    walk(updates, ())
+    """Stacked dict (leading axis C; nested dicts and lists) -> (C, D) in
+    tree order + the spec to rebuild a (D,) vector: the tree with each leaf
+    replaced by a ``meta`` tensor of its per-slot shape and dtype.  The
+    buffer is ``dtype``, or with ``dtype=None`` the leaves' promoted dtype."""
+    spec = tree_map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"), updates)
     leaves = tree_leaves(updates)
     flat = torch.cat([x.reshape(x.shape[0], -1) for x in leaves], dim=1)
     return (flat if dtype is None else flat.to(dtype)), spec
 
 
 def unflatten_vector(vec: torch.Tensor, spec) -> dict:
-    """(D,) vector -> dict of ``flatten_stacked``'s spec, each leaf cast to
-    its input dtype."""
-    out: dict = {}
+    """(D,) vector -> the tree of ``flatten_stacked``'s spec, each leaf cast
+    to its input dtype."""
     off = 0
-    for path, shape, dtype in spec:
-        size = math.prod(shape)
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = vec[off : off + size].reshape(shape).to(dtype)
+
+    def walk(tree):
+        nonlocal off
+        if isinstance(tree, dict):
+            return {k: walk(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        size = math.prod(tree.shape)
+        out = vec[off : off + size].reshape(tree.shape).to(tree.dtype)
         off += size
-    return out
+        return out
+
+    return walk(spec)
 
 
 def aggregate_and_error(updates, weights: torch.Tensor, lam: torch.Tensor):

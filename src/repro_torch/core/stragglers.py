@@ -363,8 +363,8 @@ def tree_to_vec(tree) -> torch.Tensor:
 
 
 def vec_to_tree(vec: torch.Tensor, like):
-    """(D,) vector -> dict shaped and typed like ``like`` (``tree_to_vec``'s
-    inverse)."""
+    """(D,) vector -> dict (nested dicts and lists) shaped and typed like
+    ``like`` (``tree_to_vec``'s inverse)."""
     off = 0
 
     def take(leaf):
@@ -377,6 +377,8 @@ def vec_to_tree(vec: torch.Tensor, like):
     def walk(tree):
         if isinstance(tree, dict):
             return {k: walk(tree[k]) for k in sorted(tree)}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
         return take(tree)
 
     return walk(like)

@@ -30,6 +30,7 @@ def local_update(params, loss_fn: Callable, batches, local_lr: float):
     for r in range(xs.shape[0]):
         grads, loss = grad_fn(p, (xs[r], ys[r]))
         p = tree_map(lambda w, g: w - local_lr * g, p, grads)
+        del grads  # freed before the next step's: one stack of gradients at a time
     delta = tree_map(lambda a, b: a - b, params, p)
     return delta, loss
 

@@ -36,6 +36,7 @@ __all__ = [
     "mask_selection",
     "scatter_cohort",
     "weighted_delta_sum",
+    "host_gather_cohort_batches",
 ]
 
 
@@ -114,3 +115,27 @@ def weighted_delta_sum(deltas, w: torch.Tensor):
         return (wc * leaf.to(torch.float32)).sum(0)
 
     return tree_map(one, deltas)
+
+
+def host_gather_cohort_batches(dataset, sel: CohortSelection, idx, local_steps: int,
+                               batch_size: int):
+    """Host-side padded batch gather: (C, R, B, ...) features and labels on
+    the dataset's device, given ``idx``, the slots' (C, R, B) sample index
+    rows.  Valid slots get their client's batches, one gather each; padding
+    slots get zeros and cost no gather (their weight is zero, so the zeros
+    never reach the estimate).  Reads the selection back to the host."""
+    ids = sel.ids.cpu().tolist()
+    valid = sel.valid.cpu().tolist()
+    idx = torch.as_tensor(idx, device=dataset.device)
+    feat_shape = (local_steps, batch_size) + tuple(dataset.features.shape[2:])
+    lab_shape = (local_steps, batch_size) + tuple(dataset.labels.shape[2:])
+    feats, labs = [], []
+    for slot, (cid, ok) in enumerate(zip(ids, valid)):
+        if not ok:
+            feats.append(torch.zeros(feat_shape, dtype=dataset.features.dtype, device=dataset.device))
+            labs.append(torch.zeros(lab_shape, dtype=dataset.labels.dtype, device=dataset.device))
+            continue
+        f, lab = dataset.client_batch(cid, idx[slot].reshape(-1))
+        feats.append(f.reshape(feat_shape))
+        labs.append(lab.reshape(lab_shape))
+    return torch.stack(feats), torch.stack(labs)

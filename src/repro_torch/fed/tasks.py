@@ -230,5 +230,11 @@ def params_from_reference(np_params, device="cpu"):
 
 
 def params_to_numpy(params):
-    """The port's parameters -> nested dicts of numpy arrays (host copies)."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), params)
+    """The port's parameters -> nested dicts of numpy arrays (host copies).
+    numpy holds no bfloat16: such leaves widen to float32, exactly."""
+
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(host, params)

@@ -105,7 +105,8 @@ class ArchConfig:
 
     def reduced(self, **overrides) -> "ArchConfig":
         """A tiny same-family variant for CPU smoke tests (the reference's
-        sizes, f32)."""
+        sizes, f32).  A ``param_dtype`` override may name the dtype
+        (``"bfloat16"``), as a spec's JSON kwargs do."""
         n_pat = len(self.block_pattern)
         small = dict(
             n_layers=max(n_pat, 2 if n_pat == 1 else n_pat),
@@ -129,6 +130,8 @@ class ArchConfig:
             name=self.name + "-reduced",
         )
         small.update(overrides)
+        if isinstance(small["param_dtype"], str):
+            small["param_dtype"] = getattr(torch, small["param_dtype"])
         return dataclasses.replace(self, **small)
 
 

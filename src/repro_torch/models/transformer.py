@@ -181,6 +181,18 @@ def _rep(tree, r: int):
     return tree[r]
 
 
+def _unstack(tree, reps: int) -> list:
+    """A stacked slot as ``reps`` per-repeat trees of views.  One
+    ``torch.unbind`` a leaf: its backward stacks the repeats' gradients
+    once, where indexing one repeat at a time (``_rep``) would give each
+    layer's gradient as a zero-filled copy of the whole stack, summed over
+    the repeats (O(repeats) stack-sized fills and adds a leaf)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, reps) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(reps)]
+    return list(torch.unbind(tree, 0))
+
+
 def _full_attention(p, cfg: ArchConfig, x, rope, *, window=None, want_cache=False, max_seq=None):
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, x)
@@ -254,11 +266,12 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
     rope = rope_angles(pos, cfg.hd, cfg.rope_theta)
     masks: dict = {}
     out_caches = [[] for _ in cfg.block_pattern]
+    layers = [_unstack(stack, reps) for stack in params["stacks"]]
     for r in range(reps):
         for j, kind in enumerate(cfg.block_pattern):
             cache = None if caches is None else _rep(caches[j], r)
             h, nc = _apply_block(
-                kind, _rep(params["stacks"][j], r), cfg, h, rope, mode=mode, cache=cache,
+                kind, layers[j][r], cfg, h, rope, mode=mode, cache=cache,
                 index=index, max_seq=max_seq, masks=masks, shared=params.get("shared"),
             )
             out_caches[j].append(nc)
@@ -268,7 +281,10 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
 
 
 def _embed(params, cfg: ArchConfig, tokens):
-    h = params["embed"][tokens]
+    # F.embedding, not params["embed"][tokens]: under vmap(grad) the
+    # indexing backward sums repeated tokens in a thread-dependent order, so
+    # two federated runs of one spec would differ in the last bits.
+    h = torch.nn.functional.embedding(tokens, params["embed"])
     if cfg.scale_embed:
         # sqrt(d_model) rounded to h's dtype first, as the reference does; a
         # host scalar, so no host-to-device copy.

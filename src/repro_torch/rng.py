@@ -190,7 +190,8 @@ class ReplaySource:
     """Plays back recorded draws.
 
     ``init_params``: the round-0 parameters as nested dicts of numpy arrays
-    (the reference's layout, see ``fed.tasks.params_from_reference``);
+    (the reference's layout, see ``fed.tasks.params_from_reference``; a
+    zoo model's through ``models.transformer.params_from_reference``);
     ``uniforms`` and ``priorities``: (T, N) float32; ``batch_idx``:
     (T, N, R, B) integers.  ``priorities`` may be None for oracle runs.
     The RSP draws' tables, each None when the run does not draw it:
@@ -239,6 +240,11 @@ class ReplaySource:
         return table
 
     def init_params(self, task) -> dict:
+        # A zoo model converts the reference's tree itself (its layout and
+        # dtypes are checked against the config's).
+        convert = getattr(task, "params_from_reference", None)
+        if convert is not None:
+            return convert(self._init, self.device)
         return params_from_reference(self._init, self.device)
 
     def isp_uniforms(self, t: int, n: int) -> torch.Tensor:

@@ -247,13 +247,16 @@ def _hand_made_results(d: Path) -> None:
                                    "rounds_to_target": 5},
                           "vrb": {"acc": [0.3], "sq_error": [0.25], "rounds_to_target": None}}}
         for lv in ("v1", "v3")}}))
+    (d / "fed_lm.json").write_text(json.dumps({"config": {}, "runs": {
+        "kvib": {"loss": [5.5, 5.25], "regret": [0.0], "sq_error": [0.1]},
+        "vrb/ssm": {"loss": [5.4, 4.0]}}}))
 
 
 def test_tables_print_reference_rows(tmp_path, monkeypatch, capsys):
     _hand_made_results(tmp_path)
     bench = _load(ROOT / "benchmarks" / "run.py", "_ref_benchmarks_run")
     monkeypatch.setattr(bench, "RESULTS", str(tmp_path))
-    for fn in ("table_synthetic", "table_budget", "table_femnist"):
+    for fn in ("table_synthetic", "table_budget", "table_femnist", "table_fed_lm"):
         getattr(bench, fn)()
     want = capsys.readouterr().out.splitlines()
     rows = tables.main(["--results-dir", str(tmp_path)])
@@ -266,7 +269,7 @@ def test_tables_print_reference_rows(tmp_path, monkeypatch, capsys):
 
 def test_tables_report_missing_results(tmp_path, capsys):
     rows = tables.main(["--results-dir", str(tmp_path / "none")])
-    assert [r[0] for r in rows] == ["fig2_synthetic", "fig3b_budget", "fig4_femnist"]
+    assert [r[0] for r in rows] == ["fig2_synthetic", "fig3b_budget", "fig4_femnist", "fig5_fed_lm"]
     assert all("MISSING" in r[2] for r in rows)
 
 

@@ -211,15 +211,17 @@ def test_spec_json_loads_unchanged(tmp_path):
 @pytest.mark.parametrize(
     "section",
     [
-        {"task": {"kind": "zoo", "name": "smollm-360m"}},
+        {"task": {"kind": "zoo", "name": "qwen3-moe-235b-a22b"}},
         {"execution": {"oracle_metrics": False, "exact_oracle_equiv": True}},
     ],
     ids=["zoo", "exact_oracle_equiv"],
 )
 def test_unported_parts_raise(section):
-    """An unported part (``kind="zoo"``) raises ``NotImplementedError``
-    naming its ``ROADMAP.md`` item.  ``exact_oracle_equiv`` was such a part
-    until it was ported; its case now checks that it runs."""
+    """An unported part (a zoo arch of the moe family) raises
+    ``NotImplementedError`` naming its ``ROADMAP.md`` item.
+    ``exact_oracle_equiv`` was such a part until it was ported; its case now
+    checks that it runs.  The zoo round itself runs since it was ported
+    (``tests/test_torch_zoo_round.py``)."""
     spec = api.ExperimentSpec.from_dict(
         {**section, "federation": {"rounds": 1}, "task": section.get(
             "task", {"dataset_kwargs": {"n_clients": 4, "total": 64}})}
