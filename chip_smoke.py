@@ -81,6 +81,21 @@ Phases, each failing loudly (non-zero exit, no result line):
    fig5 rows; one round of (n) and of (o) under the profiler (forward
    kernels against the PyTorch backwards of kernels 6-8, GEMMs,
    elementwise);
+   serve_loop — the train-to-serve loop: (s) smollm-360m and (t)
+   zamba2-1.2b at full width and depth, each ``python -m
+   repro_torch.launch.train --compiled --ckpt DIR/fl --ckpt-every N`` and
+   ``python -m repro_torch.launch.serve --follow DIR/fl_ckpts`` as two
+   processes on the card: both exit 0, the summary line's ``last_step`` at
+   the horizon, ``swaps == promotions``, 1 to N boundaries decided, the
+   engine's parameters at their addresses, the gate's launches of kernels
+   6-8 exact (they go into the kernels line); restore and gate seconds,
+   decode tokens/s with the trainer running and with none, the trainer's
+   seconds a round with the follower, alone, and in the zoo phase; a
+   boundary's save and restore alone; (u) ``python -m
+   repro_torch.examples.fed_lm --serve --rounds 6 --clients 8 --budget 3``;
+   (v) swap-heavy against static decode on (k)'s engine, the ratio printed
+   and not gated; the launcher killed after one segment and resumed,
+   bitwise;
    autograd — gradients through kernels 6-8 (kernel forward, PyTorch
    backward) equal the CPU's in f32: each wrapper, then ``loss_fn`` of a
    reduced smollm-360m and a reduced zamba2-1.2b, with the kernels counted in
@@ -109,6 +124,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -1281,6 +1298,7 @@ ZOO_RUNS = {  # label: (arch, reduced() kwargs or None for the full config, roun
     "(o) zamba2-1.2b": ("zamba2-1.2b", None, 2, 32, 6, 8),
     "(p) gemma2-27b one pattern": ("gemma2-27b", GEMMA_PATTERN, 2, 32, 3, 4),
 }
+ZOO_ROUND_S: dict = {}  # label -> one round's wall seconds alone (zoo profile)
 # The GPU-against-CPU round: smollm-360m's widths, two layers, f32.
 AGREE_KW = dict(n_layers=2, d_model=960, n_heads=15, n_kv_heads=5, d_ff=2560, vocab=49152)
 
@@ -1476,6 +1494,7 @@ def zoo_round_profile(torch, api, label: str, spec, card: str) -> None:
                 torch.cuda.synchronize()
                 walls[way].append(time.perf_counter() - t0)
         med = {way: sorted(w)[1] for way, w in walls.items()}
+        ZOO_ROUND_S[label] = med["unbind"]
         print(f"zoo profile {label} ({card}): wall s a round, stacked layers by one unbind "
               f"{med['unbind']:.4f} against indexing a layer at a time {med['index']:.4f} (median "
               f"of 3 each, outside the profiler: {json.dumps(walls)})", flush=True)
@@ -1680,6 +1699,296 @@ def zoo_phase(torch, card: str) -> dict:
                              sampler={"kwargs": {"horizon": 5}})
         zoo_round_profile(torch, api, label, spec, card)
         torch.cuda.empty_cache()
+    return launches
+
+
+# -- the train-to-serve loop ---------------------------------------------------
+
+# (s), (t): ``launch.train`` and ``launch.serve --follow`` as two processes,
+# bf16 at the configs' widths and depths.  (s) is the reference launcher's
+# defaults but for the rounds and the checkpoints; (t) cuts zamba2's cohort
+# to C = 4 so that the trainer (62.87 GB at C = 8 in the zoo phase) and the
+# server fit the card together.
+SERVE_LOOP_RUNS = {  # label: (zoo-phase label of the same model, trainer flags)
+    "(s) smollm-360m": ("(n) smollm-360m", [
+        "--arch", "smollm-360m", "--compiled", "--rounds", "6", "--clients", "32",
+        "--budget", "6", "--cohort", "8", "--seq", "64", "--local-batch", "2",
+        "--ckpt-every", "2"]),
+    "(t) zamba2-1.2b": ("(o) zamba2-1.2b", [
+        "--arch", "zamba2-1.2b", "--compiled", "--rounds", "2", "--clients", "32",
+        "--budget", "3", "--cohort", "4", "--seq", "64", "--local-batch", "2",
+        "--ckpt-every", "1"]),
+}
+SERVE_SUMMARY = re.compile(
+    r"^serve summary: promotions=(\d+) rollbacks=(\d+) tokens=(\d+) "
+    r"tokens_per_sec=([\d.]+) swaps=(\d+) last_step=(\d+) batches=(\d+)$", re.M)
+
+
+def _flag(flags: list, name: str) -> str:
+    return flags[flags.index(name) + 1]
+
+
+def _summary(label: str, text: str, rounds: int, boundaries: int) -> dict:
+    """The session's summary line, parsed and checked: ``last_step`` at the
+    horizon, ``swaps == promotions``, 1 to ``boundaries`` decisions."""
+    found = SERVE_SUMMARY.findall(text)
+    check(len(found) == 1, f"{label}: {len(found)} summary lines")
+    keys = ("promotions", "rollbacks", "tokens", "tokens_per_sec", "swaps", "last_step", "batches")
+    got = {k: (float(v) if k == "tokens_per_sec" else int(v)) for k, v in zip(keys, found[0])}
+    check(got["last_step"] == rounds, f"{label}: last_step {got['last_step']}, horizon {rounds}")
+    check(got["swaps"] == got["promotions"], f"{label}: {got['swaps']} swaps, "
+          f"{got['promotions']} promotions")
+    check(1 <= got["promotions"] + got["rollbacks"] <= boundaries,
+          f"{label}: {got['promotions'] + got['rollbacks']} decisions for {boundaries} boundaries")
+    return got
+
+
+def _static_decode_tps(torch, arch: str, chunks: int = 3) -> float:
+    """Decode tokens/s with no trainer on the card: the followed run's
+    serving geometry (``ServeSpec`` defaults: 2 x (16 + 48), chunks of 16
+    steps), random weights."""
+    from repro_torch.api import ServeSpec
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    srv, cfg = ServeSpec(), get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    engine = ServeEngine(cfg, transformer.init_params(cfg, gen, "cuda"), batch=srv.batch,
+                         max_seq=srv.max_seq, page_size=srv.page_size)
+    prompts = torch.randint(0, cfg.vocab, (srv.batch, srv.prompt_len), device="cuda")
+    engine.start(prompts)
+    engine.step(srv.decode_steps_per_poll)  # warm-up
+    engine.decode_tokens, engine.decode_seconds = 0, 0.0
+    for _ in range(chunks):
+        if engine.capacity <= 0:
+            engine.start(prompts)
+        engine.step(min(srv.decode_steps_per_poll, engine.capacity))
+    return engine.tokens_per_sec()
+
+
+def train_and_follow(torch, label: str, flags: list, root: Path, card: str) -> dict:
+    """One cross-process run: the trainer alone (``python -m
+    repro_torch.launch.train ... --ckpt DIR/alone``), then the trainer
+    (``--ckpt DIR/fl``) and the follower
+    (``python -m repro_torch.launch.serve --follow DIR/fl_ckpts --timeout
+    600``) started together, both on the card.  Checks both exit 0, the
+    summary line, and the gate's kernel launches: exactly kernels 6-8's
+    calls in one forward x the batches scored (``eval_batches`` x (1 +
+    decisions)).  Returns the gate's launches."""
+    from repro_torch.api import ServeSpec
+    from repro_torch.configs import get_config
+
+    root.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    # The same trainer command with no follower first: what the follower
+    # costs the trainer, both with their first round's warm-up and writes.
+    alone = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *flags, "--ckpt", str(root / "alone")],
+        capture_output=True, text=True, env=env, cwd=str(root), timeout=600)
+    check(alone.returncode == 0, f"{label}: the trainer alone exited {alone.returncode}:\n"
+          f"{(alone.stdout + alone.stderr)[-3000:]}")
+    alone_s = float(re.search(r"\(([\d.]+)s/round\)", alone.stdout).group(1))
+    cmds = {
+        "trainer": [sys.executable, "-m", "repro_torch.launch.train", *flags,
+                    "--ckpt", str(root / "fl")],
+        "server": [sys.executable, "-m", "repro_torch.launch.serve", "--follow",
+                   str(root / "fl_ckpts"), "--timeout", "600"],
+    }
+    procs, logs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, cmd in cmds.items():
+            logs[name] = root / f"{name}.log"
+            with open(logs[name], "w") as f:
+                procs[name] = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, env=env,
+                                               cwd=str(root))
+        rcs = {name: p.wait(timeout=660) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    out = {name: path.read_text() for name, path in logs.items()}
+    for name, rc in rcs.items():
+        check(rc == 0, f"{label}: the {name} exited {rc}:\n{out[name][-3000:]}")
+    rounds, every = int(_flag(flags, "--rounds")), int(_flag(flags, "--ckpt-every"))
+    summary = _summary(label, out["server"], rounds, rounds // every)
+    stats = json.loads(out["server"].split("follow stats ", 1)[1].splitlines()[0])
+    decisions = summary["promotions"] + summary["rollbacks"]
+    cfg = get_config(_flag(flags, "--arch"))
+    scored = ServeSpec().eval_batches * (1 + decisions)
+    want = {k: v * scored for k, v in forward_calls(cfg).items() if v}
+    check(stats["gate_launches"] == want,
+          f"{label}: gate launches {stats['gate_launches']}, expected {want}")
+    per_round = float(re.search(r"\(([\d.]+)s/round\)", out["trainer"]).group(1))
+    print(f"{label} ({card}): trainer + follower as two processes, {wall:.1f} s; "
+          f"{out['server'].count('boundary step')} boundaries seen, {summary}; gate launches "
+          f"{stats['gate_launches']} (every parameter tensor of the engine at its address after "
+          f"{summary['swaps']} swaps)", flush=True)
+    print(f"{label} ({card}): restore s a boundary {[round(x, 4) for x in stats['restore_s']]}; "
+          f"gate s a decision (first: the prime) {[round(x, 4) for x in stats['gate_s']]}; decode "
+          f"tokens/s with the trainer running {summary['tokens_per_sec']}; trainer s a round "
+          f"(checkpoint writes and the first round's warm-up included) with a follower "
+          f"{per_round}, the same command alone {alone_s}", flush=True)
+    return {"gate": stats["gate_launches"], "per_round": per_round}
+
+
+def boundary_cost(torch, api, card: str, root: Path) -> None:
+    """What one boundary costs the loop, in this process: (s)'s spec's
+    round-0 ``TrainState`` (smollm-360m, bf16) published by
+    ``CheckpointManager.save`` and read back by ``restore``, each timed
+    alone (the trainer's and the watcher's side of a commit)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+
+    args = train.make_parser().parse_args(SERVE_LOOP_RUNS["(s) smollm-360m"][1])
+    spec = train.build_spec_from_args(args)
+    template = api.restore_template(spec)
+    manager = CheckpointManager(str(root / "boundary"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = manager.save(template, step=1)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    manager.restore(template, 1)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    gb = Path(path).stat().st_size / 1e9
+    print(f"(s) boundary cost ({card}): save {save_s:.3f} s, restore {restore_s:.3f} s of a "
+          f"{gb:.3f} GB checkpoint ({gb / save_s:.3f} and {gb / restore_s:.3f} GB/s)", flush=True)
+
+
+def swap_vs_static(torch, card: str, reps: int = 3) -> None:
+    """(v) (k)'s engine (smollm-360m, bf16, full width and depth, 8 x (512 +
+    64)) decoding 63 steps in chunks of 16 with no swap, and with an
+    alternate parameter set copied in after every chunk (the reference's
+    ``bench_fed_serve_swap``), in turns static, swap, swap, static, ...:
+    tokens/s of each (median) and their ratio.  Not gated: host-bound
+    decode spreads 20% between runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed.tasks import tree_leaves
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("smollm-360m")
+    gens = [torch.Generator(device="cuda").manual_seed(k) for k in (11, 12)]
+    params, variant = (transformer.init_params(cfg, g, "cuda") for g in gens)
+    engine = ServeEngine(cfg, params, batch=8, max_seq=576, page_size=16)
+    prompts = torch.randint(0, cfg.vocab, (8, 512), device="cuda")
+    ptrs = [p.data_ptr() for p in tree_leaves(engine.params)]
+    tps = {"static": [], "swap": []}
+
+    def run(swapping: bool) -> float:
+        if swapping:
+            engine.swap_params(params)
+        engine.start(prompts)
+        engine.decode_tokens, engine.decode_seconds = 0, 0.0
+        done = 0
+        while engine.capacity > 0:
+            done += engine.step(16)
+            if swapping:
+                engine.swap_params(variant if done % 32 else params)
+        return engine.tokens_per_sec()
+
+    run(False)  # warm-up
+    for k in range(reps):
+        for way in (("static", "swap") if k % 2 == 0 else ("swap", "static")):
+            tps[way].append(run(way == "swap"))
+    check(ptrs == [p.data_ptr() for p in tree_leaves(engine.params)],
+          "(v): engine parameters moved under swaps")
+    med = {way: sorted(v)[len(v) // 2] for way, v in tps.items()}
+    print(f"(v) swap-heavy against static decode ({card}): smollm-360m bf16, 8 x (512 + 64), "
+          f"a swap every 16 steps: static {med['static']:.1f} tokens/s, swap "
+          f"{med['swap']:.1f} tokens/s, ratio {med['swap'] / med['static']:.3f} (medians of "
+          f"{reps}: {json.dumps({k: [round(x, 1) for x in v] for k, v in tps.items()})}; "
+          f"{engine.swaps} swaps; not gated)", flush=True)
+
+
+def launcher_resume(root: Path) -> None:
+    """``launch.train --compiled`` at the reduced arch on the card, killed
+    after its first segment (``REPRO_KILL_AFTER_SEGMENTS=1``), then
+    ``--resume``: final parameters bitwise those of an uninterrupted run."""
+    import numpy as np
+
+    flags = ["--arch", "smollm-360m", "--reduced", "--compiled", "--rounds", "4",
+             "--clients", "8", "--budget", "2", "--cohort", "3", "--seq", "16",
+             "--ckpt-every", "2"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *flags]
+
+    def run(ckpt: str, *extra, kill: bool = False):
+        return subprocess.Popen([*cmd, "--ckpt", str(root / ckpt), *extra],
+                                env={**env, "REPRO_KILL_AFTER_SEGMENTS": "1" if kill else "0"},
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                cwd=str(root))
+
+    root.mkdir(parents=True, exist_ok=True)
+    killed, full = run("k", kill=True), run("full")
+    outs = {name: p.communicate(timeout=300)[0] for name, p in (("k", killed), ("full", full))}
+    check(killed.returncode == -9, f"launcher resume: the killed run exited {killed.returncode}:"
+          f"\n{outs['k'][-2000:]}")
+    check(full.returncode == 0, f"launcher resume: the full run failed:\n{outs['full'][-2000:]}")
+    resumed = run("k", "--resume")
+    text = resumed.communicate(timeout=300)[0]
+    check(resumed.returncode == 0 and "resumed from checkpoint step 2" in text,
+          f"launcher resume: the resumed run:\n{text[-2000:]}")
+    with np.load(root / "k.npz") as a, np.load(root / "full.npz") as b:
+        check(sorted(a.files) == sorted(b.files) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a.files),
+            "launcher resume: final parameters differ from the uninterrupted run")
+        n = len(a.files)
+    print(f"launcher resume: killed after segment 1 of 2 (SIGKILL), --resume: the final "
+          f"checkpoint's {n} leaves bitwise the uninterrupted run's", flush=True)
+
+
+def serve_loop_phase(torch, card: str) -> dict:
+    """The train-to-serve loop on the card: (s) smollm-360m and (t)
+    zamba2-1.2b, each a ``launch.train`` process and a ``launch.serve
+    --follow`` process at full width and depth; decode tokens/s with no
+    trainer at the same geometry; what one boundary's save and restore
+    cost alone; (u) ``python -m
+    repro_torch.examples.fed_lm --serve --rounds 6 --clients 8 --budget 3``
+    in this process; (v) swap-heavy against static decode; the launcher's
+    kill and resume.  Returns the gates' launches in (s) and (t)."""
+    phase("serve_loop")
+    import shutil
+    import tempfile
+
+    from repro_torch import api
+    from repro_torch.examples import fed_lm
+
+    torch.cuda.empty_cache()
+    launches = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_loop_"))
+    try:
+        for label, (zoo_label, flags) in SERVE_LOOP_RUNS.items():
+            got = train_and_follow(torch, label, flags, root / label[1], card)
+            for k, v in got["gate"].items():
+                launches[k] = launches.get(k, 0) + v
+            arch = _flag(flags, "--arch")
+            print(f"{label}: decode tokens/s with no trainer ({card}, same geometry, this "
+                  f"process) {_static_decode_tps(torch, arch):.1f}; trainer s a round alone "
+                  f"(zoo phase {zoo_label}, C = 8, no checkpoint) "
+                  f"{ZOO_ROUND_S.get(zoo_label, float('nan')):.4f}", flush=True)
+            shutil.rmtree(root / label[1], ignore_errors=True)
+            torch.cuda.empty_cache()
+        boundary_cost(torch, api, card, root)
+        t0 = time.perf_counter()
+        res = fed_lm.main(["--serve", "--rounds", "6", "--clients", "8", "--budget", "3"])
+        wall = time.perf_counter() - t0
+        summary = _summary("(u) fed_lm --serve", res["summary"].render(), 6, 3)
+        check(res["engine"].device.type == "cuda", "(u): not served on the card")
+        print(f"(u) fed_lm --serve ({card}): {wall:.1f} s, {summary}; restore s "
+              f"{[round(x, 4) for x in res['watcher'].restore_seconds]}, gate s "
+              f"{[round(x, 4) for x in res['gate'].score_seconds]}", flush=True)
+        del res
+        swap_vs_static(torch, card)
+        launcher_resume(root / "resume")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2447,6 +2756,8 @@ def main() -> int:
     for k, v in checkpoint_phase(torch).items():
         launches[k] += v
     for k, v in zoo_phase(torch, card).items():
+        launches[k] += v
+    for k, v in serve_loop_phase(torch, card).items():
         launches[k] += v
     autograd_phase(torch)
     agreement_phase(torch)

@@ -5,7 +5,8 @@ imports the JAX server, so the port cannot import it.  The copy reads the
 same JSON (every section, ``fault``, ``compression`` and ``serve`` included),
 rejects unknown keys the same way, and round-trips ``to_dict`` identically,
 so a spec saved by either package loads in the other unchanged.  The
-``serve`` section, whose serving loop is not ported yet, still parses.
+``serve`` section sets the geometry and gate policy of the serving loop
+(``repro_torch.serve``, ``launch.serve --follow``).
 
 Serialization contract (as in the reference):
 

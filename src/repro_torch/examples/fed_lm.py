@@ -2,6 +2,7 @@
 samplers, the Section 6.3 experiment at simulation scale.
 
     python -m repro_torch.examples.fed_lm [--device cpu] [--model zoo --archs smollm ssm]
+    python -m repro_torch.examples.fed_lm --serve --rounds 6 --clients 8 --budget 3
 
 Port of ``examples/fed_lm.py``.  Clients hold heterogeneous token streams
 (heavy long-tail sizes, distinct unigram styles); the model is a causal
@@ -11,12 +12,15 @@ tasks (``api.register_task``) so they are names in the spec like any other:
 the dense ``smollm`` and the Mamba2 hybrid ``ssm`` run, the ``moe`` and
 ``xlstm`` families are not ported yet.  The JSON goes to
 ``results/torch/fed_lm.json``; ``python -m repro_torch.bench.tables``
-prints its fig5 rows.
+prints its fig5 rows.  ``--serve`` runs the closed train-to-serve loop in
+one process instead (``run_serve_demo``).
 """
 from __future__ import annotations
 
 import argparse
 import itertools
+import tempfile
+import threading
 
 import torch
 
@@ -96,6 +100,101 @@ def spec_for(args, sampler: str, task_name: str, task_kwargs: dict) -> api.Exper
     )
 
 
+def serve_spec(args) -> api.ExperimentSpec:
+    """The reference's ``--serve`` spec: the first of ``--archs`` reduced as
+    a ``kind="zoo"`` run with the first of ``--samplers``, checkpointed
+    every 2 rounds, served by a 2 x (16 + 48) engine gated on 2 batches."""
+    arch_name, overrides = ZOO_ARCHS[args.archs[0]]
+    sampler = args.samplers[0]
+    return api.ExperimentSpec(
+        task=api.TaskSpec(
+            kind="zoo",
+            name=arch_name,
+            reduced=True,
+            kwargs=dict(vocab=args.vocab, **overrides),
+            dataset="synthetic_tokens",
+            dataset_kwargs=dict(
+                n_clients=args.clients, seq_len=args.seq, vocab=args.vocab,
+                total_seqs=60 * args.clients, power=2.2, seed=0,
+            ),
+        ),
+        sampler=api.SamplerSpec(
+            name=sampler,
+            kwargs={"horizon": args.rounds} if sampler in ("kvib", "vrb") else {},
+        ),
+        federation=api.FederationSpec(
+            rounds=args.rounds, budget=args.budget, local_steps=1,
+            batch_size=8, local_lr=0.1,
+        ),
+        execution=api.ExecutionSpec(seed=0, compiled=True, ckpt_every=2),
+        serve=api.ServeSpec(batch=2, prompt_len=16, max_tokens=48, eval_batches=2),
+    )
+
+
+def run_serve_demo(args) -> dict:
+    """The closed train-to-serve loop, one process: a zoo training run
+    (``api.run`` with ``ckpt_manager`` and ``publish``) commits every
+    checkpoint boundary from a daemon thread while the main thread serves
+    traffic from the same directory (``launch.serve.follower``: watcher,
+    promotion gate, hot swaps).
+
+    The two sides share nothing but the checkpoint directory (and the spec
+    that fingerprints it): the trainer could equally be another process
+    (``launch.train`` + ``launch.serve --follow``).  They share the device
+    and the interpreter; the serving side scores and decodes under
+    ``torch.no_grad()`` (grad mode is per thread), and the kernels' launch
+    counters count both sides.  Returns the summary and the pieces."""
+    from repro_torch.checkpoint import CheckpointManager, config_fingerprint
+    from repro_torch.launch.serve import follower, param_addresses
+
+    if args.archs[0] in NOT_PORTED:
+        raise NotImplementedError(
+            f"--serve --archs {args.archs[0]}: the moe and xlstm families are not ported to "
+            "repro_torch yet; see ROADMAP.md section 1, item 5, 'The moe, xlstm, vlm and "
+            "audio families'"
+        )
+    spec = serve_spec(args)
+    built = api.build(spec, resolve_device(args.device))
+
+    with tempfile.TemporaryDirectory(prefix="fed_lm_serve_") as ckpt_dir:
+        manager = CheckpointManager(ckpt_dir, fingerprint=config_fingerprint(spec.to_dict()))
+        errors = []
+
+        def publish(state, step):
+            print(f"[train] committed boundary step {step}", flush=True)
+
+        def train():
+            try:
+                api.run(spec, built.device, ckpt_manager=manager, built=built, publish=publish)
+            except Exception as e:  # re-raised on the main thread
+                errors.append(e)
+
+        trainer = threading.Thread(target=train, daemon=True)
+        session = follower(spec, built, manager)
+        engine, gate = session.engine, session.gate
+
+        def on_decision(cand, promoted):
+            print(
+                f"[serve] step {cand.step}: {'PROMOTE' if promoted else 'ROLLBACK'} "
+                f"({gate.log.records[-1].reason})",
+                flush=True,
+            )
+
+        session.on_decision = on_decision
+        print(f"[serve] gate bar (round-0 init) = {gate.prime(engine.params):.4f}")
+        ptrs = param_addresses(engine)
+        trainer.start()
+        summary = session.run(timeout=600.0)
+        trainer.join()
+    if errors:
+        raise errors[0]
+    assert param_addresses(engine) == ptrs, "engine parameters changed address under swaps"
+    print(gate.log.render())
+    print(summary.render(), flush=True)
+    return {"summary": summary, "engine": engine, "gate": gate, "watcher": session.watcher,
+            "spec": spec}
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--clients", type=int, default=50)
@@ -106,7 +205,10 @@ def parse_args(argv=None):
     ap.add_argument("--model", choices=["tiny", "zoo"], default="tiny")
     ap.add_argument(
         "--serve", action="store_true",
-        help="the closed train-to-serve loop (not ported yet: raises)",
+        help="run the closed train-to-serve loop instead of the sampler "
+        "sweep: training (first of --samplers, first of --archs) publishes "
+        "checkpoint boundaries while a serving engine hot-swaps the promoted "
+        "ones (use a small --rounds, e.g. 6)",
     )
     ap.add_argument(
         "--archs", nargs="+", default=list(ZOO_ARCHS), choices=list(ZOO_ARCHS),
@@ -121,10 +223,7 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.serve:
-        raise NotImplementedError(
-            "fed_lm --serve (the train-to-serve loop) is not ported to repro_torch yet; "
-            "see ROADMAP.md section 1, item 4, 'The serving loop'"
-        )
+        return run_serve_demo(args)
     if args.model == "zoo" and any(a in NOT_PORTED for a in args.archs):
         raise NotImplementedError(
             f"--archs {sorted(a for a in args.archs if a in NOT_PORTED)}: the moe and xlstm "

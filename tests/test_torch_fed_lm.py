@@ -129,7 +129,6 @@ def test_zoo_cell_matches_reference(arch):
     (["--model", "zoo", "--archs", "moe"], "item 5"),
     (["--model", "zoo", "--archs", "smollm", "xlstm"], "item 5"),
     (["--model", "zoo"], "item 5"),
-    (["--serve"], "item 4"),
 ])
 def test_unported_parts_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):

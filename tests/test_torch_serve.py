@@ -219,11 +219,6 @@ def test_launch_serve_demo_on_cpu(capsys):
     torch.testing.assert_close(again["engine"].generated(), gen, rtol=0, atol=0)
 
 
-def test_launch_serve_follow_is_not_ported():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        launch_serve.main(["--follow", "/nonexistent", "--device", "cpu"])
-
-
 def test_gumbel_stream_leaves_round_streams_alone():
     """The engine's sampling stream is seeded apart: drawing from it moves
     none of the federated round's streams."""
