@@ -178,8 +178,12 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Start a phase, with the seconds since the script started."""
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 # -- 1. device ----------------------------------------------------------------
@@ -611,8 +615,14 @@ def rmsnorm_kernel_phase(torch, gen, flush, max_err):
     """Kernel 6 at the serving path's shapes: (k)'s prefill (B*S, d_model)
     and decode (B, d_model), per-head rows of width hd (qk_norm's shape),
     (l)'s prefill at d_model 4608, (m)'s prefill at d_model 2048 and its
-    Mamba2 gated norm over d_in 4096, and a ragged D that takes the scalar
-    loads; bf16 and f32.  The bound counts x read and y written once and
+    Mamba2 gated norm over d_in 4096, qwen3's q norm at (w)'s prefill
+    (8 x 512 x 64 rows of hd 128) and its block norms at (w)'s decode
+    (d_model 4096; its prefill's are zamba2's gated-norm shape), arctic's
+    block norms at (x)'s prefill and decode (d_model 7168), xLSTM's block
+    and sLSTM norms at (y)'s prefill and decode (d_model 768) and its
+    mLSTM inner norm at (y)'s decode and at a round of (aa) (d_in 1536,
+    8 clients x 2 x 64 rows), and a ragged D that takes the scalar loads;
+    bf16 and f32.  The bound counts x read and y written once and
     ~4 f32 operations an element; the library call is ``F.rms_norm`` with
     weight 1 + scale."""
     import torch.nn.functional as F
@@ -625,6 +635,10 @@ def rmsnorm_kernel_phase(torch, gen, flush, max_err):
     for label, r, d in (("prefill smollm", 4096, 960), ("decode smollm", 8, 960),
                         ("qk_norm rows", 61440, 64), ("prefill gemma2", 4096, 4608),
                         ("prefill zamba2", 4096, 2048), ("gated norm zamba2", 4096, 4096),
+                        ("q_norm qwen3", 262144, 128), ("decode qwen3", 8, 4096),
+                        ("prefill arctic", 4096, 7168), ("decode arctic", 8, 7168),
+                        ("prefill xlstm", 1024, 768), ("decode xlstm", 8, 768),
+                        ("decode xlstm inner norm", 8, 1536), ("round xlstm inner norm", 1024, 1536),
                         ("ragged D", 4097, 962)):
         for dtype in (torch.bfloat16, torch.float32):
             tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
@@ -688,8 +702,10 @@ def flash_kernel_phase(torch, gen, flush, max_err):
     """Kernel 7 at (k)'s prefill shape (B=8, 15 heads over 5 KV heads, S=512,
     hd=64) in all four modes (causal, window 96, full, softcap 30), at a
     ragged S=200, at (l)'s gemma2 shapes (32 heads over 16, hd=128,
-    softcap 50, window 4096 and global) and at (m)'s shared attention (32
-    heads over 32, hd=64, causal); bf16 and f32.  Each row names the kernel
+    softcap 50, window 4096 and global), at (m)'s shared attention (32
+    heads over 32, hd=64, causal) and at (w)'s and (x)'s prefill (qwen3: 64
+    heads over 4, groups of 16; arctic: 56 over 8, groups of 7; hd=128,
+    causal); bf16 and f32.  Each row names the kernel
     that ran, from the launch counters: the tensor cores for bf16 (hd 64
     and 128 here), the CUDA cores for f32.  q, k, v are the (B, S, heads, hd) projections
     seen as (B, heads, S, hd), as the model passes them.  The bound: q, k,
@@ -714,6 +730,8 @@ def flash_kernel_phase(torch, gen, flush, max_err):
         ("prefill gemma2 local", 8, 16, 2, 512, 128, True, 4096, 50.0),
         ("prefill gemma2 global", 8, 16, 2, 512, 128, True, None, 50.0),
         ("prefill zamba2 shared", 8, 32, 1, 512, 64, True, None, None),
+        ("prefill qwen3", 8, 4, 16, 512, 128, True, None, None),
+        ("prefill arctic", 8, 8, 7, 512, 128, True, None, None),
     ]
     for label, b, kv, g, s, hd, causal, window, cap in cases:
         h = kv * g
@@ -1323,12 +1341,13 @@ def zoo_spec(api, arch: str, *, rounds: int, clients: int, budget: int, cohort: 
 
 def forward_calls(cfg) -> dict:
     """Kernels 6-8's calls in one forward of ``cfg``: kernel 6 two times a
-    block plus once (the final norm), kernel 7 once an attention block
-    (``shared_attn`` invocations included), kernel 8 once a mamba2 block."""
+    block (four in an attention block with qwen3's q/k norm) plus once (the
+    final norm), kernel 7 once an attention block (``moe`` blocks and
+    ``shared_attn`` invocations included), kernel 8 once a mamba2 block."""
     kinds = list(cfg.block_pattern) * cfg.pattern_repeats()
-    return {"rmsnorm": 2 * len(kinds) + 1,
-            "flash_attention": sum(k in ("attn", "attn_local", "shared_attn") for k in kinds),
-            "ssd_scan": kinds.count("mamba2")}
+    attn = sum(k in ("attn", "attn_local", "shared_attn", "moe") for k in kinds)
+    return {"rmsnorm": 2 * len(kinds) + (2 * attn if cfg.qk_norm else 0) + 1,
+            "flash_attention": attn, "ssd_scan": kinds.count("mamba2")}
 
 
 def zoo_launches_per_round(cfg, c: int) -> dict:
@@ -1402,6 +1421,20 @@ ZOO_GROUPS = {  # kernel-name substrings -> the profile's groups
 }
 
 
+def group_kernels(events) -> tuple[dict, dict]:
+    """Device µs of the profiler's kernel ``events`` by ``ZOO_GROUPS``' groups,
+    and of the kernels outside them by name."""
+    split, other = {g: 0.0 for g in ZOO_GROUPS}, {}
+    for e in events:
+        name = e.key.lower()
+        group = next((g for g, keys in ZOO_GROUPS.items() if any(k in name for k in keys)), None)
+        if group is None:
+            other[e.key] = other.get(e.key, 0.0) + e.self_device_time_total
+        else:
+            split[group] += e.self_device_time_total
+    return split, other
+
+
 def _profiled_round(torch, segment, state):
     """One round under torch.profiler with a ``record_function`` range
     around each of kernels 6-8's backwards (set for this measurement only).
@@ -1446,15 +1479,7 @@ def _profiled_round(torch, segment, state):
     kernels = [e for e in prof.key_averages()
                if e.device_type == cuda and e.self_device_time_total > 0
                and not e.key.startswith("zoo::")]
-    split = {g: 0.0 for g in ZOO_GROUPS}
-    other = {}
-    for e in kernels:
-        name = e.key.lower()
-        group = next((g for g, keys in ZOO_GROUPS.items() if any(k in name for k in keys)), None)
-        if group is None:
-            other[e.key] = other.get(e.key, 0.0) + e.self_device_time_total
-        else:
-            split[group] += e.self_device_time_total
+    split, other = group_kernels(kernels)
     return (state, wall, split, {k: tuple(v) for k, v in back.items()},
             sum(e.count for e in kernels), other)
 
@@ -1520,17 +1545,19 @@ def zoo_round_profile(torch, api, label: str, spec, card: str) -> None:
         transformer._unstack = unbind
 
 
-def zoo_agreement(torch, api, np) -> None:
-    """A 2-layer smollm-360m at full width (d_model 960, 15/5 heads, d_ff
-    2560, vocab 49,152) in f32, one zoo round on the card and on the CPU from
-    one ``ReplaySource`` (the draws of a CPU ``PhiloxSource``, initial
-    weights from a CPU generator): equal cohorts, losses within 1e-5,
-    parameters within 1e-4 of each leaf's largest entry."""
+def zoo_agreement(torch, api, np, arch: str = "smollm-360m", kwargs: dict = AGREE_KW,
+                  what: str = "2-layer full-width smollm-360m") -> None:
+    """One f32 zoo round of ``arch`` (``ArchConfig.reduced(**kwargs)``; by
+    default a 2-layer smollm-360m at full width: d_model 960, 15/5 heads,
+    d_ff 2560, vocab 49,152) on the card and on the CPU from one
+    ``ReplaySource`` (the draws of a CPU ``PhiloxSource``, initial weights
+    from a CPU generator): equal cohorts, losses within 1e-5, parameters
+    within 1e-4 of each leaf's largest entry."""
     from repro_torch.models import transformer
     from repro_torch.fed.tasks import params_to_numpy
     from repro_torch.rng import PhiloxSource, ReplaySource
 
-    spec = zoo_spec(api, "smollm-360m", rounds=1, clients=8, budget=2, cohort=3, kwargs=AGREE_KW)
+    spec = zoo_spec(api, arch, rounds=1, clients=8, budget=2, cohort=3, kwargs=kwargs)
     built = api.build(spec, "cpu")
     n, rs = built.dataset.n_clients, built.round_spec
     src = PhiloxSource(3, "cpu")
@@ -1546,18 +1573,18 @@ def zoo_agreement(torch, api, np) -> None:
     dev = api.build(spec).device  # the default: the GPU
     gpu = api.run(spec, random_source=ReplaySource(init, device=dev, **tables))
     check(gpu.cohort_size == cpu.cohort_size and gpu.cohort_dropped == cpu.cohort_dropped,
-          f"zoo agreement: cohorts {gpu.cohort_size} against {cpu.cohort_size}")
+          f"{arch} zoo agreement: cohorts {gpu.cohort_size} against {cpu.cohort_size}")
     check(abs(gpu.train_loss[0] - cpu.train_loss[0]) <= 1e-5 * abs(cpu.train_loss[0]),
-          f"zoo agreement: loss {gpu.train_loss} against {cpu.train_loss}")
+          f"{arch} zoo agreement: loss {gpu.train_loss} against {cpu.train_loss}")
     worst = 0.0
     for g, c in zip(_leaves(gpu.final_params), _leaves(cpu.final_params)):
         scale = max(float(np.abs(c).max()), 1e-30)
         worst = max(worst, float(np.abs(g - c).max()) / scale)
-    check(worst <= 1e-4, f"zoo agreement: parameters off the CPU's by {worst:.3g} of a leaf")
-    print(f"zoo agreement: 2-layer full-width smollm-360m, f32, one round (C=3, R=2): card == CPU "
-          f"on one replayed source (cohort {gpu.cohort_size}, loss {gpu.train_loss[0]:.6f} / "
-          f"{cpu.train_loss[0]:.6f}, parameters within {worst:.3g} of each leaf's scale; CPU "
-          f"round {cpu_s:.1f} s)", flush=True)
+    check(worst <= 1e-4, f"{arch} zoo agreement: parameters off the CPU's by {worst:.3g} of a leaf")
+    print(f"zoo agreement: {what}, f32, one round ({built.arch_config.round_mode}, C=3, R=2): "
+          f"card == CPU on one replayed source (cohort {gpu.cohort_size}, loss "
+          f"{gpu.train_loss[0]:.6f} / {cpu.train_loss[0]:.6f}, parameters within {worst:.3g} of "
+          f"each leaf's scale; CPU round {cpu_s:.1f} s)", flush=True)
 
 
 def zoo_resume(torch, api, np, spec) -> None:
@@ -1595,7 +1622,8 @@ def zoo_resume(torch, api, np, spec) -> None:
 
 def fed_lm_on_card(torch, kernels, out: Path) -> dict:
     """``repro_torch.examples.fed_lm`` on the card, rounds cut: ``--model
-    tiny`` and ``--model zoo --archs smollm ssm`` (the task stack in oracle
+    tiny`` and ``--model zoo`` with its default ``--archs`` (the four
+    families of Figure 5: smollm, moe, ssm, xlstm; the task stack in oracle
     mode: every client trains, kernel 1 once a round; the zoo tasks'
     forwards launch kernels 6-8, one launch a call with the clients vmapped
     over shared parameters), then ``bench.tables``: its fig5 rows for
@@ -1613,16 +1641,17 @@ def fed_lm_on_card(torch, kernels, out: Path) -> dict:
     tiny = fed_lm.main(argv + ["--out", str(out / "fed_lm.json")])
     tiny_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    zoo = fed_lm.main(argv + ["--out", str(out / "zoo" / "fed_lm.json"), "--model", "zoo",
-                              "--archs", "smollm", "ssm"])
+    zoo = fed_lm.main(argv + ["--out", str(out / "zoo" / "fed_lm.json"), "--model", "zoo"])
     zoo_s = time.perf_counter() - t0
     counts = kernels.launch_counts()
     check(tiny["config"]["device"] is None and zoo["config"]["device"] is None,
           "fed_lm: not run on the default device")
     runs = len(samplers) * rounds
+    archs = list(fed_lm.ZOO_ARCHS)
+    check(archs == ["smollm", "moe", "ssm", "xlstm"], f"fed_lm: default archs {archs}")
     want = {k: 0 for k in counts}
-    want["fused_multi_weighted_agg"] = 3 * runs
-    for arch in ("smollm", "ssm"):
+    want["fused_multi_weighted_agg"] = (1 + len(archs)) * runs  # tiny, then each arch
+    for arch in archs:
         name, over = fed_lm.ZOO_ARCHS[arch]
         for k, v in forward_calls(get_config(name).reduced(**over)).items():
             want[k] += v * runs
@@ -1631,14 +1660,14 @@ def fed_lm_on_card(torch, kernels, out: Path) -> dict:
             if name.startswith("fig5")}
     rows.update({name: derived for name, _, derived in tables.table_fed_lm(str(out / "zoo"))})
     want_rows = [f"fig5_lm_{s}" for s in samplers] + [
-        f"fig5_lm_{s}/{a}" for s in samplers for a in ("smollm", "ssm")]
+        f"fig5_lm_{s}/{a}" for s in samplers for a in archs]
     check(sorted(rows) == sorted(want_rows), f"fed_lm: fig5 rows {sorted(rows)}")
     for name, derived in rows.items():
         nums = re.findall(r"[-+]?(?:\d+\.\d*|\d+|nan|inf)", derived)
         check(nums and all(math.isfinite(float(x)) for x in nums), f"fed_lm: row {name}: {derived}")
     walls = {k: round(v["wall_s"], 4) for res in (tiny, zoo) for k, v in res["runs"].items()}
     print(f"fed_lm on the card, {rounds} rounds a spec: --model tiny {tiny_s:.2f} s, --model zoo "
-          f"--archs smollm ssm {zoo_s:.2f} s; wall s a spec {walls}; launches "
+          f"(--archs {' '.join(archs)}) {zoo_s:.2f} s; wall s a spec {walls}; launches "
           f"{ {k: v for k, v in counts.items() if v} }", flush=True)
     return counts
 
@@ -1699,6 +1728,372 @@ def zoo_phase(torch, card: str) -> dict:
                              sampler={"kwargs": {"horizon": 5}})
         zoo_round_profile(torch, api, label, spec, card)
         torch.cuda.empty_cache()
+    return launches
+
+
+# -- the moe and xlstm families --------------------------------------------------
+
+# Serving: ServeEngine at batch 8, pages of 16, 64 new tokens, bf16 at the
+# configs' widths; (w) qwen3 cut to 2 of 94 layers, (x) arctic to 1 of 35,
+# (y) xlstm-125m whole through the launcher at prompt 128.
+FAMILY_SERVE = dict(batch=8, prompt_len=512, new_tokens=64, page_size=16)
+SERVE_Y = ["--arch", "xlstm-125m", "--batch", "8", "--prompt-len", "128",
+           "--new-tokens", "64", "--page-size", "16"]
+# (aa) trains at local_lr 2e-4: xlstm-125m's gradient norm at its random
+# init is 3.4e4 in both packages (seq 64, f32), and SGD at 5e-3 or more
+# diverges to non-finite parameters within a round in the port and in the
+# reference alike.
+FAMILY_RUNS = {  # label: (arch, reduced() kwargs or None for the full config, rounds, N, K, C,
+    # spec sections)
+    "(z) qwen3-moe one layer": ("qwen3-moe-235b-a22b", dict(
+        n_layers=1, d_model=4096, n_heads=64, n_kv_heads=4, d_ff=1536, vocab=151936,
+        head_dim=128, n_experts=128, top_k=8, moe_d_ff=1536, capacity_factor=1.25,
+        param_dtype="bfloat16"), 2, 32, 3, 4, {}),
+    "(aa) xlstm-125m": ("xlstm-125m", None, 2, 32, 6, 8, {"federation": {"local_lr": 2e-4}}),
+    "(ab) arctic reduced": ("arctic-480b", {}, 2, 32, 3, 4, {}),
+}
+FAMILY_AGREE = ("qwen3-moe-235b-a22b", "arctic-480b", "xlstm-125m")  # reduced, f32
+
+
+class RouteStats:
+    """Counts the routed assignments ``models.moe.route`` keeps and drops,
+    and the experts that hold at least one kept assignment, a call (one
+    ``moe`` block of one pass), while installed (``moe.route`` replaced for
+    a measurement only; the counts stay on the device until ``read``)."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.orig, self.parts = moe_mod, moe_mod.route, []
+
+    def __enter__(self):
+        def route(*a, **kw):
+            out = self.orig(*a, **kw)
+            top_idx, mask, keep = out[2], out[3], out[-1]
+            used = mask.new_zeros(mask.shape).scatter(1, top_idx, keep.to(mask.dtype)).amax(0).sum()
+            self.parts.append((keep.sum(), keep.numel(), used))
+            return out
+
+        self.moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def read(self) -> tuple[int, int, int]:
+        """(kept assignments, all assignments, experts used summed over the
+        calls) since the last read."""
+        kept = sum(int(k) for k, _, _ in self.parts)
+        total = sum(n for _, n, _ in self.parts)
+        used = sum(int(u) for _, _, u in self.parts)
+        self.parts = []
+        return kept, total, used
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _named_leaves(v, f"{path}/{i}")]
+    return [(path, tree)]
+
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def moe_decode_bound(cfg, params, batch: int, positions: range, used: int) -> tuple[float, str]:
+    """The bytes a decode step of an MoE model must move, over the HBM
+    rate, in ms: the experts this run routed a kept assignment to (``used``,
+    summed over the steps' ``moe`` calls, over the steps), every other
+    weight once (the embedding's ``batch`` rows unless it is also the
+    head), each attention layer's K and V up to the step's position, the
+    f32 logits written.  Returns (ms, the terms in GB a step)."""
+    steps = len(positions)
+    item = next(t for n, t in _named_leaves(params) if n.endswith("/w_gate")).element_size()
+    expert = 3 * cfg.d_model * cfg.moe_d_ff * item
+    routed = used * expert / steps
+    rest = 0
+    for name, t in _named_leaves(params):
+        if name.rsplit("/", 1)[-1] in EXPERT_LEAVES:
+            continue
+        if name == "/embed" and not cfg.tie_embeddings:
+            rest += batch * cfg.d_model * t.element_size()
+        else:
+            rest += t.numel() * t.element_size()
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    kv = sum(2 * batch * pos * cfg.n_kv_heads * hd * item for pos in positions) * cfg.n_layers / steps
+    logits = batch * cfg.vocab * 4
+    total = routed + rest + kv + logits
+    terms = (f"routed experts {routed / 1e9:.3f} GB ({used / steps / cfg.n_layers:.2f} of "
+             f"{cfg.n_experts} experts a layer, {expert / 1e6:.1f} MB each), other weights "
+             f"{rest / 1e9:.3f} GB, K/V {kv / 1e9:.4f} GB, logits {logits / 1e9:.4f} GB")
+    return total / HBM_BYTES_PER_S * 1e3, terms
+
+
+def family_serve(torch, kernels, label: str, cfg, seed: int, card: str) -> dict:
+    """One served model through ``ServeEngine`` (bf16, the card): prefill
+    8 x 512, 63 decode steps, the exact launches of kernels 6 and 7 (kernel
+    6 ``forward_calls`` a pass, kernel 7 once an attention block in the
+    prefill), every kernel-7 launch on the tensor cores.  Then, for the
+    measurement only, the share of routed assignments the capacity dropped
+    in a prefill and in its decode steps, and 8 decode steps under the
+    profiler (launches a step, busy share).  Returns the launches."""
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve import ServeEngine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen)
+    n_params = transformer.param_count(params)
+    g = FAMILY_SERVE
+    eng = ServeEngine(cfg, params, batch=g["batch"], max_seq=g["prompt_len"] + g["new_tokens"],
+                      page_size=g["page_size"], seed=seed + 1)
+    del params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab, (g["batch"], g["prompt_len"]), generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.flash_attention.launches_tc = 0
+    t0 = time.perf_counter()
+    eng.start(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = kernels.launch_counts()
+    eng.step(g["new_tokens"] - 1)
+    counts = kernels.launch_counts()
+    per_pass = forward_calls(cfg)
+    want = {"rmsnorm": per_pass["rmsnorm"] * g["new_tokens"],
+            "flash_attention": per_pass["flash_attention"]}
+    check({k: prefill_counts[k] for k in want} == {"rmsnorm": per_pass["rmsnorm"],
+                                                    "flash_attention": per_pass["flash_attention"]},
+          f"{label}: prefill launches {prefill_counts}")
+    _serve_checks(torch, label, eng, counts, want, g["new_tokens"])
+    _tensor_core_check(label, counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    decode_s, tps = eng.decode_seconds, eng.tokens_per_sec()
+    # Measurements, outside the counted run.
+    drops = bound = ""
+    if cfg.n_experts:
+        with RouteStats(moe) as stats:
+            eng.start(prompts)
+            kept_p, all_p, _ = stats.read()
+            eng.step(g["new_tokens"] - 1)
+            kept_d, all_d, used_d = stats.read()
+        drops = (f" capacity drops: prefill {1 - kept_p / all_p:.4%} of {all_p} assignments "
+                 f"(cap {moe.capacity(cfg, g['batch'] * g['prompt_len'])} a expert), decode "
+                 f"{1 - kept_d / all_d:.4%} of {all_d} (cap {moe.capacity(cfg, g['batch'])})")
+        steps = range(g["prompt_len"] + 1, g["prompt_len"] + g["new_tokens"])
+        bound_ms, terms = moe_decode_bound(cfg, eng.params, g["batch"], steps, used_d)
+    t0 = time.perf_counter()
+    eng.start(prompts)
+    torch.cuda.synchronize()
+    warm_prefill_s = time.perf_counter() - t0
+    prof = profile_kernels(torch, lambda: eng.step(8), f"{label} decode", "8 decode steps", top=6)
+    per_step = sum(n for _, n in prof.values()) / 8 if prof else float("nan")
+    if cfg.n_experts:
+        step_ms = decode_s / (g["new_tokens"] - 1) * 1e3
+        kernel_ms = sum(us for us, _ in prof.values()) / 8 / 1e3 if prof else float("nan")
+        bound = (f"; decode bound {bound_ms:.4f} ms a step ({terms}; the dense dispatch reads "
+                 f"all {cfg.n_experts} experts a layer): the step {step_ms:.4f} ms is "
+                 f"{step_ms / bound_ms:.2f}x it, its kernel time under the profiler "
+                 f"{kernel_ms:.4f} ms {kernel_ms / bound_ms:.2f}x; tokens/s at the bound "
+                 f"{g['batch'] / bound_ms * 1e3:.1f}")
+    print(f"{label} ({card}): {n_params:,} params bf16, {cfg.n_layers} of its layers, batch "
+          f"{g['batch']}, prompt {g['prompt_len']}, {g['new_tokens']} new tokens: init+copy "
+          f"{init_s:.2f} s, prefill_s={prefill_s:.4f} (warm {warm_prefill_s:.4f}) "
+          f"decode_s={decode_s:.4f} ({g['new_tokens'] - 1} steps) tokens_per_sec={tps:.1f} "
+          f"launches a decode step "
+          f"(profiler) {per_step:.0f} peak_mem_gb={peak:.2f} kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} } (prefill "
+          f"{ {k: v for k, v in prefill_counts.items() if v} }){drops}{bound}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def xlstm_serve(torch, kernels, card: str) -> dict:
+    """(y) ``python -m repro_torch.launch.serve --arch xlstm-125m`` (whole,
+    bf16, the card): prefill 8 x 128 as one decode cell a token after one
+    ``ln1`` norm over the prompt, so kernel 6 runs L (1 + S) + 1 = 1,549
+    times in the prefill and 2L + 1 = 25 times a decode step; kernel 7
+    never.  Then 8 decode steps under the profiler."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = serve.main(SERVE_Y)
+    counts = kernels.launch_counts()
+    eng = out["engine"]
+    cfg = eng.cfg
+    n_params = transformer.param_count(eng.params)
+    check((cfg.name, cfg.n_layers, cfg.d_model, n_params) == ("xlstm-125m", 12, 768, 134_337_840),
+          f"(y): not xlstm-125m whole: {cfg}, {n_params}")
+    s, new = int(SERVE_Y[5]), int(SERVE_Y[7])
+    per_step = 2 * cfg.n_layers + 1
+    prefill = cfg.n_layers * (1 + s) + 1
+    check(out["prefill_launches"]["rmsnorm"] == prefill == 1549,
+          f"(y): prefill launches {out['prefill_launches']}")
+    _serve_checks(torch, "(y)", eng, counts, {"rmsnorm": prefill + per_step * (new - 1)}, new)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prompts = torch.randint(0, cfg.vocab, (eng.batch, s), generator=torch.Generator(
+        device="cuda").manual_seed(5), device="cuda")
+    eng.start(prompts)
+    prof = profile_kernels(torch, lambda: eng.step(8), "(y) decode", "8 decode steps", top=6)
+    launches = sum(n for _, n in prof.values()) / 8 if prof else float("nan")
+    print(f"(y) xlstm-125m serve ({card}): {n_params:,} params bf16, batch 8, prompt {s}, {new} new "
+          f"tokens: prefill_s={out['prefill_s']:.4f} decode_s={out['decode_s']:.4f} "
+          f"tokens_per_sec={out['tokens_per_sec']:.1f} launches a decode step (profiler) "
+          f"{launches:.0f} peak_mem_gb={peak:.2f} kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} } (prefill {out['prefill_launches']['rmsnorm']} "
+          f"of kernel 6)", flush=True)
+    del eng, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def device_split(torch, fn) -> tuple:
+    """``fn()`` under torch.profiler with the CUDA activity alone (no CPU
+    events: a round of ~145,000 launches would take minutes of
+    post-processing with them).  Returns (wall s, launches, {group: device
+    µs}, kernel µs in all) with ``ZOO_GROUPS``' groups."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    split, other = group_kernels(kernels)
+    return (wall, sum(e.count for e in kernels), split,
+            sum(split.values()) + sum(other.values()))
+
+
+def family_round(torch, api, kernels, label: str, spec, card: str) -> dict:
+    """A zoo run (``zoo_run``: exact launches of kernels 6-8 a round), then
+    one round of a fresh run of the same spec under the profiler (the zoo
+    run has warmed its shapes up): wall seconds, launches and the device's
+    busy share."""
+    hist, counts = zoo_run(torch, api, kernels, label, spec)
+    rounds = len(hist.train_loss)
+    del hist
+    from repro_torch.api import runner
+
+    segment, state = runner._zoo_segment_and_state(api.build(spec))
+    wall, launches, split, total = device_split(torch, lambda: segment(state, 1))
+    busy = f"{total / 1e6 / wall:.3%}" if total else "not measured"
+    top = ", ".join(f"{g} {us / 1e3:.1f} ms" for g, us in split.items() if us)
+    print(f"{label} one round under the profiler ({card}): wall_s={wall:.4f} launches={launches} "
+          f"kernel_s={total / 1e6:.4f} busy_share={busy} ({top}); the zoo run's {rounds} rounds "
+          f"above include its first use of each shape", flush=True)
+    del state, segment
+    torch.cuda.empty_cache()
+    return counts
+
+
+def family_agreement(torch, api, np) -> None:
+    """The three families reduced, f32: served on the card and on the CPU
+    from the same weights (4 x 40 prompts, 8 decode steps) with the same
+    greedy tokens and logits within 1e-4; one zoo round on the card and on
+    the CPU from one replayed source (counts exact, loss within 1e-5,
+    parameters within 1e-4 of each leaf's scale); a reduced qwen3 zoo spec
+    run twice on the card, bitwise equal, and preempted and resumed,
+    bitwise the uninterrupted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve import ServeEngine
+
+    for name in FAMILY_AGREE:
+        t0 = time.perf_counter()
+        cfg = get_config(name).reduced()
+        params = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        prompts = torch.randint(0, cfg.vocab, (4, 40), generator=torch.Generator().manual_seed(1))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            eng = ServeEngine(cfg, params, batch=4, max_seq=48, page_size=16, device=dev)
+            eng.start(prompts)
+            eng.step(7)
+            runs[dev] = (eng.last_logits.cpu(), eng.generated().cpu())
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+        check(torch.equal(g_cpu, g_gpu), f"{name} served tokens differ: GPU {g_gpu.tolist()} "
+              f"CPU {g_cpu.tolist()}")
+        torch.testing.assert_close(l_gpu, l_cpu, rtol=1e-4, atol=1e-4)
+        print(f"family agreement {name} reduced f32: served GPU == CPU greedy tokens "
+              f"{tuple(g_gpu.shape)}, last logits max_abs_diff={float((l_gpu - l_cpu).abs().max()):.3g} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        zoo_agreement(torch, api, np, name, {}, f"{name} reduced")
+
+    t0 = time.perf_counter()
+    spec = zoo_spec(api, "qwen3-moe-235b-a22b", rounds=3, clients=16, budget=3, cohort=4,
+                    kwargs={"vocab": 512}, execution={"ckpt_every": 1})
+    a, b = api.run(spec), api.run(spec)
+    check(a.train_loss == b.train_loss and a.cohort_size == b.cohort_size,
+          "qwen3 reduced: two card runs differ in their History")
+    for x, y in zip(_leaves(a.final_params), _leaves(b.final_params)):
+        check(np.array_equal(x, y), "qwen3 reduced: two card runs differ in their parameters")
+    print(f"qwen3 reduced zoo spec ({spec.federation.rounds} rounds, C=4): two card runs bitwise "
+          f"equal (loss {[round(x, 6) for x in a.train_loss]}; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    zoo_resume(torch, api, np, spec)
+
+
+def zoo_families_phase(torch, card: str) -> dict:
+    """The moe and xlstm families on the card: serving (w) qwen3-moe at full
+    width, 2 of 94 layers, (x) arctic-480b at full width, 1 of 35 layers,
+    (y) xlstm-125m whole through the launcher; zoo rounds through
+    ``api.run(spec)`` (seq 64, local batch 2, R = 2): (z) qwen3-moe full
+    width one layer (cohort_sequential, N = 32, K = 3, C = 4), (aa)
+    xlstm-125m whole (client_parallel, N = 32, K = 6, C = 8), (ab) arctic
+    reduced (its full-width round does not fit one card); each with exact
+    launches of kernels 6 and 7; then the reduced families' agreement of
+    card and CPU and a reduced qwen3 spec's bitwise repeat and resume.
+    Returns the launches."""
+    phase("zoo_families")
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import api, kernels
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in kernels.launch_counts()}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    laps = {}
+
+    def lap(label, t0):
+        laps[label] = round(time.perf_counter() - t0, 1)
+
+    t0 = time.perf_counter()
+    add(family_serve(torch, kernels, "(w) qwen3-moe-235b-a22b",
+                     dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=2), 21, card))
+    lap("(w)", t0)
+    t0 = time.perf_counter()
+    add(family_serve(torch, kernels, "(x) arctic-480b",
+                     dataclasses.replace(get_config("arctic-480b"), n_layers=1), 22, card))
+    lap("(x)", t0)
+    t0 = time.perf_counter()
+    add(xlstm_serve(torch, kernels, card))
+    lap("(y)", t0)
+    for label, (arch, kw, t, n, k, c, sections) in FAMILY_RUNS.items():
+        t0 = time.perf_counter()
+        spec = zoo_spec(api, arch, kwargs=kw, rounds=t, clients=n, budget=k, cohort=c, **sections)
+        add(family_round(torch, api, kernels, label, spec, card))
+        lap(label.split()[0], t0)
+    t0 = time.perf_counter()
+    family_agreement(torch, api, np)
+    lap("agreement", t0)
+    print(f"zoo_families phase: {time.perf_counter() - t_phase:.1f} s (seconds a step: "
+          f"{json.dumps(laps)})", flush=True)
     return launches
 
 
@@ -2542,11 +2937,7 @@ def trace_phase(torch, engines):
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+    return [t for _, t in _named_leaves(tree)]
 
 
 # -- 5. agreement with the plain path -----------------------------------------
@@ -2758,6 +3149,8 @@ def main() -> int:
     for k, v in zoo_phase(torch, card).items():
         launches[k] += v
     for k, v in serve_loop_phase(torch, card).items():
+        launches[k] += v
+    for k, v in zoo_families_phase(torch, card).items():
         launches[k] += v
     autograd_phase(torch)
     agreement_phase(torch)

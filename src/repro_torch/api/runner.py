@@ -11,12 +11,15 @@ the run's device; ``run`` dispatches on ``task.kind``:
   enabled ``fault`` section, an enabled ``compression`` section and
   ``execution.sampler_axis``;
 * ``"zoo"`` — the zoo round (``fed.round.build_fed_scan_segment``) over an
-  architecture of ``repro_torch.configs`` (the dense configs and zamba2;
-  the moe, xlstm, vlm and audio ones raise ``NotImplementedError``), driven
-  by ``fed.state.run_segmented`` like the reference's
+  architecture of ``repro_torch.configs`` (the dense, hybrid, moe and
+  xlstm configs; the vlm and audio ones raise ``NotImplementedError``),
+  driven by ``fed.state.run_segmented`` like the reference's
   ``launch.train --compiled``, with the same sections.  It runs on one
   card: ``execution.mesh_shape`` other than None or all ones raises
-  ``NotImplementedError``.
+  ``NotImplementedError``, and so does an MoE round whose parameters,
+  training copies and f32 estimate alone pass the card's memory
+  (``_round_bytes``; an H100's on the CPU): arctic-480b at full width, whose
+  one layer holds 14.07e9 parameters, waits for expert parallelism.
 
 Both run on the GPU unless ``device="cpu"`` is passed
 (``repro_torch.device``), and both take a ``repro_torch.checkpoint``
@@ -30,6 +33,8 @@ import dataclasses
 import json
 import time
 from typing import Any
+
+import torch
 
 from repro_torch.api.spec import (
     ExperimentSpec,
@@ -145,6 +150,32 @@ def _build_task(spec: ExperimentSpec, dev) -> BuiltExperiment:
     )
 
 
+# An H100's memory: the card the zoo round is sized for when it is built
+# for the CPU.
+H100_BYTES = 80 * 2**30
+
+
+def _card_bytes(dev: torch.device) -> int:
+    """The memory of the card ``dev``, or an H100's on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return H100_BYTES
+
+
+def _round_bytes(cfg, cohort: int) -> int:
+    """A lower bound of a zoo round's resident bytes: the global parameters,
+    each training copy with its gradients (C at once in ``client_parallel``,
+    one at a time in ``cohort_sequential``) and the f32 estimate or
+    accumulator; activations not counted.  From the shapes alone (the
+    ``meta`` device)."""
+    from repro_torch.models import transformer
+
+    n = transformer.param_count(transformer._init_tree(cfg, None))
+    item = torch.empty((), dtype=cfg.param_dtype).element_size()
+    copies = cohort if cfg.round_mode == "client_parallel" else 1
+    return n * (item * (1 + 2 * copies) + 4)
+
+
 def _build_zoo(spec: ExperimentSpec, dev) -> BuiltExperiment:
     from repro_torch.configs import get_config, has_arch, list_archs
 
@@ -174,6 +205,16 @@ def _build_zoo(spec: ExperimentSpec, dev) -> BuiltExperiment:
     if fed.cohort is None:
         fed = dataclasses.replace(fed, cohort=max(1, min(2 * fed.budget, ds.n_clients)))
         spec = dataclasses.replace(spec, federation=fed)
+    if cfg.n_experts:
+        need, card = _round_bytes(cfg, int(fed.cohort)), _card_bytes(torch.device(dev))
+        if need > card:
+            raise NotImplementedError(
+                f"the zoo round of {cfg.name} holds at least {need / 1e9:.1f} GB "
+                f"(parameters, training copies with their gradients, the f32 estimate), "
+                f"more than the card's {card / 1e9:.1f} GB; it needs its experts sharded "
+                "over several cards: see ROADMAP.md section 1, item 6, 'Multi-rank "
+                "placement'"
+            )
     return BuiltExperiment(
         spec=spec,
         kind="zoo",

@@ -1,8 +1,9 @@
 """Architecture registry (the port of ``repro/configs/registry.py``).
 
 Every zoo architecture of the reference is registered by name; the port
-holds its own copies of the dense and hybrid configs and raises
-``NotImplementedError`` for the families it does not run yet.  ``llama3.2-1b-sw`` (the reference's
+holds its own copies of the dense, hybrid, moe and xlstm configs and raises
+``NotImplementedError`` for the two it does not run yet (the vlm and audio
+families).  ``llama3.2-1b-sw`` (the reference's
 ``SW_CONFIG``, all layers sliding-window) is registered by name here.
 """
 from __future__ import annotations
@@ -15,25 +16,22 @@ from repro_torch.models.common import ArchConfig
 __all__ = ["get_config", "has_arch", "list_archs", "INPUT_SHAPES", "ARCH_MODULES"]
 
 ARCH_MODULES = {
-    "qwen3-moe-235b-a22b": None,
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
     "whisper-small": None,
     "smollm-360m": "repro_torch.configs.smollm_360m",
-    "xlstm-125m": None,
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "llama3-405b": "repro_torch.configs.llama3_405b",
-    "arctic-480b": None,
+    "arctic-480b": "repro_torch.configs.arctic_480b",
     "llama-3.2-vision-11b": None,
 }
 # The reference's family of each arch the port does not hold yet, and the
 # ROADMAP.md item that ports it.
 _NOT_PORTED = {
-    "qwen3-moe-235b-a22b": ("moe", "moe, xlstm, vlm and audio families"),
-    "arctic-480b": ("moe", "moe, xlstm, vlm and audio families"),
-    "xlstm-125m": ("ssm", "moe, xlstm, vlm and audio families"),
-    "llama-3.2-vision-11b": ("vlm", "moe, xlstm, vlm and audio families"),
-    "whisper-small": ("audio", "moe, xlstm, vlm and audio families"),
+    "llama-3.2-vision-11b": ("vlm", "The vlm and audio families"),
+    "whisper-small": ("audio", "The vlm and audio families"),
 }
 
 
@@ -61,8 +59,8 @@ def get_config(name: str) -> ArchConfig:
     if ARCH_MODULES[name] is None:
         family, item = _NOT_PORTED[name]
         raise NotImplementedError(
-            f"{name!r} ({family} family) is not ported to repro_torch yet; see ROADMAP.md, "
-            f"'Zoo models': {item}"
+            f"{name!r} ({family} family) is not ported to repro_torch yet; see ROADMAP.md "
+            f"section 1, item 5, '{item}'"
         )
     return importlib.import_module(ARCH_MODULES[name]).CONFIG
 

@@ -1,7 +1,7 @@
 """Paper Figure 5 (scaled): federated language-model training with client
 samplers, the Section 6.3 experiment at simulation scale.
 
-    python -m repro_torch.examples.fed_lm [--device cpu] [--model zoo --archs smollm ssm]
+    python -m repro_torch.examples.fed_lm [--device cpu] [--model zoo [--archs smollm moe ssm xlstm]]
     python -m repro_torch.examples.fed_lm --serve --rounds 6 --clients 8 --budget 3
 
 Port of ``examples/fed_lm.py``.  Clients hold heterogeneous token streams
@@ -9,8 +9,8 @@ Port of ``examples/fed_lm.py``.  Clients hold heterogeneous token streams
 LM.  ``--model tiny`` runs the built-in ``tiny_lm`` task; ``--model zoo``
 fans each sampler out over reduced architecture-zoo configs, registered as
 tasks (``api.register_task``) so they are names in the spec like any other:
-the dense ``smollm`` and the Mamba2 hybrid ``ssm`` run, the ``moe`` and
-``xlstm`` families are not ported yet.  The JSON goes to
+the dense ``smollm``, the top-k MoE ``moe`` (qwen3), the Mamba2 hybrid
+``ssm`` and ``xlstm``, all four by default.  The JSON goes to
 ``results/torch/fed_lm.json``; ``python -m repro_torch.bench.tables``
 prints its fig5 rows.  ``--serve`` runs the closed train-to-serve loop in
 one process instead (``run_serve_demo``).
@@ -41,7 +41,6 @@ ZOO_ARCHS = {
     ),
     "xlstm": ("xlstm-125m", {}),
 }
-NOT_PORTED = ("moe", "xlstm")
 
 
 def zoo_lm_task(vocab: int, arch: str = "smollm") -> Task:
@@ -147,12 +146,6 @@ def run_serve_demo(args) -> dict:
     from repro_torch.checkpoint import CheckpointManager, config_fingerprint
     from repro_torch.launch.serve import follower, param_addresses
 
-    if args.archs[0] in NOT_PORTED:
-        raise NotImplementedError(
-            f"--serve --archs {args.archs[0]}: the moe and xlstm families are not ported to "
-            "repro_torch yet; see ROADMAP.md section 1, item 5, 'The moe, xlstm, vlm and "
-            "audio families'"
-        )
     spec = serve_spec(args)
     built = api.build(spec, resolve_device(args.device))
 
@@ -224,12 +217,6 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.serve:
         return run_serve_demo(args)
-    if args.model == "zoo" and any(a in NOT_PORTED for a in args.archs):
-        raise NotImplementedError(
-            f"--archs {sorted(a for a in args.archs if a in NOT_PORTED)}: the moe and xlstm "
-            "families are not ported to repro_torch yet; see ROADMAP.md section 1, item 5, "
-            "'The moe, xlstm, vlm and audio families' (pass --archs smollm ssm)"
-        )
     dev = resolve_device(args.device)
     results = {"config": vars(args), "runs": {}}
     # tiny runs one model; zoo fans each sampler out over the reduced

@@ -1,8 +1,9 @@
 """Zoo models for the port (``repro/models``): the dense family (block kinds
-``attn`` and ``attn_local``) and the hybrid family (``mamba2`` and
-``shared_attn``), forward, prefill and paged decode.  RMSNorm runs kernel 6,
+``attn`` and ``attn_local``), the hybrid family (``mamba2`` and
+``shared_attn``), the moe family (``moe``) and xLSTM (``mlstm`` and
+``slstm``), forward, prefill and paged decode.  RMSNorm runs kernel 6,
 full-sequence attention kernel 7 and the Mamba2 chunked scan kernel 8."""
-from repro_torch.models import attention, mlp, ssm, transformer
+from repro_torch.models import attention, mlp, moe, ssm, transformer, xlstm
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import (
     decode_step,
@@ -18,8 +19,10 @@ from repro_torch.models.transformer import (
 __all__ = [
     "attention",
     "mlp",
+    "moe",
     "ssm",
     "transformer",
+    "xlstm",
     "ArchConfig",
     "decode_step",
     "forward",

@@ -137,7 +137,7 @@ def attention(params, cfg: ArchConfig, x: torch.Tensor, *, causal: bool = True,
 def cross_attention(params, cfg: ArchConfig, x, kv_source):
     raise NotImplementedError(
         "cross-attention (the vlm and audio families) is not ported to repro_torch yet; "
-        "see ROADMAP.md, 'Zoo models'"
+        "see ROADMAP.md section 1, item 5, 'The vlm and audio families'"
     )
 
 

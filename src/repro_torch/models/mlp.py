@@ -1,5 +1,4 @@
-"""Gated MLP blocks (the port of ``repro/models/mlp.py``; the reference's
-ungated form serves only the audio family, which is not ported)."""
+"""Gated and plain MLP blocks (the port of ``repro/models/mlp.py``)."""
 from __future__ import annotations
 
 import torch
@@ -17,14 +16,23 @@ _ACT = {
 }
 
 
-def init_mlp(cfg: ArchConfig, gen: torch.Generator | None) -> dict:
-    return {
-        "up": uniform_init(gen, (cfg.d_model, cfg.d_ff), cfg.param_dtype),
-        "down": uniform_init(gen, (cfg.d_ff, cfg.d_model), cfg.param_dtype),
-        "gate": uniform_init(gen, (cfg.d_model, cfg.d_ff), cfg.param_dtype),
+def init_mlp(cfg: ArchConfig, gen: torch.Generator | None, d_ff: int | None = None,
+             gated: bool = True) -> dict:
+    """``up`` (d, d_ff), ``down`` (d_ff, d) and, when ``gated``, ``gate``
+    (d, d_ff); ``d_ff`` defaults to ``cfg.d_ff`` (arctic's dense residual
+    branch passes its own)."""
+    d_ff = d_ff or cfg.d_ff
+    p = {
+        "up": uniform_init(gen, (cfg.d_model, d_ff), cfg.param_dtype),
+        "down": uniform_init(gen, (d_ff, cfg.d_model), cfg.param_dtype),
     }
+    if gated:
+        p["gate"] = uniform_init(gen, (cfg.d_model, d_ff), cfg.param_dtype)
+    return p
 
 
 def mlp(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    h = (x @ params["up"]) * _ACT[cfg.act](x @ params["gate"])
+    act = _ACT[cfg.act]
+    h = x @ params["up"]
+    h = h * act(x @ params["gate"]) if "gate" in params else act(h)
     return h @ params["down"]

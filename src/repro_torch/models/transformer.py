@@ -1,6 +1,6 @@
-"""Model assembly for the dense and hybrid families (the port of
+"""Model assembly for the dense, hybrid, moe and xlstm families (the port of
 ``repro/models/transformer.py``, block kinds ``attn``, ``attn_local``,
-``mamba2`` and ``shared_attn``).
+``moe``, ``mamba2``, ``shared_attn``, ``mlstm`` and ``slstm``).
 
 The parameter tree keeps the reference's names and stacked layout: each
 pattern slot j holds its blocks' leaves in ``params["stacks"][j]`` with a
@@ -13,13 +13,22 @@ invocation with a cache of its own (zamba2).  Three modes share the blocks:
   prefill (``prefill``)     full sequence, caches out  -> last logits, caches
   decode  (``decode_step``) one token, caches updated  -> logits, caches
 
-Caches mirror the slots, stacked over repeats: K/V for the attention kinds,
-the recurrent {"conv", "ssm"} state for ``mamba2`` (never paged).  Every
-``rms_norm`` is one launch of kernel 6 (two a block plus the final norm; a
-``mamba2`` block's two are its input norm and its gated norm over d_in),
-every full-sequence attention one launch of kernel 7 and every ``mamba2``
-block in ``forward`` and ``prefill`` one launch of kernel 8; a decode step
-launches kernel 6 ``2 * n_layers + 1`` times and kernels 7 and 8 never.
+``aux`` is the MoE load-balance loss summed over the ``moe`` blocks (zero
+for the other families).  Caches mirror the slots, stacked over repeats:
+K/V for the attention kinds (``moe`` included), the recurrent {"conv",
+"ssm"} state for ``mamba2`` and the {"c", "n", "m", ...} states for
+``mlstm`` and ``slstm`` (never paged).  An ``mlstm``/``slstm`` prefill is
+the decode cell run over the prompt a token at a time, after one ``ln1``
+norm over the whole sequence (the reference's ``_recurrent_prefill``).
+
+Every ``rms_norm`` is one launch of kernel 6: two a block plus the final
+norm (a ``mamba2`` block's two are its input norm and its gated norm over
+d_in, an xLSTM block's its input norm and its inner norm, a ``moe`` block
+with ``qk_norm`` adds the q and k norms, four a block); every
+full-sequence attention one launch of kernel 7 and every ``mamba2`` block
+in ``forward`` and ``prefill`` one launch of kernel 8.  A decode step
+launches kernel 6 as often as a forward and kernels 7 and 8 never; an
+xLSTM prefill of S tokens launches kernel 6 ``L * (1 + S) + 1`` times.
 ``params_from_reference`` turns the JAX reference's ``init_params`` tree
 (numpy leaves) into the port's tree.
 """
@@ -31,7 +40,9 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.fed.tasks import tree_leaves
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (
     _causal_mask,
     _project_qkv,
@@ -55,11 +66,12 @@ __all__ = [
 
 MOE_AUX_COEF = 0.01
 
-PORTED_KINDS = ("attn", "attn_local", "mamba2", "shared_attn")
-ATTN_KINDS = ("attn", "attn_local", "shared_attn")  # self-attention K/V caches
-_TODO = {
-    kind: "moe, xlstm, vlm and audio families"
-    for kind in ("moe", "mlstm", "slstm", "cross_attn", "enc", "dec")
+PORTED_KINDS = ("attn", "attn_local", "moe", "mamba2", "shared_attn", "mlstm", "slstm")
+ATTN_KINDS = ("attn", "attn_local", "moe", "shared_attn")  # self-attention K/V caches
+_TODO = ("cross_attn", "enc", "dec")  # the vlm and audio families
+_RECURRENT = {  # kind: (decode step, state init)
+    "mlstm": (xlstm_mod.mlstm_decode_step, xlstm_mod.init_mlstm_state),
+    "slstm": (xlstm_mod.slstm_decode_step, xlstm_mod.init_slstm_state),
 }
 
 
@@ -68,8 +80,8 @@ def _check_kind(kind: str) -> None:
         return
     if kind in _TODO:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported to repro_torch yet; see ROADMAP.md, "
-            f"'Zoo models': {_TODO[kind]}"
+            f"block kind {kind!r} is not ported to repro_torch yet; see ROADMAP.md "
+            "section 1, item 5, 'The vlm and audio families'"
         )
     raise ValueError(f"unknown block kind {kind!r}")
 
@@ -80,25 +92,34 @@ def _check_kind(kind: str) -> None:
 
 
 def _init_block(kind: str, cfg: ArchConfig, gen: torch.Generator | None) -> dict:
-    """One block of ``kind`` (``attn`` and ``attn_local`` share a layout;
-    ``shared_attn`` has no weights of its own)."""
+    """One block of ``kind`` (``attn`` and ``attn_local`` share a layout,
+    ``moe`` swaps the MLP for the expert FFN; ``shared_attn`` has no weights
+    of its own)."""
     dev = "meta" if gen is None else gen.device
     d, dt = cfg.d_model, cfg.param_dtype
+    ln1 = torch.zeros((d,), dtype=dt, device=dev)
     if kind == "mamba2":
-        return {"ln1": torch.zeros((d,), dtype=dt, device=dev), "ssm": ssm_mod.init_mamba2(cfg, gen)}
+        return {"ln1": ln1, "ssm": ssm_mod.init_mamba2(cfg, gen)}
+    if kind == "mlstm":
+        return {"ln1": ln1, "cell": xlstm_mod.init_mlstm(cfg, gen)}
+    if kind == "slstm":
+        return {"ln1": ln1, "cell": xlstm_mod.init_slstm(cfg, gen)}
     if kind == "shared_attn":
         return {}
-    return {
-        "ln1": torch.zeros((d,), dtype=dt, device=dev),
-        "attn": init_attention(cfg, gen),
-        "ln2": torch.zeros((d,), dtype=dt, device=dev),
-        "mlp": init_mlp(cfg, gen),
-    }
+    block = {"ln1": ln1, "attn": init_attention(cfg, gen),
+             "ln2": torch.zeros((d,), dtype=dt, device=dev)}
+    if kind == "moe":
+        block["moe"] = moe_mod.init_moe(cfg, gen)
+    else:
+        block["mlp"] = init_mlp(cfg, gen)
+    return block
 
 
 def _stack(trees: list) -> dict:
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if len(trees) == 1:  # a view: no second copy of a one-repeat stack (arctic's experts)
+        return trees[0].unsqueeze(0)
     return torch.stack(trees)
 
 
@@ -220,12 +241,25 @@ def _decode_attn(p, cfg: ArchConfig, x, cache, index, rope, masks: dict, *, wind
     return fn(p, cfg, x, cache, index, window=window, rope=rope, mask=masks[window])
 
 
+def _recurrent_prefill(step_fn, state, x):
+    """Fold the prompt x (B, S, d) into the recurrent ``state`` a token at a
+    time with the decode cell (which updates ``state`` in place); returns
+    the per-token outputs (B, S, d) and the state."""
+    ys = []
+    for t in range(x.shape[1]):
+        y, state = step_fn(x[:, t : t + 1], state)
+        ys.append(y[:, 0])
+    return torch.stack(ys, dim=1), state
+
+
 def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cache=None,
                  index=None, max_seq=None, masks=None, shared=None):
-    """Returns (h, new_cache).  ``rope``: the (cos, sin) tables of the
+    """Returns (h, new_cache, aux): aux the block's MoE load-balance loss
+    (None for the other kinds).  ``rope``: the (cos, sin) tables of the
     positions this call processes, shared by every layer.  ``shared_attn``
     runs the ``attn`` block ``shared`` with this invocation's cache; a
-    ``mamba2`` decode updates its cache in place."""
+    recurrent decode (``mamba2``, ``mlstm``, ``slstm``) updates its cache
+    in place."""
     if kind == "shared_attn":
         return _apply_block("attn", shared, cfg, h, rope, mode=mode, cache=cache, index=index,
                             max_seq=max_seq, masks=masks)
@@ -237,7 +271,18 @@ def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cac
             y, cache = ssm_mod.mamba2_block(p["ssm"], cfg, x, return_state=True)
         else:
             y = ssm_mod.mamba2_block(p["ssm"], cfg, x)
-        return h + y, cache
+        return h + y, cache, None
+    if kind in _RECURRENT:
+        step, init_state = _RECURRENT[kind]
+        if mode == "decode":
+            y, cache = step(p["cell"], cfg, x, cache)
+        elif mode == "prefill":
+            state0 = init_state(cfg, x.shape[0], device=x.device)
+            y, cache = _recurrent_prefill(lambda tok, st: step(p["cell"], cfg, tok, st), state0, x)
+        else:
+            block = xlstm_mod.mlstm_block if kind == "mlstm" else xlstm_mod.slstm_block
+            y = block(p["cell"], cfg, x)
+        return h + y, cache, None
     window = cfg.sliding_window if kind == "attn_local" else None
     if mode == "decode":
         y, cache = _decode_attn(p["attn"], cfg, x, cache, index, rope, masks, window=window)
@@ -247,15 +292,20 @@ def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cac
         )
     h = h + y
     x = rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + mlp(p["mlp"], cfg, x), cache
+    if kind == "moe":
+        y, aux = moe_mod.moe_ffn(p["moe"], cfg, x)
+        return h + y, cache, aux
+    return h + mlp(p["mlp"], cfg, x), cache, None
 
 
 def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max_seq=None):
-    """Loop over the pattern groups.  caches: per slot, stacked over
-    repeats (decode updates them in place); prefill returns new ones.  The
-    RoPE tables (and in decode the masks) are the same for every layer, so
-    they are computed once per call (the reference's XLA program shares
-    them the same way)."""
+    """Loop over the pattern groups; returns (h, aux, caches).  caches: per
+    slot, stacked over repeats (decode updates them in place); prefill
+    returns new ones.  aux: the MoE losses summed within each pattern group,
+    then over the groups (the reference's order), or None without a
+    ``moe`` block.  The RoPE tables (and in decode the masks) are the same
+    for every layer, so they are computed once per call (the reference's
+    XLA program shares them the same way)."""
     for kind in cfg.block_pattern:
         _check_kind(kind)
     reps = cfg.pattern_repeats()
@@ -267,17 +317,24 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
     masks: dict = {}
     out_caches = [[] for _ in cfg.block_pattern]
     layers = [_unstack(stack, reps) for stack in params["stacks"]]
+    group_aux = []
     for r in range(reps):
+        aux_sum = None
         for j, kind in enumerate(cfg.block_pattern):
             cache = None if caches is None else _rep(caches[j], r)
-            h, nc = _apply_block(
+            h, nc, aux = _apply_block(
                 kind, layers[j][r], cfg, h, rope, mode=mode, cache=cache,
                 index=index, max_seq=max_seq, masks=masks, shared=params.get("shared"),
             )
+            if aux is not None:
+                aux_sum = aux if aux_sum is None else aux_sum + aux
             out_caches[j].append(nc)
+        if aux_sum is not None:
+            group_aux.append(aux_sum)
+    aux = torch.stack(group_aux).sum() if group_aux else None
     if mode == "prefill":
-        return h, [_stack(c) for c in out_caches]
-    return h, caches
+        return h, aux, [_stack(c) for c in out_caches]
+    return h, aux, caches
 
 
 def _embed(params, cfg: ArchConfig, tokens):
@@ -300,16 +357,22 @@ def _head(params, cfg: ArchConfig, h):
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None):
     """Training forward: tokens (B, S) -> (logits (B,S,V), aux_loss)."""
     if aux_embeds is not None or cfg.frontend:
-        raise NotImplementedError("frontend archs (vlm, audio) are not ported; see ROADMAP.md")
+        raise NotImplementedError(
+            "frontend archs (vlm, audio) are not ported; see ROADMAP.md section 1, item 5, "
+            "'The vlm and audio families'"
+        )
     h = _embed(params, cfg, tokens)
-    h, _ = _run_stack(params, cfg, h, mode="train")
+    h, aux, _ = _run_stack(params, cfg, h, mode="train")
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _head(params, cfg, h), torch.zeros((), dtype=torch.float32, device=h.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _head(params, cfg, h), aux
 
 
 def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
-    """batch: (tokens, targets).  Mean next-token cross-entropy in f32 (plus
-    the MoE auxiliary term, zero for the dense family)."""
+    """batch: (tokens, targets).  Mean next-token cross-entropy in f32 plus
+    ``MOE_AUX_COEF`` times the MoE load-balance loss (zero without ``moe``
+    blocks)."""
     tokens, targets = batch[0], batch[1]
     logits, aux = forward(params, cfg, tokens, batch[2] if len(batch) > 2 else None)
     logits = logits.to(torch.float32)
@@ -327,8 +390,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, page_size: int | None
                 device=None):
     """Zeroed caches (stacked over pattern repeats) for decode; ``page_size``
     switches the attention caches to the paged layout
-    (``attention.init_paged_kv_cache``).  The Mamba2 state is O(1) in the
-    sequence and is never paged."""
+    (``attention.init_paged_kv_cache``).  The recurrent states (Mamba2,
+    mLSTM, sLSTM) are O(1) in the sequence and are never paged."""
     dev = resolve_device(device)
     reps = cfg.pattern_repeats()
 
@@ -336,6 +399,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, page_size: int | None
         _check_kind(kind)
         if kind == "mamba2":
             c = ssm_mod.init_mamba2_state(cfg, batch, device=dev)
+        elif kind in _RECURRENT:
+            c = _RECURRENT[kind][1](cfg, batch, device=dev)
         elif page_size is not None:
             c = attn_mod.init_paged_kv_cache(cfg, batch, max_seq, page_size, device=dev)
         else:
@@ -351,9 +416,12 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None, max_
     caches are padded to ``max_seq`` (default: the prompt length); with
     ``page_size`` they are repacked into the paged decode layout."""
     if aux_embeds is not None or cfg.frontend:
-        raise NotImplementedError("frontend archs (vlm, audio) are not ported; see ROADMAP.md")
+        raise NotImplementedError(
+            "frontend archs (vlm, audio) are not ported; see ROADMAP.md section 1, item 5, "
+            "'The vlm and audio families'"
+        )
     h = _embed(params, cfg, tokens)
-    h, caches = _run_stack(params, cfg, h, mode="prefill", max_seq=max_seq)
+    h, _, caches = _run_stack(params, cfg, h, mode="prefill", max_seq=max_seq)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, h[:, -1:])
     if page_size is not None:
@@ -381,6 +449,6 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, index: int
     """token (B, 1) int; index = number of tokens already in the cache (a
     host integer).  Updates ``caches`` in place and returns them."""
     h = _embed(params, cfg, token)
-    h, caches = _run_stack(params, cfg, h, mode="decode", caches=caches, index=int(index))
+    h, _, caches = _run_stack(params, cfg, h, mode="decode", caches=caches, index=int(index))
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, h), caches

@@ -2,9 +2,9 @@
 
 The port's ``repro_torch.examples.fed_lm`` builds the reference example's
 specs (captured by running the reference's ``main`` with ``repro.api.run``
-replaced by a recorder), runs ``--model tiny`` and ``--model zoo --archs
-smollm ssm`` on the CPU, and one zoo cell follows ``repro.api.run`` on the
-reference's replayed draws; ``bench.tables.table_fed_lm`` prints the
+replaced by a recorder), runs ``--model tiny`` and ``--model zoo`` (each family, and all four by
+default) on the CPU, and one zoo cell of each family follows
+``repro.api.run`` on the reference's replayed draws; ``bench.tables.table_fed_lm`` prints the
 reference's fig5 rows for the same JSON, the MISSING row included.
 """
 import json
@@ -53,6 +53,7 @@ SPEC_CASES = [
     ["--rounds", "7", "--clients", "12", "--budget", "3", "--seq", "16", "--vocab", "64"],
     ["--model", "zoo", "--archs", "smollm", "ssm"],
     ["--model", "zoo", "--archs", "ssm", "--samplers", "kvib", "mabs", "--rounds", "5"],
+    ["--model", "zoo", "--archs", "moe", "xlstm", "--samplers", "vrb", "--rounds", "4"],
 ]
 
 
@@ -70,7 +71,7 @@ def test_zoo_tasks_match_the_reference_config():
     from repro_torch.configs import get_config
 
     ref_mod = ref_example("fed_lm")
-    for arch in ("smollm", "ssm"):
+    for arch in ("smollm", "moe", "ssm", "xlstm"):
         assert fed_lm.ZOO_ARCHS[arch][0] == ref_mod.ZOO_ARCHS[arch][0]
         name, over = fed_lm.ZOO_ARCHS[arch]
         cfg = get_config(name).reduced(vocab=64, **over)
@@ -101,7 +102,7 @@ def test_tiny_and_zoo_run_on_the_cpu(tmp_path, capsys):
     assert "kvib/ssm" in out and "wrote" in out
 
 
-@pytest.mark.parametrize("arch", ["smollm", "ssm"])
+@pytest.mark.parametrize("arch", ["smollm", "moe", "ssm", "xlstm"])
 def test_zoo_cell_matches_reference(arch):
     """One ``--model zoo`` cell, 2 rounds (kvib, N = 8, K = 2): the port on
     the reference's replayed draws follows ``repro.api.run``."""
@@ -125,14 +126,31 @@ def test_zoo_cell_matches_reference(arch):
         assert float(np.abs(a - b).max()) <= 1e-5 * max(float(np.abs(b).max()), 1e-30)
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--model", "zoo", "--archs", "moe"], "item 5"),
-    (["--model", "zoo", "--archs", "smollm", "xlstm"], "item 5"),
-    (["--model", "zoo"], "item 5"),
-])
-def test_unported_parts_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        fed_lm.main(argv + ["--device", "cpu"])
+@pytest.mark.parametrize("argv", [
+    ["--model", "zoo", "--archs", "moe"],
+    ["--model", "zoo", "--archs", "smollm", "xlstm"],
+    ["--model", "zoo"],
+], ids=["moe", "smollm_xlstm", "default_archs"])
+def test_zoo_families_run(argv, monkeypatch, tmp_path, capsys):
+    """The argument lists the port refused before the moe and xlstm families
+    were ported: their specs equal the reference's, they run on the CPU
+    (rounds and clients cut, one sampler), and the reference's table prints
+    the port's JSON as the port's table does, one fig5 row a run."""
+    want = reference_specs(argv + ["--out", str(tmp_path / "ref.json")], monkeypatch)
+    assert [g.to_dict() for g in port_specs(argv)] == [w.to_dict() for w in want]
+    cut = ["--device", "cpu", "--rounds", "2", "--clients", "8", "--budget", "2", "--seq", "16",
+           "--vocab", "64", "--samplers", "kvib", "--out", str(tmp_path / "fed_lm.json")]
+    res = fed_lm.main(argv + cut)
+    archs = fed_lm.parse_args(argv).archs
+    _finite_runs(res, [f"kvib/{a}" for a in archs])
+    capsys.readouterr()
+    bench = _load(ROOT / "benchmarks" / "run.py", "_ref_benchmarks_run")
+    monkeypatch.setattr(bench, "RESULTS", str(tmp_path))
+    bench.table_fed_lm()
+    ref_rows = capsys.readouterr().out.splitlines()
+    rows = tables.table_fed_lm(str(tmp_path))
+    assert capsys.readouterr().out.splitlines() == ref_rows
+    assert [r[0] for r in rows] == [f"fig5_lm_kvib/{a}" for a in archs]
 
 
 def test_table_prints_reference_rows(tmp_path, monkeypatch, capsys):

@@ -48,7 +48,12 @@ FLAG_SETS = {
     "shard_sampler": ["--shard-sampler", "data"],
     "reduced_vrb": SMALL + ["--sampler", "vrb", "--local-lr", "0.1", "--ckpt-every", "2"],
     "fp8_seed": ["--delta-dtype", "fp8", "--seed", "3", "--local-steps", "1", "--compiled"],
+    "qwen3_moe": ["--arch", "qwen3-moe-235b-a22b", "--compiled", "--cohort", "4"],
+    "arctic_reduced": ["--arch", "arctic-480b"] + SMALL[2:] + ["--compiled"],
+    "xlstm_int8": ["--arch", "xlstm-125m", "--delta-dtype", "int8", "--compiled"],
 }
+# The moe and xlstm families at the reduced CPU size of SMALL.
+FAMILY_ARCHS = ["qwen3-moe-235b-a22b", "arctic-480b", "xlstm-125m"]
 
 
 def _dump(main, argv) -> str:
@@ -171,6 +176,21 @@ def test_compiled_sections_run(extra):
     on their plain versions."""
     out = train.main(SMALL + ["--rounds", "2", "--compiled", "--device", "cpu"] + extra)
     assert len(out["losses"]) == 2 and all(np.isfinite(out["losses"]))
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_families_host_loop_and_compiled_path_draw_alike(arch, capsys):
+    """``launch.train --arch`` runs the moe and xlstm families with no change
+    of flags: the host loop and the compiled path, on one random source,
+    pick the same cohorts and follow the same losses."""
+    flags = ["--arch", arch] + SMALL[2:] + ["--rounds", "2"]
+    spec = train.build_spec_from_args(train.make_parser().parse_args(flags))
+    host = train.run_spec(spec, device="cpu")
+    compiled = train.main(flags + ["--compiled", "--device", "cpu"])
+    assert host["cohorts"] == compiled["cohorts"] and sum(host["cohorts"]) > 0
+    np.testing.assert_allclose(host["losses"], compiled["losses"], rtol=LOSS_RTOL)
+    assert all(np.isfinite(compiled["losses"]))
+    assert f"arch={arch}-reduced" in capsys.readouterr().out
 
 
 def test_refusals(tmp_path):

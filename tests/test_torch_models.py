@@ -66,12 +66,13 @@ def _np(x):
 
 @pytest.mark.parametrize(
     "name",
-    ["smollm-360m", "llama3.2-1b", "llama3.2-1b-sw", "gemma2-27b", "llama3-405b", "zamba2-1.2b"],
+    ["smollm-360m", "llama3.2-1b", "llama3.2-1b-sw", "gemma2-27b", "llama3-405b", "zamba2-1.2b",
+     "qwen3-moe-235b-a22b", "arctic-480b", "xlstm-125m"],
 )
 def test_configs_match_reference(name):
-    """The port's own copies of the dense and hybrid configs equal the
-    reference's, field for field (param_dtype as the torch dtype of the same
-    name)."""
+    """The port's own copies of the dense, hybrid, moe and xlstm configs
+    equal the reference's, field for field (param_dtype as the torch dtype
+    of the same name)."""
     ref = REF_SW_CONFIG if name == "llama3.2-1b-sw" else ref_get_config(name)
     port = get_config(name)
     for f in dataclasses.fields(ref):
@@ -86,9 +87,8 @@ def test_configs_match_reference(name):
 def test_registry_lists_every_arch_and_refuses_unported_families():
     assert list_archs() == ref_list_archs()
     assert all(has_arch(a) for a in ref_list_archs()) and not has_arch("nope")
-    for arch in ("qwen3-moe-235b-a22b", "xlstm-125m", "whisper-small",
-                 "llama-3.2-vision-11b", "arctic-480b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for arch in ("whisper-small", "llama-3.2-vision-11b"):
+        with pytest.raises(NotImplementedError, match="item 5, 'The vlm and audio families'"):
             get_config(arch)
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("nope")
@@ -219,8 +219,8 @@ def test_kernel_calls_per_prefill_and_decode(monkeypatch):
 
 
 def test_unported_block_kinds_and_cross_attention_raise():
-    cfg = get_config("smollm-360m").reduced(block_pattern=("mlstm",))
-    with pytest.raises(NotImplementedError, match="xlstm"):
+    cfg = get_config("smollm-360m").reduced(block_pattern=("cross_attn",))
+    with pytest.raises(NotImplementedError, match="vlm and audio"):
         transformer.init_params(cfg, torch.Generator(), "cpu")
     from repro_torch.models import attention
 

@@ -219,6 +219,47 @@ def test_launch_serve_demo_on_cpu(capsys):
     torch.testing.assert_close(again["engine"].generated(), gen, rtol=0, atol=0)
 
 
+# The moe and xlstm families, reduced (the reference's serving set,
+# tests/test_serve.py): qwen3 (q/k norm), arctic (dense residual), xLSTM.
+FAMILIES = ["qwen3-moe-235b-a22b", "arctic-480b", "xlstm-125m"]
+
+
+def _cache_ptrs(caches):
+    return [t.data_ptr() for t in tree_leaves(caches)]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_tokens_match_reference_engine(name):
+    """Greedy tokens equal the reference engine's on the same weights, and
+    every cache tensor (paged K/V or recurrent state) keeps its address
+    from prefill to the last step."""
+    ref_cfg = ref_get_config(name).reduced(vocab=64)
+    cfg = get_config(name).reduced(vocab=64)
+    ref_params = ref_tf.init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = transformer.params_from_reference(
+        jax.tree_util.tree_map(np.asarray, ref_params), cfg, "cpu")
+    prompts = _prompts((2, 8), seed=7)
+    ref = RefEngine(ref_cfg, ref_params, batch=2, max_seq=32, page_size=8)
+    ref.start(jnp.asarray(prompts))
+    ref.step(8)
+    eng = ServeEngine(cfg, params, batch=2, max_seq=32, page_size=8, device="cpu")
+    eng.start(torch.from_numpy(prompts))
+    ptrs = _cache_ptrs(eng._caches)
+    assert eng.step(8) == 8
+    np.testing.assert_array_equal(eng.generated().numpy(), np.asarray(ref.generated()))
+    assert _cache_ptrs(eng._caches) == ptrs
+
+
+@pytest.mark.parametrize("name", ["xlstm-125m", "qwen3-moe-235b-a22b"])
+def test_launch_serve_families_on_cpu(name, capsys):
+    out = launch_serve.main(["--arch", name, "--reduced", "--device", "cpu", "--batch", "2",
+                             "--prompt-len", "16", "--new-tokens", "8"])
+    eng = out["engine"]
+    assert tuple(eng.generated().shape) == (2, 8) and eng.cfg.name == f"{name}-reduced"
+    assert bool(torch.isfinite(eng.last_logits).all())
+    assert "generated ids" in capsys.readouterr().out
+
+
 def test_gumbel_stream_leaves_round_streams_alone():
     """The engine's sampling stream is seeded apart: drawing from it moves
     none of the federated round's streams."""

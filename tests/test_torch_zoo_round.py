@@ -13,7 +13,9 @@ round; the draw from ``k_draw``, the cohort priorities from
 from ``split(fold_in(k_data, cid), R)``), and must follow
 ``repro.api.run`` round by round.  Reduced configs, f32: the reference's
 ``zoo_spec`` sizes (``tests/test_api_spec.py``) and a reduced zamba2 with
-the pattern (mamba2, mamba2, mamba2, shared_attn).
+the pattern (mamba2, mamba2, mamba2, shared_attn); ``FAMILY_ARCHS`` (the
+moe and xlstm families) go through the same checks in
+``tests/test_torch_families_round.py``.
 """
 import dataclasses
 
@@ -52,10 +54,19 @@ ARCHS = {  # reduced overrides: the reference's zoo_spec, a 4-block hybrid
     "ssm": ("zamba2-1.2b", {"n_layers": 4, "vocab": 128,
                             "block_pattern": ["mamba2", "mamba2", "mamba2", "shared_attn"]}),
 }
+# The moe and xlstm families, reduced (tests/test_torch_families_round.py):
+# qwen3 dropless and with capacity drops, arctic with its dense residual
+# (cohort_sequential, their configs' mode), xLSTM (client_parallel).
+FAMILY_ARCHS = {
+    "moe": ("qwen3-moe-235b-a22b", {"vocab": 128}),
+    "moe_drops": ("qwen3-moe-235b-a22b", {"vocab": 128, "capacity_factor": 0.5}),
+    "arctic": ("arctic-480b", {"vocab": 128}),
+    "xlstm": ("xlstm-125m", {"vocab": 128}),
+}
 
 
 def spec_dict(arch="smollm", *, rounds=ROUNDS, sampler="kvib", **sections) -> dict:
-    name, kwargs = ARCHS[arch]
+    name, kwargs = {**ARCHS, **FAMILY_ARCHS}[arch]
     d = {
         "task": {"kind": "zoo", "name": name, "reduced": True, "kwargs": kwargs,
                  "dataset": "synthetic_tokens",
@@ -141,9 +152,12 @@ def run_both(d: dict, port_sections: dict | None = None):
     return got, want, replay
 
 
-def assert_runs_match(got, want, replay=None, step=None):
+def assert_runs_match(got, want, replay=None, step=None, elementwise=False):
     """Counts exact, losses within ``LOSS_RTOL``, parameters within
-    ``LEAF_SCALE_TOL`` of each leaf's scale.  With compression (``step``,
+    ``LEAF_SCALE_TOL`` of each leaf's scale (``elementwise``: within
+    ``PARAM_TOL``, ROADMAP's f32 rule, for the xLSTM runs, whose gradients
+    agree within 4e-6 of each leaf's scale and drift past 1e-5 of it over
+    three rounds of the recurrence).  With compression (``step``,
     the codes' relative spacing) a code flips where the two packages'
     scaled deltas straddle a rounding boundary, moving one element by one
     quantization step: the parameters are then held to one step of the
@@ -153,6 +167,10 @@ def assert_runs_match(got, want, replay=None, step=None):
     assert got.cohort_dropped == want.cohort_dropped
     assert got.deadline_dropped == want.deadline_dropped
     np.testing.assert_allclose(got.train_loss, want.train_loss, rtol=LOSS_RTOL)
+    if step is None and elementwise:
+        for g, w in zip(tree_leaves(got.final_params), jax.tree_util.tree_leaves(want.final_params)):
+            np.testing.assert_allclose(g, np.asarray(w), **PARAM_TOL)
+        return
     if step is None:
         assert_leaves_close(got.final_params, want.final_params)
         return
@@ -169,7 +187,7 @@ def assert_runs_match(got, want, replay=None, step=None):
 def _round_inputs(arch: str, c: int = 3, seed: int = 0):
     """The reference's weights in both packages, (C, R, B, S) tokens and
     targets, and cohort weights with slot 1 at zero."""
-    name, kwargs = ARCHS[arch]
+    name, kwargs = {**ARCHS, **FAMILY_ARCHS}[arch]
     ref_cfg = ref_get_config(name).reduced(**kwargs)
     cfg = get_config(name).reduced(**kwargs)
     ref_params = ref_tf.init_params(ref_cfg, jax.random.PRNGKey(seed))
@@ -182,9 +200,8 @@ def _round_inputs(arch: str, c: int = 3, seed: int = 0):
     return ref_cfg, ref_params, cfg, params, tokens, targets, weights
 
 
-@pytest.mark.parametrize("mode", ["client_parallel", "cohort_sequential"])
-@pytest.mark.parametrize("arch", list(ARCHS))
-def test_round_step_matches_reference(arch, mode):
+def check_round_step(arch, mode):
+    """The round step against the reference's, jitted, on its weights."""
     ref_cfg, ref_params, cfg, params, tokens, targets, weights = _round_inputs(arch)
     ref_cfg = dataclasses.replace(ref_cfg, round_mode=mode)
     cfg = dataclasses.replace(cfg, round_mode=mode)
@@ -199,8 +216,14 @@ def test_round_step_matches_reference(arch, mode):
     np.testing.assert_allclose(float(got_l), float(want_l), rtol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["client_parallel", "cohort_sequential"])
 @pytest.mark.parametrize("arch", list(ARCHS))
-def test_round_modes_agree_and_zero_weight_slot_is_inert(arch):
+def test_round_step_matches_reference(arch, mode):
+    check_round_step(arch, mode)
+
+
+def check_round_modes(arch):
+    """Both round modes agree; a w = 0 slot moves nothing."""
     _, _, cfg, params, tokens, targets, weights = _round_inputs(arch)
     spec = zoo_round.RoundSpec(cohort=3, local_steps=2, local_lr=0.05)
     args = (torch.from_numpy(tokens), torch.from_numpy(targets), torch.from_numpy(weights))
@@ -228,6 +251,11 @@ def test_round_modes_agree_and_zero_weight_slot_is_inert(arch):
     assert float(l0) == 0.0
 
 
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_round_modes_agree_and_zero_weight_slot_is_inert(arch):
+    check_round_modes(arch)
+
+
 # -- api.run(kind="zoo") against repro.api.run ---------------------------------
 
 RUN_CASES = {
@@ -242,12 +270,18 @@ RUN_CASES = {
 }
 
 
+def check_run(arch, sections, port_sections):
+    """``api.run`` against ``repro.api.run`` on the reference's draws."""
+    got, want, replay = run_both(spec_dict(arch, **sections), port_sections)
+    step = 1.0 / 127.0 if "compression" in sections else None  # int8: absmax / 127
+    assert_runs_match(got, want, replay, step, elementwise=arch == "xlstm")
+    return want
+
+
 @pytest.mark.parametrize("case", list(RUN_CASES))
 def test_run_matches_reference(case):
     arch, sections, port_sections = RUN_CASES[case]
-    got, want, replay = run_both(spec_dict(arch, **sections), port_sections)
-    step = 1.0 / 127.0 if "compression" in sections else None  # int8: absmax / 127
-    assert_runs_match(got, want, replay, step)
+    want = check_run(arch, sections, port_sections)
     if case == "markov_deadline_async":
         assert sum(want.deadline_dropped) > 0
     if case == "plain":
@@ -377,11 +411,17 @@ def test_refusals():
     other = api.ExperimentSpec.from_dict(spec_dict(sampler="vrb"))
     with pytest.raises(ValueError, match="different spec"):
         api.run(other, "cpu", built=api.build(spec, "cpu"))
-    for arch in ("qwen3-moe-235b-a22b", "xlstm-125m"):
-        moe = api.ExperimentSpec.from_dict({**spec_dict(), "task": {
+    for arch in ("llama-3.2-vision-11b", "whisper-small"):
+        frontend = api.ExperimentSpec.from_dict({**spec_dict(), "task": {
             **spec_dict()["task"], "name": arch, "kwargs": {}}})
-        with pytest.raises(NotImplementedError, match="Zoo models"):
-            api.build(moe, "cpu")
+        with pytest.raises(NotImplementedError, match="item 5, 'The vlm and audio families'"):
+            api.build(frontend, "cpu")
+    # arctic-480b at full width does not fit one card's round (one layer
+    # alone holds 14.07e9 parameters).
+    arctic = api.ExperimentSpec.from_dict({**spec_dict(), "task": {
+        **spec_dict()["task"], "name": "arctic-480b", "reduced": False, "kwargs": {}}})
+    with pytest.raises(NotImplementedError, match="item 6, 'Multi-rank placement'"):
+        api.build(arctic, "cpu")
     with pytest.raises(ValueError, match="unknown zoo arch"):
         api.build(api.ExperimentSpec.from_dict(
             {**spec_dict(), "task": {**spec_dict()["task"], "name": "nope"}}), "cpu")
@@ -442,9 +482,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("arch", list(ARCHS))
-def test_zoo_run_on_card_matches_cpu(arch, cuda):
+def check_run_on_card(arch, cuda):
     """The reduced f32 zoo run on the card (kernels 6-8 forward) follows the
     CPU's from one recorded source: the CPU run's draws, replayed."""
     spec = api.ExperimentSpec.from_dict(spec_dict(arch))
@@ -466,3 +504,9 @@ def test_zoo_run_on_card_matches_cpu(arch, cuda):
     np.testing.assert_allclose(gpu.train_loss, cpu.train_loss, rtol=1e-5)
     for g, c in zip(tree_leaves(gpu.final_params), tree_leaves(cpu.final_params)):
         assert float(np.abs(g - c).max()) <= 1e-4 * max(float(np.abs(c).max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_zoo_run_on_card_matches_cpu(arch, cuda):
+    check_run_on_card(arch, cuda)
