@@ -621,7 +621,9 @@ def rmsnorm_kernel_phase(torch, gen, flush, max_err):
     block norms at (x)'s prefill and decode (d_model 7168), xLSTM's block
     and sLSTM norms at (y)'s prefill and decode (d_model 768) and its
     mLSTM inner norm at (y)'s decode and at a round of (aa) (d_in 1536,
-    8 clients x 2 x 64 rows), and a ragged D that takes the scalar loads;
+    8 clients x 2 x 64 rows), the vlm's block norms at (ad)'s prefill
+    (d_model 4096), whisper's encoder norms at (ac)'s prefill (8 x 1500
+    frames of 768), and a ragged D that takes the scalar loads;
     bf16 and f32.  The bound counts x read and y written once and
     ~4 f32 operations an element; the library call is ``F.rms_norm`` with
     weight 1 + scale."""
@@ -639,6 +641,7 @@ def rmsnorm_kernel_phase(torch, gen, flush, max_err):
                         ("prefill arctic", 4096, 7168), ("decode arctic", 8, 7168),
                         ("prefill xlstm", 1024, 768), ("decode xlstm", 8, 768),
                         ("decode xlstm inner norm", 8, 1536), ("round xlstm inner norm", 1024, 1536),
+                        ("prefill vlm", 4096, 4096), ("encoder whisper", 12000, 768),
                         ("ragged D", 4097, 962)):
         for dtype in (torch.bfloat16, torch.float32):
             tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=1e-5, atol=1e-5)
@@ -698,6 +701,67 @@ def attention_pairs(s_q: int, s_k: int, causal: bool, window) -> int:
     return total
 
 
+def bf16_out_tol(want) -> dict:
+    """The bf16 tolerance of a bidirectional or cross row: 4 bf16 ulps of the
+    largest |output|, no relative term.  Both sides round the same bf16
+    inputs' f32 result to bf16 (half an ulp each), and the kernel rounds
+    its probabilities to bf16 for P.V (2^-9 of each weight, averaging out
+    over the keys), so they differ by an ulp or two; a non-causal output
+    averages many keys and stays far below 1, where 2e-2 would pass a
+    dropped key tile."""
+    top = float(want.float().abs().max())
+    return dict(rtol=0.0, atol=4 * 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -126))) - 7))
+
+
+def planted_tail(torch, gen, b, kv, g, s_q, s_k, hd, dtype, dev):
+    """q, k, v (B, heads, S, hd) whose softmax puts nearly every query's
+    mass on the last ``S_k mod 64`` keys, the ragged tail tile: q leans on
+    a direction u of its KV head (|u|^2 = hd), the keys before the tail on
+    -1.5 u (logits near -1.5 sqrt(hd)), the tail's keys are small noise
+    (logits near 0).  A kernel that drops the tail, or lets its tile's
+    padded keys into the softmax, misses the output by about |v|."""
+    tail = s_k % 64 or 64
+    u = torch.randn(b, kv, 1, hd, generator=gen, device=dev)
+    u = u * (hd ** 0.5 / u.norm(dim=-1, keepdim=True))
+    q = u.repeat_interleave(g, dim=1) + 0.1 * torch.randn(b, kv * g, s_q, hd, generator=gen, device=dev)
+    k = -1.5 * u + 0.1 * torch.randn(b, kv, s_k, hd, generator=gen, device=dev)
+    k[:, :, s_k - tail:] = 0.1 * torch.randn(b, kv, tail, hd, generator=gen, device=dev)
+    v = torch.randn(b, kv, s_k, hd, generator=gen, device=dev)
+    return tail, *(t.to(dtype) for t in (q, k, v))
+
+
+def flash_planted_tail(torch, gen, label, case, dtype, tol, max_err) -> None:
+    """Kernel 7 on ``planted_tail``'s input, held to its plain version:
+    checks that the tail holds at least 99% of every query's mass, and
+    prints what a kernel dropping the tail would be off by."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    b, kv, g, s, s_k, hd = case
+    dev = torch.device("cuda")
+    tail, q, k, v = planted_tail(torch, gen, b, kv, g, s, s_k, hd, dtype, dev)
+    got = fa.flash_attention(q, k, v, causal=False, q_groups=g)
+    want = ref.mha_reference(q, k, v, causal=False, q_groups=g)
+    scores = q.float() @ k.float().repeat_interleave(g, dim=1).transpose(-1, -2) * hd ** -0.5
+    mass = float(torch.softmax(scores, dim=-1)[..., s_k - tail:].sum(-1).min())
+    del scores
+    check(mass >= 0.99, f"flash_attention {label} planted tail: the tail holds {mass:.4f}")
+    if dtype == torch.bfloat16:
+        tol = bf16_out_tol(want)
+    torch.testing.assert_close(got, want, **tol)
+    err = float((got.float() - want.float()).abs().max())
+    max_err["flash_attention"] = max(max_err["flash_attention"], err)
+    cut = s_k - tail
+    dropped = ref.mha_reference(q, k[:, :, :cut], v[:, :, :cut], causal=False, q_groups=g)
+    drop_err = float((dropped.float() - want.float()).abs().max())
+    check(drop_err > 10 * max(tol["atol"], err), f"flash_attention {label} planted tail: "
+          f"dropping the tail moves the output only {drop_err:.3g}")
+    print(f"flash_attention {label} {str(dtype)[6:]} planted tail (the last {tail} of {s_k} keys "
+          f"hold >= {mass:.4f} of every query's mass): max_abs_err={err:.3g} atol={tol['atol']:.3g} "
+          f"rtol={tol['rtol']:.3g}; dropping the tail would move it {drop_err:.3g}", flush=True)
+    del q, k, v, got, want, dropped
+
+
 def flash_kernel_phase(torch, gen, flush, max_err):
     """Kernel 7 at (k)'s prefill shape (B=8, 15 heads over 5 KV heads, S=512,
     hd=64) in all four modes (causal, window 96, full, softcap 30), at a
@@ -705,7 +769,13 @@ def flash_kernel_phase(torch, gen, flush, max_err):
     softcap 50, window 4096 and global), at (m)'s shared attention (32
     heads over 32, hd=64, causal) and at (w)'s and (x)'s prefill (qwen3: 64
     heads over 4, groups of 16; arctic: 56 over 8, groups of 7; hd=128,
-    causal); bf16 and f32.  Each row names the kernel
+    causal), and at (ac)'s and (ad)'s frontend shapes, bidirectional:
+    whisper's encoder (12 heads, S=1500, hd=64), its cross-attention (64
+    queries over 1500 frames) and the vlm's (32 heads over 8, 512 queries
+    over 1601 patches, hd=128), S_k ragged against the 64-key tiles; bf16
+    and f32; bf16 bidirectional and cross rows are held to 4 bf16 ulps of
+    their largest output (``bf16_out_tol``), and the ragged ones also on
+    ``planted_tail``'s input.  Each row names the kernel
     that ran, from the launch counters: the tensor cores for bf16 (hd 64
     and 128 here), the CUDA cores for f32.  q, k, v are the (B, S, heads, hd) projections
     seen as (B, heads, S, hd), as the model passes them.  The bound: q, k,
@@ -721,25 +791,28 @@ def flash_kernel_phase(torch, gen, flush, max_err):
 
     dev = torch.device("cuda")
     rows = {}
-    cases = [  # (label, B, KV heads, groups, S, hd, causal, window, softcap)
-        ("prefill smollm causal", 8, 5, 3, 512, 64, True, None, None),
-        ("prefill smollm window", 8, 5, 3, 512, 64, True, 96, None),
-        ("prefill smollm full", 8, 5, 3, 512, 64, False, None, None),
-        ("prefill smollm softcap", 8, 5, 3, 512, 64, True, None, 30.0),
-        ("ragged S smollm", 8, 5, 3, 200, 64, True, None, None),
-        ("prefill gemma2 local", 8, 16, 2, 512, 128, True, 4096, 50.0),
-        ("prefill gemma2 global", 8, 16, 2, 512, 128, True, None, 50.0),
-        ("prefill zamba2 shared", 8, 32, 1, 512, 64, True, None, None),
-        ("prefill qwen3", 8, 4, 16, 512, 128, True, None, None),
-        ("prefill arctic", 8, 8, 7, 512, 128, True, None, None),
+    cases = [  # (label, B, KV heads, groups, S_q, S_k, hd, causal, window, softcap)
+        ("prefill smollm causal", 8, 5, 3, 512, 512, 64, True, None, None),
+        ("prefill smollm window", 8, 5, 3, 512, 512, 64, True, 96, None),
+        ("prefill smollm full", 8, 5, 3, 512, 512, 64, False, None, None),
+        ("prefill smollm softcap", 8, 5, 3, 512, 512, 64, True, None, 30.0),
+        ("ragged S smollm", 8, 5, 3, 200, 200, 64, True, None, None),
+        ("prefill gemma2 local", 8, 16, 2, 512, 512, 128, True, 4096, 50.0),
+        ("prefill gemma2 global", 8, 16, 2, 512, 512, 128, True, None, 50.0),
+        ("prefill zamba2 shared", 8, 32, 1, 512, 512, 64, True, None, None),
+        ("prefill qwen3", 8, 4, 16, 512, 512, 128, True, None, None),
+        ("prefill arctic", 8, 8, 7, 512, 512, 128, True, None, None),
+        ("encoder whisper", 8, 12, 1, 1500, 1500, 64, False, None, None),
+        ("cross whisper", 8, 12, 1, 64, 1500, 64, False, None, None),
+        ("cross vlm", 8, 8, 4, 512, 1601, 128, False, None, None),
     ]
-    for label, b, kv, g, s, hd, causal, window, cap in cases:
+    for label, b, kv, g, s, s_k, hd, causal, window, cap in cases:
         h = kv * g
         for dtype in (torch.bfloat16, torch.float32):
             tol = dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else dict(rtol=2e-4, atol=2e-5)
             q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
-            k = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
-            v = torch.randn(b, s, kv, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            k = torch.randn(b, s_k, kv, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            v = torch.randn(b, s_k, kv, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
             kw = dict(causal=causal, window=window, softcap=cap, q_groups=g)
             tc_before = fa.flash_attention.launches_tc
             got = fa.flash_attention(q, k, v, **kw)
@@ -749,9 +822,13 @@ def flash_kernel_phase(torch, gen, flush, max_err):
             path = "tensor cores" if tc else "CUDA cores"
             want = ref.mha_reference(q, k, v, **kw)
             torch.cuda.synchronize()
+            if dtype == torch.bfloat16 and not causal:
+                tol = bf16_out_tol(want)
             torch.testing.assert_close(got, want, **tol)
             err = float((got.float() - want.float()).abs().max())
             max_err["flash_attention"] = max(max_err["flash_attention"], err)
+            if not causal and s_k % 64:
+                flash_planted_tail(torch, gen, label, (b, kv, g, s, s_k, hd), dtype, tol, max_err)
             lib = None
             if cap is None:
                 k_x, v_x = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
@@ -762,17 +839,19 @@ def flash_kernel_phase(torch, gen, flush, max_err):
                     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
                     lib = lambda: F.scaled_dot_product_attention(q, k_x, v_x, attn_mask=mask)  # noqa: E731
             es = q.element_size()
-            pairs = attention_pairs(s, s, causal, window)
+            pairs = attention_pairs(s, s_k, causal, window)
             row = measure(torch, flush, lambda: fa.flash_attention(q, k, v, **kw),
                           lambda: ref.mha_reference(q, k, v, **kw), lib,
-                          b * s * (2 * h + 2 * kv) * hd * es, 4 * b * h * pairs * hd, err,
+                          b * (2 * s * h + 2 * s_k * kv) * hd * es, 4 * b * h * pairs * hd, err,
                           BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
-            row["shape"] = {"B": b, "H": h, "q_groups": g, "S": s, "hd": hd, "window": window,
-                            "softcap": cap, "dtype": str(dtype)[6:]}
+            row["shape"] = {"B": b, "H": h, "q_groups": g, "S": s, "S_k": s_k, "hd": hd,
+                            "window": window, "softcap": cap, "dtype": str(dtype)[6:]}
             row["path"] = path
             rows[("flash_attention", label, str(dtype)[6:])] = row
             ratio = f" kernel/library={row['kernel_ms'] / row['library_ms']:.2f}x" if lib else ""
-            report("flash_attention", f"{label} B={b} H={h} G={g} S={s} hd={hd} {str(dtype)[6:]}",
+            report("flash_attention",
+                   f"{label} B={b} H={h} G={g} S={s}{'' if s_k == s else f' S_k={s_k}'} hd={hd} "
+                   f"{str(dtype)[6:]}",
                    row, "n/a (no library call applies a softcap)",
                    f" path={path} pairs={pairs}{ratio} library=sdpa(K/V expanded)")
             del q, k, v, got, want
@@ -1340,14 +1419,20 @@ def zoo_spec(api, arch: str, *, rounds: int, clients: int, budget: int, cohort: 
 
 
 def forward_calls(cfg) -> dict:
-    """Kernels 6-8's calls in one forward of ``cfg``: kernel 6 two times a
-    block (four in an attention block with qwen3's q/k norm) plus once (the
-    final norm), kernel 7 once an attention block (``moe`` blocks and
-    ``shared_attn`` invocations included), kernel 8 once a mamba2 block."""
+    """Kernels 6-8's calls in one forward (or prefill) of ``cfg``: kernel 6
+    two times a block (four in an attention block with qwen3's q/k norm,
+    three in whisper's ``dec`` block with its ``lnx``) plus once (the final
+    norm), kernel 7 once an attention block (``moe`` and ``cross_attn``
+    blocks and ``shared_attn`` invocations included; twice a ``dec`` block:
+    self- and cross-attention), kernel 8 once a mamba2 block; whisper's
+    encoder of E ``enc`` blocks adds 2E + 1 norms and E attentions."""
     kinds = list(cfg.block_pattern) * cfg.pattern_repeats()
-    attn = sum(k in ("attn", "attn_local", "shared_attn", "moe") for k in kinds)
-    return {"rmsnorm": 2 * len(kinds) + (2 * attn if cfg.qk_norm else 0) + 1,
-            "flash_attention": attn, "ssd_scan": kinds.count("mamba2")}
+    self_attn = sum(k in ("attn", "attn_local", "shared_attn", "moe", "dec") for k in kinds)
+    e = cfg.encoder_layers
+    return {"rmsnorm": 2 * len(kinds) + kinds.count("dec") + (2 * self_attn if cfg.qk_norm else 0)
+            + 1 + (2 * e + 1 if e else 0),
+            "flash_attention": self_attn + kinds.count("cross_attn") + kinds.count("dec") + e,
+            "ssd_scan": kinds.count("mamba2")}
 
 
 def zoo_launches_per_round(cfg, c: int) -> dict:
@@ -2093,6 +2178,390 @@ def zoo_families_phase(torch, card: str) -> dict:
     family_agreement(torch, api, np)
     lap("agreement", t0)
     print(f"zoo_families phase: {time.perf_counter() - t_phase:.1f} s (seconds a step: "
+          f"{json.dumps(laps)})", flush=True)
+    return launches
+
+
+# -- the vlm and audio families --------------------------------------------------
+
+# Serving through the model-level API (the engine refuses frontend archs, as
+# the reference's does): ``transformer.prefill`` at batch 8 with pages of 16,
+# then 63 greedy ``decode_step``s, bf16 at the configs' widths and depths;
+# the frontend embeddings standard normal f32 from a seeded generator.
+FRONTEND_SERVE = {  # label: (arch, prompt length, the gates' value after init or None)
+    "(ac) whisper-small": ("whisper-small", 64, None),
+    "(ad) llama-3.2-vision-11b": ("llama-3.2-vision-11b", 512, 0.5),
+}
+FRONTEND_BATCH, FRONTEND_NEW, FRONTEND_PAGE = 8, 64, 16
+# Rounds through ``fed.round.build_round_step`` with ``aux_embeds``: seq 64,
+# local batch 2, R = 2, the weights of a K-Vib draw over N = 32 clients, 2
+# rounds (the second under the profiler), bf16.  (af) runs the vlm one
+# pattern deep (4 attn and 1 cross_attn block, 2.15e9 parameters) at full
+# width: its whole cohort_sequential round would hold ~97.8 GB (parameters,
+# a training copy, its gradients, the f32 estimate: 9.78e9 x 10 bytes).
+FRONTEND_ROUNDS = {  # label: (arch, n_layers or None for the whole model, K, C)
+    "(ae) whisper-small": ("whisper-small", None, 6, 8),
+    "(af) llama-3.2-vision-11b one pattern": ("llama-3.2-vision-11b", 5, 3, 4),
+}
+FRONTEND_CLIENTS, FRONTEND_LR, FRONTEND_GATE = 32, 0.02, 0.5
+
+
+def frontend_inputs(torch, cfg, shape, gen):
+    """Tokens of ``shape`` and standard normal f32 frontend embeddings
+    (*shape[:-1], frontend_seq, frontend_dim), both from ``gen``."""
+    tokens = torch.randint(0, cfg.vocab, shape, generator=gen, device=gen.device)
+    aux = torch.randn(*shape[:-1], cfg.frontend_seq, cfg.frontend_dim, generator=gen,
+                      device=gen.device)
+    return tokens, aux
+
+
+def set_gates(params, value: float) -> None:
+    """The ``cross_attn`` blocks' gates, zero at init (so cross-attention
+    changes no logit), set to ``value``."""
+    for slot in params["stacks"]:
+        if "gate" in slot:
+            slot["gate"].fill_(value)
+
+
+def decode_calls(cfg) -> dict:
+    """Kernel 6's calls in one decode step: the decoder's norms of a
+    forward (no encoder); kernel 7 never (the cross K/V come from the
+    cache, read in plain torch)."""
+    e = cfg.encoder_layers
+    return {"rmsnorm": forward_calls(cfg)["rmsnorm"] - (2 * e + 1 if e else 0),
+            "flash_attention": 0, "ssd_scan": 0}
+
+
+def greedy(torch, params, cfg, tokens, aux, new: int, kernels=None) -> dict:
+    """``transformer.prefill`` of ``tokens`` with ``aux`` (paged, room for
+    ``new`` tokens), then ``new - 1`` greedy ``decode_step``s: the
+    generated tokens (B, new), the last logits, the prefill's and the
+    decode's seconds and (with ``kernels``) the prefill's launches."""
+    from repro_torch.models import transformer
+
+    dev = tokens.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    s = tokens.shape[1]
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = transformer.prefill(params, cfg, tokens, aux, max_seq=s + new,
+                                         page_size=FRONTEND_PAGE)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = kernels.launch_counts() if kernels else None
+    out = [logits.argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(new - 1):
+        logits, caches = transformer.decode_step(params, cfg, out[-1], caches, s + i)
+        out.append(logits.argmax(-1))
+    sync()
+    return {"generated": torch.cat(out, 1), "logits": logits, "prefill_s": prefill_s,
+            "decode_s": time.perf_counter() - t0, "prefill_launches": prefill_launches}
+
+
+def frontend_serve(torch, kernels, label: str, arch: str, prompt_len: int, gate, seed: int,
+                   card: str) -> dict:
+    """One frontend arch served whole on the card (``greedy``, bf16): the
+    exact launches of kernels 6 and 7 (``forward_calls`` in the prefill,
+    ``decode_calls`` a decode step), every kernel-7 launch on the tensor
+    cores, finite logits; then a second prefill and 8 decode steps under
+    the profiler (launches a step, the device's busy share).  Returns the
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen)
+    if gate is not None:
+        set_gates(params, gate)
+    n_params = transformer.param_count(params)
+    tokens, aux = frontend_inputs(torch, cfg, (FRONTEND_BATCH, prompt_len), gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    fa.flash_attention.launches_tc = 0
+    out = greedy(torch, params, cfg, tokens, aux, FRONTEND_NEW, kernels)
+    counts = kernels.launch_counts()
+    per_pass, per_step = forward_calls(cfg), decode_calls(cfg)
+    want = {k: 0 for k in counts}
+    want.update({k: per_pass[k] + (FRONTEND_NEW - 1) * per_step[k] for k in per_pass})
+    check({k: out["prefill_launches"][k] for k in per_pass} == per_pass,
+          f"{label}: prefill launches {out['prefill_launches']}, expected {per_pass}")
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    check(fa.flash_attention.launches_tc == counts["flash_attention"],
+          f"{label}: {fa.flash_attention.launches_tc} of {counts['flash_attention']} kernel-7 "
+          "launches on the tensor cores")
+    gen_tokens = out["generated"]
+    check(tuple(gen_tokens.shape) == (FRONTEND_BATCH, FRONTEND_NEW)
+          and bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab)).all())
+          and bool(torch.isfinite(out["logits"]).all()), f"{label}: bad output")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tps = FRONTEND_BATCH * (FRONTEND_NEW - 1) / out["decode_s"]
+    # Measurements, outside the counted run: a warm prefill, then 8 decode
+    # steps from its caches.
+    s = prompt_len
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches = transformer.prefill(params, cfg, tokens, aux, max_seq=s + 9,
+                                 page_size=FRONTEND_PAGE)[1]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    tok = gen_tokens[:, :1]
+
+    def steps():
+        for i in range(8):
+            transformer.decode_step(params, cfg, tok, caches, s + i)
+
+    wall, launches, split, total = device_split(torch, steps)
+    busy = f"{total / 1e6 / wall:.3%}" if total else "not measured"
+    print(f"{label} serve ({card}): {n_params:,} params bf16, {cfg.n_layers} layers"
+          f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, batch "
+          f"{FRONTEND_BATCH}, prompt {prompt_len}, frontend {cfg.frontend_seq} x "
+          f"{cfg.frontend_dim} f32, {FRONTEND_NEW} new tokens (pages of {FRONTEND_PAGE}"
+          f"{f', gates {gate}' if gate is not None else ''}): init {init_s:.2f} s, "
+          f"prefill_s={out['prefill_s']:.4f} (warm {warm_s:.4f}) "
+          f"decode_s={out['decode_s']:.4f} ({FRONTEND_NEW - 1} steps) tokens_per_sec={tps:.1f} "
+          f"peak_mem_gb={peak:.2f} kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} } (prefill "
+          f"{ {k: v for k, v in out['prefill_launches'].items() if v} }, a decode step "
+          f"{ {k: v for k, v in per_step.items() if v} }); 8 decode steps under the profiler: "
+          f"launches a step {launches / 8:.0f}, wall_s={wall:.4f} busy_share={busy}", flush=True)
+    del params, out, caches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def kvib_cohort(torch, sampler, s_state, source, t: int, n: int, c: int):
+    """Round t's K-Vib draw over n clients (equal lambda = 1/n) mapped onto
+    C slots, as ``launch.train`` draws it: (selection, draw, lam)."""
+    from repro_torch.launch.train import draw_cohort
+
+    lam = torch.full((n,), 1.0 / n, device=source.device)
+    sel, draw, _ = draw_cohort(sampler, s_state, source, t, lam, c)
+    return sel, draw, lam
+
+
+def frontend_round(torch, kernels, label: str, arch: str, layers, k: int, c: int,
+                   card: str) -> dict:
+    """Two rounds of ``build_round_step`` with ``aux_embeds`` (the cohort
+    and its weights from a K-Vib draw, the sampler updated with the
+    round's norms), the second under the profiler: seconds a round,
+    launches a round, the device's busy share, peak memory, and the exact
+    launches of kernels 6 and 7 (``zoo_launches_per_round``), every
+    kernel-7 launch on the tensor cores, finite losses and parameters.
+    Returns the launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.samplers import make_sampler
+    from repro_torch.fed import round as fed_round
+    from repro_torch.fed.cohort import scatter_cohort
+    from repro_torch.fed.tasks import tree_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.rng import PhiloxSource
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    params = transformer.init_params(cfg, gen)
+    if "cross_attn" in cfg.block_pattern:
+        set_gates(params, FRONTEND_GATE)
+    n_params = transformer.param_count(params)
+    n = FRONTEND_CLIENTS
+    sampler = make_sampler("kvib", n=n, budget=k, horizon=2)
+    state = {"params": params, "s": sampler.init(dev)}
+    source = PhiloxSource(7, dev)
+    step = fed_round.build_round_step(cfg, fed_round.RoundSpec(
+        cohort=c, local_steps=ZOO_STEPS, local_lr=FRONTEND_LR, local_batch=ZOO_BATCH))
+    losses, cohorts = [], []
+
+    def one_round(t):
+        sel, draw, lam = kvib_cohort(torch, sampler, state["s"], source, t, n, c)
+        tokens, aux = frontend_inputs(torch, cfg, (c, ZOO_STEPS, ZOO_BATCH, ZOO_SEQ + 1), gen)
+        new, norms, loss = step(state["params"], tokens[..., :-1], tokens[..., 1:], sel.weights,
+                                aux)
+        state["s"] = sampler.update(state["s"], draw, scatter_cohort(lam[sel.ids] * norms, sel, n))
+        state["params"] = new
+        losses.append(loss)
+        cohorts.append(sel.valid)
+
+    kernels.reset_launch_counts()
+    fa.flash_attention.launches_tc = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_round(0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    wall, launches, split, total = device_split(torch, lambda: one_round(1))
+    counts = kernels.launch_counts()
+    per_round = zoo_launches_per_round(cfg, c)
+    want = {name: 0 for name in counts}
+    want.update({name: 2 * v for name, v in per_round.items()})
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    check(fa.flash_attention.launches_tc == counts["flash_attention"],
+          f"{label}: {fa.flash_attention.launches_tc} of {counts['flash_attention']} kernel-7 "
+          "launches on the tensor cores")
+    loss_vals = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in loss_vals), f"{label}: losses {loss_vals}")
+    check(all(bool(torch.isfinite(leaf).all()) for leaf in tree_leaves(state["params"])),
+          f"{label}: non-finite parameters")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    busy = f"{total / 1e6 / wall:.3%}" if total else "not measured"
+    top = ", ".join(f"{g} {us / 1e3:.1f} ms" for g, us in split.items() if us)
+    print(f"{label} round ({card}): {n_params:,} parameters bf16, {cfg.n_layers} layers"
+          f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''} "
+          f"({cfg.round_mode}), N={n} K={k} C={c} R={ZOO_STEPS} B={ZOO_BATCH} S={ZOO_SEQ}, aux "
+          f"{(c, ZOO_STEPS, ZOO_BATCH, cfg.frontend_seq, cfg.frontend_dim)} f32: round 1 "
+          f"{first_s:.4f} s (first use of each shape), round 2 under the profiler wall_s="
+          f"{wall:.4f} launches={launches} kernel_s={total / 1e6:.4f} busy_share={busy} ({top}); "
+          f"loss {[round(x, 4) for x in loss_vals]} cohorts "
+          f"{[int(v.sum()) for v in cohorts]} peak_mem_gb={peak:.2f} kernel launches a round "
+          f"{ {name: v for name, v in per_round.items() if v} } (2 rounds: "
+          f"{ {name: v for name, v in counts.items() if v} })", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def frontend_agreement(torch, np) -> None:
+    """The card against the CPU, f32, on the same weights and inputs: the
+    reduced configs served (4 x 40 prompts, 16 frontend positions, 8 new
+    tokens; the vlm's gates at 0.5) with equal greedy tokens and logits
+    within 1e-4; a round step of each reduced config in its own mode, and
+    of reduced whisper with int8 + error feedback, with the new parameters
+    within 1e-4 of each leaf's scale (int8: plus one quantization step of
+    the round's movement, where the two devices' scaled deltas straddle a
+    rounding boundary); a full-width whisper of one encoder and one decoder
+    layer over 1500 frames, prefill logits within 1e-4 (kernel 7's CUDA-core
+    kernel bidirectional and cross at S_k = 1500 inside a model)."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.fed import round as fed_round
+    from repro_torch.fed.tasks import tree_leaves, tree_map
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+
+    def cuda(tree):
+        return tree_map(lambda t: t.cuda(), tree)
+
+    for arch in ("whisper-small", "llama-3.2-vision-11b"):
+        t0 = time.perf_counter()
+        cfg = get_config(arch).reduced()
+        gen = torch.Generator().manual_seed(0)
+        params = transformer.init_params(cfg, gen, "cpu")
+        if "cross_attn" in cfg.block_pattern:
+            set_gates(params, FRONTEND_GATE)
+        tokens, aux = frontend_inputs(torch, cfg, (4, 40), gen)
+        cpu = greedy(torch, params, cfg, tokens, aux, 8)
+        gpu = greedy(torch, cuda(params), cfg, tokens.cuda(), aux.cuda(), 8)
+        check(torch.equal(cpu["generated"], gpu["generated"].cpu()),
+              f"{arch} reduced: served tokens differ: GPU {gpu['generated'].tolist()} CPU "
+              f"{cpu['generated'].tolist()}")
+        torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"], rtol=1e-4, atol=1e-4)
+        serve_diff = float((gpu["logits"].cpu() - cpu["logits"]).abs().max())
+        c, weights = 3, torch.tensor([1.7, 0.0, 2.4])
+        toks, auxs = frontend_inputs(torch, cfg, (c, 2, 2, 17), gen)
+        comps = [None, "int8"] if cfg.round_mode == "client_parallel" else [None]
+        worst = {}
+        for comp in comps:
+            rs = fed_round.RoundSpec(cohort=c, local_steps=2, local_lr=0.05, local_batch=2,
+                                     compression=None if comp is None else api.CompressionSpec(
+                                         delta_dtype=comp, error_feedback=True))
+            step = fed_round.build_round_step(cfg, rs)
+            kw = {}
+            if comp is not None:
+                kw["resid"] = torch.zeros(transformer.param_count(params))
+            args = (toks[..., :-1], toks[..., 1:], weights, auxs)
+            want = step(params, *args, **kw)
+            got = step(cuda(params), *cuda(args), **cuda(kw))
+            check(abs(float(got[2]) - float(want[2])) <= 1e-5 * abs(float(want[2])),
+                  f"{arch} reduced round ({comp}): loss {float(got[2])} against {float(want[2])}")
+            rel = 0.0
+            for g, w, p in zip(tree_leaves(got[0]), tree_leaves(want[0]), tree_leaves(params)):
+                g, w, p = g.cpu().numpy(), w.numpy(), p.numpy()
+                scale = max(float(np.abs(w).max()), 1e-30)
+                slack = float(np.abs(w - p).max()) / 127 if comp else 0.0
+                err = float(np.abs(g - w).max())
+                check(err <= 1e-4 * scale + slack,
+                      f"{arch} reduced round ({comp}): parameters off the CPU's by {err:.3g}")
+                rel = max(rel, err / scale)
+            worst[comp or "plain"] = rel
+        print(f"frontend agreement {arch} reduced f32: served GPU == CPU greedy tokens "
+              f"{tuple(gpu['generated'].shape)}, last logits max_abs_diff={serve_diff:.3g}; round "
+              f"step ({cfg.round_mode}, C=3, R=2) parameters within "
+              f"{ {k: f'{v:.3g}' for k, v in worst.items()} } of each leaf's scale "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("whisper-small"), n_layers=1, encoder_layers=1,
+                              param_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    params = transformer.init_params(cfg, gen, "cpu")
+    tokens, aux = frontend_inputs(torch, cfg, (2, 16), gen)
+    want = transformer.prefill(params, cfg, tokens, aux, max_seq=24, page_size=FRONTEND_PAGE)[0]
+    before, before_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
+    got = transformer.prefill(cuda(params), cfg, tokens.cuda(), aux.cuda(), max_seq=24,
+                              page_size=FRONTEND_PAGE)[0]
+    n7 = fa.flash_attention.launches - before
+    check(n7 == forward_calls(cfg)["flash_attention"] == 3
+          and fa.flash_attention.launches_tc == before_tc,
+          f"whisper one layer: {n7} kernel-7 launches ({fa.flash_attention.launches_tc - before_tc} "
+          "on the tensor cores), expected 3 on the CUDA cores")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    print(f"frontend agreement whisper-small full width, 1 encoder + 1 decoder layer, 1500 "
+          f"frames, f32: prefill logits GPU vs CPU max_abs_diff="
+          f"{float((got.cpu() - want).abs().max()):.3g} (kernel 7 on the CUDA cores, "
+          f"bidirectional and cross at S_k=1500; {time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def zoo_frontends_phase(torch, card: str) -> dict:
+    """The vlm and audio families on the card: serving (ac) whisper-small
+    and (ad) llama-3.2-vision-11b whole through ``transformer.prefill`` and
+    greedy ``decode_step``s, rounds (ae) whisper-small whole
+    (client_parallel, C = 8) and (af) the vlm one pattern deep at full
+    width (cohort_sequential, C = 4) through ``build_round_step`` with
+    ``aux_embeds``, each with exact launches of kernels 6 and 7; then the
+    card against the CPU (``frontend_agreement``).  Returns the launches."""
+    phase("zoo_frontends")
+    import numpy as np
+
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in kernels.launch_counts()}
+    laps = {}
+    for i, (label, (arch, prompt_len, gate)) in enumerate(FRONTEND_SERVE.items()):
+        t0 = time.perf_counter()
+        for k, v in frontend_serve(torch, kernels, label, arch, prompt_len, gate, 41 + i,
+                                   card).items():
+            launches[k] += v
+        laps[label.split()[0]] = round(time.perf_counter() - t0, 1)
+    for label, (arch, layers, k_budget, c) in FRONTEND_ROUNDS.items():
+        t0 = time.perf_counter()
+        for k, v in frontend_round(torch, kernels, label, arch, layers, k_budget, c,
+                                   card).items():
+            launches[k] += v
+        laps[label.split()[0]] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    frontend_agreement(torch, np)
+    laps["agreement"] = round(time.perf_counter() - t0, 1)
+    print(f"zoo_frontends phase: {time.perf_counter() - t_phase:.1f} s (seconds a step: "
           f"{json.dumps(laps)})", flush=True)
     return launches
 
@@ -3151,6 +3620,8 @@ def main() -> int:
     for k, v in serve_loop_phase(torch, card).items():
         launches[k] += v
     for k, v in zoo_families_phase(torch, card).items():
+        launches[k] += v
+    for k, v in zoo_frontends_phase(torch, card).items():
         launches[k] += v
     autograd_phase(torch)
     agreement_phase(torch)

@@ -11,9 +11,10 @@ the run's device; ``run`` dispatches on ``task.kind``:
   enabled ``fault`` section, an enabled ``compression`` section and
   ``execution.sampler_axis``;
 * ``"zoo"`` — the zoo round (``fed.round.build_fed_scan_segment``) over an
-  architecture of ``repro_torch.configs`` (the dense, hybrid, moe and
-  xlstm configs; the vlm and audio ones raise ``NotImplementedError``),
-  driven by ``fed.state.run_segmented`` like the reference's
+  architecture of ``repro_torch.configs`` (every family; the vlm and
+  audio configs build, and their run raises ``ValueError`` in round 0, as
+  the reference's fails there, since the round passes no frontend
+  embeddings), driven by ``fed.state.run_segmented`` like the reference's
   ``launch.train --compiled``, with the same sections.  It runs on one
   card: ``execution.mesh_shape`` other than None or all ones raises
   ``NotImplementedError``, and so does an MoE round whose parameters,

@@ -1,9 +1,7 @@
 """Architecture registry (the port of ``repro/configs/registry.py``).
 
-Every zoo architecture of the reference is registered by name; the port
-holds its own copies of the dense, hybrid, moe and xlstm configs and raises
-``NotImplementedError`` for the two it does not run yet (the vlm and audio
-families).  ``llama3.2-1b-sw`` (the reference's
+Every zoo architecture of the reference is registered by name, and the port
+holds its own copy of each config.  ``llama3.2-1b-sw`` (the reference's
 ``SW_CONFIG``, all layers sliding-window) is registered by name here.
 """
 from __future__ import annotations
@@ -17,7 +15,7 @@ __all__ = ["get_config", "has_arch", "list_archs", "INPUT_SHAPES", "ARCH_MODULES
 
 ARCH_MODULES = {
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
-    "whisper-small": None,
+    "whisper-small": "repro_torch.configs.whisper_small",
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "xlstm-125m": "repro_torch.configs.xlstm_125m",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
@@ -25,13 +23,7 @@ ARCH_MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
     "llama3-405b": "repro_torch.configs.llama3_405b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
-    "llama-3.2-vision-11b": None,
-}
-# The reference's family of each arch the port does not hold yet, and the
-# ROADMAP.md item that ports it.
-_NOT_PORTED = {
-    "llama-3.2-vision-11b": ("vlm", "The vlm and audio families"),
-    "whisper-small": ("audio", "The vlm and audio families"),
+    "llama-3.2-vision-11b": "repro_torch.configs.llama3_2_vision_11b",
 }
 
 
@@ -56,17 +48,11 @@ def get_config(name: str) -> ArchConfig:
         return importlib.import_module("repro_torch.configs.llama3_2_1b").SW_CONFIG
     if name not in ARCH_MODULES:
         raise ValueError(f"unknown arch {name!r}; options: {list_archs()}")
-    if ARCH_MODULES[name] is None:
-        family, item = _NOT_PORTED[name]
-        raise NotImplementedError(
-            f"{name!r} ({family} family) is not ported to repro_torch yet; see ROADMAP.md "
-            f"section 1, item 5, '{item}'"
-        )
     return importlib.import_module(ARCH_MODULES[name]).CONFIG
 
 
 def has_arch(name: str) -> bool:
-    """Whether ``name`` is a registered zoo architecture (ported or not)."""
+    """Whether ``name`` is a registered zoo architecture."""
     return name in ARCH_MODULES
 
 

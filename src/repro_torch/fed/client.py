@@ -18,17 +18,18 @@ __all__ = ["local_update", "update_norm"]
 
 
 def local_update(params, loss_fn: Callable, batches, local_lr: float):
-    """Run R local SGD steps; ``batches`` is an ``(x, y)`` pair whose tensors
-    lead with the step axis R.
+    """Run R local SGD steps; ``batches`` is a tuple of tensors that all
+    lead with the step axis R (``(x, y)``, or ``(tokens, targets,
+    aux_embeds)`` for a frontend arch); step r passes their r-th entries to
+    ``loss_fn`` as one tuple.
 
     Returns (delta, final_loss) where delta = x^{t,0} - x^{t,R}.
     """
-    xs, ys = batches
     grad_fn = torch.func.grad_and_value(loss_fn)
     p = params
     loss = None
-    for r in range(xs.shape[0]):
-        grads, loss = grad_fn(p, (xs[r], ys[r]))
+    for r in range(batches[0].shape[0]):
+        grads, loss = grad_fn(p, tuple(b[r] for b in batches))
         p = tree_map(lambda w, g: w - local_lr * g, p, grads)
         del grads  # freed before the next step's: one stack of gradients at a time
     delta = tree_map(lambda a, b: a - b, params, p)

@@ -86,12 +86,18 @@ def _server_step(params, d, server_lr: float):
     return tree_map(lambda p, g: p - server_lr * g.to(p.dtype), params, d)
 
 
+def _batch(tokens, targets, aux_embeds) -> tuple:
+    """The round's per-slot batch tuple: aux_embeds joins only when given."""
+    return (tokens, targets) if aux_embeds is None else (tokens, targets, aux_embeds)
+
+
 def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None) -> Callable:
-    """``round_step(params, tokens, targets, weights[, resid])`` ->
-    ``(new_params, norms (C,) f32, loss, [new_resid])``.
+    """``round_step(params, tokens, targets, weights, aux_embeds=None,
+    resid=None)`` -> ``(new_params, norms (C,) f32, loss, [new_resid])``.
 
     tokens / targets: (C, R, B, S) integer, each slot's R local batches;
-    weights: (C,) f32 (zero on padding).  Each client runs R local SGD steps
+    aux_embeds (the frontend archs): (C, R, B, S_front, F), each step's
+    frontend embeddings; weights: (C,) f32 (zero on padding).  Each client runs R local SGD steps
     (``fed.client.local_update``: ``w - lr * g`` in the parameter dtype, the
     delta ``x0 - xR`` in the parameter dtype, the last step's loss) and
     reports ``fed.client.update_norm`` of its delta.  With
@@ -115,15 +121,16 @@ def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None) -> Callab
     def loss(params, batch):
         return transformer.loss_fn(params, cfg, batch)
 
-    def per_client(params, tok, tgt):
-        delta, last = fed_client.local_update(params, loss, (tok, tgt), spec.local_lr)
+    def per_client(params, *batches):
+        delta, last = fed_client.local_update(params, loss, batches, spec.local_lr)
         return delta, last, fed_client.update_norm(delta)
 
     if mode == "client_parallel":
-        clients = torch.func.vmap(per_client, in_dims=(None, 0, 0))
 
-        def round_step(params, tokens, targets, weights, resid=None):
-            deltas, losses, norms = clients(params, tokens, targets)
+        def round_step(params, tokens, targets, weights, aux_embeds=None, resid=None):
+            data = _batch(tokens, targets, aux_embeds)
+            clients = torch.func.vmap(per_client, in_dims=(None,) + (0,) * len(data))
+            deltas, losses, norms = clients(params, *data)
             mean_loss = _cohort_mean_loss(losses, weights)
             if comp is None:
                 d = weighted_delta_sum(deltas, weights)
@@ -137,12 +144,14 @@ def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None) -> Callab
 
     if mode == "cohort_sequential":
 
-        def round_step(params, tokens, targets, weights, resid=None):
+        def round_step(params, tokens, targets, weights, aux_embeds=None, resid=None):
+            del resid  # no compression in this mode
             acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                            params)
             losses, norms = [], []
+            data = _batch(tokens, targets, aux_embeds)
             for c in range(tokens.shape[0]):
-                delta, last, norm = per_client(params, tokens[c], targets[c])
+                delta, last, norm = per_client(params, *(a[c] for a in data))
                 w = weights[c]
                 acc = tree_map(lambda a, dl: a + w * dl.to(torch.float32), acc, delta)
                 del delta  # one diverged copy at a time
@@ -228,7 +237,7 @@ def _build_body(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, source):
         tokens, targets = gather_cohort(sel, t)
         if comp is not None:
             new_params, norms, loss, new_resid = round_step(
-                params, tokens, targets, sel.weights, c_state.get("resid")
+                params, tokens, targets, sel.weights, resid=c_state.get("resid")
             )
             if ef_on:
                 c_state = {"resid": new_resid}

@@ -41,8 +41,13 @@
 // query tile) and loops over 64-key kv tiles; no wgmma, TMA or warp
 // specialisation.  A trial with 8 warps (128 rows) at hd <= 64 ran 12%
 // slower on (k)'s causal prefill (fewer, longer blocks with more masked work
-// on the diagonal) and 4% faster at full attention; every prefill of the
-// port is causal, so 4 warps it is.
+// on the diagonal) and 4% faster at full attention; the prefills were all
+// causal then, so 4 warps it is.  Whisper's bidirectional encoder (B=8,
+// H=12, S=1500, hd=64) and the cross-attention of whisper and the vlm
+// (S_q != S_k, S_k = 1500 and 1601, ragged against the 64-key tiles) run
+// the same kernel without the causal skip: 0.284 ms for the encoder, 5.1x
+// its operations bound and 1.79x scaled_dot_product_attention (chip_smoke.py,
+// NVIDIA H100 80GB HBM3, 700 W), where an 8-warp trial is still to be made.
 //   * Products: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, f32
 //     accumulators in registers.  Each warp owns 16 query rows.
 //       - Q·Kᵀ: A = the warp's Q rows (16 x hd), loaded once with ldmatrix

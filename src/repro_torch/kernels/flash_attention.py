@@ -34,8 +34,10 @@ it recomputes the probabilities from q, k and the mask, takes the forward's
 output for the row terms, multiplies the soft cap's 1 - tanh^2 in and zeroes
 ds outside the mask, so a row with no valid key (whose output is the mean
 of v) sends its gradient to v alone.  It builds the (S_q, S_k) probabilities
-in f32.  The vmap rule folds the vmapped axis into B when q, k and v are
-all batched (one launch); otherwise it loops, one launch per index.
+in f32, and it runs unrecorded through ``_common.first_order``: a second
+differentiation raises.  The vmap rule folds the vmapped axis into B when
+q, k and v are all batched (one launch); otherwise it loops, one launch
+per index.
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._common import batch_first, needs_autograd, vmap_loop
+from repro_torch.kernels._common import batch_first, first_order, needs_autograd, vmap_loop
 from repro_torch.kernels.build import load_library
 
 __all__ = [
@@ -190,7 +192,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_out):
         q, k, v, out = ctx.saved_tensors
-        return (*attention_backward(q, k, v, out, d_out, **ctx.kw), None, None, None, None)
+        grads = first_order(attention_backward, q, k, v, out, d_out, **ctx.kw)
+        return (*grads, None, None, None, None)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, *rest):

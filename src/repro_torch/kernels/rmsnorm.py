@@ -27,10 +27,12 @@ with r = rsqrt(mean x^2 + eps), n = x r and gn = gy (1 + scale),
 
   gx = r (gn - n mean(gn n)),   gscale = sum over rows of gy n,
 
-in f32, cast to x's and scale's dtypes.  The vmap rule folds the vmapped
-axis into the rows when only x is batched (one launch); a batched scale (a
-vmap over clients' parameters gives a (V, D) scale, and the kernel takes
-one (D,) scale) loops: one launch per index of the vmapped axis.
+in f32, cast to x's and scale's dtypes (``rmsnorm_backward``), unrecorded
+through ``_common.first_order``: a second differentiation raises.  The
+vmap rule folds the vmapped axis into the rows when only x is batched (one
+launch); a batched scale (a vmap over clients' parameters gives a (V, D)
+scale, and the kernel takes one (D,) scale) loops: one launch per index of
+the vmapped axis.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._common import batch_first, needs_autograd, vmap_loop
+from repro_torch.kernels._common import batch_first, first_order, needs_autograd, vmap_loop
 from repro_torch.kernels.build import load_library
 
 __all__ = ["rmsnorm", "launch_counts", "reset_launch_counts"]
@@ -96,6 +98,18 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return y
 
 
+def rmsnorm_backward(x, scale, gy, eps: float = 1e-6):
+    """(gx, gscale) of the module's docstring, in f32, cast to x's and
+    scale's dtypes."""
+    xf, gyf = x.to(torch.float32), gy.to(torch.float32)
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    n = xf * r
+    gn = gyf * (1.0 + scale.to(torch.float32))
+    gx = r * (gn - n * (gn * n).mean(-1, keepdim=True))
+    gscale = (gyf * n).sum(0)
+    return gx.to(x.dtype), gscale.to(scale.dtype)
+
+
 class _RMSNorm(torch.autograd.Function):
     """Kernel 6 (or its plain version on the CPU) with the closed-form
     backward and the vmap rule of the module's docstring."""
@@ -115,13 +129,7 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, scale = ctx.saved_tensors
-        xf, gyf = x.to(torch.float32), gy.to(torch.float32)
-        r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + ctx.eps)
-        n = xf * r
-        gn = gyf * (1.0 + scale.to(torch.float32))
-        gx = r * (gn - n * (gn * n).mean(-1, keepdim=True))
-        gscale = (gyf * n).sum(0)
-        return gx.to(x.dtype), gscale.to(scale.dtype), None
+        return (*first_order(rmsnorm_backward, x, scale, gy, eps=ctx.eps), None)
 
     @staticmethod
     def vmap(info, in_dims, x, scale, eps):

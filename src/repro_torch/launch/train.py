@@ -208,6 +208,18 @@ def _device_line(dev: torch.device) -> str:
     return f"compiled segments on one device: {dev} ({name})"
 
 
+def draw_cohort(sampler, s_state, source, t: int, lam, cohort: int):
+    """Round t's draw mapped onto ``cohort`` slots, as the compiled round
+    body draws it from the same streams (the probabilities solved once, the
+    draw, the estimator's weights, the cohort priorities): (selection,
+    draw, probabilities)."""
+    n = lam.shape[0]
+    p = sampler.probabilities(s_state)
+    draw = sampler.sample_from(p, draw_input(source, sampler.procedure, t, n, sampler.budget))
+    w_full = estimator.client_weights(draw, lam, sampler.procedure, sampler.budget)
+    return select_cohort(draw.mask, w_full, cohort, source.cohort_priorities(t, n)), draw, p
+
+
 def run_spec(spec: ExperimentSpec, *, ckpt: str = "", resume: bool = False, device=None) -> dict:
     """Execute a zoo ExperimentSpec with launcher ergonomics (per-round
     prints, checkpoint publishing, the kill/resume hook).  The construction
@@ -314,13 +326,9 @@ def run_spec(spec: ExperimentSpec, *, ckpt: str = "", resume: bool = False, devi
     dropped_total = 0
     for t in range(rounds):
         t0 = time.time()
-        # The compiled round body's draws, from the same streams: the
-        # probabilities solved once, the draw, the cohort priorities, the
-        # round's (N, R, B) batch indices.
-        p = sampler.probabilities(s_state)
-        draw = sampler.sample_from(p, draw_input(source, sampler.procedure, t, n, sampler.budget))
-        w_full = estimator.client_weights(draw, lam, sampler.procedure, sampler.budget)
-        sel = select_cohort(draw.mask, w_full, rspec.cohort, source.cohort_priorities(t, n))
+        # The compiled round body's draws, from the same streams: the cohort
+        # (``draw_cohort``), then the round's (N, R, B) batch indices.
+        sel, draw, p = draw_cohort(sampler, s_state, source, t, lam, rspec.cohort)
         dropped_total += int(sel.n_dropped)
         idx = source.batch_indices(t, ds.sizes, rspec.local_steps, rspec.local_batch)
         tokens, targets = host_gather_cohort_batches(

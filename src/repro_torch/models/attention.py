@@ -1,5 +1,5 @@
-"""Grouped-query attention with RoPE, soft-capping, sliding windows and cached
-decode (the port of ``repro/models/attention.py``, self-attention only).
+"""Grouped-query attention with RoPE, soft-capping, sliding windows, cached
+decode and cross-attention (the port of ``repro/models/attention.py``).
 
 Layout conventions, the reference's:
   activations    (B, S, d_model)
@@ -10,14 +10,17 @@ Layout conventions, the reference's:
                   "page_table": (B, P) int32}
 
 Where the work goes:
-  * full-sequence self-attention (prefill and training forward: s_q = s_kv,
-    causal with or without a window, softcap before the mask) runs kernel 7,
+  * full-sequence attention (prefill and training forward) runs kernel 7,
     ``kernels.ops.flash_attention``, on (B, heads, S, hd) views of q, k, v
-    with ``q_groups = G``, whatever ``cfg.attn_impl`` says;
+    with ``q_groups = G``, whatever ``cfg.attn_impl`` says: self-attention
+    (s_q = s_kv, causal with or without a window, or bidirectional as in
+    whisper's encoder; softcap before the mask) and cross-attention (q from
+    the tokens, k and v from the encoder's or the image's embeddings,
+    s_q != s_kv, no RoPE and no mask);
   * decode attention (one query against the cache, masked past ``index``)
-    is plain torch (``_sdpa``), as the reference computes it in jnp outside
-    any kernel;
-  * cross-attention (the vlm and audio families) is not ported.
+    and the decode step's cross-attention read of its fixed cross cache are
+    plain torch (``_sdpa``), as the reference computes them in jnp outside
+    any kernel.
 
 The decode functions write the new K/V line into the cache in place (the
 reference returns a new cache; the port's pool is preallocated once) and
@@ -73,11 +76,12 @@ def _project_qkv(params, cfg: ArchConfig, xq: torch.Tensor, xkv: torch.Tensor):
     return q, k, v
 
 
-def _self_attention(cfg: ArchConfig, q, k, v, *, causal: bool, window: int | None):
-    """Full-sequence self-attention through kernel 7: q (B,S,KV,G,hd),
-    k, v (B,S,KV,hd) -> (B,S,KV,G,hd).  The kernel reads the (B, heads, S,
-    hd) views in place and writes its output in q's (B, S, heads, hd)
-    memory order, so the reshape back is free."""
+def _kernel_attention(cfg: ArchConfig, q, k, v, *, causal: bool, window: int | None = None):
+    """Full-sequence attention through kernel 7: q (B,S,KV,G,hd), k, v
+    (B,S_kv,KV,hd) -> (B,S,KV,G,hd); S_kv may differ from S (cross-attention,
+    ``causal=False``).  The kernel reads the (B, heads, S, hd) views in
+    place and writes its output in q's (B, S, heads, hd) memory order, so
+    the reshape back is free."""
     b, s, kv, g, hd = q.shape
     out = ops.flash_attention(
         q.reshape(b, s, kv * g, hd).transpose(1, 2),
@@ -126,19 +130,29 @@ def _rope_qk(cfg: ArchConfig, q, k, rope):
 
 def attention(params, cfg: ArchConfig, x: torch.Tensor, *, causal: bool = True,
               window: int | None = None) -> torch.Tensor:
-    """Full-sequence self-attention (train / prefill)."""
+    """Full-sequence self-attention (train / prefill).  RoPE either way, as
+    the reference's public ``attention`` does; whisper's encoder blocks take
+    the unrotated bidirectional path of ``transformer._full_attention``."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, x)
     q, k = _rope_qk(cfg, q, k, rope_angles(torch.arange(s, device=x.device), cfg.hd, cfg.rope_theta))
-    out = _self_attention(cfg, q, k, v, causal=causal, window=window)
+    out = _kernel_attention(cfg, q, k, v, causal=causal, window=window)
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ params["wo"]
 
 
-def cross_attention(params, cfg: ArchConfig, x, kv_source):
-    raise NotImplementedError(
-        "cross-attention (the vlm and audio families) is not ported to repro_torch yet; "
-        "see ROADMAP.md section 1, item 5, 'The vlm and audio families'"
-    )
+def cross_attention(params, cfg: ArchConfig, x: torch.Tensor, kv_source: torch.Tensor) -> torch.Tensor:
+    """Cross-attention to encoder / image embeddings (no RoPE, no mask):
+    x (B, S, d) attends to kv_source (B, S_src, d) through kernel 7."""
+    return _cross_attention(params, cfg, x, kv_source)[0]
+
+
+def _cross_attention(params, cfg: ArchConfig, x, kv_source):
+    """``cross_attention`` and the cross K/V it used, (B, S_src, KV, hd)
+    each: (out, k, v), for the prefill's cross cache."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, kv_source)
+    out = _kernel_attention(cfg, q, k, v, causal=False)
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ params["wo"], k, v
 
 
 # ---------------------------------------------------------------------------

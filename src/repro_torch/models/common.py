@@ -1,9 +1,7 @@
 """Shared model machinery: the generic ``ArchConfig`` and its primitives.
 
 The port's own copy of ``repro/models/common.py``.  One configuration
-dataclass describes every architecture of the zoo; the port runs the dense
-and hybrid families (block kinds ``attn``, ``attn_local``, ``mamba2`` and
-``shared_attn``).  ``param_dtype`` is a torch
+dataclass describes every architecture of the zoo.  ``param_dtype`` is a torch
 dtype.  ``rms_norm`` runs kernel 6 (``kernels.ops.rmsnorm``: the CUDA kernel
 for a tensor on the GPU, its plain version on the CPU).
 """

@@ -1,6 +1,7 @@
-"""Model assembly for the dense, hybrid, moe and xlstm families (the port of
+"""Model assembly for every family of the zoo (the port of
 ``repro/models/transformer.py``, block kinds ``attn``, ``attn_local``,
-``moe``, ``mamba2``, ``shared_attn``, ``mlstm`` and ``slstm``).
+``moe``, ``mamba2``, ``shared_attn``, ``mlstm``, ``slstm``, ``cross_attn``
+and ``dec``, and the ``enc`` blocks of whisper's encoder).
 
 The parameter tree keeps the reference's names and stacked layout: each
 pattern slot j holds its blocks' leaves in ``params["stacks"][j]`` with a
@@ -15,20 +16,37 @@ invocation with a cache of its own (zamba2).  Three modes share the blocks:
 
 ``aux`` is the MoE load-balance loss summed over the ``moe`` blocks (zero
 for the other families).  Caches mirror the slots, stacked over repeats:
-K/V for the attention kinds (``moe`` included), the recurrent {"conv",
+K/V for the self-attention kinds (``moe`` included), the recurrent {"conv",
 "ssm"} state for ``mamba2`` and the {"c", "n", "m", ...} states for
-``mlstm`` and ``slstm`` (never paged).  An ``mlstm``/``slstm`` prefill is
-the decode cell run over the prompt a token at a time, after one ``ln1``
-norm over the whole sequence (the reference's ``_recurrent_prefill``).
+``mlstm`` and ``slstm`` (never paged), the fixed-width cross K/V {"k", "v"}
+(B, frontend_seq, KV, hd) for ``cross_attn`` and {"self": K/V, "cross":
+{"k", "v"}} for ``dec`` (only the self half is paged).  An
+``mlstm``/``slstm`` prefill is the decode cell run over the prompt a token
+at a time, after one ``ln1`` norm over the whole sequence (the reference's
+``_recurrent_prefill``).
+
+The frontend archs (the vlm and whisper) take ``aux_embeds``, the stubbed
+frontend's output (B, frontend_seq, frontend_dim) f32, in ``forward``,
+``loss_fn`` (a third batch entry) and ``prefill``: whisper runs its encoder
+over them (``_encode``: the projection, learned positions, ``enc`` blocks
+with bidirectional attention and no RoPE, a final norm), the vlm projects
+them (``_cross_source``).  A ``cross_attn`` block adds ``tanh(gate)`` times
+its cross-attention (the gate is zero at init); a ``dec`` block runs causal
+self-attention, then cross-attention, then an ungated MLP.  A decode step
+reads the cross K/V from the cache and takes no ``aux_embeds``.  Without
+them ``forward`` and ``prefill`` of a frontend arch raise ``ValueError``.
 
 Every ``rms_norm`` is one launch of kernel 6: two a block plus the final
 norm (a ``mamba2`` block's two are its input norm and its gated norm over
 d_in, an xLSTM block's its input norm and its inner norm, a ``moe`` block
 with ``qk_norm`` adds the q and k norms, four a block); every
 full-sequence attention one launch of kernel 7 and every ``mamba2`` block
-in ``forward`` and ``prefill`` one launch of kernel 8.  A decode step
-launches kernel 6 as often as a forward and kernels 7 and 8 never; an
-xLSTM prefill of S tokens launches kernel 6 ``L * (1 + S) + 1`` times.
+in ``forward`` and ``prefill`` one launch of kernel 8.  A ``dec`` block
+adds its ``lnx`` norm and its cross-attention (three kernel-6 and two
+kernel-7 launches), whisper's encoder ``2 E + 1`` kernel-6 and ``E``
+kernel-7 launches.  A decode step launches kernel 6 as often as a forward
+(the decoder's part of it) and kernels 7 and 8 never; an xLSTM prefill of S
+tokens launches kernel 6 ``L * (1 + S) + 1`` times.
 ``params_from_reference`` turns the JAX reference's ``init_params`` tree
 (numpy leaves) into the port's tree.
 """
@@ -45,9 +63,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (
     _causal_mask,
+    _kernel_attention,
     _project_qkv,
     _rope_qk,
-    _self_attention,
     init_attention,
 )
 from repro_torch.models.common import ArchConfig, rms_norm, rope_angles, softcap, uniform_init
@@ -66,9 +84,9 @@ __all__ = [
 
 MOE_AUX_COEF = 0.01
 
-PORTED_KINDS = ("attn", "attn_local", "moe", "mamba2", "shared_attn", "mlstm", "slstm")
-ATTN_KINDS = ("attn", "attn_local", "moe", "shared_attn")  # self-attention K/V caches
-_TODO = ("cross_attn", "enc", "dec")  # the vlm and audio families
+PORTED_KINDS = ("attn", "attn_local", "moe", "mamba2", "shared_attn", "mlstm", "slstm",
+                "cross_attn", "dec")  # "enc" blocks live in params["encoder"] alone
+ATTN_KINDS = ("attn", "attn_local", "moe", "shared_attn")  # flat self-attention K/V caches
 _RECURRENT = {  # kind: (decode step, state init)
     "mlstm": (xlstm_mod.mlstm_decode_step, xlstm_mod.init_mlstm_state),
     "slstm": (xlstm_mod.slstm_decode_step, xlstm_mod.init_slstm_state),
@@ -76,14 +94,8 @@ _RECURRENT = {  # kind: (decode step, state init)
 
 
 def _check_kind(kind: str) -> None:
-    if kind in PORTED_KINDS:
-        return
-    if kind in _TODO:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported to repro_torch yet; see ROADMAP.md "
-            "section 1, item 5, 'The vlm and audio families'"
-        )
-    raise ValueError(f"unknown block kind {kind!r}")
+    if kind not in PORTED_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -94,10 +106,18 @@ def _check_kind(kind: str) -> None:
 def _init_block(kind: str, cfg: ArchConfig, gen: torch.Generator | None) -> dict:
     """One block of ``kind`` (``attn`` and ``attn_local`` share a layout,
     ``moe`` swaps the MLP for the expert FFN; ``shared_attn`` has no weights
-    of its own)."""
+    of its own; ``cross_attn`` adds a scalar ``gate``; ``enc`` and ``dec``
+    have ungated MLPs, ``dec`` a cross-attention ``xattn`` after its
+    norm ``lnx``)."""
     dev = "meta" if gen is None else gen.device
     d, dt = cfg.d_model, cfg.param_dtype
     ln1 = torch.zeros((d,), dtype=dt, device=dev)
+    if kind == "dec":
+        return {"ln1": ln1, "attn": init_attention(cfg, gen),
+                "lnx": torch.zeros((d,), dtype=dt, device=dev),
+                "xattn": init_attention(cfg, gen, cross=True),
+                "ln2": torch.zeros((d,), dtype=dt, device=dev),
+                "mlp": init_mlp(cfg, gen, gated=False)}
     if kind == "mamba2":
         return {"ln1": ln1, "ssm": ssm_mod.init_mamba2(cfg, gen)}
     if kind == "mlstm":
@@ -106,12 +126,14 @@ def _init_block(kind: str, cfg: ArchConfig, gen: torch.Generator | None) -> dict
         return {"ln1": ln1, "cell": xlstm_mod.init_slstm(cfg, gen)}
     if kind == "shared_attn":
         return {}
-    block = {"ln1": ln1, "attn": init_attention(cfg, gen),
+    block = {"ln1": ln1, "attn": init_attention(cfg, gen, cross=(kind == "cross_attn")),
              "ln2": torch.zeros((d,), dtype=dt, device=dev)}
     if kind == "moe":
         block["moe"] = moe_mod.init_moe(cfg, gen)
     else:
-        block["mlp"] = init_mlp(cfg, gen)
+        block["mlp"] = init_mlp(cfg, gen, gated=(kind != "enc"))
+    if kind == "cross_attn":  # llama-vision's gated cross-attention
+        block["gate"] = torch.zeros((), dtype=dt, device=dev)
     return block
 
 
@@ -137,6 +159,15 @@ def _init_tree(cfg: ArchConfig, gen: torch.Generator | None) -> dict:
     }
     if "shared_attn" in cfg.block_pattern:
         params["shared"] = _init_block("attn", cfg, gen)
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "pos": uniform_init(gen, (cfg.frontend_seq, cfg.d_model), cfg.param_dtype, scale=0.02),
+            "stack": _stack([_init_block("enc", cfg, gen) for _ in range(cfg.encoder_layers)]),
+            "final_norm": torch.zeros((cfg.d_model,), dtype=cfg.param_dtype, device=dev),
+        }
+    if cfg.frontend:
+        fd = cfg.frontend_dim or cfg.d_model
+        params["frontend_proj"] = uniform_init(gen, (fd, cfg.d_model), cfg.param_dtype)
     if not cfg.tie_embeddings:
         params["lm_head"] = uniform_init(gen, (cfg.d_model, cfg.vocab), cfg.param_dtype, scale=0.02)
     return params
@@ -214,11 +245,15 @@ def _unstack(tree, reps: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _full_attention(p, cfg: ArchConfig, x, rope, *, window=None, want_cache=False, max_seq=None):
+def _full_attention(p, cfg: ArchConfig, x, rope, *, causal=True, window=None, want_cache=False,
+                    max_seq=None):
+    """Self-attention over the whole sequence; RoPE only on the causal
+    (decoder) kind: whisper's bidirectional encoder has learned positions."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, x)
-    q, k = _rope_qk(cfg, q, k, rope)
-    out = _self_attention(cfg, q, k, v, causal=True, window=window)
+    if causal:
+        q, k = _rope_qk(cfg, q, k, rope)
+    out = _kernel_attention(cfg, q, k, v, causal=causal, window=window)
     out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
     cache = None
     if want_cache:
@@ -227,6 +262,22 @@ def _full_attention(p, cfg: ArchConfig, x, rope, *, window=None, want_cache=Fals
             k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
         cache = {"k": k, "v": v}
     return out, cache
+
+
+def _cross_attention(p, cfg: ArchConfig, x, src, want_cache=False):
+    """Cross-attention of x (B, S, d) to src (B, S_src, d) through kernel 7;
+    with ``want_cache`` also the cross K/V {"k", "v"} (B, S_src, KV, hd)."""
+    out, k, v = attn_mod._cross_attention(p, cfg, x, src)
+    return out, ({"k": k, "v": v} if want_cache else None)
+
+
+def _cross_from_cache(p, cfg: ArchConfig, x, cache):
+    """A decode step's cross-attention: the query against the cross K/V
+    the prefill stored, in plain torch (``_sdpa``, no mask)."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_kv_heads, cfg.q_groups, cfg.hd)
+    out = attn_mod._sdpa(cfg, q, cache["k"], cache["v"], None)
+    return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
 
 
 def _decode_attn(p, cfg: ArchConfig, x, cache, index, rope, masks: dict, *, window=None):
@@ -253,17 +304,46 @@ def _recurrent_prefill(step_fn, state, x):
 
 
 def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cache=None,
-                 index=None, max_seq=None, masks=None, shared=None):
+                 index=None, max_seq=None, masks=None, shared=None, cross_src=None):
     """Returns (h, new_cache, aux): aux the block's MoE load-balance loss
     (None for the other kinds).  ``rope``: the (cos, sin) tables of the
     positions this call processes, shared by every layer.  ``shared_attn``
     runs the ``attn`` block ``shared`` with this invocation's cache; a
     recurrent decode (``mamba2``, ``mlstm``, ``slstm``) updates its cache
-    in place."""
+    in place.  ``cross_src``: the cross-attention source (B, S_src, d) of
+    ``cross_attn`` and ``dec`` in train and prefill; decode reads the
+    cross cache."""
     if kind == "shared_attn":
         return _apply_block("attn", shared, cfg, h, rope, mode=mode, cache=cache, index=index,
                             max_seq=max_seq, masks=masks)
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    if kind == "enc":
+        y, _ = _full_attention(p["attn"], cfg, x, None, causal=False)
+        h = h + y
+        return h + mlp(p["mlp"], cfg, rms_norm(h, p["ln2"], cfg.norm_eps)), None, None
+    if kind == "cross_attn":
+        if mode == "decode":
+            y = _cross_from_cache(p["attn"], cfg, x, cache)
+        else:
+            y, cache = _cross_attention(p["attn"], cfg, x, cross_src, want_cache=(mode == "prefill"))
+        h = h + torch.tanh(p["gate"]).to(h.dtype) * y
+        return h + mlp(p["mlp"], cfg, rms_norm(h, p["ln2"], cfg.norm_eps)), cache, None
+    if kind == "dec":
+        if mode == "decode":
+            y, self_cache = _decode_attn(p["attn"], cfg, x, cache["self"], index, rope, masks)
+        else:
+            y, self_cache = _full_attention(p["attn"], cfg, x, rope,
+                                            want_cache=(mode == "prefill"), max_seq=max_seq)
+        h = h + y
+        x = rms_norm(h, p["lnx"], cfg.norm_eps)
+        if mode == "decode":
+            y, cross_cache = _cross_from_cache(p["xattn"], cfg, x, cache["cross"]), cache["cross"]
+        else:
+            y, cross_cache = _cross_attention(p["xattn"], cfg, x, cross_src,
+                                              want_cache=(mode == "prefill"))
+        h = h + y
+        new_cache = None if mode == "train" else {"self": self_cache, "cross": cross_cache}
+        return h + mlp(p["mlp"], cfg, rms_norm(h, p["ln2"], cfg.norm_eps)), new_cache, None
     if kind == "mamba2":
         if mode == "decode":
             y, cache = ssm_mod.mamba2_decode_step(p["ssm"], cfg, x, cache)
@@ -298,7 +378,8 @@ def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cac
     return h + mlp(p["mlp"], cfg, x), cache, None
 
 
-def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max_seq=None):
+def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max_seq=None,
+               cross_src=None):
     """Loop over the pattern groups; returns (h, aux, caches).  caches: per
     slot, stacked over repeats (decode updates them in place); prefill
     returns new ones.  aux: the MoE losses summed within each pattern group,
@@ -325,6 +406,7 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
             h, nc, aux = _apply_block(
                 kind, layers[j][r], cfg, h, rope, mode=mode, cache=cache,
                 index=index, max_seq=max_seq, masks=masks, shared=params.get("shared"),
+                cross_src=cross_src,
             )
             if aux is not None:
                 aux_sum = aux if aux_sum is None else aux_sum + aux
@@ -349,20 +431,46 @@ def _embed(params, cfg: ArchConfig, tokens):
     return h
 
 
+def _encode(params, cfg: ArchConfig, frames):
+    """Whisper's encoder over the stubbed post-convolution features frames
+    (B, S_frames, frontend_dim): the frontend projection, learned
+    positions, the ``enc`` blocks, the encoder's final norm."""
+    enc = params["encoder"]
+    h = frames.to(cfg.param_dtype) @ params["frontend_proj"] + enc["pos"][None]
+    for blk in _unstack(enc["stack"], cfg.encoder_layers):
+        h, _, _ = _apply_block("enc", blk, cfg, h, None, mode="train")
+    return rms_norm(h, enc["final_norm"], cfg.norm_eps)
+
+
+def _cross_source(params, cfg: ArchConfig, aux_embeds):
+    """The cross-attention source from the stubbed frontend embeddings:
+    whisper's encoder output, or the vlm's projected patches.  A frontend
+    arch without them raises ``ValueError`` (the reference fails later, on
+    ``None``)."""
+    if aux_embeds is None:
+        if cfg.frontend:
+            raise ValueError(
+                f"{cfg.name} needs its frontend embeddings: pass aux_embeds "
+                f"(B, {cfg.frontend_seq}, {cfg.frontend_dim or cfg.d_model}) f32, the "
+                f"stubbed {cfg.frontend} frontend's output"
+            )
+        return None
+    if cfg.encoder_layers:
+        return _encode(params, cfg, aux_embeds)
+    return aux_embeds.to(cfg.param_dtype) @ params["frontend_proj"]
+
+
 def _head(params, cfg: ArchConfig, h):
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
     return softcap(h @ head, cfg.final_softcap)
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None):
-    """Training forward: tokens (B, S) -> (logits (B,S,V), aux_loss)."""
-    if aux_embeds is not None or cfg.frontend:
-        raise NotImplementedError(
-            "frontend archs (vlm, audio) are not ported; see ROADMAP.md section 1, item 5, "
-            "'The vlm and audio families'"
-        )
+    """Training forward: tokens (B, S) [+ aux_embeds (B, S_front, F)] ->
+    (logits (B,S,V), aux_loss)."""
     h = _embed(params, cfg, tokens)
-    h, aux, _ = _run_stack(params, cfg, h, mode="train")
+    cross_src = _cross_source(params, cfg, aux_embeds)
+    h, aux, _ = _run_stack(params, cfg, h, mode="train", cross_src=cross_src)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -370,7 +478,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None):
 
 
 def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
-    """batch: (tokens, targets).  Mean next-token cross-entropy in f32 plus
+    """batch: (tokens, targets) or (tokens, targets, aux_embeds).  Mean
+    next-token cross-entropy in f32 plus
     ``MOE_AUX_COEF`` times the MoE load-balance loss (zero without ``moe``
     blocks)."""
     tokens, targets = batch[0], batch[1]
@@ -391,20 +500,28 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, page_size: int | None
     """Zeroed caches (stacked over pattern repeats) for decode; ``page_size``
     switches the attention caches to the paged layout
     (``attention.init_paged_kv_cache``).  The recurrent states (Mamba2,
-    mLSTM, sLSTM) are O(1) in the sequence and are never paged."""
+    mLSTM, sLSTM) and the fixed-width cross caches are O(1) in the sequence
+    and are never paged."""
     dev = resolve_device(device)
     reps = cfg.pattern_repeats()
 
+    def kv_cache():
+        if page_size is not None:
+            return attn_mod.init_paged_kv_cache(cfg, batch, max_seq, page_size, device=dev)
+        return attn_mod.init_kv_cache(cfg, batch, max_seq, device=dev)
+
     def one(kind):
         _check_kind(kind)
-        if kind == "mamba2":
+        if kind in ("cross_attn", "dec"):
+            c = attn_mod.init_kv_cache(cfg, batch, cfg.frontend_seq, device=dev)
+            if kind == "dec":
+                c = {"self": kv_cache(), "cross": c}
+        elif kind == "mamba2":
             c = ssm_mod.init_mamba2_state(cfg, batch, device=dev)
         elif kind in _RECURRENT:
             c = _RECURRENT[kind][1](cfg, batch, device=dev)
-        elif page_size is not None:
-            c = attn_mod.init_paged_kv_cache(cfg, batch, max_seq, page_size, device=dev)
         else:
-            c = attn_mod.init_kv_cache(cfg, batch, max_seq, device=dev)
+            c = kv_cache()
         return _stack([c] * reps)
 
     return [one(kind) for kind in cfg.block_pattern]
@@ -412,16 +529,13 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, page_size: int | None
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None, max_seq=None,
             page_size: int | None = None):
-    """Process the prompt, return (logits (B, 1, V), caches).  Attention
-    caches are padded to ``max_seq`` (default: the prompt length); with
-    ``page_size`` they are repacked into the paged decode layout."""
-    if aux_embeds is not None or cfg.frontend:
-        raise NotImplementedError(
-            "frontend archs (vlm, audio) are not ported; see ROADMAP.md section 1, item 5, "
-            "'The vlm and audio families'"
-        )
+    """Process the prompt [and the frontend embeddings], return (logits (B,
+    1, V), caches).  Self-attention caches are padded to ``max_seq``
+    (default: the prompt length); with ``page_size`` they are repacked into
+    the paged decode layout."""
     h = _embed(params, cfg, tokens)
-    h, _, caches = _run_stack(params, cfg, h, mode="prefill", max_seq=max_seq)
+    cross_src = _cross_source(params, cfg, aux_embeds)
+    h, _, caches = _run_stack(params, cfg, h, mode="prefill", max_seq=max_seq, cross_src=cross_src)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, h[:, -1:])
     if page_size is not None:
@@ -431,17 +545,23 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None, max_
 
 def _caches_to_pages(cfg: ArchConfig, caches, page_size: int):
     """Repack every self-attention slot cache (stacked over repeats) into the
-    paged layout; recurrent caches pass through."""
+    paged layout: a flat K/V cache of ``ATTN_KINDS`` and the self half of a
+    ``dec`` cache; recurrent and cross caches pass through."""
+
+    def pack(cache):
+        return _stack([
+            attn_mod.pack_kv_to_pages({"k": cache["k"][r], "v": cache["v"][r]}, page_size)
+            for r in range(cache["k"].shape[0])
+        ])
+
     out = []
     for kind, cache in zip(cfg.block_pattern, caches):
-        if kind not in ATTN_KINDS:
+        if kind in ATTN_KINDS:
+            out.append(pack(cache))
+        elif kind == "dec":
+            out.append({"self": pack(cache["self"]), "cross": cache["cross"]})
+        else:
             out.append(cache)
-            continue
-        reps = cache["k"].shape[0]
-        out.append(_stack([
-            attn_mod.pack_kv_to_pages({"k": cache["k"][r], "v": cache["v"][r]}, page_size)
-            for r in range(reps)
-        ]))
     return out
 
 

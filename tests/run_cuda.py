@@ -23,7 +23,8 @@ FILES = ("test_torch_kernels.py", "test_torch_sharded.py",
          "test_torch_models_serve_kernels.py", "test_torch_ssm.py",
          "test_torch_baseline_samplers.py", "test_torch_checkpoint.py",
          "test_torch_zoo_round.py", "test_torch_serve_loop.py", "test_torch_launchers.py",
-         "test_torch_moe.py", "test_torch_xlstm.py", "test_torch_families_round.py")
+         "test_torch_moe.py", "test_torch_xlstm.py", "test_torch_families_round.py",
+         "test_torch_frontends.py")
 STUBBED = ("jax", "jaxlib", "repro")
 
 

@@ -85,11 +85,15 @@ def test_configs_match_reference(name):
 
 
 def test_registry_lists_every_arch_and_refuses_unported_families():
+    """Every arch of the reference is registered, the vlm and audio ones
+    included (no family is left unported: the registry returns their
+    configs, held field for field in tests/test_torch_frontends.py); an
+    unknown name raises."""
     assert list_archs() == ref_list_archs()
     assert all(has_arch(a) for a in ref_list_archs()) and not has_arch("nope")
-    for arch in ("whisper-small", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="item 5, 'The vlm and audio families'"):
-            get_config(arch)
+    for arch, family in (("whisper-small", "audio"), ("llama-3.2-vision-11b", "vlm")):
+        cfg = get_config(arch)
+        assert (cfg.name, cfg.family) == (arch, family) and cfg.frontend
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("nope")
 
@@ -219,13 +223,21 @@ def test_kernel_calls_per_prefill_and_decode(monkeypatch):
 
 
 def test_unported_block_kinds_and_cross_attention_raise():
-    cfg = get_config("smollm-360m").reduced(block_pattern=("cross_attn",))
-    with pytest.raises(NotImplementedError, match="vlm and audio"):
-        transformer.init_params(cfg, torch.Generator(), "cpu")
+    """An unknown block kind raises ``ValueError`` (``enc`` blocks live in
+    whisper's encoder alone, never in a pattern); ``cross_attention``, once
+    refused, runs: x (2, 5, d) over a source of 7 positions."""
+    for kind in ("nope", "enc"):
+        cfg = get_config("smollm-360m").reduced(block_pattern=(kind,))
+        with pytest.raises(ValueError, match="unknown block kind"):
+            transformer.init_params(cfg, torch.Generator(), "cpu")
     from repro_torch.models import attention
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.cross_attention({}, cfg, None, None)
+    cfg = get_config("smollm-360m").reduced(d_model=64)
+    gen = torch.Generator().manual_seed(0)
+    p = attention.init_attention(cfg, gen, cross=True)
+    out = attention.cross_attention(p, cfg, torch.randn(2, 5, 64, generator=gen),
+                                    torch.randn(2, 7, 64, generator=gen))
+    assert out.shape == (2, 5, 64) and bool(torch.isfinite(out).all())
 
 
 def test_init_params_shapes_and_scales():
