@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--remat-only CELLS]
 
 Phases, each failing loudly (non-zero exit, no result line):
 
@@ -96,6 +96,16 @@ Phases, each failing loudly (non-zero exit, no result line):
    (v) swap-heavy against static decode on (k)'s engine, the ratio printed
    and not gated; the launcher killed after one segment and resumed,
    bitwise;
+   remat — ``remat`` "full" against "none" on reduced
+   smollm, zamba2 (its ``shared`` block), qwen3-moe and xlstm in f32:
+   bitwise-equal losses and gradients under ``vmap(grad)`` on the card and
+   on the CPU, "full" launching each decoder group's kernels once more; an
+   xlstm-125m round step with ``slstm_segment`` 16 against 0; peak memory
+   and seconds a round both ways for (n), (aa) and (n) at seq 1024
+   (``--remat-only n,o,z,aa,n1024`` runs the build and this phase alone);
+   lint — ``python -m repro_torch.analysis.lint --fast`` over the whole
+   registry exits 0; ``launch.train --lint`` lints and trains a reduced
+   spec on the card and exits 1 on a planted float64 leak;
    autograd — gradients through kernels 6-8 (kernel forward, PyTorch
    backward) equal the CPU's in f32: each wrapper, then ``loss_fn`` of a
    reduced smollm-360m and a reduced zamba2-1.2b, with the kernels counted in
@@ -1435,15 +1445,30 @@ def forward_calls(cfg) -> dict:
             "ssd_scan": kinds.count("mamba2")}
 
 
+def train_calls(cfg) -> dict:
+    """Kernels 6-8's calls in one training step (``loss_fn`` under a
+    gradient): ``forward_calls``, and with ``cfg.remat == "full"`` the
+    decoder's pattern groups once more, recomputed in the backward
+    (``models.remat``); whisper's encoder and the final norm are not
+    recomputed (the reference's encoder scan has no checkpoint)."""
+    calls = forward_calls(cfg)
+    if cfg.remat != "full":
+        return calls
+    e = cfg.encoder_layers
+    return {"rmsnorm": 2 * calls["rmsnorm"] - 1 - (2 * e + 1 if e else 0),
+            "flash_attention": 2 * calls["flash_attention"] - e,
+            "ssd_scan": 2 * calls["ssd_scan"]}
+
+
 def zoo_launches_per_round(cfg, c: int) -> dict:
     """Kernels 6-8's launches in one zoo round of C slots and R local steps
-    (``forward_calls`` a forward).  client_parallel: the first local step
+    (``train_calls`` a step).  client_parallel: the first local step
     runs the C clients on the shared parameters, one launch a call (the
     vmapped axis folds into the rows / B); later steps have diverged
     parameters, and kernel 6's vmap rule loops over the clients' norm
     scales (C launches a call) while kernels 7 and 8 still fold.
     cohort_sequential: one client at a time, every call once a step."""
-    calls, r = forward_calls(cfg), ZOO_STEPS
+    calls, r = train_calls(cfg), ZOO_STEPS
     if cfg.round_mode == "cohort_sequential":
         return {k: v * r * c for k, v in calls.items()}
     return {"rmsnorm": calls["rmsnorm"] * (1 + (r - 1) * c),
@@ -1738,7 +1763,7 @@ def fed_lm_on_card(torch, kernels, out: Path) -> dict:
     want["fused_multi_weighted_agg"] = (1 + len(archs)) * runs  # tiny, then each arch
     for arch in archs:
         name, over = fed_lm.ZOO_ARCHS[arch]
-        for k, v in forward_calls(get_config(name).reduced(**over)).items():
+        for k, v in train_calls(get_config(name).reduced(**over)).items():
             want[k] += v * runs
     check(counts == want, f"fed_lm: kernel launches {counts}, expected {want}")
     rows = {name: derived for name, _, derived in tables.main(["--results-dir", str(out)])
@@ -2564,6 +2589,224 @@ def zoo_frontends_phase(torch, card: str) -> dict:
     print(f"zoo_frontends phase: {time.perf_counter() - t_phase:.1f} s (seconds a step: "
           f"{json.dumps(laps)})", flush=True)
     return launches
+
+
+# -- the memory switches -----------------------------------------------------------
+
+# remat "full" against "none", bitwise: the CPU tests' reduced configs, f32.
+REMAT_BITWISE = {
+    "smollm-360m": dict(n_layers=2, d_model=64, d_ff=128, vocab=128),
+    "zamba2-1.2b": dict(block_pattern=("mamba2", "mamba2", "mamba2", "shared_attn"),
+                        n_layers=8, d_model=64, vocab=128),
+    "qwen3-moe-235b-a22b": dict(n_layers=2, d_model=64, vocab=128),
+    "xlstm-125m": dict(d_model=64, vocab=128),
+}
+# Peak memory and seconds a round both ways: label -> (zoo-phase label, the
+# spec's sequence length).  (o) and (z) run with ``--remat-only``.
+REMAT_CELLS = {
+    "n": ("(n) smollm-360m", ZOO_SEQ),
+    "aa": ("(aa) xlstm-125m", ZOO_SEQ),
+    "n1024": ("(n) smollm-360m", 1024),
+    "o": ("(o) zamba2-1.2b", ZOO_SEQ),
+    "z": ("(z) qwen3-moe one layer", ZOO_SEQ),
+}
+REMAT_DEFAULT = ("n", "aa", "n1024")
+SLSTM_SEGMENT = 16  # divides the rounds' 64 tokens
+
+
+def remat_bitwise(torch, kernels) -> None:
+    """``vmap(grad_and_value(loss_fn))`` over two slots with ``remat``
+    "full" and "none", on the card and on the CPU: bitwise-equal losses and
+    gradients; on the card "full" launches ``train_calls`` (each decoder
+    group's kernels once more) and "none" ``forward_calls``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.fed.tasks import tree_leaves, tree_map
+    from repro_torch.models import transformer
+
+    for arch, kw in REMAT_BITWISE.items():
+        cfg = get_config(arch).reduced(**kw)
+        gen = torch.Generator().manual_seed(1)
+        params = transformer.init_params(cfg, gen, "cpu")
+        tok = torch.randint(0, cfg.vocab, (2, 2, 16), generator=gen)
+        tgt = torch.randint(0, cfg.vocab, (2, 2, 16), generator=gen)
+        line = []
+        for dev in ("cuda", "cpu"):
+            p = tree_map(lambda x: x.to(dev), params)
+            got = {}
+            for mode in ("full", "none"):
+                c = dataclasses.replace(cfg, remat=mode)
+                fn = torch.func.vmap(torch.func.grad_and_value(
+                    lambda q, t, y, c=c: transformer.loss_fn(q, c, (t, y))), in_dims=(None, 0, 0))
+                kernels.reset_launch_counts()
+                g, loss = fn(p, tok.to(dev), tgt.to(dev))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    counts = {k: v for k, v in kernels.launch_counts().items()
+                              if k in ("rmsnorm", "flash_attention", "ssd_scan")}
+                    want = (train_calls if mode == "full" else forward_calls)(c)
+                    check(counts == want, f"remat {arch} {mode}: launches {counts}, want {want}")
+                got[mode] = (loss.cpu(), [x.cpu() for x in tree_leaves(g)])
+            (la, ga), (lb, gb) = got["full"], got["none"]
+            diff = max(float((a - b).abs().max()) for a, b in zip(ga, gb))
+            check(torch.equal(la, lb) and all(torch.equal(a, b) for a, b in zip(ga, gb)),
+                  f"remat {arch} on {dev}: full and none differ (losses {la} / {lb}, largest "
+                  f"gradient difference {diff:.3g})")
+            line.append(f"{dev} bitwise ({len(ga)} leaves)")
+        print(f"remat {arch} reduced f32, vmap(grad) over 2 slots: full == none, "
+              f"{', '.join(line)}; launches full {train_calls(cfg)} none {forward_calls(cfg)}",
+              flush=True)
+
+
+def slstm_segment_round(torch, card: str) -> None:
+    """One xlstm-125m round step at full width in f32 (client_parallel,
+    C = 4, one local step, seq 64, lr 2e-4) with ``slstm_segment`` 16
+    against 0 from the same weights and tokens: the recompute runs under
+    ``vmap(grad)``; the forward is the same, so the losses are bitwise
+    equal, and the gradient of the sLSTM's ``r`` sums its steps a segment
+    at a time, so the parameters and norms agree within f32 rounding (1e-5
+    of each leaf's scale).  In bf16, or over two local steps, the rounding
+    of the first step's update moves the second step's forward, and the
+    sLSTM at full width amplifies that (``PERF.md`` §6)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.fed import round as fed_round
+    from repro_torch.fed.tasks import tree_leaves
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("xlstm-125m"), param_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    params = transformer.init_params(cfg, gen)
+    c = 4
+    tokens = torch.randint(0, cfg.vocab, (c, 1, ZOO_BATCH, ZOO_SEQ + 1), generator=gen, device=dev)
+    weights = torch.tensor([0.4, 0.0, 0.3, 0.3], device=dev)
+    spec = fed_round.RoundSpec(cohort=c, local_steps=1, local_lr=2e-4, local_batch=ZOO_BATCH)
+    out, info = {}, {}
+    for seg in (0, SLSTM_SEGMENT):
+        step = fed_round.build_round_step(dataclasses.replace(cfg, slstm_segment=seg), spec)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[seg] = step(params, tokens[..., :-1], tokens[..., 1:], weights)
+        torch.cuda.synchronize()
+        info[seg] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9)
+    (pa, na, la), (pb, nb, lb) = out[0], out[SLSTM_SEGMENT]
+    rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(tree_leaves(pa), tree_leaves(pb)))
+    norm_rel = float(((na - nb).abs() / nb.abs().clamp(min=1e-30)).max())
+    check(math.isfinite(float(la)) and float(la) == float(lb) and rel <= 1e-5 and norm_rel <= 1e-5,
+          f"slstm_segment {SLSTM_SEGMENT} against 0: losses {float(lb)} / {float(la)}, parameters "
+          f"{rel:.3g} of a leaf's scale, norms {norm_rel:.3g} relative")
+    print(f"xlstm-125m round step ({card}), f32, C={c} R=1 B={ZOO_BATCH} S={ZOO_SEQ}, "
+          f"slstm_segment {SLSTM_SEGMENT} against 0 under vmap(grad): losses equal "
+          f"({float(lb):.6f}), parameters within {rel:.3g} of each leaf's scale, norms within "
+          f"{norm_rel:.3g}; seconds {info[SLSTM_SEGMENT][0]:.3f} vs {info[0][0]:.3f} (first use "
+          f"of each shape), peak_mem_gb {info[SLSTM_SEGMENT][1]:.2f} vs {info[0][1]:.2f}",
+          flush=True)
+
+
+def remat_cell(torch, api, key: str, card: str) -> dict:
+    """One zoo cell's round with ``remat`` "full" and "none": after a
+    warm-up round, one round's wall seconds (host clock after a
+    synchronize) and the peak memory allocated in it (parameters, carry
+    and the round's own), each with a fresh run of the spec."""
+    import dataclasses
+
+    from repro_torch.api import runner
+
+    label, seq = REMAT_CELLS[key]
+    runs = {**ZOO_RUNS, **{k: v[:6] for k, v in FAMILY_RUNS.items()}}
+    arch, kw, _, n, k, c = runs[label]
+    sections = FAMILY_RUNS[label][6] if label in FAMILY_RUNS else {}
+    spec = zoo_spec(api, arch, kwargs=kw, rounds=2, clients=n, budget=k, cohort=c, seq=seq,
+                    **sections)
+    built = api.build(spec)
+    out = {}
+    for mode in ("full", "none"):
+        b = dataclasses.replace(built, arch_config=dataclasses.replace(built.arch_config, remat=mode))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        segment, state = runner._zoo_segment_and_state(b)
+        state = segment(state, 1)  # warm-up: the first use of each shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        state = segment(state, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss = float(state.metrics["loss"][1])
+        check(math.isfinite(loss), f"remat {label} seq {seq} {mode}: loss {loss}")
+        out[mode] = {"peak_gb": round(peak, 2), "round_s": round(wall, 4),
+                     "held_gb": round(before, 2), "loss": loss}
+        del state, segment
+    torch.cuda.empty_cache()
+    print(f"remat {label} seq {seq} ({card}), C={c} R={ZOO_STEPS} B={ZOO_BATCH}, one round after "
+          f"a warm-up: full peak_mem_gb={out['full']['peak_gb']:.2f} round_s="
+          f"{out['full']['round_s']:.4f}; none peak_mem_gb={out['none']['peak_gb']:.2f} round_s="
+          f"{out['none']['round_s']:.4f} (held between rounds {out['full']['held_gb']:.2f} GB; "
+          f"losses {out['full']['loss']:.6f} / {out['none']['loss']:.6f})", flush=True)
+    return out
+
+
+def remat_phase(torch, card: str, cells=REMAT_DEFAULT) -> None:
+    """The memory switches on the card: ``remat`` full against none
+    bitwise on the reduced dense, hybrid, moe and xlstm configs (with the
+    recompute's exact launches); an xlstm-125m round with ``slstm_segment``
+    16 against 0; then peak memory and seconds a round both ways of the
+    ``cells`` (default (n), (aa) and (n) at seq 1024)."""
+    phase("remat")
+    from repro_torch import api, kernels
+
+    t0 = time.perf_counter()
+    remat_bitwise(torch, kernels)
+    slstm_segment_round(torch, card)
+    for key in cells:
+        remat_cell(torch, api, key, card)
+    kernels.reset_launch_counts()  # measurements, not the path
+    print(f"remat phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def lint_phase(torch) -> None:
+    """The trace lint: ``python -m repro_torch.analysis.lint --fast`` over
+    the whole registry (every sampler x oracle/deployable x compiled/
+    reference, sharded, faulted, compressed, and the serve cell; on the
+    CPU over fake tensors) exits 0; then ``launch.train --lint`` on the
+    card lints a reduced smollm zoo spec, trains it, and exits 1 when a
+    float64 leak is planted in the round body."""
+    phase("lint")
+    from repro_torch.analysis import lint
+    from repro_torch.fed import round as fed_round
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    rc = lint.main(["--fast", "--quiet"])
+    check(rc == 0, "the lint sweep found a violation")
+    sweep_s = time.perf_counter() - t0
+    flags = ["--arch", "smollm-360m", "--reduced", "--compiled", "--rounds", "2", "--clients",
+             "13", "--budget", "2", "--cohort", "3", "--seq", "16", "--local-batch", "2", "--lint"]
+    t1 = time.perf_counter()
+    out = train.main(flags)
+    check(len(out["losses"]) == 2 and all(math.isfinite(float(x)) for x in out["losses"]),
+          f"launch.train --lint: losses {out['losses']}")
+    lint_train_s = time.perf_counter() - t1
+    mean_loss = fed_round._cohort_mean_loss
+    fed_round._cohort_mean_loss = lambda losses, w: mean_loss(losses, w).double().float()
+    try:
+        train.main(flags)
+        check(False, "launch.train --lint trained past a planted float64 leak")
+    except SystemExit as e:
+        check(e.code == 1, f"launch.train --lint exit code {e.code} on a planted leak")
+    finally:
+        fed_round._cohort_mean_loss = mean_loss
+    print(f"lint: registry sweep --fast clean in {sweep_s:.1f} s; launch.train --lint on the card "
+          f"(lint, then 2 rounds) {lint_train_s:.1f} s, exit 1 on a planted float64 leak",
+          flush=True)
 
 
 # -- the train-to-serve loop ---------------------------------------------------
@@ -3599,14 +3842,24 @@ def full_size_agreement(torch, api, np, rng):
               f"deadline_dropped {gpu.deadline_dropped})", flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
+    ap.add_argument("--remat-only", default="", metavar="CELLS",
+                    help="run only the build and the remat phase with these cells (comma-"
+                    f"separated of {','.join(REMAT_CELLS)}) and print no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is visible; nothing was run", file=sys.stderr)
         return 2
     card = device_phase(torch)
     build_phase()
+    if args.remat_only:
+        remat_phase(torch, card, [c for c in args.remat_only.split(",") if c])
+        return 0
     rows, max_err, path_shape = kernel_phase(torch)
     launches, engines = path_phase(torch)
     for k, v in samplers_phase(torch, card).items():
@@ -3623,6 +3876,8 @@ def main() -> int:
         launches[k] += v
     for k, v in zoo_frontends_phase(torch, card).items():
         launches[k] += v
+    remat_phase(torch, card)
+    lint_phase(torch)
     autograd_phase(torch)
     agreement_phase(torch)
     trace_phase(torch, engines)

@@ -8,7 +8,8 @@
 
 ``register_task`` / ``register_dataset`` add factories to the spec
 registries; ``run(spec, ckpt_manager=...)`` checkpoints and resumes a run,
-``restore_template(spec)`` is the state a checkpoint restores into.
+``restore_template(spec)`` is the state a checkpoint restores into, and
+``lint(spec)`` checks the spec's traced program without training it.
 """
 from repro_torch.api.runner import BuiltExperiment, build, restore_template, run
 from repro_torch.api.spec import (
@@ -27,7 +28,20 @@ from repro_torch.api.spec import (
     task_names,
 )
 
+
+
+def lint(spec, **kwargs):
+    """Statically lint a spec's traced program (width / scan-safety / dtype
+    / compile-once contracts) without training it: forwards to
+    ``repro_torch.analysis.lint.run_suite`` (imported when called) and
+    returns its ``LintReport``."""
+    from repro_torch.analysis.lint import run_suite
+
+    return run_suite(spec, **kwargs)
+
+
 __all__ = [
+    "lint",
     "ExperimentSpec",
     "TaskSpec",
     "SamplerSpec",

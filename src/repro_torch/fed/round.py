@@ -41,7 +41,10 @@ from repro_torch.fed.tasks import tree_map
 from repro_torch.models import transformer
 from repro_torch.models.common import ArchConfig
 
-__all__ = ["RoundSpec", "ZooModel", "build_round_step", "build_fed_scan", "build_fed_scan_segment"]
+__all__ = [
+    "RoundSpec", "ZooModel", "build_round_step", "build_fed_scan", "build_fed_scan_segment",
+    "scan_body_for_lint",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,6 +271,35 @@ def _build_body(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, source):
         return out, metrics
 
     return body
+
+
+def scan_body_for_lint(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, *, source=None):
+    """Lintable handle on the zoo round body: ``(body, (carry, t))``.
+
+    ``body(t, carry)`` is the round ``build_fed_scan_segment`` runs, built
+    on the CPU over ``dataset`` (moved there) and ``source`` (default a
+    CPU ``PhiloxSource``; its draws are traced as graph nodes); ``carry``
+    is round 0's carry as
+    ``meta`` tensors: the parameters from ``transformer.init_params`` on
+    ``meta`` (shapes and dtypes only: no weights are made), the sampler's
+    ``init("meta")``, the fault and error-feedback states; ``t`` round 0.
+    ``repro_torch.analysis.lint`` traces ``body`` on fake tensors of the
+    carry's shapes."""
+    from repro_torch.fed.server import _to_meta
+    from repro_torch.rng import PhiloxSource
+
+    dataset = dataset.to("cpu")
+    source = PhiloxSource(0, "cpu") if source is None else source
+    body = _build_body(cfg, spec, sampler, dataset, source)
+    params = transformer.init_params(cfg, None, "meta")
+    carry = (params, (), sampler.init("meta"))
+    d_dim = stragglers.flat_dim(params)
+    if spec.faults is not None:
+        carry = carry + (_to_meta(stragglers.fault_state_init(
+            spec.faults, dataset.n_clients, d_dim, spec.compression, "cpu")),)
+    if spec.compression is not None and bool(spec.compression.error_feedback):
+        carry = carry + ({"resid": torch.empty(d_dim, dtype=torch.float32, device="meta")},)
+    return body, (carry, 0)
 
 
 def build_fed_scan_segment(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, *, source,

@@ -88,7 +88,10 @@ from repro_torch.fed.tasks import Task, params_to_numpy
 from repro_torch.optim.fedopt import FedAvgServer, ServerOptimizer
 from repro_torch.rng import PhiloxSource, RandomSource
 
-__all__ = ["FedConfig", "History", "init_carry", "build_segment_runner", "run_federated"]
+__all__ = [
+    "FedConfig", "History", "init_carry", "build_segment_runner", "run_federated",
+    "round_body_for_lint",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -368,6 +371,38 @@ def init_carry(task: Task, sampler: Sampler, cfg: FedConfig, source: RandomSourc
         resid = torch.zeros(d_dim, dtype=torch.float32, device=device)
         carry = carry + ({"resid": resid},)
     return carry
+
+
+def _to_meta(tree):
+    """``tree`` with every tensor leaf replaced by a ``meta`` tensor of its
+    shape and dtype (dicts, lists, tuples, dataclasses)."""
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(
+            tree, **{f.name: _to_meta(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_meta(v) for v in tree)
+    return tree
+
+
+def round_body_for_lint(task: Task, dataset: FederatedDataset, sampler: Sampler, cfg: FedConfig,
+                        eval_data: tuple | None = None, *, random_source=None):
+    """Lintable handle on the built round body: ``(body, (carry, t))``.
+
+    ``body(t, carry)`` is the round ``run_federated`` runs, built on the
+    CPU over ``dataset`` and ``random_source`` (default a CPU
+    ``PhiloxSource``; its draws are traced as graph nodes); ``carry`` is
+    round 0's carry as ``meta`` tensors (shapes and dtypes, no values: the
+    task's initial weights are drawn on the CPU and dropped), ``t`` round
+    0.  ``repro_torch.analysis.lint`` traces ``body`` on fake tensors of
+    the carry's shapes."""
+    dev = torch.device("cpu")
+    dataset, eval_data, _, carry, body = _setup(
+        task, dataset, sampler, cfg, eval_data, dev, random_source)
+    return body, (_to_meta(carry), 0)
 
 
 def _materialize_history(metrics: dict, cfg: FedConfig, has_eval: bool) -> History:

@@ -37,7 +37,9 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["TrainState", "init_metric_buffers", "make_segment_fn", "run_segmented"]
+__all__ = [
+    "TrainState", "init_metric_buffers", "make_segment_fn", "run_segmented", "segment_builds",
+]
 
 
 @dataclasses.dataclass
@@ -65,6 +67,16 @@ def init_metric_buffers(metric_shapes: dict, total_rounds: int, device) -> dict:
         rows = spec[2] if len(spec) > 2 else total_rounds
         out[name] = torch.zeros((int(rows),) + tuple(shape), dtype=dtype, device=device)
     return out
+
+
+_BUILDS = [0]
+
+
+def segment_builds() -> int:
+    """How many segment functions ``make_segment_fn`` has built in this
+    process: a run builds one, and a resume one more (the compile-once
+    audit of ``repro_torch.analysis.lint`` reads it)."""
+    return _BUILDS[0]
 
 
 def make_segment_fn(body, source, *, with_faults: bool = False, with_compression: bool = False):
@@ -118,6 +130,8 @@ def make_segment_fn(body, source, *, with_faults: bool = False, with_compression
             compression=c_state,
         )
 
+    _BUILDS[0] += 1
+    segment._lint = {"build": _BUILDS[0]}  # the compile-once audit's handle
     return segment
 
 

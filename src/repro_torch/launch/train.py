@@ -42,7 +42,9 @@ and batches):
 
 ``REPRO_KILL_AFTER_SEGMENTS=N`` (environment) SIGKILLs the process after N
 published segments: the reference's hook for a preemption test.
-``--lint`` needs the lint port and raises ``NotImplementedError``.
+``--lint`` runs ``repro_torch.analysis.lint.run_suite`` on the built spec
+before training (on the CPU, over fake tensors: no weights are made), prints
+the report and exits 1 on a finding, as the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -151,8 +153,8 @@ def make_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--lint", action="store_true",
-        help="statically lint the spec before training (needs the lint port: "
-        "raises NotImplementedError)",
+        help="statically lint the spec before training (repro_torch.analysis.lint: "
+        "width / scan-safety / dtype; exit 1 on a finding)",
     )
     ap.add_argument("--device", default=None, help="cuda (default) or cpu; not part of the spec")
     return ap
@@ -367,11 +369,12 @@ def main(argv=None):
         return None
 
     if args.lint:
-        raise NotImplementedError(
-            "--lint needs the lint contracts (repro.analysis.lint), which are not "
-            "ported to repro_torch yet; see ROADMAP.md section 1, item 7, "
-            "'Launchers, benches and analysis'"
-        )
+        from repro_torch.analysis.lint import run_suite
+
+        report = run_suite(spec)
+        print(report.render(), flush=True)
+        if not report.ok:
+            raise SystemExit(1)
 
     if args.resume and not spec.execution.compiled:
         ap.error(

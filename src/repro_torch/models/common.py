@@ -71,12 +71,12 @@ class ArchConfig:
     # federated execution (the reference's round; not used by serving)
     round_mode: str = "client_parallel"  # or "cohort_sequential"
     long_context_ok: bool = False
-    remat: str = "full"
+    remat: str = "full"  # "full" | "none": recompute each pattern group (models.remat)
     attn_impl: str = "einsum"  # the port runs full-sequence attention through kernel 7 either way
     moe_impl: str = "dense"
     mlstm_impl: str = "scan"
     mlstm_chunk: int = 128
-    slstm_segment: int = 0
+    slstm_segment: int = 0  # > 0: recompute the sLSTM loop a segment at a time in the backward
 
     # provenance
     source: str = ""

@@ -59,6 +59,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fed.tasks import tree_leaves
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import remat as remat_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (
@@ -83,6 +84,7 @@ __all__ = [
 ]
 
 MOE_AUX_COEF = 0.01
+REMAT_MODES = ("full", "none")  # the reference's ArchConfig.remat values
 
 PORTED_KINDS = ("attn", "attn_local", "moe", "mamba2", "shared_attn", "mlstm", "slstm",
                 "cross_attn", "dec")  # "enc" blocks live in params["encoder"] alone
@@ -173,10 +175,14 @@ def _init_tree(cfg: ArchConfig, gen: torch.Generator | None) -> dict:
     return params
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, device=None) -> dict:
+def init_params(cfg: ArchConfig, gen: torch.Generator | None, device=None) -> dict:
     """Fresh weights drawn from ``gen`` (a generator on ``device``; the GPU
     unless the caller asks for the CPU).  The reference's initializers and
-    scales; other numbers than the reference's threefry draws."""
+    scales; other numbers than the reference's threefry draws.  With
+    ``device="meta"`` and no generator: the tree's shapes and dtypes as
+    ``meta`` tensors, no weights made (the lint's abstract parameters)."""
+    if gen is None and str(device) == "meta":
+        return _init_tree(cfg, None)
     dev = resolve_device(device)
     if gen.device.type != dev.type:
         raise ValueError(f"the generator is on {gen.device}, the parameters go to {dev}")
@@ -378,6 +384,12 @@ def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cac
     return h + mlp(p["mlp"], cfg, x), cache, None
 
 
+def _remat_on(cfg: ArchConfig) -> bool:
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"{cfg.name}: remat must be one of {REMAT_MODES}, got {cfg.remat!r}")
+    return cfg.remat == "full"
+
+
 def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max_seq=None,
                cross_src=None):
     """Loop over the pattern groups; returns (h, aux, caches).  caches: per
@@ -386,7 +398,11 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
     then over the groups (the reference's order), or None without a
     ``moe`` block.  The RoPE tables (and in decode the masks) are the same
     for every layer, so they are computed once per call (the reference's
-    XLA program shares them the same way)."""
+    XLA program shares them the same way).  In training with
+    ``cfg.remat == "full"`` each pattern group runs through
+    ``remat.recompute``, the RoPE tables, ``shared`` and the cross source
+    entering it as inputs: the backward recomputes the group's forward
+    (kernels 6-8 launch again there) and keeps only its input."""
     for kind in cfg.block_pattern:
         _check_kind(kind)
     reps = cfg.pattern_repeats()
@@ -398,19 +414,30 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
     masks: dict = {}
     out_caches = [[] for _ in cfg.block_pattern]
     layers = [_unstack(stack, reps) for stack in params["stacks"]]
-    group_aux = []
-    for r in range(reps):
+    remat = mode == "train" and _remat_on(cfg)
+
+    def group(h, blocks, shared, cross_src, rope, r=None):
         aux_sum = None
         for j, kind in enumerate(cfg.block_pattern):
-            cache = None if caches is None else _rep(caches[j], r)
+            cache = None if r is None or caches is None else _rep(caches[j], r)
             h, nc, aux = _apply_block(
-                kind, layers[j][r], cfg, h, rope, mode=mode, cache=cache,
-                index=index, max_seq=max_seq, masks=masks, shared=params.get("shared"),
+                kind, blocks[j], cfg, h, rope, mode=mode, cache=cache,
+                index=index, max_seq=max_seq, masks=masks, shared=shared,
                 cross_src=cross_src,
             )
             if aux is not None:
                 aux_sum = aux if aux_sum is None else aux_sum + aux
-            out_caches[j].append(nc)
+            if r is not None:
+                out_caches[j].append(nc)
+        return h, aux_sum
+
+    group_aux = []
+    for r in range(reps):
+        blocks = [layers[j][r] for j in range(len(cfg.block_pattern))]
+        args = (h, blocks, params.get("shared"), cross_src, rope)
+        # The reference's jax.checkpoint of its scan body: a pattern group's
+        # activations are recomputed in the backward, not kept.
+        h, aux_sum = remat_mod.recompute(group, *args) if remat else group(*args, r=r)
         if aux_sum is not None:
             group_aux.append(aux_sum)
     aux = torch.stack(group_aux).sum() if group_aux else None

@@ -7,9 +7,10 @@ over time (the reference scans it); ``mlstm_chunked`` is the chunkwise form
 of the same function, picked by ``cfg.mlstm_impl == "chunked"``.
 
 sLSTM: a scalar-memory cell with a block-diagonal hidden-to-gate recurrence
-per head, inherently sequential.  ``cfg.slstm_segment > 0`` checkpoints the
-loop a segment at a time (``torch.utils.checkpoint``): the same values,
-less memory for the backward.
+per head, inherently sequential.  ``cfg.slstm_segment > 0`` recomputes the
+loop a segment at a time in the backward (``models.remat.recompute``, under
+``backward()`` and ``torch.func`` alike): the same values, less memory for
+the backward.
 
 Both blocks carry their own projections (the config's d_ff = 0): the mLSTM
 block up-projects by 2x with a gated output; the sLSTM block is followed by
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import remat
 from repro_torch.models.common import ArchConfig, rms_norm, uniform_init
 from repro_torch.models.ssm import _causal_conv
 
@@ -220,11 +222,12 @@ def _slstm_cell(params, x_pre, n_heads, hd, segment: int = 0):
     """x_pre (B,S,4d).  Returns h (B,S,d) f32.
 
     ``segment > 0`` (when it divides S and S > segment, as in the reference)
-    checkpoints each segment of steps: the backward keeps the recurrent
-    state at segment boundaries only and recomputes the steps within.  The
-    checkpoint works under ``backward()``; ``torch.func`` transforms do not
-    support the saved-tensor hooks it runs on, so there the option raises
-    ``NotImplementedError``."""
+    runs each segment of steps through ``models.remat.recompute``: the
+    backward keeps the recurrent state at segment boundaries only and
+    recomputes the steps within, under ``backward()`` and ``torch.func``
+    alike.  The values are the loop's; the gradient of ``r`` sums the steps
+    a segment at a time, so it may differ from ``segment = 0`` in the last
+    bits."""
     bsz, s, d4 = x_pre.shape
     d = d4 // 4
     pre = x_pre.to(torch.float32)
@@ -232,29 +235,21 @@ def _slstm_cell(params, x_pre, n_heads, hd, segment: int = 0):
     z = torch.zeros((bsz, d), dtype=torch.float32, device=dev)
     carry = (z, z, torch.full((bsz, d), -1e30, dtype=torch.float32, device=dev), z)
 
-    def run(t0, t1, c, n, m, h):
+    def run(pre_seg, rec, c, n, m, h):
         hs = []
-        for t in range(t0, t1):
-            c, n, m, h = _slstm_step(params, n_heads, hd, c, n, m, h, pre[:, t])
+        for t in range(pre_seg.shape[1]):
+            c, n, m, h = _slstm_step(rec, n_heads, hd, c, n, m, h, pre_seg[:, t])
             hs.append(h)
         return c, n, m, h, torch.stack(hs, dim=1)
 
+    rec = {"r": params["r"]}  # all the steps read of the parameters
     if segment and s % segment == 0 and s > segment:
-        if torch._C._are_functorch_transforms_active():
-            raise NotImplementedError(
-                f"slstm_segment={segment} checkpoints the sLSTM loop with "
-                "torch.utils.checkpoint, which torch.func transforms (the zoo round's "
-                "grad and vmap) do not support; use slstm_segment=0 (the same values); "
-                "see ROADMAP.md section 2, 'Speed outside the kernels'"
-            )
-        from torch.utils.checkpoint import checkpoint
-
         pieces = []
         for t0 in range(0, s, segment):
-            *carry, hs = checkpoint(run, t0, t0 + segment, *carry, use_reentrant=False)
+            *carry, hs = remat.recompute(run, pre[:, t0 : t0 + segment], rec, *carry)
             pieces.append(hs)
         return torch.cat(pieces, dim=1)
-    return run(0, s, *carry)[-1]
+    return run(pre, rec, *carry)[-1]
 
 
 def _slstm_ffn(params: dict, cfg: ArchConfig, h):

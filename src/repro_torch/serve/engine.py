@@ -26,9 +26,12 @@ in data:
   cache tensor too keeps its address from prefill to the last step.
 
 ``step`` synchronizes the device once per call, not once per token.  The
-reference's XLA lint handles (``decode_cache_entries``, ``decode_jaxpr``,
-``compile_once_probe``) wait for the lint port (``ROADMAP.md``, "Launchers,
-benches, analysis").
+lint handles (``repro_torch.analysis.lint``'s serve cell):
+``decode_graph`` is the decode step's traced ATen graph, where the
+reference hands over its jaxpr (``decode_jaxpr``), and
+``compile_once_probe`` checks the contract above under swapped weights.
+The reference's ``decode_cache_entries`` (jit cache entries of the decode
+program: one) has no counterpart: the port builds no program to count.
 """
 from __future__ import annotations
 
@@ -233,6 +236,63 @@ class ServeEngine:
         return self.decode_tokens / max(self.decode_seconds, 1e-9)
 
     # -- the hot swap --------------------------------------------------------
+    # -- lint handles --------------------------------------------------------
+    def decode_graph(self, prompt_len: int | None = None):
+        """The decode step's ATen graph on this engine's pinned shapes and
+        dtypes (parameters, paged caches, a (B, 1) token at position
+        ``prompt_len``, default ``max_seq // 2``, and the sampler with
+        (B, V) Gumbel noise), traced on fake tensors by
+        ``analysis.lint.trace``: the input of ``audit_dtypes`` in the serve
+        cell."""
+        from repro_torch.analysis.lint import trace
+
+        plen = int(prompt_len) if prompt_len is not None else self.max_seq // 2
+        caches = transformer.init_caches(self.cfg, self.batch, self.max_seq,
+                                         page_size=self.page_size, device="cpu")
+        tok = torch.zeros((self.batch, 1), dtype=torch.int64)
+        noise = torch.zeros((self.batch, self.cfg.vocab), dtype=torch.float32)
+
+        def step(params, tok, caches, noise):
+            logits, caches = transformer.decode_step(params, self.cfg, tok, caches, plen)
+            return _sample_token(logits, max(self.temperature, 1.0), noise), caches
+
+        return trace(step, self._params, tok, caches, noise)
+
+    def compile_once_probe(self, prompts, param_variants=None, *, calls: int = 3,
+                           steps: int = 2) -> list:
+        """The engine's contract under swaps, probed: a fresh batch from
+        ``prompts``, then ``calls`` times ``swap_params`` with the next of
+        ``param_variants`` (cycling; default the engine's own weights) and
+        ``steps`` decode steps.  After every call each cache tensor and each
+        parameter keeps its address, shape and dtype, and the in-flight
+        state (token, caches) through a numpy round trip (what a checkpoint
+        applies) keeps every leaf's shape and dtype.  Returns the
+        violations, one sentence each (empty: the contract holds); runs
+        ``calls * steps`` decode steps on this engine."""
+        variants = list(param_variants or [self._params])
+
+        def addresses(tree):
+            return [(t.data_ptr(), tuple(t.shape), t.dtype) for t in tree_leaves(tree)]
+
+        self.start(prompts)
+        caches0, params0 = addresses(self._caches), addresses(self._params)
+        problems = []
+        for k in range(calls):
+            self.swap_params(variants[k % len(variants)])
+            self.step(steps)
+            if addresses(self._caches) != caches0:
+                problems.append(f"call {k + 1}: a decode step under swapped weights moved or "
+                                "retyped a cache tensor")
+            if addresses(self._params) != params0:
+                problems.append(f"call {k + 1}: a swap moved or retyped a parameter tensor")
+        from repro_torch.analysis.lint import numpy_round_trip
+
+        state = (self._tok, self._caches)
+        if [(tuple(t.shape), t.dtype, t.device) for t in tree_leaves(numpy_round_trip(state))] != \
+                [(tuple(t.shape), t.dtype, t.device) for t in tree_leaves(state)]:
+            problems.append("the in-flight state changes shape or dtype through a numpy round trip")
+        return problems
+
     def swap_params(self, new_params) -> None:
         """Install candidate weights between decode steps.
 

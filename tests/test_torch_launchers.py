@@ -201,8 +201,6 @@ def test_refusals(tmp_path):
     with pytest.raises(SystemExit) as err:  # ap.error: usage, exit code 2
         train.main(SMALL + ["--resume", "--device", "cpu"])
     assert err.value.code == 2
-    with pytest.raises(NotImplementedError, match="section 1, item 7"):
-        train.main(SMALL + ["--lint", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(SMALL)

@@ -7,7 +7,8 @@ Each function of ``repro_torch.models.xlstm`` is held to its namesake in
 (``mlstm_impl`` "scan" and "chunked"), decode step and state; the
 chunkwise form and its final state (against the reference's and against a
 chain of decode steps, as ``tests/test_perf_variants.py`` holds the
-reference's); the sLSTM gates, cell (with and without ``slstm_segment``),
+reference's); the sLSTM gates, cell (with and without ``slstm_segment``,
+whose recompute runs under ``backward()`` and ``torch.func``),
 block, decode step and state.  Then reduced xlstm-125m through
 ``forward`` / ``loss_fn`` and its gradient, prefill + decode against the
 reference and against the full forward, and the parameter count at full
@@ -192,32 +193,42 @@ def test_slstm_gates_cell_and_block_match_reference():
                                _np(ref_x.slstm_block(ref_p, ref_cfg, jnp.asarray(x))), **TOL)
 
 
-def test_slstm_segment_checkpoints_under_backward_and_refuses_torch_func():
-    """``slstm_segment`` changes memory, not values: under ``backward()``
-    the checkpointed loop gives the gradients of the plain one (and of the
-    reference's ``jax.checkpoint``); ``torch.func`` transforms refuse the
-    checkpoint's saved-tensor hooks, so there it raises, naming ROADMAP."""
+def test_slstm_segment_recomputes_under_backward_and_torch_func():
+    """``slstm_segment`` changes memory, not values: the recomputed loop
+    gives the gradients of the plain one (and of the reference's
+    ``jax.checkpoint``) under ``backward()``, and under ``torch.func.grad``
+    and ``vmap(grad)``, where it used to raise.  The gradient of ``r`` sums
+    the steps a segment at a time, so it is held to f32 rounding, not
+    bitwise."""
     ref_cfg, cfg = _cfgs(slstm_segment=4)
     ref_p, _ = _cell_params(ref_x.init_slstm, ref_cfg, seed=9)
     x = np.random.default_rng(10).standard_normal((2, 16, cfg.d_model)).astype(np.float32)
     want = jax.jit(jax.grad(lambda q: jnp.sum(ref_x.slstm_block(q, ref_cfg, jnp.asarray(x)) ** 2)))(
         ref_p)
-    grads = {}
-    for segment in (0, 4):
-        p = {k: _t(v).requires_grad_() for k, v in ref_p.items()}
-        c = dataclasses.replace(cfg, slstm_segment=segment)
-        (xlstm.slstm_block(p, c, _t(x)) ** 2).sum().backward()
-        grads[segment] = {k: v.grad for k, v in p.items()}
-    for k in grads[0]:
-        torch.testing.assert_close(grads[4][k], grads[0][k], rtol=1e-6, atol=1e-7)
-        np.testing.assert_allclose(_np(grads[4][k]), _np(want[k]), **TOL, err_msg=k)
+    grads, func_grads, vmapped = {}, {}, {}
     p = {k: _t(v) for k, v in ref_p.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch.func.grad(lambda q: xlstm.slstm_block(q, cfg, _t(x)).sum())(p)
-    # segment 0, and a segment that does not divide S, never checkpoint
-    for segment in (0, 5):
+    xs = _t(x).reshape(2, 1, 16, cfg.d_model)
+    for segment in (0, 4):
         c = dataclasses.replace(cfg, slstm_segment=segment)
-        torch.func.grad(lambda q: xlstm.slstm_block(q, c, _t(x)).sum())(p)
+        leaves = {k: _t(v).requires_grad_() for k, v in ref_p.items()}
+        (xlstm.slstm_block(leaves, c, _t(x)) ** 2).sum().backward()
+        grads[segment] = {k: v.grad for k, v in leaves.items()}
+
+        def loss(q, xx, c=c):
+            return (xlstm.slstm_block(q, c, xx) ** 2).sum()
+
+        func_grads[segment] = torch.func.grad(loss)(p, _t(x))
+        vmapped[segment] = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(p, xs)
+    for k in grads[0]:
+        for got in (grads, func_grads):
+            torch.testing.assert_close(got[4][k], got[0][k], rtol=1e-6, atol=1e-7)
+            np.testing.assert_allclose(_np(got[4][k]), _np(want[k]), **TOL, err_msg=k)
+        torch.testing.assert_close(vmapped[4][k][0], vmapped[0][k][0], rtol=1e-6, atol=1e-7)
+    # a segment that does not divide S takes the plain loop, as the reference's
+    c = dataclasses.replace(cfg, slstm_segment=5)
+    got = torch.func.grad(lambda q: (xlstm.slstm_block(q, c, _t(x)) ** 2).sum())(p)
+    for k in got:
+        torch.testing.assert_close(got[k], func_grads[0][k], rtol=0, atol=0)
 
 
 def _weights(ref_cfg, cfg, seed=0):
