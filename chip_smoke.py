@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--remat-only CELLS]
+    python3 chip_smoke.py [--only PHASE [PHASE ...]]
 
 Phases, each failing loudly (non-zero exit, no result line):
 
@@ -102,10 +102,21 @@ Phases, each failing loudly (non-zero exit, no result line):
    on the CPU, "full" launching each decoder group's kernels once more; an
    xlstm-125m round step with ``slstm_segment`` 16 against 0; peak memory
    and seconds a round both ways for (n), (aa) and (n) at seq 1024
-   (``--remat-only n,o,z,aa,n1024`` runs the build and this phase alone);
+   (``--only remat=n,o,z,aa,n1024`` runs the build and this phase alone
+   with those cells);
    lint — ``python -m repro_torch.analysis.lint --fast`` over the whole
    registry exits 0; ``launch.train --lint`` lints and trains a reduced
    spec on the card and exits 1 on a planted float64 leak;
+   dryrun — four steps counted by ``launch.dryrun``'s setups on ``meta``
+   tensors and then run on the card (``DRYRUN_STEPS``: (ag) smollm-360m
+   prefill 8 x 512, (ah) its round C = 8 at seq 64, (ai) zamba2-1.2b
+   prefill 8 x 512, (aj) a smollm decode step over 576-token caches): each
+   predicted peak within 10% or 256 MB of the card's, kernels 6-8's
+   launches equal to the counted calls, the step's time against its
+   roofline at ``analysis.roofline.HW``; then ``python -m
+   repro_torch.launch.dryrun`` at full width for xlstm-125m decode_32k and
+   smollm-360m train_4k and ``python -m repro_torch.analysis.report`` over
+   them (``--only kernels dryrun`` runs the build and these phases alone);
    autograd — gradients through kernels 6-8 (kernel forward, PyTorch
    backward) equal the CPU's in f32: each wrapper, then ``loss_fn`` of a
    reduced smollm-360m and a reduced zamba2-1.2b, with the kernels counted in
@@ -145,10 +156,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
-F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-TF32_FLOPS_PER_S = 495e12  # H100 SXM dense TF32 tensor cores
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+from repro_torch.analysis.roofline import HW  # noqa: E402  (the H100's data-sheet peaks)
+
+HBM_BYTES_PER_S = HW.hbm_bw  # memory rate
+F32_FLOPS_PER_S = HW.f32_flops  # f32 outside the tensor cores
+TF32_FLOPS_PER_S = HW.tf32_flops  # dense TF32 tensor cores
+BF16_FLOPS_PER_S = HW.peak_flops  # dense bf16 tensor cores
 LIBRARIES = ("fused_weighted_agg", "sharded_waterfill", "rmsnorm", "flash_attention",
              "ssd_scan")  # csrc/<name>.cu
 SOURCE = {
@@ -664,11 +677,10 @@ def rmsnorm_kernel_phase(torch, gen, flush, max_err):
             err = float((got.float() - want.float()).abs().max())
             max_err["rmsnorm"] = max(max_err["rmsnorm"], err)
             weight = (1.0 + scale.float()).to(dtype)
-            es = x.element_size()
+            ops, n_bytes = rms.work(x, scale)
             row = measure(torch, flush, lambda: rms.rmsnorm(x, scale),
                           lambda: ref.rmsnorm_reference(x, scale),
-                          lambda: F.rms_norm(x, (d,), weight, 1e-6),
-                          2 * r * d * es + d * es, 4 * r * d, err)
+                          lambda: F.rms_norm(x, (d,), weight, 1e-6), n_bytes, ops, err)
             row["shape"] = {"R": r, "D": d, "dtype": str(dtype)[6:]}
             rows[("rmsnorm", label, str(dtype)[6:])] = row
             report("rmsnorm", f"{label} R={r} D={d} {str(dtype)[6:]}", row, "n/a",
@@ -699,16 +711,6 @@ def host_us(torch, fn, calls: int = 2000) -> float:
         torch.cuda.synchronize()
         best = min(best, (time.perf_counter() - t0) / calls)
     return best * 1e6
-
-
-def attention_pairs(s_q: int, s_k: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask lets through: the work this input needs."""
-    total = 0
-    for q in range(s_q):
-        hi = min(q, s_k - 1) if causal else s_k - 1
-        lo = max(0, q - window + 1) if window else 0
-        total += max(0, hi - lo + 1)
-    return total
 
 
 def bf16_out_tol(want) -> dict:
@@ -848,11 +850,10 @@ def flash_kernel_phase(torch, gen, flush, max_err):
                     pos = torch.arange(s, device=dev)
                     mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
                     lib = lambda: F.scaled_dot_product_attention(q, k_x, v_x, attn_mask=mask)  # noqa: E731
-            es = q.element_size()
-            pairs = attention_pairs(s, s_k, causal, window)
+            pairs = fa.attention_pairs(s, s_k, causal, window)
+            ops, n_bytes = fa.work(q, k, causal, window)
             row = measure(torch, flush, lambda: fa.flash_attention(q, k, v, **kw),
-                          lambda: ref.mha_reference(q, k, v, **kw), lib,
-                          b * (2 * s * h + 2 * s_k * kv) * hd * es, 4 * b * h * pairs * hd, err,
+                          lambda: ref.mha_reference(q, k, v, **kw), lib, n_bytes, ops, err,
                           BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
             row["shape"] = {"B": b, "H": h, "q_groups": g, "S": s, "S_k": s_k, "hd": hd,
                             "window": window, "softcap": cap, "dtype": str(dtype)[6:]}
@@ -868,21 +869,6 @@ def flash_kernel_phase(torch, gen, flush, max_err):
     return rows
 
 
-def ssd_ops(s: int, hd: int, n: int, q: int, rows: int, bc_rows: int) -> int:
-    """Operations the SSD scan needs over ``rows`` rows reading ``bc_rows``
-    rows of b and c, for the steps each chunk of this input holds.  Per
-    chunk of qn steps: the causal half of the scores x X, qn (qn + 1) hd,
-    and the inter-chunk term and state update, 4 qn N hd, for every row;
-    the causal half of C B^T, qn (qn + 1) N, once a b/c row (the heads that
-    share b and c share it).  Elementwise exps and scalings are left out."""
-    per_row = per_bc = 0
-    for s0 in range(0, s, q):
-        qn = min(q, s - s0)
-        per_row += qn * (qn + 1) * hd + 4 * qn * n * hd
-        per_bc += qn * (qn + 1) * n
-    return rows * per_row + bc_rows * per_bc
-
-
 def ssd_kernel_phase(torch, gen, flush, max_err):
     """Kernel 8 at (m)'s prefill shape (B=8, 64 heads, S=512, hd=N=64,
     Q=128) as ``models/ssm.py`` passes it: x and da f32 (B, H, S, ·) views of
@@ -896,7 +882,8 @@ def ssd_kernel_phase(torch, gen, flush, max_err):
     ragged and strong-decay cases also against the sequential recurrence
     ``ref.ssd_reference`` (1e-3 in f32, the tests' tolerance for a chunked
     sum against a step-by-step one; 3e-2 in bf16).  The bound: x, da, b, c
-    read once, y and the state written once, against ``ssd_ops`` over the
+    read once, y and the state written once (``ssd_scan.work``), against
+    ``ssd_scan.ssd_ops`` over the
     TF32 tensor-core rate (the units the kernel uses; the split's extra
     products are not counted as work); each row also prints the bound at
     the f32 rate off the tensor cores (the CUDA-core kernel's).  No PyTorch call computes
@@ -955,10 +942,7 @@ def ssd_kernel_phase(torch, gen, flush, max_err):
                       f"ssd_scan {label}: {what} differs from the sequential recurrence beyond {tol}")
                 oracle_txt += f" {what}_err_vs_sequential={float(diff.max()):.3g}"
             del b_r, c_r, y_seq, st_seq
-        es_x, es_bc = x.element_size(), bm.element_size()
-        n_bytes = (2 * b * h * s * hd * es_x + b * h * s * 4 + 2 * bm.shape[0] * s * n * es_bc
-                   + b * h * hd * n * 4)
-        ops = ssd_ops(s, hd, n, q, b * h, bm.shape[0])
+        ops, n_bytes = ssd.work(x, da, bm, q, True)
         row = measure(torch, flush, lambda: ssd.ssd_scan(x, da, bm, cm, chunk=q, return_state=True),
                       lambda: ref.ssd_scan_reference(x, da, bm, cm, chunk=q, return_state=True),
                       None, n_bytes, ops, errs[0][0], TF32_FLOPS_PER_S)
@@ -2602,7 +2586,7 @@ REMAT_BITWISE = {
     "xlstm-125m": dict(d_model=64, vocab=128),
 }
 # Peak memory and seconds a round both ways: label -> (zoo-phase label, the
-# spec's sequence length).  (o) and (z) run with ``--remat-only``.
+# spec's sequence length).  (o) and (z) run with ``--only remat=...``.
 REMAT_CELLS = {
     "n": ("(n) smollm-360m", ZOO_SEQ),
     "aa": ("(aa) xlstm-125m", ZOO_SEQ),
@@ -2807,6 +2791,186 @@ def lint_phase(torch) -> None:
     print(f"lint: registry sweep --fast clean in {sweep_s:.1f} s; launch.train --lint on the card "
           f"(lint, then 2 rounds) {lint_train_s:.1f} s, exit 1 on a planted float64 leak",
           flush=True)
+
+
+# -- the dry run ------------------------------------------------------------------
+
+# Steps predicted by ``launch.dryrun``'s setups (``analysis.cost.count`` on
+# ``meta`` tensors) and then run on the card, bf16 at full width, weights from
+# seed 0: label -> (arch, (kind, seq_len, global batch), clients of a round).
+DRYRUN_STEPS = {
+    "(ag) smollm-360m prefill": ("smollm-360m", ("prefill", 512, 8), None),  # (k)'s prompt
+    "(ah) smollm-360m round": ("smollm-360m", ("train", ZOO_SEQ, 8 * ZOO_STEPS * ZOO_BATCH), 8),
+    "(ai) zamba2-1.2b prefill": ("zamba2-1.2b", ("prefill", 512, 8), None),  # (m)'s prompt
+    "(aj) smollm-360m decode": ("smollm-360m", ("decode", 512 + 64, 8), None),  # (k)'s caches
+}
+DRYRUN_CLI = (("xlstm-125m", "decode_32k"), ("smollm-360m", "train_4k"))
+PEAK_BAND = (0.10, 256e6)  # a predicted peak within 10% or 256 MB of the card's
+
+
+def dryrun_args(torch, cfg, kind: str, batch: int, seq: int, cohort, gen):
+    """Real arguments on the card for a ``launch.dryrun`` setup: weights
+    from ``gen``, int32 tokens uniform over the vocabulary, a round's
+    cohort weights from a K-Vib draw (N = 32, K = 6), zeroed caches."""
+    from repro_torch.core.samplers import make_sampler
+    from repro_torch.launch.dryrun import LOCAL_STEPS
+    from repro_torch.models import transformer
+    from repro_torch.rng import PhiloxSource
+
+    dev = torch.device("cuda")
+    params = transformer.init_params(cfg, gen, dev)
+
+    def tokens(*shape):
+        return torch.randint(0, cfg.vocab, shape, dtype=torch.int32, device=dev, generator=gen)
+
+    if kind == "prefill":
+        return [params, tokens(batch, seq)]
+    if kind == "decode":
+        return [params, tokens(batch, 1), transformer.init_caches(cfg, batch, seq, device=dev)]
+    shape = (cohort, LOCAL_STEPS, batch // (cohort * LOCAL_STEPS), seq)
+    sampler = make_sampler("kvib", n=32, budget=6, horizon=2)
+    sel, _, _ = kvib_cohort(torch, sampler, sampler.init(dev), PhiloxSource(0, dev), 0, 32, cohort)
+    return [params, tokens(*shape), tokens(*shape), sel.weights]
+
+
+def cublas_workspace(torch) -> int:
+    """The bytes of one cuBLAS workspace: what a thread's first matmul on a
+    stream allocates for good (its handle's workspace), measured after
+    every workspace is freed."""
+    check(hasattr(torch._C, "_cuda_clearCublasWorkspaces"),
+          "this torch cannot free cuBLAS's workspaces (torch._C._cuda_clearCublasWorkspaces)")
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    before = torch.cuda.memory_allocated()
+    a = torch.ones(64, 64, dtype=torch.bfloat16, device="cuda")
+    out = a @ a
+    torch.cuda.synchronize()
+    del a, out
+    return torch.cuda.memory_allocated() - before
+
+
+def dryrun_step(torch, kernels, label: str, card: str, workspace: int) -> None:
+    """One step predicted, then run on the card: its peak (the card's
+    ``max_memory_allocated`` over a call after a warm-up, less what was
+    allocated before its arguments were made) against the count's
+    arguments + temporaries + the cuBLAS workspaces the step makes,
+    ``workspace`` bytes for each thread that runs its matmuls (the caller's,
+    and in a round the autograd engine's device thread, which runs the
+    backward); its time (median of 5 after a warm-up) against
+    ``max(compute_s, memory_s)`` at ``HW``; and kernels 6-8's launches
+    against the count's calls, exactly.  Every workspace is freed before
+    the step, and what the warm-up leaves allocated for good must be those
+    workspaces, exactly."""
+    from repro_torch.analysis.cost import count
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import InputShape
+    from repro_torch.launch import dryrun
+
+    arch, (kind, seq, batch), cohort = DRYRUN_STEPS[label]
+    cfg = get_config(arch)
+    fn, meta_args, tokens_processed = dryrun.setup(cfg, InputShape(label, seq, batch, kind), cohort)
+    t0 = time.perf_counter()
+    cost, _ = count(fn, *meta_args)
+    trace_s = time.perf_counter() - t0
+    threads = 2 if kind == "train" else 1
+    predicted = cost.argument_size_bytes + cost.temp_size_bytes + threads * workspace
+    roof = max(cost.flops / HW.peak_flops, cost.bytes_accessed / HW.hbm_bw)
+    bound_by = "compute" if cost.flops / HW.peak_flops >= cost.bytes_accessed / HW.hbm_bw else "memory"
+
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = dryrun_args(torch, cfg, kind, batch, seq, cohort,
+                       torch.Generator(device="cuda").manual_seed(0))
+    check([(t.shape, t.dtype) for t in _leaves(args)]
+          == [(t.shape, t.dtype) for t in _leaves(meta_args)],
+          f"{label}: the card's arguments differ from the setup's in shape or dtype")
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in _leaves(args)}
+    arg_bytes = sum(storages.values())
+    if kind == "decode":  # parameters and caches: the count's arguments exactly
+        check(arg_bytes == cost.argument_size_bytes,
+              f"{label}: arguments {arg_bytes} B on the card, {cost.argument_size_bytes} counted")
+    held = torch.cuda.memory_allocated()
+    out = fn(*args)  # warm-up: the first use of each shape
+    torch.cuda.synchronize()
+    del out
+    left = torch.cuda.memory_allocated() - held
+    check(left == threads * workspace,
+          f"{label}: the warm-up left {left} B allocated, {threads} cuBLAS workspace(s) are "
+          f"{threads * workspace} B")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    del out
+    times = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        del out
+    step_s = sorted(times)[2]
+    calls = {k: v["calls"] for k, v in cost.kernels.items()}
+    check(launches == calls, f"{label}: kernel launches {launches}, counted {calls}")
+    band = max(PEAK_BAND[0] * peak, PEAK_BAND[1])
+    print(f"{label} ({card}): {kind}, {cfg.name} bf16 full width{f', C={cohort}' if cohort else ''}"
+          f", B={batch} S={seq}: peak predicted {predicted / 1e9:.3f} GB (arguments "
+          f"{cost.argument_size_bytes / 1e9:.3f} + temporaries {cost.temp_size_bytes / 1e9:.3f} "
+          f"+ {threads} cuBLAS workspace(s) {threads * workspace / 1e6:.1f} MB) against the card's "
+          f"{peak / 1e9:.3f} GB ({predicted / peak - 1:+.2%}; arguments on the card "
+          f"{arg_bytes / 1e9:.3f}); step "
+          f"{step_s * 1e3:.3f} ms (median of 5 after a warm-up) "
+          f"against the roofline's {roof * 1e3:.3f} ms ({bound_by}: {cost.flops:.4g} FLOP, "
+          f"{cost.bytes_accessed:.4g} B eager) = {roof / step_s:.2%} of the roofline; kernel "
+          f"launches {launches} as counted; count {trace_s:.1f} s", flush=True)
+    check(abs(predicted - peak) <= band,
+          f"{label}: predicted peak {predicted / 1e9:.3f} GB, the card's {peak / 1e9:.3f} GB "
+          f"(band {band / 1e9:.3f} GB)")
+    del args
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase(torch, card: str) -> None:
+    """The dry run against the card: each of ``DRYRUN_STEPS`` predicted and
+    run (``dryrun_step``); then ``python -m repro_torch.launch.dryrun`` at
+    full width for ``DRYRUN_CLI`` as subprocesses (on the CPU, CUDA never
+    initialised) and ``python -m repro_torch.analysis.report`` over their
+    records, printed."""
+    phase("dryrun")
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    workspace = cublas_workspace(torch)
+    print(f"dryrun: one cuBLAS workspace {workspace} B ({workspace / 2**20:.2f} MiB)", flush=True)
+    for label in DRYRUN_STEPS:
+        dryrun_step(torch, kernels, label, card, workspace)
+    kernels.reset_launch_counts()  # measurements, not the path
+    out_dir = ROOT / "results" / "torch" / "smoke" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("*.json"):
+        old.unlink()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for arch, shape in DRYRUN_CLI:
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                               "--shape", shape], capture_output=True, text=True, timeout=300,
+                              env=env, cwd=str(ROOT))
+        check(proc.returncode == 0, f"launch.dryrun {arch} {shape}: {proc.stderr[-2000:]}")
+        record = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(record["status"] == "ok" and record["flops"] > 0 and record["bytes_accessed"] > 0,
+              f"launch.dryrun {arch} {shape}: {record.get('status')}")
+        (out_dir / f"{arch}__{shape}__sp.json").write_text(json.dumps(record, indent=1))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis.report", "--dir",
+                           str(out_dir)], capture_output=True, text=True, timeout=120, env=env,
+                          cwd=str(ROOT))
+    check(proc.returncode == 0 and "| 1xH100 | ok |" in proc.stdout,
+          f"analysis.report: {proc.stderr[-2000:]}")
+    print(proc.stdout, flush=True)
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # -- the train-to-serve loop ---------------------------------------------------
@@ -3848,17 +4012,27 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
-    ap.add_argument("--remat-only", default="", metavar="CELLS",
-                    help="run only the build and the remat phase with these cells (comma-"
-                    f"separated of {','.join(REMAT_CELLS)}) and print no result line")
+    ap.add_argument("--only", nargs="+", default=[], metavar="PHASE",
+                    help="run only the build and these phases, in this order, and print no "
+                    "result line: kernels, dryrun, remat (its default cells) or remat=CELLS "
+                    f"(comma-separated of {','.join(REMAT_CELLS)})")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is visible; nothing was run", file=sys.stderr)
         return 2
     card = device_phase(torch)
     build_phase()
-    if args.remat_only:
-        remat_phase(torch, card, [c for c in args.remat_only.split(",") if c])
+    if args.only:
+        for name in args.only:
+            name, _, cells = name.partition("=")
+            if name == "kernels":
+                kernel_phase(torch)
+            elif name == "dryrun":
+                dryrun_phase(torch, card)
+            elif name == "remat":
+                remat_phase(torch, card, [c for c in cells.split(",") if c] or REMAT_DEFAULT)
+            else:
+                raise SystemExit(f"chip_smoke: unknown phase {name!r} in --only")
         return 0
     rows, max_err, path_shape = kernel_phase(torch)
     launches, engines = path_phase(torch)
@@ -3878,6 +4052,7 @@ def main(argv=None) -> int:
         launches[k] += v
     remat_phase(torch, card)
     lint_phase(torch)
+    dryrun_phase(torch, card)
     autograd_phase(torch)
     agreement_phase(torch)
     trace_phase(torch, engines)

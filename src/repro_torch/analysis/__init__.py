@@ -17,11 +17,17 @@ port's performance claims rest on, over ATen graphs traced with
   (``audit_compile_once``).
 
 ``run_suite(spec)`` lints one spec, ``sweep_registry()`` the registry;
-``python -m repro_torch.analysis.lint`` is the CLI.  The reference's cost
-models (``analysis/hlo.py``, ``report.py``, ``roofline.py``) read XLA's HLO
-and are not here.  The lint names are loaded lazily, so importing this
-package loads no tracing machinery.
+``python -m repro_torch.analysis.lint`` is the CLI.
+
+The cost model: ``repro_torch.analysis.cost.count`` counts one step's
+eager ops on ``meta`` tensors (operations, bytes, memory; kernels 6-8 charged
+as their kernels), where the reference walks XLA's HLO (``analysis/hlo.py``
+has no counterpart); ``roofline`` projects a count on one H100's datasheet
+peaks (``HW``); ``report`` prints the dry run's tables
+(``launch.dryrun``).  The lint's and the count's names are loaded lazily,
+so importing this package loads no tracing machinery.
 """
+from repro_torch.analysis.roofline import HW, RooflineTerms, model_flops, roofline
 
 _LINT_EXPORTS = (
     "Finding",
@@ -35,7 +41,7 @@ _LINT_EXPORTS = (
     "sweep_registry",
 )
 
-__all__ = ["lint", *_LINT_EXPORTS]
+__all__ = ["HW", "RooflineTerms", "roofline", "model_flops", "count", "lint", *_LINT_EXPORTS]
 
 
 def __getattr__(name):
@@ -43,4 +49,8 @@ def __getattr__(name):
         import repro_torch.analysis.lint as _lint
 
         return _lint if name == "lint" else getattr(_lint, name)
+    if name == "count":
+        from repro_torch.analysis.cost import count
+
+        return count
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

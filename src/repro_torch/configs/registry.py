@@ -3,15 +3,21 @@
 Every zoo architecture of the reference is registered by name, and the port
 holds its own copy of each config.  ``llama3.2-1b-sw`` (the reference's
 ``SW_CONFIG``, all layers sliding-window) is registered by name here.
+``input_specs`` builds ``meta`` stand-ins for every model input of a given
+(arch, shape, step) combination: the dry run (``launch.dryrun``) counts a
+step against these without allocating.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
+import torch
+
 from repro_torch.models.common import ArchConfig
 
-__all__ = ["get_config", "has_arch", "list_archs", "INPUT_SHAPES", "ARCH_MODULES"]
+__all__ = ["get_config", "has_arch", "list_archs", "INPUT_SHAPES", "input_specs", "step_kind",
+           "ARCH_MODULES"]
 
 ARCH_MODULES = {
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
@@ -58,3 +64,49 @@ def has_arch(name: str) -> bool:
 
 def list_archs() -> list[str]:
     return list(ARCH_MODULES)
+
+
+def step_kind(cfg: ArchConfig, shape: InputShape) -> str | None:
+    """Which step a (arch, shape) pair counts; None means 'skip'
+    (long_500k only for the sub-quadratic archs, ``cfg.long_context_ok``)."""
+    if shape.name == "long_500k" and not cfg.long_context_ok:
+        return None
+    return shape.kind
+
+
+def _aux_embed_spec(cfg: ArchConfig, batch: int):
+    if not cfg.frontend:
+        return None
+    fd = cfg.frontend_dim or cfg.d_model
+    return torch.empty((batch, cfg.frontend_seq, fd), dtype=torch.float32, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape) -> dict:
+    """``meta`` inputs for one step.
+
+    train:   tokens/targets (global_batch, seq) int32 [+ frontend embeds]
+    prefill: tokens (global_batch, seq) int32 [+ frontend embeds]
+    decode:  token (global_batch, 1) int32 + caches(seq_len), unpaged, + index
+             (a host int: the port's ``decode_step`` takes the position on
+             the host)
+    """
+    kind = step_kind(cfg, shape)
+    if kind is None:
+        raise ValueError(f"{cfg.name} skips {shape.name}")
+    b, s = shape.global_batch, shape.seq_len
+    tok = dict(dtype=torch.int32, device="meta")
+    if kind in ("train", "prefill"):
+        specs = {"tokens": torch.empty((b, s), **tok)}
+        if kind == "train":
+            specs["targets"] = torch.empty((b, s), **tok)
+        aux = _aux_embed_spec(cfg, b)
+        if aux is not None:
+            specs["aux_embeds"] = aux
+        return specs
+    from repro_torch.models import transformer
+
+    return {
+        "token": torch.empty((b, 1), **tok),
+        "caches": transformer.init_caches(cfg, b, s, device="meta"),
+        "index": 0,
+    }

@@ -1,13 +1,45 @@
 """What the kernel wrappers share beside the build: the ticket counters of
 the kernels that finish a cross-block sum in their own launch (kernels
-2-5), and for kernels 6-8 when a call goes through their
+2-5); for kernels 6-8 when a call goes through their
 ```torch.autograd.Function``, the pieces of its ``vmap`` rules and the
-first-order-only call of its PyTorch backward."""
+first-order-only call of its PyTorch backward; and for kernels 6-8 on
+``meta`` tensors (``analysis.cost.count``'s dry run), the charge of a
+kernel's work to the active count in place of a launch."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ticket_counters", "needs_autograd", "batch_first", "vmap_loop", "first_order"]
+__all__ = [
+    "ticket_counters", "needs_autograd", "batch_first", "vmap_loop", "first_order",
+    "counted_meta", "meta_call", "COUNTS",
+]
+
+# The counts being taken (``analysis.cost.counting``), innermost last.  A
+# kernel wrapper called on ``meta`` tensors charges its kernel's work to the
+# innermost one (``meta_call``).  Each count pushes itself for the
+# length of its run and pops itself after.
+COUNTS: list = []
+
+
+def counted_meta(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``meta`` tensor while a count is taken: the one
+    device besides the CPU and CUDA that the wrappers take (the dry run's);
+    outside a count a ``meta`` tensor is refused as any other device."""
+    return bool(COUNTS) and t.is_meta
+
+
+def meta_call(name: str, tensors, work: tuple) -> None:
+    """A kernel call on ``meta`` tensors: nothing is launched.  ``tensors``
+    are the call's tensor arguments (all ``meta``: a real one would need a
+    real launch); ``work`` is the kernel's ``(operations, bytes)``, its
+    bytes read once and written once, charged to the innermost active
+    count.  The wrapper has allocated the kernel's outputs with their
+    shapes and dtypes; they hold no values."""
+    if not all(t.is_meta for t in tensors):
+        raise ValueError(f"{name}: meta and real tensors in one call")
+    if COUNTS:
+        COUNTS[-1].charge(name, *work)
+
 
 # Ticket counters, one int32 buffer per (device, stream).  A kernel's last
 # block to finish finds itself by an atomic ticket on a counter and sets it

@@ -23,6 +23,9 @@ the dtype and hd alone choose (``uses_tensor_cores``): bf16 with hd a
 multiple of 16 up to 128 runs on the tensor cores, f32 and any other hd on
 the CUDA cores.  Launches are counted in ``flash_attention.launches``,
 those of the tensor-core kernel also in ``flash_attention.launches_tc``.
+On ``meta`` tensors, while ``analysis.cost.count`` counts, the wrapper
+allocates the output and charges the kernel's ``work`` to the count instead
+of launching.
 
 On both devices a call that needs a gradient, or runs under
 ``torch.func.grad`` or ``vmap``, goes through one ``torch.autograd.Function``
@@ -47,12 +50,21 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._common import batch_first, first_order, needs_autograd, vmap_loop
+from repro_torch.kernels._common import (
+    batch_first,
+    counted_meta,
+    meta_call,
+    first_order,
+    needs_autograd,
+    vmap_loop,
+)
 from repro_torch.kernels.build import load_library
 
 __all__ = [
     "flash_attention",
     "attention_backward",
+    "attention_pairs",
+    "work",
     "uses_tensor_cores",
     "launch_counts",
     "reset_launch_counts",
@@ -82,11 +94,35 @@ def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
     return dtype == torch.bfloat16 and hd % 16 == 0 and 0 < hd <= MAX_TC_HEAD_DIM
 
 
+@functools.cache
+def attention_pairs(s_q: int, s_k: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through: the work this input needs."""
+    total = 0
+    for q in range(s_q):
+        hi = min(q, s_k - 1) if causal else s_k - 1
+        lo = max(0, q - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def work(q: torch.Tensor, k: torch.Tensor, causal: bool, window) -> tuple[int, int]:
+    """The kernel's work at this input, ``(operations, bytes)``: 4 hd
+    operations (two products of hd multiply-adds) per (query, key) pair the
+    mask lets through, for every query head; q, k, v read and the output
+    written once.  q (..., H, S_q, hd), k (..., KV, S_k, hd)."""
+    b, (h, s_q, hd), (kv, s_k) = q.shape[:-3].numel(), q.shape[-3:], k.shape[-3:-1]
+    pairs = attention_pairs(s_q, s_k, bool(causal), window)
+    return 4 * b * h * pairs * hd, b * (2 * s_q * h + 2 * s_k * kv) * hd * q.element_size()
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself if its pointer and (batch, head, seq) strides suit the
-    tensor-core kernel's 16-byte copies, else a contiguous copy."""
+    tensor-core kernel's 16-byte copies, else a contiguous copy.  A ``meta``
+    tensor has no pointer: its storage's base is taken as aligned, as the
+    caching allocator's are."""
     es = t.element_size()
-    if t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in t.stride()[:3]):
+    ptr = t.storage_offset() * es if t.is_meta else t.data_ptr()
+    if ptr % 16 == 0 and all(s * es % 16 == 0 for s in t.stride()[:3]):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -130,7 +166,7 @@ def flash_attention(
     (B, H / q_groups, S_k, hd); f32 or bf16, hd <= 256 on the GPU.  Returns
     q's shape and dtype (on the GPU with q's memory layout)."""
     _check(q, k, v, q_groups, window, softcap)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda") and not counted_meta(q):
         raise ValueError(f"unsupported device {q.device}")
     args = (q, k, v, bool(causal), None if window is None else int(window),
             None if softcap is None else float(softcap), int(q_groups))
@@ -222,6 +258,9 @@ def _launch(q, k, v, causal, window, softcap, q_groups) -> torch.Tensor:
     if max(b, s_q, s_k) >= 2**31 or h > 65535:
         raise ValueError(f"unsupported shape q {tuple(q4.shape)}, k {tuple(k4.shape)}")
     if out.numel() == 0:
+        return out if batched else out.squeeze(0)
+    if q4.is_meta:  # a dry run: nothing to launch on
+        meta_call("flash_attention", (q4, k4, v4), work(q4, k4, causal, window))
         return out if batched else out.squeeze(0)
     strides = (ctypes.c_int64 * 12)(*(s for t in (q4, k4, v4, out) for s in t.stride()[:3]))
     lib = _lib()

@@ -16,7 +16,9 @@ The TPU wrapper asserts ``R % block_rows == 0``; this one takes any R and D
 Dispatch is by the device of the tensors: on the CPU the wrapper computes
 the plain PyTorch version (``kernels.ref.rmsnorm_reference``); on a CUDA
 device it launches the kernel or raises, with no fallback.  Launches are
-counted in ``rmsnorm.launches``.
+counted in ``rmsnorm.launches``.  On ``meta`` tensors, while
+``analysis.cost.count`` counts, the wrapper allocates y and charges the
+kernel's ``work`` to the count instead of launching.
 
 On both devices a call that needs a gradient, or runs under
 ``torch.func.grad`` or ``vmap``, goes through one ``torch.autograd.Function``
@@ -42,10 +44,17 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._common import batch_first, first_order, needs_autograd, vmap_loop
+from repro_torch.kernels._common import (
+    batch_first,
+    counted_meta,
+    meta_call,
+    first_order,
+    needs_autograd,
+    vmap_loop,
+)
 from repro_torch.kernels.build import load_library
 
-__all__ = ["rmsnorm", "launch_counts", "reset_launch_counts"]
+__all__ = ["rmsnorm", "work", "launch_counts", "reset_launch_counts"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -70,11 +79,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
         raise ValueError(f"x and scale must be f32 or bf16, got {x.dtype} and {scale.dtype}")
     if scale.device != x.device:
         raise ValueError(f"scale is on {scale.device}, x on {x.device}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not counted_meta(x):
         raise ValueError(f"unsupported device {x.device}")
     if needs_autograd(x, scale):
         return _RMSNorm.apply(x, scale, float(eps))
     return _RMSNorm.forward(x, scale, float(eps))
+
+
+def work(x: torch.Tensor, scale: torch.Tensor) -> tuple[int, int]:
+    """The kernel's work at this input, ``(operations, bytes)``: ~4 f32
+    operations an element; x read and y written once, scale read once."""
+    r, d = x.shape
+    return 4 * r * d, 2 * r * d * x.element_size() + d * scale.element_size()
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -84,6 +100,9 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     x, scale = x.contiguous(), scale.contiguous()
     y = torch.empty_like(x)
     if r == 0:
+        return y
+    if x.is_meta:  # a dry run: nothing to launch on
+        meta_call("rmsnorm", (x, scale), work(x, scale))
         return y
     lib = _lib()
     with torch.cuda.device(x.device):

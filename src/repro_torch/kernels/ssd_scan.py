@@ -23,7 +23,9 @@ Beyond the TPU kernel's (BH, S, hd) and (BH, S, N) it takes:
 Dispatch is by the device of the tensors: on the CPU the wrapper computes
 the plain PyTorch version (``kernels.ref.ssd_scan_reference``); on a CUDA
 device it launches the kernel or raises, with no fallback.  Launches are
-counted in ``ssd_scan.launches``.
+counted in ``ssd_scan.launches``.  On ``meta`` tensors, while
+``analysis.cost.count`` counts, the wrapper allocates y and the state and
+charges the kernel's ``work`` to the count instead of launching.
 
 On both devices a call that needs a gradient, or runs under
 ``torch.func.grad`` or ``vmap``, goes through one ``torch.autograd.Function``
@@ -47,10 +49,16 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._common import batch_first, needs_autograd, vmap_loop
+from repro_torch.kernels._common import (
+    batch_first,
+    counted_meta,
+    meta_call,
+    needs_autograd,
+    vmap_loop,
+)
 from repro_torch.kernels.build import load_library
 
-__all__ = ["ssd_scan", "launch_counts", "reset_launch_counts"]
+__all__ = ["ssd_scan", "ssd_ops", "work", "launch_counts", "reset_launch_counts"]
 
 MAX_CHUNK = 128  # the CUDA kernel's largest chunk (its (Q, Q) score tile)
 MAX_STATE = 128  # the CUDA kernel's largest N (its state update's row tiles a warp)
@@ -105,12 +113,38 @@ def ssd_scan(
     Returns y (x's shape and dtype; on the GPU with x's memory layout) and,
     with ``return_state``, the final state (BH, hd, N) f32."""
     _check(x, da, b, c, chunk)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not counted_meta(x):
         raise ValueError(f"unsupported device {x.device}")
     args = (x, da, b, c, int(chunk), bool(return_state))
     if needs_autograd(x, da, b, c):
         return _SSDScan.apply(*args)
     return _SSDScan.forward(*args)
+
+
+def ssd_ops(s: int, hd: int, n: int, q: int, rows: int, bc_rows: int) -> int:
+    """Operations the SSD scan needs over ``rows`` rows reading ``bc_rows``
+    rows of b and c, for the steps each chunk of this input holds.  Per
+    chunk of qn steps: the causal half of the scores x X, qn (qn + 1) hd,
+    and the inter-chunk term and state update, 4 qn N hd, for every row;
+    the causal half of C B^T, qn (qn + 1) N, once a b/c row (the heads that
+    share b and c share it).  Elementwise exps and scalings are left out."""
+    per_row = per_bc = 0
+    for s0 in range(0, s, q):
+        qn = min(q, s - s0)
+        per_row += qn * (qn + 1) * hd + 4 * qn * n * hd
+        per_bc += qn * (qn + 1) * n
+    return rows * per_row + bc_rows * per_bc
+
+
+def work(x, da, b, chunk: int, return_state: bool) -> tuple[int, int]:
+    """The kernel's work at this input, ``(operations, bytes)``:
+    ``ssd_ops``; x, da, b and c read once, y and (with ``return_state``)
+    the f32 state written once.  x (..., S, hd), da x.shape[:-1], b and c
+    (R, S, N)."""
+    (s, hd), bh, (r, n) = x.shape[-2:], x.shape[:-2].numel(), (b.shape[0], b.shape[2])
+    n_bytes = (2 * bh * s * hd * x.element_size() + bh * s * da.element_size()
+               + 2 * r * s * n * b.element_size() + (bh * hd * n * 4 if return_state else 0))
+    return ssd_ops(s, hd, n, min(chunk, s), bh, r), n_bytes
 
 
 def _launch(x, da, b, c, chunk: int, return_state: bool):
@@ -129,6 +163,10 @@ def _launch(x, da, b, c, chunk: int, return_state: bool):
         raise ValueError(f"unsupported shape x {tuple(x.shape)}")
     y4 = torch.empty_like(x4)  # a dense x keeps its layout (preserve_format)
     state = torch.empty((bh, hd, n), dtype=torch.float32, device=x.device) if return_state else None
+    if x4.is_meta:  # a dry run: nothing to launch on
+        meta_call("ssd_scan", (x4, da4, b, c), work(x4, da4, b, q, return_state))
+        y = y4 if x.dim() == 4 else y4.squeeze(1)
+        return (y, state) if return_state else y
     strides = (ctypes.c_int64 * 13)(
         *x4.stride()[:3], *y4.stride()[:3], *da4.stride(), *b.stride()[:2], *c.stride()[:2]
     )

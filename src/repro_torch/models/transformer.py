@@ -528,8 +528,9 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, page_size: int | None
     switches the attention caches to the paged layout
     (``attention.init_paged_kv_cache``).  The recurrent states (Mamba2,
     mLSTM, sLSTM) and the fixed-width cross caches are O(1) in the sequence
-    and are never paged."""
-    dev = resolve_device(device)
+    and are never paged.  ``device="meta"``: shapes and dtypes only (the
+    dry run's caches)."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     reps = cfg.pattern_repeats()
 
     def kv_cache():

@@ -35,6 +35,7 @@ from test_torch_zoo_round import (  # noqa: E402
     check_round_step,
     check_run,
     check_run_on_card,
+    one_intraop_thread,  # noqa: F401  (the module's autouse fixture)
     spec_dict,
     zoo_replay,
 )

@@ -25,6 +25,7 @@ from repro_torch.examples import fed_lm  # noqa: E402
 from repro_torch.fed.tasks import tree_leaves  # noqa: E402
 from test_torch_paper_examples import ROOT, _Hist, _load, ref_example  # noqa: E402
 from test_torch_slice import METRIC_TOL, jax_replay  # noqa: E402
+from test_torch_zoo_round import one_intraop_thread  # noqa: E402,F401  (autouse)
 
 
 def reference_specs(argv, monkeypatch) -> list:
@@ -81,6 +82,28 @@ def test_zoo_tasks_match_the_reference_config():
     assert "zoo_reduced_lm" in api.task_names() and "smollm_reduced_lm" in api.task_names()
 
 
+@pytest.fixture(scope="module")
+def shared_runs():
+    """``api.run(spec, device)`` once a spec for the module: the
+    ``fed_lm.main`` calls of ``test_tiny_and_zoo_run_on_the_cpu`` and
+    ``test_zoo_families_run`` run the same zoo cells (kvib, 2 rounds, N = 8,
+    the same cut flags), each family once in all.  Runs with other
+    arguments (a replayed source) go through as they are."""
+    run, memo = api.run, {}
+
+    def once(spec, device, **kw):
+        if kw:
+            return run(spec, device, **kw)
+        key = (spec.to_json(), str(device))
+        if key not in memo:
+            memo[key] = run(spec, device)
+        return memo[key]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(api, "run", once)
+        yield memo
+
+
 def _finite_runs(res, keys):
     assert sorted(res["runs"]) == sorted(keys)
     for run in res["runs"].values():
@@ -89,7 +112,7 @@ def _finite_runs(res, keys):
             assert all(math.isfinite(x) for x in run[field])
 
 
-def test_tiny_and_zoo_run_on_the_cpu(tmp_path, capsys):
+def test_tiny_and_zoo_run_on_the_cpu(tmp_path, capsys, shared_runs):
     small = ["--device", "cpu", "--rounds", "2", "--clients", "8", "--budget", "2",
              "--seq", "16", "--vocab", "64"]
     tiny = fed_lm.main(small + ["--samplers", "kvib", "vrb", "--out", str(tmp_path / "t.json")])
@@ -131,7 +154,7 @@ def test_zoo_cell_matches_reference(arch):
     ["--model", "zoo", "--archs", "smollm", "xlstm"],
     ["--model", "zoo"],
 ], ids=["moe", "smollm_xlstm", "default_archs"])
-def test_zoo_families_run(argv, monkeypatch, tmp_path, capsys):
+def test_zoo_families_run(argv, monkeypatch, tmp_path, capsys, shared_runs):
     """The argument lists the port refused before the moe and xlstm families
     were ported: their specs equal the reference's, they run on the CPU
     (rounds and clients cut, one sampler), and the reference's table prints

@@ -31,6 +31,7 @@ from repro_torch.api import ExperimentSpec  # noqa: E402
 from repro_torch.checkpoint import config_fingerprint  # noqa: E402
 from repro_torch.checkpoint.checkpointer import tree_flatten  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from test_torch_zoo_round import one_intraop_thread  # noqa: E402,F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = str(ROOT / "src")

@@ -18,6 +18,7 @@ moe and xlstm families) go through the same checks in
 ``tests/test_torch_families_round.py``.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -41,6 +42,22 @@ from repro_torch.fed.state import run_segmented  # noqa: E402
 from repro_torch.fed.tasks import params_to_numpy, tree_leaves  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.rng import PhiloxSource, ReplaySource  # noqa: E402
+
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_intraop_thread():
+    """These reduced models run thousands of small ops.  With several test
+    workers on one machine, PyTorch's default of one intra-op thread a core
+    makes every parallel op wait on threads of its own that another process
+    holds: on 8 cores, six concurrent copies of one launcher test took 222 s
+    each with the default and 3.5 s each with one thread.  One thread for
+    this module's tests, the default after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 ROUNDS = 3
 # f32, XLA against ATen: sums in other orders, a few ulps an op over two
@@ -81,6 +98,12 @@ def spec_dict(arch="smollm", *, rounds=ROUNDS, sampler="kvib", **sections) -> di
     return d
 
 
+def ref_init(cfg, key):
+    """The reference's ``init_params(cfg, key)``, jitted: eager, its many
+    small ops take seconds; the draws are the same bits either way."""
+    return jax.jit(lambda k: ref_tf.init_params(cfg, k))(key)
+
+
 _STANDARD = {  # the latency family's standard variate, as the reference draws it
     "exponential": lambda key, shape: jax.random.exponential(key, shape, jnp.float32),
     "uniform": lambda key, shape: jax.random.uniform(key, shape, jnp.float32),
@@ -96,7 +119,7 @@ def zoo_replay(built, device="cpu") -> ReplaySource:
     r, b = rs.local_steps, rs.local_batch
     sizes = jnp.asarray(built.dataset.sizes)
     key = jax.random.PRNGKey(spec.execution.seed)
-    init = jax.tree_util.tree_map(np.asarray, ref_tf.init_params(built.arch_config, key))
+    init = jax.tree_util.tree_map(np.asarray, ref_init(built.arch_config, key))
 
     def client_idx(k_data, cid):
         keys = jax.random.split(jax.random.fold_in(k_data, cid), r)
@@ -184,13 +207,15 @@ def assert_runs_match(got, want, replay=None, step=None, elementwise=False):
 # -- the round step ------------------------------------------------------------
 
 
+@functools.cache
 def _round_inputs(arch: str, c: int = 3, seed: int = 0):
     """The reference's weights in both packages, (C, R, B, S) tokens and
-    targets, and cohort weights with slot 1 at zero."""
+    targets, and cohort weights with slot 1 at zero; made once an arch for
+    the round-step and round-mode checks, which read them only."""
     name, kwargs = {**ARCHS, **FAMILY_ARCHS}[arch]
     ref_cfg = ref_get_config(name).reduced(**kwargs)
     cfg = get_config(name).reduced(**kwargs)
-    ref_params = ref_tf.init_params(ref_cfg, jax.random.PRNGKey(seed))
+    ref_params = ref_init(ref_cfg, jax.random.PRNGKey(seed))
     params = transformer.params_from_reference(
         jax.tree_util.tree_map(np.asarray, ref_params), cfg, "cpu")
     rng = np.random.default_rng(seed + 1)
