@@ -32,6 +32,20 @@ Phases, each failing loudly (non-zero exit, no result line):
    final state, each kernel-8 row with its bound at the TF32 tensor-core
    rate and at the f32 rate; kernel 6's host time a call at decode's shape,
    through the wrapper and through ``torch.autograd.Function.apply``;
+   ranks — the client axis over two ranks: (r1) femnist v1 oracle with
+   K-Vib, 5 rounds (kernel 1 at (2, 100) x (100, 44,308) a rank), (r2) (h)
+   with int8 deltas and error feedback (kernel 4 on a rank's slots) and
+   (r2') (h) itself, (r3) smollm-360m whole, client_parallel, C = 4, 2
+   rounds (kernel 2 on a rank's slots) and (r3') its two layers in f32,
+   (r4) gemma2-27b one pattern deep, cohort_sequential, C = 1, one round,
+   and (r4') gemma2 reduced in f32 at local batch 3, each through
+   ``api.run`` in this process (S = 1) and in two processes over gloo on
+   the card with ``execution.mesh_shape=(2, 1)`` (this script with
+   ``--ranks-worker``): counts and cohorts exact, floats within each row's
+   tolerance, both ranks bitwise equal, every rank's kernel launches exact
+   (kernel 5's ladder on each rank's block), collectives a round, each
+   rank's resident (N,) bytes and seconds both ways
+   (``--only ranks`` runs the build and this phase alone);
 4. path — ``repro_torch.api.run(spec)`` with no device argument (so on the
    GPU) for the paper's logistic-regression spec and the tiny-LM spec in
    oracle and deployable mode, three compressed specs (int8 / fp8 deltas,
@@ -60,8 +74,8 @@ Phases, each failing loudly (non-zero exit, no result line):
    2) once a round, seconds a round on the card;
    examples — the paper's four examples (``repro_torch.examples``) on the
    card at full width, rounds cut (quickstart at its defaults,
-   synthetic_regret 60 rounds and one seed, budget_sweep 60 rounds,
-   femnist_style 30 rounds), then ``repro_torch.bench.tables`` on their
+   synthetic_regret 60 rounds and one seed, budget_sweep 30 rounds,
+   femnist_style 15 rounds), then ``repro_torch.bench.tables`` on their
    JSON: every fig2 / fig3b / fig4 row present and finite, kernel 1 once a
    round, each spec's wall seconds after a warm-up;
    checkpoint — the deployable tiny LM with K-Vib, the logreg oracle with
@@ -143,6 +157,7 @@ line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -251,6 +266,67 @@ def build_phase():
     print(f"SASS HMMA per ssd_scan kernel: {hmma}")
     check(bool(hmma) and all(n > 0 for n in hmma.values()),
           "an ssd_scan kernel holds no HMMA instruction (kernel 8 runs on the tensor cores)")
+
+
+# CPU-only subprocesses (the lint sweep, the dry-run CLI) never touch the
+# card: they start right after the build, one after another on a thread
+# with two intra-op threads each, and run beside the card's phases; the
+# phase that reads one waits for it.
+DRYRUN_CLI = (("xlstm-125m", "decode_32k"), ("smollm-360m", "train_4k"))
+CPU_JOBS = {
+    "lint": ["-m", "repro_torch.analysis.lint", "--fast", "--quiet"],
+    **{f"dryrun {arch} {shape}": ["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                                  "--shape", shape] for arch, shape in DRYRUN_CLI},
+}
+_CPU_RESULTS: dict = {}
+_CPU_PROCS: list = []
+
+
+@atexit.register
+def _stop_cpu_jobs() -> None:
+    """The script exits with no job of its own left running."""
+    for p in _CPU_PROCS:
+        if p.poll() is None:
+            p.kill()
+
+
+def start_cpu_jobs(names) -> None:
+    """Run ``CPU_JOBS[name]`` for each of ``names``, in order, on a thread:
+    each result ``(returncode, stdout, stderr, seconds)`` lands in
+    ``_CPU_RESULTS`` behind an event."""
+    import threading
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "2",
+           "CUDA_VISIBLE_DEVICES": ""}
+    for name in names:
+        _CPU_RESULTS[name] = [threading.Event(), None]
+
+    def run():
+        for name in names:
+            t0 = time.perf_counter()
+            p = subprocess.Popen([sys.executable, *CPU_JOBS[name]], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+            _CPU_PROCS.append(p)
+            try:
+                out, err = p.communicate(timeout=600)
+                res = (p.returncode, out, err)
+            except subprocess.TimeoutExpired as e:
+                p.kill()
+                res = (-1, "", f"timed out after {e.timeout} s")
+            _CPU_RESULTS[name][1] = (*res, time.perf_counter() - t0)
+            _CPU_RESULTS[name][0].set()
+
+    threading.Thread(target=run, daemon=True).start()
+
+
+def cpu_job(name: str) -> tuple:
+    """``CPU_JOBS[name]``'s ``(returncode, stdout, stderr, seconds)``: the
+    background run's, waited for, or run here when none was started."""
+    if name not in _CPU_RESULTS:
+        start_cpu_jobs([name])
+    event, result = _CPU_RESULTS[name]
+    event.wait()
+    return _CPU_RESULTS[name][1]
 
 
 def sass_counts(library: str, opcode: str) -> dict:
@@ -959,6 +1035,327 @@ def ssd_kernel_phase(torch, gen, flush, max_err):
     return rows
 
 
+# -- 3b. ranks: the client axis over two processes -----------------------------
+
+# (r1)-(r4): each spec runs once in this process (S = 1) and once on two
+# ranks (mesh_shape (2, 1), gloo, both processes on the one card); counts
+# and cohorts exactly, both ranks bitwise equal.  f32 runs hold every float
+# to 1e-5 of its array's largest magnitude, the parameters of each leaf.
+# The bf16 runs at full width hold their losses to 1e-3 and each parameter
+# leaf's difference norm to 5e-2 of its norm: a client's update is
+# x0 - xR in bf16, where an update below a weight's bf16 step rounds to
+# zero or one step, so two runs whose GEMMs round differently (a vmap of 2
+# slots against one of 4) differ by whole steps of their smallest updates
+# (on an H100: (r3)'s worst leaf 1.8e-2, (r4)'s 5.5e-3).  Each also
+# runs in f32 ((r3') two layers at full width, (r4') reduced), held to
+# 1e-5.  (r2) with int8 deltas and error feedback: the int8 codes of a
+# round's aggregate (the async ring) and of its deltas flip where the
+# reduced sums, added in another order, sit at a rounding boundary, and a
+# flipped code moves its entry by a quantization step; its losses are held
+# to 1e-3 and its parameter gap is printed beside the ring's flipped codes,
+# not gated.  (r2') is (r2) without compression, at 1e-5.
+RANKS = 2
+RANKS_TIMEOUT_S = 600
+RANKS_SAMPLE = 1 << 20  # parameter entries compared a leaf (a strided sample past that)
+F32_TOL, BF16_TOL, INT8_TOL = ("f32", 1e-5, 1e-5), ("bf16", 1e-3, 5e-2), ("int8", 1e-3, None)
+SMALL_GEMMA = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab=512,
+                   head_dim=64)
+
+
+def ranks_specs(api) -> list:
+    """(label, spec, (kind, float tolerance, parameter tolerance)) of the
+    ranks phase."""
+    from argparse import Namespace
+
+    from repro_torch.examples import femnist_style
+
+    lm_deploy = dict((label, spec) for label, spec, _ in path_specs(api))["tiny_lm deployable"]
+    h = faulted_lm(api, lm_deploy)
+    smollm = zoo_spec(api, "smollm-360m", rounds=2, clients=32, budget=6, cohort=4)
+    gemma = zoo_spec(api, "gemma2-27b", kwargs=GEMMA_PATTERN, rounds=1, clients=32, budget=3,
+                     cohort=1, federation={"local_steps": 1})
+    return [
+        ("(r1) femnist v1 oracle kvib", femnist_style.spec_for(Namespace(rounds=ROUNDS), "v1",
+                                                              "kvib"), F32_TOL),
+        ("(r2) tiny_lm deployable markov+deadline+async int8+EF",
+         with_sections(api, h, compression={"delta_dtype": "int8"}), INT8_TOL),
+        ("(r2') (r2) uncompressed", h, F32_TOL),
+        ("(r3) smollm-360m client_parallel C=4", smollm, BF16_TOL),
+        ("(r3') smollm-360m 2 layers f32", zoo_spec(
+            api, "smollm-360m", rounds=2, clients=32, budget=6, cohort=4, kwargs=AGREE_KW),
+         F32_TOL),
+        ("(r4) gemma2-27b one pattern cohort_sequential C=1", gemma, BF16_TOL),
+        ("(r4') gemma2-27b reduced f32, local batch 3", zoo_spec(
+            api, "gemma2-27b", kwargs=SMALL_GEMMA, rounds=2, clients=32, budget=3, cohort=2,
+            federation={"batch_size": 3}), F32_TOL),
+    ]
+
+
+def ranks_launches(cfg, spec, ranks: int) -> dict:
+    """Kernel launches of one run of ``spec`` on each of ``ranks`` ranks:
+    the task round's aggregation kernel (kernel 1 oracle, and deployable
+    over S > 1 ranks, whose error norm is taken after the reduce; kernel 2
+    deployable on one; kernel 4 compressed, twice a round over S > 1), kernel 5's five ladder passes per
+    split solve (the sampler's, and the regret's optimum in oracle mode),
+    the zoo round's kernels 6-7 on the rank's slots (client_parallel) or
+    every slot (cohort_sequential) and kernel 2 once a round on the rank's
+    slots (client_parallel, S > 1)."""
+    t = spec.federation.rounds
+    split = ranks > 1
+    # The sampler's solve runs the ladder when it is split or sampler_axis is
+    # set; the regret's optimum (oracle task runs) only when split.
+    oracle = spec.task.kind == "task" and spec.execution.oracle_metrics
+    solves = int(split or spec.execution.sampler_axis is not None) + int(split and oracle)
+    want = {"waterfill_level_stats": LADDER_PASSES * t * solves}
+    if spec.task.kind == "task":
+        if spec.compression.enabled:
+            want["fused_dequant_cohort_agg"] = t * (2 if split else 1)
+        elif spec.execution.oracle_metrics or split:  # kernel 1's rows w and w - lam over S > 1
+            want["fused_multi_weighted_agg"] = t
+        else:
+            want["fused_cohort_agg_and_error"] = t
+        return want
+    c = spec.federation.cohort
+    if cfg.round_mode == "client_parallel":
+        c = -(-c // ranks)
+        want["fused_cohort_agg_and_error"] = t if split else 0
+    per_round = zoo_launches_per_round(cfg, c, spec.federation.local_steps)
+    want.update({k: t * v for k, v in per_round.items()})
+    return want
+
+
+def ranks_run(torch, spec) -> dict:
+    """One run of ``spec`` on this process through ``api.run`` (the card):
+    History and final parameters as numpy, kernel launches, collectives,
+    the wall seconds, the peak bytes allocated, and the bytes of the (N,)
+    leaves the run's last state holds (the sampler's, the Markov chain,
+    the score history)."""
+    import numpy as np
+
+    import repro_torch.api.runner as runner_mod
+    import repro_torch.fed.server as server_mod
+    from repro_torch import api, kernels
+    from repro_torch.launch import mesh
+
+    states = []
+
+    def spy(real):
+        def run_segmented(*a, **k):
+            states.append(real(*a, **k))
+            return states[-1]
+        return run_segmented
+
+    saved = (runner_mod.run_segmented, server_mod.run_segmented)
+    runner_mod.run_segmented = spy(saved[0])
+    server_mod.run_segmented = spy(saved[1])
+    try:
+        built = api.build(spec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        mesh.reset_collective_counts()
+        t0 = time.perf_counter()
+        hist = api.run(spec, built=built)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        runner_mod.run_segmented, server_mod.run_segmented = saved
+    st = states[-1]
+    n_leaves = [x for x in (st.sampler.stats, st.sampler.aux)]
+    if isinstance(st.faults, dict) and "chain" in st.faults:
+        n_leaves.append(st.faults["chain"])
+    if "scores" in st.metrics:
+        n_leaves.append(st.metrics["scores"])
+    ring = st.faults.get("buf", {}) if isinstance(st.faults, dict) else {}
+    out = {
+        "loss": np.asarray(hist.train_loss, np.float64),
+        "cohort": np.asarray(hist.cohort_size, np.int64),
+        "dropped": np.asarray(hist.cohort_dropped, np.int64),
+        "deadline_dropped": np.asarray(hist.deadline_dropped, np.int64),
+        "sq_error": np.asarray(hist.estimator_sq_error, np.float64),
+        "wall_s": np.asarray(wall),
+        "peak_bytes": np.asarray(peak),
+        "n_bytes": np.asarray(sum(x.numel() * x.element_size() for x in n_leaves)),
+        "n_shapes": np.asarray([list(x.shape)[-1] for x in n_leaves]),
+    }
+    if ring.get("delta") is not None and ring["delta"].dtype == torch.int8:
+        out["ring_codes"] = ring["delta"].to(torch.int16).cpu().numpy()
+    if hist.regret is not None and hist.regret.costs:
+        out["cost"] = np.asarray(hist.regret.costs, np.float64)
+        out["opt_cost"] = np.asarray(hist.regret.opt_costs, np.float64)
+    named = _named_leaves(hist.final_params)
+    for i, (_, leaf) in enumerate(named):
+        flat = np.asarray(leaf, np.float32).reshape(-1)
+        # The same strided sample at S = 1 and S = 2: at most 2^20 entries a
+        # leaf cross the processes (gemma2's one pattern holds 2.3e9).
+        out[f"param_{i:04d}"] = flat[::-(-flat.size // RANKS_SAMPLE)]
+    out["param_names"] = np.asarray([name for name, _ in named])
+    counts = kernels.launch_counts()
+    out["launch_names"] = np.asarray(sorted(counts))
+    out["launches"] = np.asarray([counts[k] for k in sorted(counts)])
+    coll = mesh.collective_counts()
+    out["collective_names"] = np.asarray(sorted(coll))
+    out["collectives"] = np.asarray([coll[k] for k in sorted(coll)])
+    del hist, built, states
+    runner_mod._DATASET_CACHE.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ranks_worker(rank: int, port: int, specs_path: str, out_dir: str) -> int:
+    """One rank of the ranks phase (``chip_smoke.py --ranks-worker``): joins
+    the two-rank gloo group and runs every spec, each result an npz."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.examples import femnist_style  # noqa: F401  (registers "vision_like")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=RANKS,
+                            rank=rank, timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+    try:
+        for i, d in enumerate(json.loads(Path(specs_path).read_text())):
+            out = ranks_run(torch, api.ExperimentSpec.from_dict(d))
+            np.savez(Path(out_dir) / f"run{i}_r{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _rel(a, b) -> float:
+    import numpy as np
+
+    if a.size == 0:
+        return 0.0
+    return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+
+
+def ranks_phase(torch, card: str) -> dict:
+    """Each of (r1)-(r4) at S = 1 here, then on two ranks
+    (``execution.mesh_shape=(2, 1)``, gloo, two processes on the card):
+    agreement, the kernels each rank launched, collectives a round, each
+    rank's resident (N,) bytes, seconds a run both ways.  Returns the
+    launches of the S = 2 runs, both ranks'."""
+    phase("ranks")
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import api, kernels
+
+    specs = ranks_specs(api)
+    launches = {k: 0 for k in kernels.launch_counts()}
+    ones = []
+    for label, spec, _ in specs:
+        ones.append(ranks_run(torch, spec))
+        print(f"{label}: S=1 on the card {float(ones[-1]['wall_s']):.3f} s "
+              f"({spec.federation.rounds} rounds)", flush=True)
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="ranks_"))
+    split = [with_sections(api, spec, execution={"mesh_shape": [RANKS, 1]}).to_dict()
+             for _, spec, _ in specs]
+    (tmp / "specs.json").write_text(json.dumps(split))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--ranks-worker", str(r), str(port),
+         str(tmp / "specs.json"), str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(RANKS)]
+    try:
+        logs = [p.communicate(timeout=RANKS_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"ranks: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    print(f"ranks: two processes over gloo on one card, {time.perf_counter() - t0:.1f} s "
+          "from start to exit", flush=True)
+    from repro_torch.api.runner import build as api_build
+
+    failures = []
+
+    def expect(cond: bool, msg: str) -> None:
+        if not cond:
+            failures.append(msg)
+            print(f"FAILED: {msg}", flush=True)
+
+    for i, ((label, spec, tols), one) in enumerate(zip(specs, ones)):
+        res = [dict(np.load(tmp / f"run{i}_r{r}.npz")) for r in range(RANKS)]
+        r0 = res[0]
+        for k in r0:
+            expect(np.array_equal(r0[k], res[1][k]) or
+                   k in ("wall_s", "peak_bytes", "n_bytes", "n_shapes"),
+                   f"{label}: the ranks differ in {k}")
+        for k in ("cohort", "dropped", "deadline_dropped"):
+            expect(np.array_equal(r0[k], one[k]), f"{label}: {k} {r0[k]} at S=2, {one[k]} at S=1")
+        diffs = {k: _rel(r0[k], one[k]) for k in ("loss", "sq_error", "cost", "opt_cost")
+                 if k in one}
+        kind, f_tol, p_tol = tols
+        keys = sorted(k for k in one if k.startswith("param_") and k != "param_names")
+        if kind == "bf16":  # each leaf's difference norm over its norm
+            gaps = [float(np.linalg.norm(r0[k] - one[k])) /
+                    max(float(np.linalg.norm(one[k])), 1e-30) for k in keys]
+        else:
+            gaps = [_rel(r0[k], one[k]) for k in keys]
+        worst = int(np.argmax(gaps))
+        params = gaps[worst]
+        differ = sum(int((r0[k] != one[k]).sum()) for k in keys)
+        total = sum(one[k].size for k in keys)
+        how = (f"{'difference norm over its norm' if kind == 'bf16' else 'of its largest entry'}"
+               f" in {one['param_names'][worst]} (norm {float(np.linalg.norm(one[keys[worst]])):.3g})"
+               f"; {differ} of {total} compared entries differ, at most {RANKS_SAMPLE} a leaf")
+        for k, v in diffs.items():
+            expect(v <= f_tol, f"{label}: {k} differs by {v:.3g} of its scale (tolerance {f_tol})")
+        expect(p_tol is None or params <= p_tol,
+               f"{label}: parameters differ by {params:.3g} (tolerance {p_tol})")
+        flips = ""
+        if "ring_codes" in one:
+            delta = np.abs(r0["ring_codes"].astype(np.int32) - one["ring_codes"])
+            flips = (f"; the async ring's int8 codes: {int((delta > 0).sum())} of {delta.size} "
+                     f"differ, by at most {int(delta.max())}")
+        cfg = api_build(spec).arch_config if spec.task.kind == "zoo" else None
+        names = [str(k) for k in r0["launch_names"]]
+        for r, rr in enumerate(res):
+            got = {k: int(v) for k, v in zip(names, rr["launches"])}
+            want = {k: 0 for k in names}
+            want.update(ranks_launches(cfg, spec, RANKS))
+            expect(got == want, f"{label}: rank {r} launched {got}, expected {want}")
+            for k, v in got.items():
+                launches[k] += v
+        one_got = {str(k): int(v) for k, v in zip(one["launch_names"], one["launches"])}
+        want1 = {k: 0 for k in one_got}
+        want1.update(ranks_launches(cfg, spec, 1))
+        expect(one_got == want1, f"{label}: S=1 launched {one_got}, expected {want1}")
+        rounds = spec.federation.rounds
+        coll = {str(k): int(v) / rounds for k, v in zip(r0["collective_names"], r0["collectives"])}
+        print(f"{label}: S=2 against S=1, largest difference over its scale "
+              f"{ {k: float(f'{v:.3g}') for k, v in diffs.items()} } params {params:.3g} "
+              f"({how}); "
+              f"cohorts {r0['cohort'].tolist()}; collectives a round {coll}; resident (N,) "
+              f"bytes S=1 {int(one['n_bytes'])} rank 0 {int(r0['n_bytes'])} rank 1 "
+              f"{int(res[1]['n_bytes'])} (rows {one['n_shapes'].tolist()} -> "
+              f"{r0['n_shapes'].tolist()} / {res[1]['n_shapes'].tolist()}); wall s S=1 "
+              f"{float(one['wall_s']):.3f} S=2 rank 0 {float(r0['wall_s']):.3f} rank 1 "
+              f"{float(res[1]['wall_s']):.3f} (both ranks share the card: no speed-up); peak "
+              f"bytes allocated S=1 {int(one['peak_bytes'])} rank 0 {int(r0['peak_bytes'])} "
+              f"rank 1 {int(res[1]['peak_bytes'])}; "
+              f"launches a rank { {k: v for k, v in got.items() if v} }{flips}; card: {card}",
+              flush=True)
+    check(not failures, "ranks: " + "; ".join(failures))
+    return launches
+
+
 # -- 4. path ------------------------------------------------------------------
 
 
@@ -1221,8 +1618,8 @@ def samplers_phase(torch, card: str) -> dict:
 EXAMPLE_RUNS = [
     ("quickstart", [], "quickstart.json"),
     ("synthetic_regret", ["--rounds", "60", "--seeds", "1"], "synthetic.json"),
-    ("budget_sweep", ["--rounds", "60"], "budget.json"),
-    ("femnist_style", ["--rounds", "30"], "femnist.json"),
+    ("budget_sweep", ["--rounds", "30"], "budget.json"),
+    ("femnist_style", ["--rounds", "15"], "femnist.json"),
 ]
 
 
@@ -1444,7 +1841,7 @@ def train_calls(cfg) -> dict:
             "ssd_scan": 2 * calls["ssd_scan"]}
 
 
-def zoo_launches_per_round(cfg, c: int) -> dict:
+def zoo_launches_per_round(cfg, c: int, r: int = ZOO_STEPS) -> dict:
     """Kernels 6-8's launches in one zoo round of C slots and R local steps
     (``train_calls`` a step).  client_parallel: the first local step
     runs the C clients on the shared parameters, one launch a call (the
@@ -1452,7 +1849,7 @@ def zoo_launches_per_round(cfg, c: int) -> dict:
     parameters, and kernel 6's vmap rule loops over the clients' norm
     scales (C launches a call) while kernels 7 and 8 still fold.
     cohort_sequential: one client at a time, every call once a step."""
-    calls, r = train_calls(cfg), ZOO_STEPS
+    calls = train_calls(cfg)
     if cfg.round_mode == "cohort_sequential":
         return {k: v * r * c for k, v in calls.items()}
     return {"rmsnorm": calls["rmsnorm"] * (1 + (r - 1) * c),
@@ -1583,8 +1980,8 @@ def zoo_round_profile(torch, api, label: str, spec, card: str) -> None:
     with the stacked layers taken apart by one ``torch.unbind`` a leaf (the
     model's way) and, for comparison, by indexing one layer at a time (the
     way before: each layer's gradient is a zero-filled copy of its whole
-    stack, summed over the layers), in turns unbind, index, index, unbind:
-    the host-clock wall seconds a round (median of 3 each).  Then one round
+    stack, summed over the layers): the host-clock wall seconds of one
+    round each.  Then one round
     of each under torch.profiler: launches, the device's busy share, and
     the device time of kernels 6-8's forwards, of their PyTorch backwards
     (kernel 6's closed form, kernel 7's ``attention_backward``, kernel 8's
@@ -1602,21 +1999,19 @@ def zoo_round_profile(torch, api, label: str, spec, card: str) -> None:
     def index(tree, reps):
         return [transformer._rep(tree, r) for r in range(reps)]
 
-    walls = {"unbind": [], "index": []}
+    walls = {}
     try:
-        for way in ("unbind", "index", "index", "unbind"):
+        for way in ("unbind", "index"):
             transformer._unstack = unbind if way == "unbind" else index
-            for _ in range(2 if len(walls[way]) else 1):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state = segment(state, 1)
-                torch.cuda.synchronize()
-                walls[way].append(time.perf_counter() - t0)
-        med = {way: sorted(w)[1] for way, w in walls.items()}
-        ZOO_ROUND_S[label] = med["unbind"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = segment(state, 1)
+            torch.cuda.synchronize()
+            walls[way] = time.perf_counter() - t0
+        ZOO_ROUND_S[label] = walls["unbind"]
         print(f"zoo profile {label} ({card}): wall s a round, stacked layers by one unbind "
-              f"{med['unbind']:.4f} against indexing a layer at a time {med['index']:.4f} (median "
-              f"of 3 each, outside the profiler: {json.dumps(walls)})", flush=True)
+              f"{walls['unbind']:.4f} against indexing a layer at a time {walls['index']:.4f} "
+              "(one round each, outside the profiler)", flush=True)
         for way in ("index", "unbind"):
             transformer._unstack = unbind if way == "unbind" else index
             state, wall, split, back, launches, other = _profiled_round(torch, segment, state)
@@ -1728,7 +2123,7 @@ def fed_lm_on_card(torch, kernels, out: Path) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.examples import fed_lm
 
-    rounds, samplers = 20, ["uniform_isp", "kvib"]
+    rounds, samplers = 10, ["uniform_isp", "kvib"]
     argv = ["--rounds", str(rounds), "--samplers", *samplers]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1843,7 +2238,7 @@ FAMILY_RUNS = {  # label: (arch, reduced() kwargs or None for the full config, r
         n_layers=1, d_model=4096, n_heads=64, n_kv_heads=4, d_ff=1536, vocab=151936,
         head_dim=128, n_experts=128, top_k=8, moe_d_ff=1536, capacity_factor=1.25,
         param_dtype="bfloat16"), 2, 32, 3, 4, {}),
-    "(aa) xlstm-125m": ("xlstm-125m", None, 2, 32, 6, 8, {"federation": {"local_lr": 2e-4}}),
+    "(aa) xlstm-125m": ("xlstm-125m", None, 1, 32, 6, 8, {"federation": {"local_lr": 2e-4}}),
     "(ab) arctic reduced": ("arctic-480b", {}, 2, 32, 3, 4, {}),
 }
 FAMILY_AGREE = ("qwen3-moe-235b-a22b", "arctic-480b", "xlstm-125m")  # reduced, f32
@@ -2764,14 +3159,11 @@ def lint_phase(torch) -> None:
     card lints a reduced smollm zoo spec, trains it, and exits 1 when a
     float64 leak is planted in the round body."""
     phase("lint")
-    from repro_torch.analysis import lint
     from repro_torch.fed import round as fed_round
     from repro_torch.launch import train
 
-    t0 = time.perf_counter()
-    rc = lint.main(["--fast", "--quiet"])
-    check(rc == 0, "the lint sweep found a violation")
-    sweep_s = time.perf_counter() - t0
+    rc, _, err, sweep_s = cpu_job("lint")
+    check(rc == 0, f"the lint sweep found a violation (exit {rc}): {err[-2000:]}")
     flags = ["--arch", "smollm-360m", "--reduced", "--compiled", "--rounds", "2", "--clients",
              "13", "--budget", "2", "--cohort", "3", "--seq", "16", "--local-batch", "2", "--lint"]
     t1 = time.perf_counter()
@@ -2788,7 +3180,8 @@ def lint_phase(torch) -> None:
         check(e.code == 1, f"launch.train --lint exit code {e.code} on a planted leak")
     finally:
         fed_round._cohort_mean_loss = mean_loss
-    print(f"lint: registry sweep --fast clean in {sweep_s:.1f} s; launch.train --lint on the card "
+    print(f"lint: registry sweep --fast clean in {sweep_s:.1f} s (a CPU process beside the card's "
+          f"phases, two threads); launch.train --lint on the card "
           f"(lint, then 2 rounds) {lint_train_s:.1f} s, exit 1 on a planted float64 leak",
           flush=True)
 
@@ -2804,7 +3197,6 @@ DRYRUN_STEPS = {
     "(ai) zamba2-1.2b prefill": ("zamba2-1.2b", ("prefill", 512, 8), None),  # (m)'s prompt
     "(aj) smollm-360m decode": ("smollm-360m", ("decode", 512 + 64, 8), None),  # (k)'s caches
 }
-DRYRUN_CLI = (("xlstm-125m", "decode_32k"), ("smollm-360m", "train_4k"))
 PEAK_BAND = (0.10, 256e6)  # a predicted peak within 10% or 256 MB of the card's
 
 
@@ -2956,11 +3348,11 @@ def dryrun_phase(torch, card: str) -> None:
         old.unlink()
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     for arch, shape in DRYRUN_CLI:
-        proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                               "--shape", shape], capture_output=True, text=True, timeout=300,
-                              env=env, cwd=str(ROOT))
-        check(proc.returncode == 0, f"launch.dryrun {arch} {shape}: {proc.stderr[-2000:]}")
-        record = json.loads(proc.stdout.strip().splitlines()[-1])
+        rc, stdout, err, cli_s = cpu_job(f"dryrun {arch} {shape}")
+        check(rc == 0, f"launch.dryrun {arch} {shape}: {err[-2000:]}")
+        print(f"launch.dryrun {arch} {shape}: {cli_s:.1f} s, a CPU process beside the card's "
+              "phases", flush=True)
+        record = json.loads(stdout.strip().splitlines()[-1])
         check(record["status"] == "ok" and record["flops"] > 0 and record["bytes_accessed"] > 0,
               f"launch.dryrun {arch} {shape}: {record.get('status')}")
         (out_dir / f"{arch}__{shape}__sp.json").write_text(json.dumps(record, indent=1))
@@ -2982,13 +3374,13 @@ def dryrun_phase(torch, card: str) -> None:
 # server fit the card together.
 SERVE_LOOP_RUNS = {  # label: (zoo-phase label of the same model, trainer flags)
     "(s) smollm-360m": ("(n) smollm-360m", [
-        "--arch", "smollm-360m", "--compiled", "--rounds", "6", "--clients", "32",
+        "--arch", "smollm-360m", "--compiled", "--rounds", "4", "--clients", "32",
         "--budget", "6", "--cohort", "8", "--seq", "64", "--local-batch", "2",
         "--ckpt-every", "2"]),
     "(t) zamba2-1.2b": ("(o) zamba2-1.2b", [
         "--arch", "zamba2-1.2b", "--compiled", "--rounds", "2", "--clients", "32",
         "--budget", "3", "--cohort", "4", "--seq", "64", "--local-batch", "2",
-        "--ckpt-every", "1"]),
+        "--ckpt-every", "2"]),
 }
 SERVE_SUMMARY = re.compile(
     r"^serve summary: promotions=(\d+) rollbacks=(\d+) tokens=(\d+) "
@@ -4014,19 +4406,28 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--only", nargs="+", default=[], metavar="PHASE",
                     help="run only the build and these phases, in this order, and print no "
-                    "result line: kernels, dryrun, remat (its default cells) or remat=CELLS "
-                    f"(comma-separated of {','.join(REMAT_CELLS)})")
+                    "result line: kernels, ranks, dryrun, remat (its default cells) or "
+                    f"remat=CELLS (comma-separated of {','.join(REMAT_CELLS)})")
+    ap.add_argument("--ranks-worker", nargs=4, metavar=("RANK", "PORT", "SPECS", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.ranks_worker:
+        rank, port, specs, out = args.ranks_worker
+        return ranks_worker(int(rank), int(port), specs, out)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is visible; nothing was run", file=sys.stderr)
         return 2
     card = device_phase(torch)
     build_phase()
+    only = [name.partition("=")[0] for name in args.only]
+    start_cpu_jobs([k for k in CPU_JOBS if not only or (k.startswith("dryrun") and "dryrun" in only)])
     if args.only:
         for name in args.only:
             name, _, cells = name.partition("=")
             if name == "kernels":
                 kernel_phase(torch)
+            elif name == "ranks":
+                ranks_phase(torch, card)
             elif name == "dryrun":
                 dryrun_phase(torch, card)
             elif name == "remat":
@@ -4035,7 +4436,10 @@ def main(argv=None) -> int:
                 raise SystemExit(f"chip_smoke: unknown phase {name!r} in --only")
         return 0
     rows, max_err, path_shape = kernel_phase(torch)
+    ranks_launches_ = ranks_phase(torch, card)
     launches, engines = path_phase(torch)
+    for k, v in ranks_launches_.items():
+        launches[k] += v
     for k, v in samplers_phase(torch, card).items():
         launches[k] += v
     for k, v in examples_phase(torch, card).items():

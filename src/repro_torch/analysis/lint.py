@@ -365,10 +365,11 @@ def audit_replicated_clients(gm: torch.fx.GraphModule, n: int, *, target: str = 
     ATen graph): nothing replicated scales O(N) a device beyond the
     sampler's (N,)-vectors.
 
-    The port has no ``shard_map`` and no sharding constraints: a rank holds
-    the whole (N,) sampler state and splits only the solve
-    (``core.solver``, kernel 5 over the process group), so every op of the
-    body counts as replicated.  Two rules:
+    The port has no ``shard_map`` and no sharding constraints, and the
+    lint traces the body of one rank alone (no process group), which holds
+    the whole (N,) sampler state (over S > 1 ranks each holds its block,
+    ``fed.state.StateLayout``), so every op of the body counts as
+    replicated.  Two rules:
 
     * ``check_nd``: ``audit_width``'s rule, reported as
       ``replicated_clients`` (oracle bodies hold their (N, D) diagnostics

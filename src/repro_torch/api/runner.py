@@ -15,12 +15,20 @@ the run's device; ``run`` dispatches on ``task.kind``:
   audio configs build, and their run raises ``ValueError`` in round 0, as
   the reference's fails there, since the round passes no frontend
   embeddings), driven by ``fed.state.run_segmented`` like the reference's
-  ``launch.train --compiled``, with the same sections.  It runs on one
-  card: ``execution.mesh_shape`` other than None or all ones raises
-  ``NotImplementedError``, and so does an MoE round whose parameters,
-  training copies and f32 estimate alone pass the card's memory
-  (``_round_bytes``; an H100's on the CPU): arctic-480b at full width, whose
-  one layer holds 14.07e9 parameters, waits for expert parallelism.
+  ``launch.train --compiled``, with the same sections.  An MoE round whose
+  parameters, training copies and f32 estimate alone pass the card's memory
+  (``_round_bytes``; an H100's on the CPU) raises ``NotImplementedError``:
+  arctic-480b at full width, whose one layer holds 14.07e9 parameters,
+  waits for expert parallelism.
+
+Both stacks run over the run's host mesh (``_make_mesh``:
+``execution.mesh_shape``, else ``launch.mesh.make_host_mesh()`` over the
+default ``torch.distributed`` group).  A mesh whose data axes hold S > 1
+ranks splits the client axis over them (``fed.server``, ``fed.round``): the
+sampler gets a ``ShardSpec`` over those axes (or over
+``execution.sampler_axis``), and every rank of a group of exactly S ranks
+runs the spec.  A ``model`` axis larger than 1 raises
+``NotImplementedError``: the port has no model axis yet.
 
 Both run on the GPU unless ``device="cpu"`` is passed
 (``repro_torch.device``), and both take a ``repro_torch.checkpoint``
@@ -51,7 +59,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fed.server import FedConfig, History, build_segment_runner, run_federated
 from repro_torch.fed.state import run_segmented
 from repro_torch.fed.tasks import params_to_numpy, tree_map
-from repro_torch.launch.mesh import ShardSpec
+from repro_torch.launch.mesh import Mesh, ShardSpec, batch_axes, make_host_mesh, make_mesh
 from repro_torch.rng import PhiloxSource
 
 __all__ = ["BuiltExperiment", "build", "run", "restore_template"]
@@ -100,13 +108,49 @@ class BuiltExperiment:
     round_spec: Any = None  # kind="zoo"
 
 
+MODEL_AXIS = "see ROADMAP.md section 1, item 6, 'Multi-rank placement', the model axis"
+
+
+def _make_mesh(spec: ExperimentSpec) -> Mesh:
+    """The run's host mesh: ``execution.mesh_shape`` as (data, model) or
+    (pod, data, model), else ``make_host_mesh()`` over the default process
+    group (the reference's ``_make_mesh``).  Raises
+    ``NotImplementedError`` for a ``model`` axis larger than 1."""
+    shape = spec.execution.mesh_shape
+    mesh = make_host_mesh() if shape is None else make_mesh(shape)
+    if mesh.shape.get("model", 1) != 1:
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: the port splits only the client axis, over the data "
+            f"(and pod) axes, and runs with model = 1 ({MODEL_AXIS}); with several ranks, "
+            "pass execution.mesh_shape=(S, 1) or REPRO_MESH_SHAPE=S,1"
+        )
+    return mesh
+
+
 def _sampler_shard(spec: ExperimentSpec) -> ShardSpec | None:
-    """The ``ShardSpec`` that ``spec.execution.sampler_axis`` denotes, or
-    None: the axis over the ranks of the default process group, one shard
-    when ``torch.distributed`` is not initialised.  Only the K-Vib solve is
-    split; every rank runs the rest of the round on the whole (N,) state."""
+    """The client axis's ``ShardSpec`` over the run's mesh, or None.
+
+    ``execution.sampler_axis`` names its axis; without one the axis is the
+    mesh's data axes (``batch_axes``), and None (the whole axis on every
+    rank) when they hold one rank.  One shard of a named axis is
+    ``ShardSpec(((axis, 1),), axis)``.  Raises ``ValueError`` when the axis
+    holds S > 1 ranks and the default process group does not hold exactly
+    S (``ShardSpec.process_group``), or when the named axis does not cover
+    the mesh's data axes."""
+    mesh = _make_mesh(spec)
+    baxes = batch_axes(mesh)
+    data = ShardSpec.from_mesh(mesh, axis=baxes[0] if len(baxes) == 1 else baxes)
     axis = spec.execution.sampler_axis
-    return None if axis is None else ShardSpec.from_process_group(axis)
+    shard = data if axis is None else ShardSpec.from_mesh(mesh, axis=axis)
+    if data.splits and shard.num_shards != data.num_shards:
+        raise ValueError(
+            f"execution.sampler_axis={axis!r} holds {shard.num_shards} of the {data.num_shards} "
+            f"ranks of the mesh's data axes {mesh.shape}: the client axis splits over them all"
+        )
+    if not shard.splits:
+        return None if axis is None else ShardSpec(axes=((axis, 1),), axis=axis)
+    shard.process_group()  # no rank runs the spec unsplit without its group
+    return shard
 
 
 def _make_sampler(spec: ExperimentSpec, n_clients: int):
@@ -180,13 +224,6 @@ def _round_bytes(cfg, cohort: int) -> int:
 def _build_zoo(spec: ExperimentSpec, dev) -> BuiltExperiment:
     from repro_torch.configs import get_config, has_arch, list_archs
 
-    shape = spec.execution.mesh_shape
-    if shape is not None and any(int(x) != 1 for x in shape):
-        raise NotImplementedError(
-            f"execution.mesh_shape={shape}: the port runs the zoo round on one "
-            "card (mesh shape None or all ones); see ROADMAP.md section 1, item "
-            "6, 'Multi-rank placement'"
-        )
     if not has_arch(spec.task.name):
         raise ValueError(f"unknown zoo arch {spec.task.name!r}; options: {list_archs()}")
     cfg = get_config(spec.task.name)
@@ -213,8 +250,7 @@ def _build_zoo(spec: ExperimentSpec, dev) -> BuiltExperiment:
                 f"the zoo round of {cfg.name} holds at least {need / 1e9:.1f} GB "
                 f"(parameters, training copies with their gradients, the f32 estimate), "
                 f"more than the card's {card / 1e9:.1f} GB; it needs its experts sharded "
-                "over several cards: see ROADMAP.md section 1, item 6, 'Multi-rank "
-                "placement'"
+                f"over several cards: {MODEL_AXIS}"
             )
     return BuiltExperiment(
         spec=spec,

@@ -273,17 +273,20 @@ class FederationSpec:
 class ExecutionSpec:
     """How (not what) to execute: seeds, compilation, fidelity, checkpoints.
 
-    ``mesh_shape`` (zoo stack only): explicit host-mesh shape, e.g.
-    ``(2, 1)`` for 2-way data parallelism.  The port runs on one card: only
-    ``None`` or all ones, the degenerate mesh, run; any other shape raises
-    ``NotImplementedError`` (multi-rank placement is not ported).
+    ``mesh_shape``: explicit host-mesh shape, (data, model) or (pod, data,
+    model), e.g. ``(2, 1)`` to split the client axis over two ranks; None
+    takes ``launch.mesh.make_host_mesh()`` over the default
+    ``torch.distributed`` group (``REPRO_MESH_SHAPE`` overrides).  Data
+    axes of S > 1 ranks split the client axis over a group of exactly S
+    ranks (``ValueError`` without one); a ``model`` axis larger than 1
+    raises ``NotImplementedError``.
 
     ``sampler_axis``: name of the axis to shard the sampler's (N,) client
-    axis over — the million-client switch.  ``None`` (default) keeps the
-    sampler replicated; setting it makes ``repro_torch.api.build`` hand the
-    sampler a ``launch.mesh.ShardSpec`` over the ranks of the default
-    ``torch.distributed`` group (one shard without one), and K-Vib's budget
-    solve runs split over them (see ``core/solver.py``'s sharded solve).
+    axis over.  ``None`` (default) splits it over the mesh's data axes when
+    they hold several ranks and keeps it whole otherwise; naming an axis
+    hands the sampler a ``launch.mesh.ShardSpec`` over it even with one
+    shard, and K-Vib's budget solve then runs the sharded solve (see
+    ``core/solver.py``).
 
     ``score_history_host_offload``: shrink the oracle (T, N) score-history
     buffer to a per-segment device ring drained to host every ``ckpt_every``

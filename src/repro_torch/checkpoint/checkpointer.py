@@ -29,7 +29,9 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "tree_structure", "tree_flatten"]
+__all__ = [
+    "save_checkpoint", "restore_checkpoint", "tree_structure", "tree_flatten", "tree_unflatten",
+]
 
 # torch dtypes numpy cannot hold, stored as raw integers of their width.
 _RAW = {1: torch.uint8, 2: torch.int16}
@@ -73,8 +75,13 @@ def tree_flatten(tree) -> list:
     return [leaf for _, v in node[1] for leaf in tree_flatten(v)]
 
 
+def tree_unflatten(template, leaves: list):
+    """``template``'s structure with its leaves replaced by ``leaves``, in
+    ``tree_flatten``'s order."""
+    return _unflatten(template, list(leaves))
+
+
 def _unflatten(template, leaves: list):
-    """``template``'s structure with its leaves replaced, in order."""
     node = _children(template)
     if node is None:
         return leaves.pop(0)

@@ -18,6 +18,12 @@ anywhere mid-save leaves it pointing at the previous fully published step.
 Its fields are the reference's, with ``versions`` naming torch in place of
 jax; ``config_fingerprint`` is the reference's algorithm, so the same spec
 has the same fingerprint in both packages.
+
+A checkpoint holds the global state.  Over S > 1 ranks
+``fed.state.run_segmented`` gathers each split leaf to its global shape
+and rank 0 alone saves; a restoring process, at any S, reads the global
+arrays and its segments keep its block (``fed.state.StateLayout``), so a
+run saved at S = 2 resumes at S = 1 and the reverse.
 """
 from __future__ import annotations
 

@@ -12,6 +12,13 @@ it to ``kernels.fused_weighted_agg``: the CUDA kernel for a tensor on the
 GPU (any D), the plain PyTorch version for one on the CPU.
 ``aggregate_compressed`` quantizes that buffer to int8 or fp8 first and
 aggregates the codes with ``fused_dequant_cohort_agg``.
+
+With a ``shard`` that splits the client axis over S > 1 ranks, each rank
+passes its block of clients or slots and gets the global result back: the
+partial (D,) sums are ``all_reduce``d, and a squared norm of a sum, which
+is not additive across ranks, is taken after the reduce (kernel 1 with rows
+``w`` and ``w - lam`` in place of kernel 2's fused norm; two launches of
+kernel 4, the second with weights ``w - lam``).  Per-slot norms stay local.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ __all__ = [
     "unflatten_vector",
     "aggregate_and_error",
     "aggregate_and_error_cohort",
+    "aggregate_cohort",
     "aggregate_compressed",
     "isp_variance",
     "rsp_variance_bound",
@@ -107,11 +115,17 @@ def unflatten_vector(vec: torch.Tensor, spec) -> dict:
     return walk(spec)
 
 
-def aggregate_and_error(updates, weights: torch.Tensor, lam: torch.Tensor):
+def _splitting(shard) -> bool:
+    return shard is not None and shard.splits
+
+
+def aggregate_and_error(updates, weights: torch.Tensor, lam: torch.Tensor, *, shard=None):
     """Estimate ``d = sum_i w_i g_i`` AND its squared error against the
     full-participation target ``sum_i lambda_i g_i`` in ONE pass over the
     stacked updates: the (2, N) x (N, D) contraction of the two weight rows
     [w, w - lam] with the flattened deltas (kernel ``fused_multi_weighted_agg``).
+    With a splitting ``shard`` the rows are this rank's clients and the
+    (2, D) partials are ``all_reduce``d before the norm.
 
     Returns (estimate dict, 0-d squared error).
     """
@@ -119,19 +133,41 @@ def aggregate_and_error(updates, weights: torch.Tensor, lam: torch.Tensor):
     w = weights.to(torch.float32)
     w2 = torch.stack([w, w - lam.to(torch.float32)])
     out = fused_multi_weighted_agg(flat, w2)
+    if _splitting(shard):
+        out = shard.sum(out)
     return unflatten_vector(out[0], spec), (out[1] ** 2).sum()
 
 
-def aggregate_and_error_cohort(updates, weights: torch.Tensor, lam_cohort: torch.Tensor):
+def aggregate_cohort(updates, weights: torch.Tensor, *, shard) -> dict:
+    """``sum_c w_c delta_c`` over this rank's slots, ``all_reduce``d over
+    the shards, as an f32 dict: kernel ``fused_cohort_agg_and_error`` on
+    the stacked deltas at their own width (f32 or bf16), its error row
+    unused (``lam = w``)."""
+    flat, spec = flatten_stacked(updates, dtype=None)
+    w = weights.to(torch.float32)
+    d_vec, _ = fused_cohort_agg_and_error(flat, w, w)
+    spec32 = tree_map(lambda x: torch.empty(x.shape, dtype=torch.float32, device="meta"), spec)
+    return unflatten_vector(shard.sum(d_vec), spec32)
+
+
+def aggregate_and_error_cohort(
+    updates, weights: torch.Tensor, lam_cohort: torch.Tensor, *, shard=None
+):
     """Cohort-width ``aggregate_and_error``: (C, ...) stacked cohort deltas,
     ``weights`` from ``fed.cohort.select_cohort`` (zero on padding) and
     ``lam_cohort`` (lambda at the cohort ids, zero on padding).  Nothing
     (N, D)-shaped exists; kernel ``fused_cohort_agg_and_error`` squares and
     reduces the error row on chip.
 
+    With a splitting ``shard`` the slots are this rank's: kernel 1 takes
+    the rows ``w`` and ``w - lam`` and the (2, D) partials are
+    ``all_reduce``d before the norm.
+
     Returns (estimate dict, 0-d squared error
     ``||sum_c (w_c - lam_c) delta_c||^2``).
     """
+    if _splitting(shard):
+        return aggregate_and_error(updates, weights, lam_cohort, shard=shard)
     flat, spec = flatten_stacked(updates)
     d_vec, sq = fused_cohort_agg_and_error(
         flat, weights.to(torch.float32), lam_cohort.to(torch.float32)
@@ -140,7 +176,8 @@ def aggregate_and_error_cohort(updates, weights: torch.Tensor, lam_cohort: torch
 
 
 def aggregate_compressed(
-    updates, weights: torch.Tensor, lam_cohort: torch.Tensor, compression, resid=None
+    updates, weights: torch.Tensor, lam_cohort: torch.Tensor, compression, resid=None, *,
+    shard=None,
 ):
     """Compressed-width ``aggregate_and_error_cohort``: quantize the stacked
     deltas to ``compression.delta_dtype`` with one f32 scale per (slot,
@@ -155,20 +192,35 @@ def aggregate_compressed(
     accumulating.  With ``resid=None`` the raw ``d_hat`` is applied and
     ``new_resid`` is None.
 
+    With a splitting ``shard`` the rows are this rank's slots: a second
+    launch with weights ``w - lam`` gives the error row, and the estimate,
+    the error row and ``w @ flat`` are ``all_reduce``d as one (2 or 3, D)
+    tensor before the norm; the norms are this rank's slots'.
+
     Returns (estimate dict, err_sq () f32, dequantized norms (C,) f32,
     new_resid (D,) f32 | None).  ``err_sq`` and the norms come from the
     dequantized values, so the sampler's feedback is what the estimator saw.
     """
     flat, spec = flatten_stacked(updates)
     w = weights.to(torch.float32)
+    lam = lam_cohort.to(torch.float32)
     q, scales = quantize_stacked(
         flat, dtype=compression.delta_dtype, scale_block=int(compression.scale_block)
     )
-    d_vec, sq, sqn = fused_dequant_cohort_agg(q, scales, w, lam_cohort.to(torch.float32))
-    d_hat = d_vec[: flat.shape[1]]
+    d_vec, sq, sqn = fused_dequant_cohort_agg(q, scales, w, lam)
+    d = flat.shape[1]
+    d_hat = d_vec[:d]
+    if _splitting(shard):
+        e_vec, _, _ = fused_dequant_cohort_agg(q, scales, w - lam, torch.zeros_like(lam))
+        rows = [d_hat, e_vec[:d]] + ([w @ flat] if resid is not None else [])
+        red = shard.sum(torch.stack(rows))
+        d_hat, sq = red[0], (red[1] ** 2).sum()
+        true_sum = red[2] if resid is not None else None
+    elif resid is not None:
+        true_sum = w @ flat
     new_resid = None
     if resid is not None:
-        new_resid = w @ flat - d_hat
+        new_resid = true_sum - d_hat
         d_hat = d_hat + resid
     return unflatten_vector(d_hat, spec), sq, torch.sqrt(sqn), new_resid
 

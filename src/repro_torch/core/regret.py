@@ -17,12 +17,22 @@ __all__ = ["RegretTracker", "round_costs"]
 
 
 def round_costs(
-    full_scores: torch.Tensor, p_used: torch.Tensor, budget: float
+    full_scores: torch.Tensor, p_used: torch.Tensor, budget: float, *, shard=None, n=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-round online costs on the device: (l_t(p^t), min_p l_t(p)).  The
     server keeps them in per-round buffers and builds a ``RegretTracker``
-    view once at the end (``RegretTracker.from_arrays``)."""
-    return solver.expected_cost(full_scores, p_used), solver.optimal_cost(full_scores, budget)
+    view once at the end (``RegretTracker.from_arrays``).
+
+    With a ``shard`` that splits the client axis, ``full_scores`` and
+    ``p_used`` are this rank's blocks of the global ``n``: the optimum is
+    the split solve, and both sums over N are one ``all_reduce``."""
+    if shard is None:
+        return solver.expected_cost(full_scores, p_used), solver.optimal_cost(full_scores, budget)
+    costs = shard.sum(torch.stack([
+        solver.expected_cost(full_scores, p_used),
+        solver.optimal_cost(full_scores, budget, shard=shard, n=n),
+    ]))
+    return costs[0], costs[1]
 
 
 @dataclasses.dataclass

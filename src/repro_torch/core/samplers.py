@@ -31,10 +31,33 @@ reads the device from the host.
 
 With ``shard=ShardSpec(...)`` (``launch.mesh``) the water-filling solves of
 K-Vib, ClusteredKVib and OptimalISP run split over the layout's process
-group (``solver.isp_probabilities(..., shard=...)``).  The reference also
-pins every (N,) value to the shard layout (``shard_constrain`` /
-``shard_state``); the port places nothing, so those hooks are identities
-here, and every rank holds the whole (N,) state.
+group (``solver.isp_probabilities(..., shard=...)``).  When the layout
+splits the client axis over S > 1 ranks, each rank holds its block of every
+(N,) value (``shard_constrain`` / ``shard_state`` cut it out of a global
+one): the state, the probabilities, the draw and the feedback.  Every rank
+draws the same global inputs from the same random source and keeps its
+block, so S ranks draw what one draws.  What reduces over all N goes
+through a collective of the layout (``ShardSpec.sum`` / ``max`` /
+``gather``), by sampler:
+
+* ``uniform_isp``: none; the ISP draw's ``draw_probs`` normalisation is one
+  ``all_reduce`` (every ISP sampler);
+* ``kvib``: the split solve (``all_reduce``s of counts and sums) and, in
+  round 0 with an automatic gamma, one ``all_reduce`` for ``_g_sq``;
+* ``optimal_isp``: the split solve and one ``all_reduce`` (any score > 0);
+* ``clustered_kvib``: one ``all_gather`` of the statistics (the cluster
+  means run over the clients in cluster order), the split solve, ``_g_sq``;
+* ``vrb``: an ``all_reduce`` of the weights' sum, ``_g_sq``;
+* ``mabs``: ``all_reduce``s of the statistics' max and the weights' sum,
+  and of the largest drawn feedback in the update;
+* ``avare``: ``all_reduce``s of the explored flag, the largest estimate and
+  two normalising sums;
+* ``osmd``: ``all_reduce``s of the gradient's largest magnitude, the
+  softmax's max and sum, and the renormalising sum;
+* RSP draws with replacement (``vrb``, ``mabs``, ``avare``, ``osmd``): one
+  ``all_gather`` of the distribution, then every rank draws the same K from
+  the whole vector and keeps its block of the counts; ``uniform_rsp``
+  draws the same K clients everywhere with no collective.
 
 The serializable-state contract of the reference holds here too
 (``assert_serializable_state``): every leaf of a state is a tensor, none is
@@ -129,13 +152,16 @@ class SampleResult(NamedTuple):
         return self.counts.sum()
 
 
-def _isp_draw(uniforms: torch.Tensor, marginals: torch.Tensor) -> SampleResult:
+def _isp_draw(uniforms: torch.Tensor, marginals: torch.Tensor, total=None) -> SampleResult:
+    """The Bernoulli draw; ``total(x)`` reduces the marginals' sum over the
+    shards when they are a rank's block."""
     mask = uniforms < marginals
+    msum = marginals.sum()
     return SampleResult(
         mask=mask,
         counts=mask.to(torch.int32),
         marginals=marginals,
-        draw_probs=marginals / torch.clamp(marginals.sum(), min=1e-30),
+        draw_probs=marginals / torch.clamp(msum if total is None else total(msum), min=1e-30),
     )
 
 
@@ -205,14 +231,45 @@ class Sampler:
     procedure: str = "isp"  # "isp" | "rsp_wr" | "rsp_wor"
     shard: ShardSpec | None = None  # (N,)-axis shard layout (module docstring)
 
+    @property
+    def splits(self) -> bool:
+        """True when the client axis is split over S > 1 ranks."""
+        return self.shard is not None and self.shard.splits
+
     def shard_constrain(self, x: torch.Tensor) -> torch.Tensor:
-        """The reference pins a leading-(N,) value to the shard layout here;
-        the port places no tensor, so this is the identity."""
-        return x
+        """This rank's block of a leading-(N,) value when the client axis is
+        split (``ShardSpec.block``); ``x`` itself otherwise, or when it is
+        already the block."""
+        if not self.splits or x.shape[0] != self.n:
+            return x
+        lo, hi = self.shard.block(self.n)
+        return x[lo:hi]
 
     def shard_state(self, state: SamplerState) -> SamplerState:
-        """``shard_constrain`` over a state's (N,) leaves: the identity."""
-        return state
+        """``shard_constrain`` over a state's (N,) leaves."""
+        return dataclasses.replace(state, **{
+            f.name: self.shard_constrain(getattr(state, f.name))
+            for f in dataclasses.fields(state) if getattr(state, f.name).dim() >= 1
+        })
+
+    # Reductions over the whole client axis: the identity on one shard.
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.shard.sum(x) if self.splits else x
+
+    def _max(self, x: torch.Tensor) -> torch.Tensor:
+        return self.shard.max(x) if self.splits else x
+
+    def _any(self, x: torch.Tensor) -> torch.Tensor:
+        return self.shard.any(x) if self.splits else x
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        return self.shard.gather(x, self.n) if self.splits else x
+
+    def _solve(self, scores: torch.Tensor, p_min: float = 0.0) -> torch.Tensor:
+        """The water-filling solve of (a block of) the scores."""
+        return solver.isp_probabilities_unchecked(
+            scores, self.budget, p_min, shard=self.shard, n=self.n if self.splits else None
+        )
 
     def init(self, device) -> SamplerState:
         return SamplerState(
@@ -224,17 +281,26 @@ class Sampler:
     def probabilities(self, state: SamplerState) -> torch.Tensor:
         """Marginal inclusion probabilities (sum == budget for ISP)."""
         return torch.full(
-            (self.n,), self.budget / self.n, dtype=torch.float32, device=state.stats.device
+            state.stats.shape, self.budget / self.n, dtype=torch.float32, device=state.stats.device
         )
 
     def sample_from(self, probs: torch.Tensor, draw_input: torch.Tensor) -> SampleResult:
         """Draw a cohort from already-solved probabilities, with the draw's
-        input from the run's random source (``draw_input``, by procedure)."""
+        input from the run's random source (``draw_input``, by procedure).
+        On a split client axis ``probs`` is this rank's block and
+        ``draw_input`` the global draw; the result is this rank's block."""
         if self.procedure == "isp":
+            if self.splits:
+                return _isp_draw(self.shard_constrain(draw_input), probs, self._sum)
             return _isp_draw(draw_input, probs)
         if self.procedure == "rsp_wr":
-            return _rsp_wr_draw(draw_input, probs / torch.clamp(probs.sum(), min=1e-30), self.budget)
-        return _rsp_wor_uniform_draw(draw_input, self.n, self.budget)
+            probs = self._gather(probs)
+            draw = _rsp_wr_draw(
+                draw_input, probs / torch.clamp(probs.sum(), min=1e-30), self.budget
+            )
+        else:
+            draw = _rsp_wor_uniform_draw(draw_input, self.n, self.budget)
+        return SampleResult(*(self.shard_constrain(x) for x in draw)) if self.splits else draw
 
     def update(
         self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
@@ -254,10 +320,15 @@ class UniformRSP(Sampler):
     procedure: str = "rsp_wor"
 
 
-def _g_sq(draw: SampleResult, feedback: torch.Tensor) -> torch.Tensor:
+def _g_sq(draw: SampleResult, feedback: torch.Tensor, sampler: Sampler) -> torch.Tensor:
     """G^2 of the first-round auto-gamma, G the mean observed feedback
-    (paper Section 6, "FL and sampler hyperparameters")."""
-    g_est = torch.where(draw.mask, feedback, 0.0).sum() / torch.clamp(draw.mask.sum(), min=1)
+    (paper Section 6, "FL and sampler hyperparameters"); both sums over all
+    N in one ``all_reduce`` on a split client axis."""
+    fb_sum = torch.where(draw.mask, feedback, 0.0).sum()
+    if sampler.splits:
+        sums = sampler._sum(torch.stack([fb_sum, draw.mask.sum().to(fb_sum.dtype)]))
+        return (sums[0] / torch.clamp(sums[1], min=1)) ** 2
+    g_est = fb_sum / torch.clamp(draw.mask.sum(), min=1)
     return g_est**2
 
 
@@ -294,10 +365,8 @@ class KVib(Sampler):
     def probabilities(self, state: SamplerState) -> torch.Tensor:
         gamma = torch.clamp(state.aux[0], min=1e-12)
         scores = torch.sqrt(state.stats + gamma)
-        p = solver.isp_probabilities_unchecked(
-            scores, self.budget, self.p_min, shard=self.shard
-        )
-        return solver.mix_probabilities(p, self._theta(), self.budget)
+        p = self._solve(scores, self.p_min)
+        return solver.mix_probabilities(p, self._theta(), self.budget, self.n)
 
     def update(
         self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
@@ -308,7 +377,7 @@ class KVib(Sampler):
         stats = state.stats + contrib
         aux = state.aux
         if self.gamma is None:
-            gamma_auto = _g_sq(draw, feedback) * self.n / (self._theta() * self.budget)
+            gamma_auto = _g_sq(draw, feedback, self) * self.n / (self._theta() * self.budget)
             aux = torch.where(state.t == 0, gamma_auto.expand_as(aux), aux)
         return SamplerState(stats=stats, aux=aux, t=state.t + 1)
 
@@ -337,7 +406,7 @@ class Vrb(Sampler):
     def probabilities(self, state: SamplerState) -> torch.Tensor:
         gamma = torch.clamp(state.aux[0], min=1e-12)
         w = torch.sqrt(state.stats + gamma)
-        p = w / torch.clamp(w.sum(), min=1e-30)
+        p = w / torch.clamp(self._sum(w.sum()), min=1e-30)
         theta = self._theta()
         return (1.0 - theta) * p + theta / self.n
 
@@ -350,7 +419,7 @@ class Vrb(Sampler):
         stats = state.stats + contrib / max(self.budget, 1)
         aux = state.aux
         if self.gamma is None:
-            gamma_auto = _g_sq(draw, feedback) * self.n / max(self._theta(), 1e-6)
+            gamma_auto = _g_sq(draw, feedback, self) * self.n / max(self._theta(), 1e-6)
             aux = torch.where(state.t == 0, gamma_auto.expand_as(aux), aux)
         return SamplerState(stats=stats, aux=aux, t=state.t + 1)
 
@@ -366,8 +435,8 @@ class Mabs(Sampler):
     theta: float = 0.1
 
     def probabilities(self, state: SamplerState) -> torch.Tensor:
-        w = torch.exp(state.stats - state.stats.max())
-        p = w / torch.clamp(w.sum(), min=1e-30)
+        w = torch.exp(state.stats - self._max(state.stats.max()))
+        p = w / torch.clamp(self._sum(w.sum()), min=1e-30)
         return (1.0 - self.theta) * p + self.theta / self.n
 
     def update(
@@ -376,7 +445,7 @@ class Mabs(Sampler):
         q = torch.clamp(draw.draw_probs, min=1e-30)
         # A normalized reward in [0, ~1] per draw, for EXP3's stability.
         fb2 = feedback**2
-        scale = torch.clamp(torch.where(draw.mask, fb2, 0.0).max(), min=1e-30)
+        scale = torch.clamp(self._max(torch.where(draw.mask, fb2, 0.0).max()), min=1e-30)
         reward = draw.counts.to(feedback.dtype) * (fb2 / scale) / q
         stats = state.stats + self.eta * reward / max(self.budget, 1) / self.n
         return SamplerState(stats=stats, aux=state.aux, t=state.t + 1)
@@ -399,11 +468,11 @@ class Avare(Sampler):
     def probabilities(self, state: SamplerState) -> torch.Tensor:
         explored = torch.isfinite(state.aux)
         est = torch.where(explored, state.aux, 0.0)
-        opt = torch.where(explored, est, torch.where(explored, est, 0.0).max() + 1e-6)
-        opt = torch.where(explored.any(), opt, torch.ones_like(opt))
-        p = opt / torch.clamp(opt.sum(), min=1e-30)
+        opt = torch.where(explored, est, self._max(torch.where(explored, est, 0.0).max()) + 1e-6)
+        opt = torch.where(self._any(explored.any()), opt, torch.ones_like(opt))
+        p = opt / torch.clamp(self._sum(opt.sum()), min=1e-30)
         p = torch.clamp(p, min=self.p_min_frac / self.n)
-        return p / p.sum()
+        return p / self._sum(p.sum())
 
     def update(
         self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
@@ -423,9 +492,9 @@ class OptimalISP(Sampler):
         return SamplerState(stats=feedback, aux=state.aux, t=state.t + 1)
 
     def probabilities(self, state: SamplerState) -> torch.Tensor:
-        p_opt = solver.isp_probabilities_unchecked(state.stats, self.budget, shard=self.shard)
+        p_opt = self._solve(state.stats)
         uniform = torch.full_like(p_opt, self.budget / self.n)
-        return torch.where((state.stats > 0).any(), p_opt, uniform)
+        return torch.where(self._any((state.stats > 0).any()), p_opt, uniform)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -454,10 +523,15 @@ class Osmd(Sampler):
         # The gradient of E[pi^2 / p] at the drawn clients, importance-weighted.
         grad = -draw.counts.to(torch.float32) * feedback**2 / (q * p**2)
         grad = grad / max(self.budget, 1)
-        scale = torch.clamp(grad.abs().max(), min=1e-30)
-        p_new = torch.softmax(torch.log(p) - self.lr * grad / scale, 0)
+        scale = torch.clamp(self._max(grad.abs().max()), min=1e-30)
+        logits = torch.log(p) - self.lr * grad / scale
+        if self.splits:  # the softmax over all N: its max and sum reduced
+            e = torch.exp(logits - self._max(logits.max()))
+            p_new = e / self._sum(e.sum())
+        else:
+            p_new = torch.softmax(logits, 0)
         p_new = torch.clamp(p_new, min=self.p_min_frac / self.n)
-        return SamplerState(stats=p_new / p_new.sum(), aux=state.aux, t=state.t + 1)
+        return SamplerState(stats=p_new / self._sum(p_new.sum()), aux=state.aux, t=state.t + 1)
 
 
 @functools.lru_cache(maxsize=16)
@@ -503,19 +577,22 @@ class ClusteredKVib(Sampler):
     def _cluster_mean_stats(self, stats: torch.Tensor) -> torch.Tensor:
         """Each client's cluster mean of ``stats``: a cluster's sum is the
         difference of two f64 prefix sums over the clients in cluster
-        order (no float atomics, so the card repeats its bits)."""
+        order (no float atomics, so the card repeats its bits).  On a split
+        client axis the statistics are gathered whole first and the result
+        is this rank's block."""
         if not self.cluster_ids:
             return stats
+        stats = self._gather(stats)
         order, start, end, size = _cluster_layout(tuple(self.cluster_ids), stats.device)
         prefix = torch.cumsum(stats[order], 0, dtype=torch.float64)
         prefix = torch.cat([prefix.new_zeros(1), prefix])
-        return (prefix[end] - prefix[start]).to(torch.float32) / size
+        return self.shard_constrain((prefix[end] - prefix[start]).to(torch.float32) / size)
 
     def probabilities(self, state: SamplerState) -> torch.Tensor:
         gamma = torch.clamp(state.aux[0], min=1e-12)
         scores = torch.sqrt(self._cluster_mean_stats(state.stats) + gamma)
-        p = solver.isp_probabilities_unchecked(scores, self.budget, shard=self.shard)
-        return solver.mix_probabilities(p, self._theta(), self.budget)
+        p = self._solve(scores)
+        return solver.mix_probabilities(p, self._theta(), self.budget, self.n)
 
     def update(
         self, state: SamplerState, draw: SampleResult, feedback: torch.Tensor
@@ -525,7 +602,7 @@ class ClusteredKVib(Sampler):
         )
         aux = state.aux
         if self.gamma is None:
-            gamma_auto = _g_sq(draw, feedback) * self.n / (self._theta() * self.budget)
+            gamma_auto = _g_sq(draw, feedback, self) * self.n / (self._theta() * self.budget)
             aux = torch.where(state.t == 0, gamma_auto.expand_as(aux), aux)
         return SamplerState(stats=state.stats + contrib, aux=aux, t=state.t + 1)
 

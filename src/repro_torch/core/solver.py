@@ -15,11 +15,15 @@ share that snap:
 * **Single-device** (``_isp_solve``): ``f(s)`` is evaluated at all 2N
   breakpoints through sorted prefix sums (sort, cumsum, searchsorted).
 * **Sharded** (``shard=ShardSpec(...)``, ``_isp_solve_sharded``): each shard
-  sorts and prefix-sums only its own slice; the crossing is bracketed in
+  sorts and prefix-sums only its own block; the crossing is bracketed in
   log-space by 64 bisection steps, or with ``use_kernel`` by five passes that
   score a 128-level ladder with the ``waterfill_level_stats`` kernel, and the
-  per-shard statistics are merged by ``torch.distributed.all_reduce`` on the
-  shard layout's process group (none for one shard).  The snap recomputes
+  per-shard statistics are merged by ``all_reduce`` on the shard layout's
+  process group (``ShardSpec.reduce``; none for one shard).
+  Given the global N (``n=``), a rank passes its block of the scores and
+  gets its block of p back, as the samplers do when the client axis is
+  split; without ``n`` every rank passes the global scores, solves its block
+  and gathers p back to (N,).  The snap recomputes
   the active sets from the *local sorted prefix sums* with the single-device
   expressions, so on one shard the result is bitwise equal to ``_isp_solve``;
   across S > 1 shards it differs only by the reassociation of the middle-set
@@ -55,10 +59,10 @@ __all__ = [
 ]
 
 
-def _validate_solver_inputs(scores: torch.Tensor, budget, p_min) -> None:
+def _validate_solver_inputs(scores: torch.Tensor, budget, p_min, n: int | None = None) -> None:
     """Host-side guard: raise on infeasible inputs instead of silently
-    returning garbage."""
-    n = scores.shape[0]
+    returning garbage (``scores`` a rank's block when ``n`` is given)."""
+    n = scores.shape[0] if n is None else int(n)
     b = float(budget)
     pm = float(p_min)
     if not 0.0 < b <= n:
@@ -143,16 +147,16 @@ def _isp_solve_local(
     p_min: float,
     *,
     n_global: int,
-    group=None,
+    shard=None,
     use_kernel: bool = False,
 ) -> torch.Tensor:
     """Shard-local body of the sharded water-filling solve.
 
     ``a_local`` is this rank's slice of the scores, possibly +inf-padded
     (infs sort last, sit above every finite threshold and clip to p = 1
-    entries the caller drops).  With a process ``group`` the per-shard
+    entries the caller drops).  With a splitting ``shard`` the per-shard
     statistics are merged by ``all_reduce`` (SUM for counts and sums, MIN /
-    MAX for the bracket's ends); with ``group=None`` there is no collective.
+    MAX for the bracket's ends); with ``shard=None`` there is no collective.
 
     The budget crossing of f(s) = sum clip(a_i/s, p_min, 1) is bracketed in
     log2-space, by ``_BISECT_DEPTH`` bisection steps or, with ``use_kernel``,
@@ -166,9 +170,7 @@ def _isp_solve_local(
         return torch.ones_like(a_local)
 
     def allreduce(x, op=dist.ReduceOp.SUM):
-        if group is not None:
-            dist.all_reduce(x, op=op, group=group)
-        return x
+        return x if shard is None else shard.reduce(x, op)
 
     a_sorted = torch.sort(a_local).values
     prefix = torch.cat([a_sorted.new_zeros(1), torch.cumsum(a_sorted, 0)])
@@ -217,26 +219,26 @@ def _isp_solve_local(
 
 
 def _isp_solve_sharded(
-    a: torch.Tensor, budget: float, p_min: float, shard, *, use_kernel: bool = False
+    a: torch.Tensor, budget: float, p_min: float, shard, *, use_kernel: bool = False,
+    n: int | None = None,
 ) -> torch.Tensor:
     """Solve over (N,) scores split across ``shard``'s ranks (a
-    ``launch.mesh.ShardSpec``).  Every rank holds the global scores, solves
-    its +inf-padded slice of ``ceil(N/S)`` and gathers p back to (N,)."""
-    n = a.shape[0]
-    group = shard.process_group()
-    if group is None:
-        return _isp_solve_local(a, budget, p_min, n_global=n, use_kernel=use_kernel)
-    s = shard.num_shards
-    m = -(-n // s)
-    a_pad = torch.cat([a, a.new_full((m * s - n,), torch.inf)])
-    rank = dist.get_rank(group)
+    ``launch.mesh.ShardSpec``).  With ``n`` (the global N) ``a`` is this
+    rank's block (``shard.block(n)``) and the result is its block of p;
+    without, every rank holds the global scores, solves its block and
+    gathers p back to (N,).  A block is +inf-padded to ``ceil(N/S)``."""
+    if shard.process_group() is None:
+        return _isp_solve_local(a, budget, p_min, n_global=a.shape[0], use_kernel=use_kernel)
+    blocks = n is not None
+    n = a.shape[0] if n is None else int(n)
+    lo, hi = shard.block(n)
+    a_local = a if blocks else a[lo:hi]
+    m = -(-n // shard.num_shards)
+    a_pad = torch.cat([a_local, a.new_full((m - (hi - lo),), torch.inf)])
     p_local = _isp_solve_local(
-        a_pad[rank * m : (rank + 1) * m], budget, p_min, n_global=n, group=group,
-        use_kernel=use_kernel,
-    )
-    parts = [torch.empty_like(p_local) for _ in range(s)]
-    dist.all_gather(parts, p_local, group=group)
-    return torch.cat(parts)[:n]
+        a_pad, budget, p_min, n_global=n, shard=shard, use_kernel=use_kernel
+    )[: hi - lo]
+    return p_local if blocks else shard.gather(p_local, n)
 
 
 def isp_probabilities_unchecked(
@@ -246,6 +248,7 @@ def isp_probabilities_unchecked(
     *,
     shard=None,
     use_kernel: bool | None = None,
+    n: int | None = None,
 ) -> torch.Tensor:
     """``isp_probabilities`` without the host-side validation, for code that
     runs every round; infeasible inputs are clipped (module docstring)."""
@@ -256,9 +259,11 @@ def isp_probabilities_unchecked(
     safe = torch.clamp(scores, min=1e-30)
     if shard is None:
         return _isp_solve(safe, float(f32(budget)), p_min_f32)
-    if use_kernel is None:
-        use_kernel = scores.device.type == "cuda"
-    return _isp_solve_sharded(safe, float(f32(budget)), p_min_f32, shard, use_kernel=use_kernel)
+    if use_kernel is None:  # over S > 1 ranks the ladder's 5 passes cost 5 collectives, not 128
+        use_kernel = scores.device.type == "cuda" or shard.splits
+    return _isp_solve_sharded(
+        safe, float(f32(budget)), p_min_f32, shard, use_kernel=use_kernel, n=n
+    )
 
 
 def isp_probabilities(
@@ -268,6 +273,7 @@ def isp_probabilities(
     *,
     shard=None,
     use_kernel: bool | None = None,
+    n: int | None = None,
 ) -> torch.Tensor:
     """Optimal independent-sampling probabilities (Lemma 2.2 / Lemma 5.1).
 
@@ -280,7 +286,12 @@ def isp_probabilities(
         split over its process group.  Bitwise equal to the unsharded solve
         on one shard; ~1e-6 on more (module docstring).
       use_kernel: bracket the sharded solve with the ``waterfill_level_stats``
-        ladder.  Default (None): on for CUDA tensors, off for CPU ones.
+        ladder.  Default (None): on for CUDA tensors and over S > 1 ranks
+        (five ``all_reduce``s a solve against the bisection's 128), off for
+        CPU tensors on one shard.
+      n: the global N when ``scores`` is this rank's block of a split
+        client axis (the result is then the block of p); default: the
+        scores are global.
 
     Returns:
       p with ``p_min <= p_i <= 1`` and ``sum(p) == K`` (to float tolerance).
@@ -289,8 +300,10 @@ def isp_probabilities(
       ValueError: budget outside (0, N], p_min > budget/N, or negative /
         non-finite scores.
     """
-    _validate_solver_inputs(scores, budget, p_min)
-    return isp_probabilities_unchecked(scores, budget, p_min, shard=shard, use_kernel=use_kernel)
+    _validate_solver_inputs(scores, budget, p_min, n)
+    return isp_probabilities_unchecked(
+        scores, budget, p_min, shard=shard, use_kernel=use_kernel, n=n
+    )
 
 
 def rsp_probabilities(scores: torch.Tensor, budget: float) -> torch.Tensor:
@@ -310,12 +323,15 @@ def rsp_probabilities(scores: torch.Tensor, budget: float) -> torch.Tensor:
     return torch.clamp(p, 0.0, 1.0)
 
 
-def mix_probabilities(p: torch.Tensor, theta: float, budget: float) -> torch.Tensor:
+def mix_probabilities(
+    p: torch.Tensor, theta: float, budget: float, n: int | None = None
+) -> torch.Tensor:
     """Mixing strategy, eq. (12): p~ = (1-theta) p + theta * K/N, with the
-    scalar factors rounded as the reference's f32 arithmetic rounds them."""
+    scalar factors rounded as the reference's f32 arithmetic rounds them
+    (``n`` the global N when ``p`` is a rank's block)."""
     f32 = np.float32
     keep = float(f32(1.0) - f32(theta))
-    floor = float(f32(f32(theta) * f32(budget)) / f32(p.shape[0]))
+    floor = float(f32(f32(theta) * f32(budget)) / f32(p.shape[0] if n is None else n))
     return keep * p + floor
 
 
@@ -324,6 +340,10 @@ def expected_cost(scores: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return torch.where(scores > 0, scores**2 / torch.clamp(p, min=1e-30), 0.0).sum()
 
 
-def optimal_cost(scores: torch.Tensor, budget: float) -> torch.Tensor:
-    """min_p l_t(p) over the ISP polytope — used by regret metrics."""
-    return expected_cost(scores, isp_probabilities_unchecked(scores, budget, 0.0))
+def optimal_cost(scores: torch.Tensor, budget: float, *, shard=None, n=None) -> torch.Tensor:
+    """min_p l_t(p) over the ISP polytope — used by regret metrics.  With a
+    splitting ``shard``, ``scores`` is this rank's block of the global
+    ``n`` and the result is this rank's share of the cost."""
+    if shard is None:
+        return expected_cost(scores, isp_probabilities_unchecked(scores, budget, 0.0))
+    return expected_cost(scores, isp_probabilities_unchecked(scores, budget, 0.0, shard=shard, n=n))

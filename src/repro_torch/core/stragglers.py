@@ -126,7 +126,8 @@ def availability_init(fault, n: int, device) -> torch.Tensor | None:
 
 
 def availability_step(
-    fault, chain: torch.Tensor | None, t: int, uniforms: torch.Tensor | None, n: int, device
+    fault, chain: torch.Tensor | None, t: int, uniforms: torch.Tensor | None, n: int, device,
+    block: tuple | None = None,
 ):
     """One round of the availability process, with ``uniforms`` the round's
     (N,) availability uniforms (None for ``diurnal``, which draws nothing).
@@ -134,15 +135,19 @@ def availability_step(
     Returns ``(mask, q, new_chain)``: the (N,) bool availability mask, the
     (N,) f32 availability probability the 1/q correction uses (for the
     Markov chain conditional on the carried state) and the advanced chain
-    (the mask itself; ``chain`` unchanged for the stateless processes)."""
+    (the mask itself; ``chain`` unchanged for the stateless processes).
+
+    ``block=(lo, hi)``: a split client axis; ``chain`` and ``uniforms`` are
+    the rank's block of clients ``lo .. hi - 1`` and so is every result."""
     mode = fault.availability
     kw = dict(fault.availability_kwargs)
+    lo, hi = (0, n) if block is None else block
     if mode == "bernoulli":
         q = kw.get("q", 0.9)
         if isinstance(q, tuple):  # per client: a host table, copied without a sync
-            q = torch.tensor(q, dtype=torch.float32).to(device, non_blocking=True)
+            q = torch.tensor(q[lo:hi], dtype=torch.float32).to(device, non_blocking=True)
         else:
-            q = torch.full((n,), float(np.float32(q)), dtype=torch.float32, device=device)
+            q = torch.full((hi - lo,), float(np.float32(q)), dtype=torch.float32, device=device)
         return uniforms < q, q, chain
     if mode == "markov":
         p_on = float(kw.get("p_on", 0.5))  # P(off -> on)
@@ -158,7 +163,7 @@ def availability_step(
         period = float(kw.get("period", 24.0))
         duty = float(kw.get("duty", 0.5))
         n_f = torch.full((), float(n), dtype=torch.float32, device=device)
-        phase = torch.arange(n, dtype=torch.float32, device=device) / n_f
+        phase = torch.arange(lo, hi, dtype=torch.float32, device=device) / n_f
         frac = torch.remainder(float(np.float32(t) / np.float32(period)) + phase, 1.0)
         mask = frac < float(np.float32(duty))
         return mask, mask.to(torch.float32), chain

@@ -20,6 +20,12 @@ the run's random source (``repro_torch.rng``).
 ties are the -1 priorities of non-included clients, i.e. the padding slots
 when ``|S| < C``, so which client a padding slot names may differ from the
 reference; valid slots, weights and every aggregate agree.
+
+On a client axis split over S > 1 ranks the round body gathers the (N,)
+mask and weights whole, so every rank makes the same selection from the
+same priorities; each rank then trains its block of the C slots, and
+``scatter_cohort(..., block=)`` writes the slots' values into the rank's
+block of the (N,) axis.
 """
 from __future__ import annotations
 
@@ -51,11 +57,18 @@ class CohortSelection(NamedTuple):
 
 
 def select_cohort(
-    mask: torch.Tensor, weights: torch.Tensor, cohort: int, priorities: torch.Tensor
+    mask: torch.Tensor, weights: torch.Tensor, cohort: int, priorities: torch.Tensor,
+    shard=None,
 ) -> CohortSelection:
     """Map an (N,) inclusion mask + full weight vector onto C static slots,
     with (N,) uniform ``priorities`` deciding which clients an overflow
-    drops."""
+    drops.  With a ``shard`` that splits the client axis, ``mask`` and
+    ``weights`` are this rank's blocks, gathered whole by one
+    ``all_gather`` first, so every rank makes the same selection."""
+    if shard is not None and shard.splits:
+        n = priorities.shape[0]
+        both = shard.gather(torch.stack([weights, mask.to(weights.dtype)], 1), n)
+        weights, mask = both[:, 0], both[:, 1] > 0
     n = mask.shape[0]
     c = int(min(int(cohort), n))
     priority = torch.where(mask, priorities, -1.0)
@@ -93,16 +106,24 @@ def mask_selection(
     )
 
 
-def scatter_cohort(values, sel: CohortSelection, n: int):
+def scatter_cohort(values, sel: CohortSelection, n: int, block: tuple | None = None):
     """(C, ...)-stacked tensor or dict -> (N, ...) with zeros for clients
     outside the cohort.  Padding slots are zeroed first, so a padding slot
-    cannot corrupt a real client's row; slot ids are distinct."""
+    cannot corrupt a real client's row; slot ids are distinct.  With
+    ``block=(lo, hi)`` the result is rows ``lo .. hi - 1`` of that (N, ...)
+    (a rank's block of a split client axis)."""
+    valid, ids = sel.valid, sel.ids
+    rows = n
+    if block is not None:
+        lo, hi = block
+        inside = (ids >= lo) & (ids < hi)
+        valid, ids, rows = valid & inside, torch.where(inside, ids - lo, 0), hi - lo
 
     def one(leaf):
-        keep = sel.valid.reshape((-1,) + (1,) * (leaf.dim() - 1))
+        keep = valid.reshape((-1,) + (1,) * (leaf.dim() - 1))
         v = torch.where(keep, leaf, torch.zeros((), dtype=leaf.dtype, device=leaf.device))
-        out = torch.zeros((n,) + tuple(leaf.shape[1:]), dtype=leaf.dtype, device=leaf.device)
-        return out.index_add(0, sel.ids, v)
+        out = torch.zeros((rows,) + tuple(leaf.shape[1:]), dtype=leaf.dtype, device=leaf.device)
+        return out.index_add(0, ids, v)
 
     return tree_map(one, values)
 

@@ -23,6 +23,20 @@ source (``repro_torch.rng``): the sampler's draw input, the cohort
 priorities, the fault layer's variates and the (N, R, B) batch indices, of
 which the cohort's rows are gathered.  A parity test replays the reference's
 own draws along its key chain.
+
+Over a client axis split across S > 1 ranks (the sampler's ``ShardSpec``;
+``api.run`` with ``execution.mesh_shape=(S, 1)``), every rank holds its
+block of the sampler state and makes the same selection from the gathered
+mask and weights, as ``fed.server`` does.  ``client_parallel``: each rank
+trains its block of the C slots; the weighted partial sum (kernel 2, or
+kernel 4 with compression) is ``all_reduce``d and the slots' norms and
+losses are ``all_gather``ed.  ``cohort_sequential``: every rank runs every
+slot on its block of each local batch's B rows, as the reference splits the
+batch over its data axes; each local step ``all_reduce``s the gradient of
+the rows' summed loss and divides by B, so the diverged copy stays the same
+on every rank and an uneven split is exact.  A MoE arch's load-balance loss
+and expert capacity couple the rows of a batch, so its
+``cohort_sequential`` round does not split (``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -37,7 +51,8 @@ from repro_torch.core.samplers import draw_input
 from repro_torch.fed import client as fed_client
 from repro_torch.fed.cohort import mask_selection, scatter_cohort, select_cohort, weighted_delta_sum
 from repro_torch.fed.state import TrainState, init_metric_buffers, make_segment_fn
-from repro_torch.fed.tasks import tree_map
+from repro_torch.fed.state import StateLayout
+from repro_torch.fed.tasks import tree_leaves, tree_map
 from repro_torch.models import transformer
 from repro_torch.models.common import ArchConfig
 
@@ -94,7 +109,32 @@ def _batch(tokens, targets, aux_embeds) -> tuple:
     return (tokens, targets) if aux_embeds is None else (tokens, targets, aux_embeds)
 
 
-def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None) -> Callable:
+MODEL_AXIS = "see ROADMAP.md section 1, item 6, 'Multi-rank placement', the model axis"
+
+
+def _split_local_update(params, loss, batches, local_lr: float, rows: int, shard):
+    """``fed.client.local_update`` on this rank's ``b`` of ``rows`` batch
+    rows: each step's gradient and loss are scaled by ``b``, summed over the
+    shards and divided by ``rows`` (the gradient of the global mean loss),
+    so every rank takes the same step.  One ``all_reduce`` a leaf, in place
+    at the gradient's own dtype, and one for the loss."""
+    grad_fn = torch.func.grad_and_value(loss)
+    b = batches[0].shape[1]
+    p = params
+    last = None
+    for r in range(batches[0].shape[0]):
+        grads, last = grad_fn(p, tuple(x[r] for x in batches))
+        for g in tree_leaves(grads):  # in place: no second copy of the gradients
+            red = shard.sum(g.mul_(b)).div_(rows)
+            if red is not g:  # a strided gradient was reduced in a contiguous copy
+                g.copy_(red)
+        last = shard.sum(last * b) / rows
+        p = tree_map(lambda w, g: w - local_lr * g, p, grads)
+        del grads
+    return tree_map(lambda a, c: a - c, params, p), last
+
+
+def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None, shard=None) -> Callable:
     """``round_step(params, tokens, targets, weights, aux_embeds=None,
     resid=None)`` -> ``(new_params, norms (C,) f32, loss, [new_resid])``.
 
@@ -108,11 +148,21 @@ def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None) -> Callab
     aggregated by ``core.estimator.aggregate_compressed`` (kernel 4) with
     ``weights`` as the lambda row, the dequantized norms are the feedback,
     and ``resid`` / ``new_resid`` carry the error feedback (None without).
-    ``constrain`` (the reference's sharding hook) is accepted and unused:
-    one card has no sharding."""
+    ``constrain`` (the reference's sharding hook) is accepted and unused.
+
+    With a ``shard`` that splits the client axis over S > 1 ranks (module
+    docstring): ``client_parallel`` takes this rank's block of the slots
+    (tokens, targets, weights) and returns every slot's norms; a
+    ``cohort_sequential`` step takes every slot's block of the B rows."""
     del constrain
     mode = cfg.round_mode
     comp = spec.compression
+    split = shard is not None and shard.splits
+    if split and mode == "cohort_sequential" and cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: a MoE arch's cohort_sequential round over S > 1 ranks; its "
+            f"load-balance loss and expert capacity couple a batch's rows, {MODEL_AXIS}"
+        )
     if comp is not None and mode != "client_parallel":
         raise ValueError(
             f"RoundSpec.compression needs round_mode='client_parallel' (got "
@@ -134,6 +184,17 @@ def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None) -> Callab
             data = _batch(tokens, targets, aux_embeds)
             clients = torch.func.vmap(per_client, in_dims=(None,) + (0,) * len(data))
             deltas, losses, norms = clients(params, *data)
+            if split:
+                if comp is None:
+                    d, out = estimator.aggregate_cohort(deltas, weights, shard=shard), ()
+                else:
+                    d, _, norms, new_resid = estimator.aggregate_compressed(
+                        deltas, weights, weights, comp, resid, shard=shard
+                    )
+                    out = (new_resid,)
+                every = shard.gather(torch.stack([losses, norms, weights], 1), spec.cohort)
+                return (_server_step(params, d, spec.server_lr), every[:, 1],
+                        _cohort_mean_loss(every[:, 0], every[:, 2])) + out
             mean_loss = _cohort_mean_loss(losses, weights)
             if comp is None:
                 d = weighted_delta_sum(deltas, weights)
@@ -154,9 +215,17 @@ def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None) -> Callab
             losses, norms = [], []
             data = _batch(tokens, targets, aux_embeds)
             for c in range(tokens.shape[0]):
-                delta, last, norm = per_client(params, *(a[c] for a in data))
+                if split:
+                    delta, last = _split_local_update(
+                        params, loss, tuple(a[c] for a in data), spec.local_lr,
+                        spec.local_batch, shard,
+                    )
+                    norm = fed_client.update_norm(delta)
+                else:
+                    delta, last, norm = per_client(params, *(a[c] for a in data))
                 w = weights[c]
-                acc = tree_map(lambda a, dl: a + w * dl.to(torch.float32), acc, delta)
+                for a, dl in zip(tree_leaves(acc), tree_leaves(delta)):
+                    a.add_(w * dl.to(torch.float32))  # in place: one f32 accumulator
                 del delta  # one diverged copy at a time
                 losses.append(last)
                 norms.append(norm)
@@ -187,7 +256,19 @@ def _build_body(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, source):
     n = dataset.n_clients
     device = dataset.device
     c_slots = int(spec.cohort)
-    round_step = build_round_step(cfg, spec)
+    # A split client axis (module docstring): this rank's block of the
+    # clients, and of the slots or of each batch's rows.
+    shard = sampler.shard if sampler.splits else None
+    round_step = build_round_step(cfg, spec, shard=shard)
+    block, lam_b, slots, rows = None, lam, slice(None), slice(None)
+    if shard is not None:
+        _check_split(shard, cfg, spec, n)
+        block = shard.block(n)
+        lam_b = lam[block[0]:block[1]]
+        if cfg.round_mode == "client_parallel":
+            slots = slice(*shard.block(c_slots))
+        else:
+            rows = slice(*shard.block(spec.local_batch))
     fault = spec.faults
     fault_on = fault is not None
     avail_on = fault_on and fault.availability is not None
@@ -202,10 +283,12 @@ def _build_body(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, source):
     def gather_cohort(sel, t):
         """(C, R, B, S) tokens and targets of the cohort's slots: rows
         ``idx[sel.ids]`` of the round's (N, R, B) batch indices; padding
-        slots are zeroed."""
+        slots are zeroed.  On a split client axis: this rank's slots, or
+        this rank's rows of every slot."""
         idx = source.batch_indices(t, dataset.sizes, spec.local_steps, spec.local_batch)
-        tokens, targets = dataset.gather(sel.ids, idx[sel.ids])
-        keep = sel.valid.reshape(-1, 1, 1, 1)
+        ids = sel.ids[slots]
+        tokens, targets = dataset.gather(ids, idx[ids][:, :, rows])
+        keep = sel.valid[slots].reshape(-1, 1, 1, 1)
         return (torch.where(keep, tokens, 0).long(), torch.where(keep, targets, 0).long())
 
     def body(t: int, carry):
@@ -220,15 +303,16 @@ def _build_body(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, source):
         draw = sampler.sample_from(p, draw_input(source, sampler.procedure, t, n, sampler.budget))
         if avail_on:
             diurnal = fault.availability == "diurnal"  # a schedule: no draw
-            u_avail = None if diurnal else source.availability_uniforms(t, n)
+            u_avail = None if diurnal else sampler.shard_constrain(
+                source.availability_uniforms(t, n))
             avail_mask, q_t, new_chain = stragglers.availability_step(
-                fault, f_state.get("chain"), t, u_avail, n, device
+                fault, f_state.get("chain"), t, u_avail, n, device, block
             )
             draw = stragglers.available_draw(draw, avail_mask, q_t)
             if "chain" in f_state:
                 f_state = {**f_state, "chain": new_chain}
-        w_full = estimator.client_weights(draw, lam, sampler.procedure, sampler.budget)
-        sel = select_cohort(draw.mask, w_full, c_slots, source.cohort_priorities(t, n))
+        w_full = estimator.client_weights(draw, lam_b, sampler.procedure, sampler.budget)
+        sel = select_cohort(draw.mask, w_full, c_slots, source.cohort_priorities(t, n), shard)
         metrics = {"dropped": sel.n_dropped}  # overflow drops, before the deadline's
         if deadline_on:
             # Every slot still trains (the server scheduled it); late slots
@@ -240,12 +324,12 @@ def _build_body(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, source):
         tokens, targets = gather_cohort(sel, t)
         if comp is not None:
             new_params, norms, loss, new_resid = round_step(
-                params, tokens, targets, sel.weights, resid=c_state.get("resid")
+                params, tokens, targets, sel.weights[slots], resid=c_state.get("resid")
             )
             if ef_on:
                 c_state = {"resid": new_resid}
         else:
-            new_params, norms, loss = round_step(params, tokens, targets, sel.weights)
+            new_params, norms, loss = round_step(params, tokens, targets, sel.weights[slots])
         if async_on:
             # The round step applied x - server_lr * d: recover the update,
             # route it through the stale-delta ring, apply what arrived.
@@ -260,7 +344,8 @@ def _build_body(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, source):
         else:
             params = new_params
         # The sampler's (N,) feedback: lambda * norm at the valid slots.
-        s_state = sampler.update(s_state, draw, scatter_cohort(lam[sel.ids] * norms, sel, n))
+        s_state = sampler.update(
+            s_state, draw, scatter_cohort(lam[sel.ids] * norms, sel, n, block))
         metrics["loss"] = loss
         metrics["cohort_size"] = sel.valid.to(torch.int32).sum()
         out = (params, opt_state, s_state)
@@ -271,6 +356,32 @@ def _build_body(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, source):
         return out, metrics
 
     return body
+
+
+def _check_split(shard, cfg: ArchConfig, spec: RoundSpec, n: int) -> None:
+    """Every rank must hold at least one client, and one slot
+    (``client_parallel``) or one row of each batch (``cohort_sequential``)."""
+    s = shard.num_shards
+    width, what = ((spec.cohort, "cohort slots") if cfg.round_mode == "client_parallel"
+                   else (spec.local_batch, "local batch rows"))
+    if n < s or width < s:
+        raise ValueError(
+            f"the client axis is split over {s} ranks, but the round has {n} clients and "
+            f"{width} {what}: each rank needs at least one of each"
+        )
+
+
+def _template(cfg: ArchConfig, spec: RoundSpec, sampler, n: int, shapes: dict) -> TrainState:
+    """The round-0 ``TrainState``'s (N,)-bearing fields as ``meta`` tensors
+    (the ``StateLayout`` template of a split run; the fields
+    ``build_placement`` replicates whole are None)."""
+    faults = ()
+    if spec.faults is not None:
+        d_dim = stragglers.flat_dim(transformer.init_params(cfg, None, "meta"))
+        faults = stragglers.abstract_fault_state(spec.faults, n, d_dim, spec.compression)
+    return TrainState(params=None, opt_state=None, sampler=sampler.init("meta"),
+                      metrics=init_metric_buffers(shapes, 1, "meta"), round=0, source=None,
+                      faults=faults, compression=None)
 
 
 def scan_body_for_lint(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, *, source=None):
@@ -342,7 +453,11 @@ def build_fed_scan_segment(cfg: ArchConfig, spec: RoundSpec, sampler, dataset, *
             compression=comp,
         )
 
-    segment = make_segment_fn(body, source, with_faults=fault_on, with_compression=ef_on)
+    layout = None
+    if sampler.splits:
+        layout = StateLayout(_template(cfg, spec, sampler, dataset.n_clients, shapes), sampler)
+    segment = make_segment_fn(
+        body, source, with_faults=fault_on, with_compression=ef_on, layout=layout)
     return segment, make_state
 
 

@@ -62,6 +62,18 @@ scatters the cohort's deltas and weights back to N rows and aggregates
 them with the oracle contraction (kernel 1 at (2, N) x (N, D)), bitwise the
 oracle run at C = N; ``score_history_host_offload`` keeps a device ring of
 ``ckpt_every`` score rows, drained to the host at each boundary.
+
+When the sampler's ``ShardSpec`` splits the client axis over S > 1 ranks
+(``api.run`` over a mesh whose data axes hold S ranks), every rank runs the
+round on its block of it, as the reference splits it over the mesh's data
+axes: the sampler state, the draw, the Markov chain and the score history
+are blocks (``fed.state.StateLayout``); in oracle mode a rank trains only
+its block of the N clients, in deployable mode its block of the C slots of
+a selection every rank makes alike from the gathered mask and weights.
+The aggregates, the loss and the counts are ``all_reduce``d, so the
+parameters, the optimizer state, the residual and the async ring stay
+replicated, and every rank returns the same ``History``.  Every rank draws
+the global inputs from the same random source and keeps its block.
 """
 from __future__ import annotations
 
@@ -79,6 +91,7 @@ from repro_torch.device import resolve_device
 from repro_torch.fed import client as fed_client
 from repro_torch.fed import cohort as fed_cohort
 from repro_torch.fed.state import (
+    StateLayout,
     TrainState,
     init_metric_buffers,
     make_segment_fn,
@@ -225,6 +238,24 @@ def _build_round_body(
         # unsatisfiable); survivors' weights are divided by it.
         surv = stragglers.deadline_survival(fault)
         deadline = float(np.float32(fault.deadline))
+    # A split client axis (module docstring): this rank's block of the N
+    # clients and of the C slots; one shard keeps the whole of both.
+    shard = sampler.shard if sampler.splits else None
+    block, lam_b, ids_b, slots = None, lam, all_ids, slice(None)
+    if shard is not None:
+        width = n if cfg.oracle_metrics else c_slots
+        if width < shard.num_shards:
+            raise ValueError(
+                f"the client axis is split over {shard.num_shards} ranks, but the round trains "
+                f"{width} {'clients' if cfg.oracle_metrics else 'cohort slots'}: each rank "
+                "needs at least one"
+            )
+        block = shard.block(n)
+        lam_b, ids_b = lam[block[0]:block[1]], all_ids[block[0]:block[1]]
+        slots = slice(*shard.block(c_slots))
+
+    def gsum(x):
+        return x if shard is None else shard.sum(x)
 
     def body(t: int, carry):
         c_state = {}
@@ -243,47 +274,52 @@ def _build_round_body(
             # Composing q into the draw's probabilities makes the plain
             # client_weights below the availability-corrected 1/(q p) weights.
             diurnal = fault.availability == "diurnal"  # a schedule: no draw
-            u_avail = None if diurnal else source.availability_uniforms(t, n)
+            u_avail = None if diurnal else sampler.shard_constrain(
+                source.availability_uniforms(t, n))
             avail_mask, q_t, new_chain = stragglers.availability_step(
-                fault, f_state.get("chain"), t, u_avail, n, device
+                fault, f_state.get("chain"), t, u_avail, n, device, block
             )
             draw = stragglers.available_draw(draw, avail_mask, q_t)
             if "chain" in f_state:
                 f_state = {**f_state, "chain": new_chain}
-        weights = estimator.client_weights(draw, lam, sampler.procedure, sampler.budget)
+        weights = estimator.client_weights(draw, lam_b, sampler.procedure, sampler.budget)
         idx = source.batch_indices(t, dataset.sizes, cfg.local_steps, cfg.batch_size)
 
         metrics = {}
         if cfg.oracle_metrics:
-            deltas, losses, norms = clients(params, *dataset.gather(all_ids, idx))
+            idx_b = idx if shard is None else idx[block[0]:block[1]]
+            deltas, losses, norms = clients(params, *dataset.gather(ids_b, idx_b))
             active = draw.mask
             if deadline_on:
                 # Clients past the deadline report nothing; survivors / surv
                 # keeps the estimate unbiased.
-                lat = stragglers.latency_draw(fault, source.latencies(t, (n,), fault.latency))
+                lat = stragglers.latency_draw(fault, sampler.shard_constrain(
+                    source.latencies(t, (n,), fault.latency)))
                 late = draw.mask & (lat > deadline)
                 active = draw.mask & ~late
                 weights = torch.where(late, 0.0, weights * float(np.float32(1.0 / surv)))
-                metrics["deadline_dropped"] = late.to(torch.int32).sum()
-            metrics["train_loss"] = (lam * losses).sum()
-            metrics["cohort_size"] = active.to(torch.int32).sum() if deadline_on else draw.size
+                metrics["deadline_dropped"] = gsum(late.to(torch.int32).sum())
+            metrics["train_loss"] = gsum((lam_b * losses).sum())
+            metrics["cohort_size"] = gsum(
+                active.to(torch.int32).sum() if deadline_on else draw.size)
             if comp is not None:
                 # The feedback norms are the dequantized ones: the regret
                 # signal is what the estimator saw.
                 d_est, sq_err, norms, new_resid = estimator.aggregate_compressed(
-                    deltas, weights, lam, comp, c_state.get("resid")
+                    deltas, weights, lam_b, comp, c_state.get("resid"), shard=shard
                 )
             else:
-                d_est, sq_err = estimator.aggregate_and_error(deltas, weights, lam)
-            feedback_full = lam * norms  # pi_t(i) = lambda_i ||g_i||
+                d_est, sq_err = estimator.aggregate_and_error(deltas, weights, lam_b, shard=shard)
+            feedback_full = lam_b * norms  # pi_t(i) = lambda_i ||g_i||
             feedback = feedback_full * active
         else:
             sel = fed_cohort.select_cohort(
-                draw.mask, weights, c_slots, source.cohort_priorities(t, n)
+                draw.mask, weights, c_slots, source.cohort_priorities(t, n), shard
             )
             metrics["dropped"] = sel.n_dropped  # overflow drops, before the deadline's
+            ids_c = sel.ids[slots]
             deltas_c, losses_c, norms_c = clients(
-                params, *dataset.gather(sel.ids, idx[sel.ids])
+                params, *dataset.gather(ids_c, idx[ids_c])
             )
             if deadline_on:
                 # Late slots become inert padding after their training ran.
@@ -294,26 +330,31 @@ def _build_round_body(
                 sel = fed_cohort.mask_selection(sel, ~late_c, 1.0 / surv)
                 metrics["deadline_dropped"] = late_c.to(torch.int32).sum()
             lam_c = torch.where(sel.valid, lam[sel.ids], 0.0)
+            valid_l, w_l, lam_l = sel.valid[slots], sel.weights[slots], lam_c[slots]
             # Unbiased cohort estimate of the full weighted loss.
-            metrics["train_loss"] = torch.where(sel.valid, sel.weights * losses_c, 0.0).sum()
+            metrics["train_loss"] = gsum(torch.where(valid_l, w_l * losses_c, 0.0).sum())
             metrics["cohort_size"] = sel.valid.to(torch.int32).sum()
             if cfg.exact_oracle_equiv:
                 # Scatter to (N, ...) and reuse the oracle contraction:
                 # bitwise the oracle run when |S| <= C (zero terms cannot
                 # change the sums), at O(N * D) memory.
+                own = sel if shard is None else sel._replace(ids=ids_c, weights=w_l, valid=valid_l)
                 d_est, sq_err = estimator.aggregate_and_error(
-                    fed_cohort.scatter_cohort(deltas_c, sel, n),
-                    fed_cohort.scatter_cohort(sel.weights, sel, n),
-                    lam,
+                    fed_cohort.scatter_cohort(deltas_c, own, n),
+                    fed_cohort.scatter_cohort(w_l, own, n),
+                    lam, shard=shard,
                 )
             elif comp is not None:
                 d_est, sq_err, norms_c, new_resid = estimator.aggregate_compressed(
-                    deltas_c, sel.weights, lam_c, comp, c_state.get("resid")
+                    deltas_c, w_l, lam_l, comp, c_state.get("resid"), shard=shard
                 )
             else:
-                d_est, sq_err = estimator.aggregate_and_error_cohort(deltas_c, sel.weights, lam_c)
+                d_est, sq_err = estimator.aggregate_and_error_cohort(
+                    deltas_c, w_l, lam_l, shard=shard)
+            if shard is not None:
+                norms_c = shard.gather(norms_c, c_slots)
             # The sampler state is (N,): scatter the (C,) feedback.
-            feedback = fed_cohort.scatter_cohort(lam_c * norms_c, sel, n)
+            feedback = fed_cohort.scatter_cohort(lam_c * norms_c, sel, n, block)
 
         if ef_on:
             c_state = {"resid": new_resid}
@@ -337,7 +378,8 @@ def _build_round_body(
                 # K x the per-draw distribution approximates the inclusion
                 # marginal; clipped to (0, 1] as the reference clips it.
                 p_eff = torch.clamp(sampler.budget * draw.draw_probs, 1e-30, 1.0)
-            cost, opt_cost = regret.round_costs(feedback_full, p_eff, sampler.budget)
+            cost, opt_cost = regret.round_costs(
+                feedback_full, p_eff, sampler.budget, shard=shard, n=n)
             metrics.update(sq_error=sq_err, cost=cost, opt_cost=opt_cost)
             if cfg.track_scores:
                 metrics["scores"] = feedback_full
@@ -496,7 +538,9 @@ def build_segment_runner(
     whole horizon, round 0, the source's state, and the fault and
     error-feedback carries; it is also the restore template of
     ``CheckpointManager.restore_or_init``.  ``segment_fn(state, n)`` runs
-    rounds ``state.round .. state.round + n - 1`` (``fed.state``)."""
+    rounds ``state.round .. state.round + n - 1`` (``fed.state``).  The
+    state is global; over S > 1 ranks the segment keeps it in
+    ``segment_fn.layout`` (``fed.state.StateLayout``)."""
     dev = resolve_device(device)
     dataset, eval_data, source, carry, body = _setup(
         task, dataset, sampler, cfg, eval_data, dev, random_source
@@ -515,7 +559,10 @@ def build_segment_runner(
         faults=carry[3] if fault_on else (),
         compression=carry[-1] if ef_on else (),
     )
-    return make_segment_fn(body, source, with_faults=fault_on, with_compression=ef_on), state
+    layout = StateLayout(state, sampler) if sampler.splits else None
+    segment = make_segment_fn(
+        body, source, with_faults=fault_on, with_compression=ef_on, layout=layout)
+    return segment, state
 
 
 def _run_eager(task, dataset, sampler, cfg, eval_data, dev, random_source):
@@ -526,9 +573,16 @@ def _run_eager(task, dataset, sampler, cfg, eval_data, dev, random_source):
     dataset, eval_data, _, carry, body = _setup(
         task, dataset, sampler, cfg, eval_data, dev, random_source
     )
+    if sampler.splits:  # this rank's block of the sampler state and the chain
+        carry = (*carry[:2], sampler.shard_state(carry[2]), *carry[3:])
+        if cfg.faults is not None and "chain" in carry[3]:
+            chain = sampler.shard_constrain(carry[3]["chain"])
+            carry = (*carry[:3], {**carry[3], "chain": chain}, *carry[4:])
     per_round = []
     for t in range(cfg.rounds):
         carry, m = body(t, carry)
+        if "scores" in m and sampler.splits:
+            m["scores"] = sampler.shard.gather(m["scores"], sampler.n)
         per_round.append({k: v.cpu().numpy() for k, v in m.items()})
     if per_round:
         metrics = {k: np.stack([m[k] for m in per_round]) for k in per_round[0]}
@@ -593,6 +647,8 @@ def run_federated(
 
             def on_segment(st, done):
                 nonlocal drained_to
+                if segment.layout is not None:
+                    st = segment.layout.gather(st, ("metrics",))
                 scores_host[drained_to:done] = st.metrics["scores"][: done - drained_to].cpu().numpy()
                 drained_to = done
 
@@ -600,6 +656,8 @@ def run_federated(
             state, cfg.rounds, segment, ckpt_every=cfg.ckpt_every, manager=ckpt_manager,
             on_segment=on_segment,
         )
+        if segment.layout is not None:
+            state = segment.layout.gather(state, ("metrics",))
         params = state.params
         if cfg.faults is not None and int(cfg.faults.async_buffer) > 0:
             params = _flush_async(params, state.opt_state, state.faults, cfg)

@@ -29,6 +29,19 @@ bit is in it:
 Segmentation is a pure reshaping of the horizon: for any ``ckpt_every`` the
 round bodies see the same carries, draws and round indices, so results are
 bitwise those of one segment.
+
+Over S > 1 ranks (a sampler whose ``ShardSpec`` splits the client axis),
+``build_placement`` says where each leaf lives at rest, by the reference's
+rules: the leading (N,) axis of the sampler's leaves and of the Markov
+chain and the trailing (N,) axis of the metric buffers (the oracle score
+history) split into the rank's block, everything else replicated; when S
+does not divide N those leaves stay replicated at rest.  The round body
+always computes on blocks.  ``StateLayout`` moves a state between the
+three forms: global (a fresh round-0 state, a restored checkpoint), at
+rest (between segments) and computing (inside a segment).  A checkpoint
+holds the global state: ``run_segmented`` gathers the split leaves and
+rank 0 writes them, and the next segment slices each rank's block out of a
+restored global state, so a run saved at one S resumes at another.
 """
 from __future__ import annotations
 
@@ -37,8 +50,11 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.checkpoint.checkpointer import tree_flatten, tree_unflatten
+
 __all__ = [
-    "TrainState", "init_metric_buffers", "make_segment_fn", "run_segmented", "segment_builds",
+    "TrainState", "StateLayout", "build_placement", "init_metric_buffers", "make_segment_fn",
+    "run_segmented", "segment_builds",
 ]
 
 
@@ -69,6 +85,142 @@ def init_metric_buffers(metric_shapes: dict, total_rounds: int, device) -> dict:
     return out
 
 
+def _map(fn, tree):
+    return tree_unflatten(tree, [fn(x) for x in tree_flatten(tree)])
+
+
+def build_placement(template: TrainState, sampler, *, divisible: bool | None = None) -> TrainState:
+    """Each leaf's layout over the client shards, as a ``TrainState`` of the
+    template's structure: None where the leaf is replicated, else the
+    dimension of size N that is split into ``sampler.shard``'s blocks.
+
+    ``template`` is the global state (tensors, ``meta`` tensors included:
+    only shapes are read).  The reference's rules
+    (``repro/fed/state.py:build_placement``): the sampler's leaves with a
+    leading (N,) axis split it, and so does the fault layer's Markov
+    ``chain``; metric buffers with a trailing (N,) axis (ndim >= 2) split
+    that; the parameters, optimizer state, round, random source, the async
+    ring and the error-feedback residual are replicated.  When S does not
+    divide N the split leaves fall back to replicated (``divisible``,
+    default ``N % S == 0``; the segments compute on blocks either way).
+    The async ring is replicated by name, where the reference's shape rule
+    would split a ring of exactly N slots.  A field replicated whole (the
+    parameters, the optimizer state, the round, the source, the residual)
+    is one None, whatever its leaves."""
+    n = int(sampler.n)
+    if divisible is None:
+        divisible = n % sampler.shard.num_shards == 0
+
+    def leading(leaf):
+        shape = getattr(leaf, "shape", ())
+        return 0 if divisible and len(shape) >= 1 and shape[0] == n else None
+
+    def trailing(leaf):
+        shape = getattr(leaf, "shape", ())
+        return len(shape) - 1 if divisible and len(shape) >= 2 and shape[-1] == n else None
+
+    faults = template.faults
+    if isinstance(faults, dict):
+        faults = {k: (_map(leading, v) if k == "chain" else _map(lambda _: None, v))
+                  for k, v in faults.items()}
+    return TrainState(
+        params=None,
+        opt_state=None,
+        sampler=_map(leading, template.sampler),
+        metrics=_map(trailing, template.metrics),
+        round=None,
+        source=None,
+        faults=faults,
+        compression=None,
+    )
+
+
+class StateLayout:
+    """A ``TrainState``'s layout over ``sampler.shard``'s S > 1 ranks.
+
+    ``rest`` is ``build_placement`` (the layout between segments),
+    ``compute`` the same rules with every (N,) axis split (the round body
+    computes on blocks).  A state passes through three forms: global,
+    at rest and computing; a split leaf's block is ``shard.block(N)``
+    (``launch.mesh.ShardSpec.local_range``)."""
+
+    def __init__(self, template: TrainState, sampler):
+        self.shard = sampler.shard
+        self.n = int(sampler.n)
+        self.rank = self.shard.rank()
+        self.lo, self.hi = self.shard.local_range(self.n, self.rank)
+        self.rest = build_placement(template, sampler)
+        self.compute = build_placement(template, sampler, divisible=True)
+
+    def _local(self, leaf, dim):
+        rows = leaf.shape[dim]
+        if rows == self.n:
+            return leaf.narrow(dim, self.lo, self.hi - self.lo).clone()
+        if rows != self.hi - self.lo:
+            raise ValueError(
+                f"a leaf of shape {tuple(leaf.shape)} has {rows} rows along dim {dim}: neither "
+                f"the {self.n} clients nor rank {self.rank}'s block [{self.lo}, {self.hi})"
+            )
+        return leaf  # already this rank's block
+
+    def _global(self, leaf, dim):
+        if leaf.shape[dim] == self.n and self.hi - self.lo != self.n:
+            return leaf
+        return self.shard.gather(leaf.movedim(dim, 0), self.n).movedim(0, dim).contiguous()
+
+    def _apply(self, state: TrainState, fn, fields=None) -> TrainState:
+        """``state`` with ``fn(leaf, rest dim, compute dim)`` applied to the
+        leaves of ``fields`` (default: all)."""
+        out = {}
+        for f in dataclasses.fields(TrainState):
+            if (fields is not None and f.name not in fields) or getattr(self.rest, f.name) is None:
+                continue  # a field replicated whole
+            sub = getattr(state, f.name)
+            leaves = tree_flatten(sub)
+            rest, comp = tree_flatten(getattr(self.rest, f.name)), tree_flatten(
+                getattr(self.compute, f.name))
+            if len(leaves) != len(rest):
+                raise ValueError(
+                    f"TrainState.{f.name} has {len(leaves)} leaves, its layout {len(rest)}"
+                )
+            out[f.name] = tree_unflatten(sub, [fn(x, r, c) for x, r, c in zip(leaves, rest, comp)])
+        return dataclasses.replace(state, **out)
+
+    def to_compute(self, state: TrainState) -> TrainState:
+        """Global or at rest -> every split leaf this rank's block."""
+        return self._apply(state, lambda x, r, c: x if c is None else self._local(x, c))
+
+    def to_rest(self, state: TrainState) -> TrainState:
+        """Computing -> at rest: the leaves replicated at rest are gathered."""
+        return self._apply(
+            state, lambda x, r, c: x if c is None or r is not None else self._global(x, c)
+        )
+
+    def gather(self, state: TrainState, fields: tuple | None = None) -> TrainState:
+        """Any form -> global (``fields``: only those ``TrainState`` fields)."""
+        return self._apply(state, lambda x, r, c: x if c is None else self._global(x, c), fields)
+
+    def check(self, state: TrainState, where: str) -> None:
+        """Raise ``ValueError`` unless every split leaf has its at-rest size
+        along its split dimension (the block, or N where replicated)."""
+
+        def one(x, r, c):
+            want = self.hi - self.lo if r is not None else self.n
+            if c is not None and x.shape[c] != want:
+                raise ValueError(
+                    f"{where}: a leaf of shape {tuple(x.shape)} has {x.shape[c]} rows along "
+                    f"dim {c}, its layout holds {want} (rank {self.rank}, block "
+                    f"[{self.lo}, {self.hi}) of {self.n})"
+                )
+            return x
+
+        self._apply(state, one)
+
+    def barrier(self) -> None:
+        """Wait for every rank (one ``broadcast`` from rank 0)."""
+        self.shard.broadcast(torch.zeros(1))
+
+
 _BUILDS = [0]
 
 
@@ -79,7 +231,8 @@ def segment_builds() -> int:
     return _BUILDS[0]
 
 
-def make_segment_fn(body, source, *, with_faults: bool = False, with_compression: bool = False):
+def make_segment_fn(body, source, *, with_faults: bool = False, with_compression: bool = False,
+                    layout: StateLayout | None = None):
     """The one segment function over ``TrainState``: ``segment(state,
     n_rounds)``
 
@@ -95,9 +248,18 @@ def make_segment_fn(body, source, *, with_faults: bool = False, with_compression
     4. returns the advanced ``TrainState`` with ``source.state_dict()``.
 
     The buffers are written in place: the input state's metrics are the
-    output's (the reference donates its input state)."""
+    output's (the reference donates its input state).
+
+    With a ``layout`` (S > 1 ranks) the input state may be global or at
+    rest: each split leaf is cut to this rank's block before the rounds,
+    and the output is at rest, every leaf's local shape checked against
+    the layout (``StateLayout.check``); the buffers are then the segment's
+    own.  ``segment.layout`` is the layout (``run_segmented`` gathers by
+    it before a save)."""
 
     def segment(state: TrainState, n_rounds: int) -> TrainState:
+        if layout is not None:
+            state = layout.to_compute(state)
         source.load_state_dict(state.source)
         carry = (state.params, state.opt_state, state.sampler)
         if with_faults:
@@ -119,7 +281,7 @@ def make_segment_fn(body, source, *, with_faults: bool = False, with_compression
         carry = carry[:-1] if with_compression else carry
         f_state = carry[-1] if with_faults else state.faults
         params, opt_state, s_state = carry[:3]
-        return TrainState(
+        out = TrainState(
             params=params,
             opt_state=opt_state,
             sampler=s_state,
@@ -129,9 +291,14 @@ def make_segment_fn(body, source, *, with_faults: bool = False, with_compression
             faults=f_state,
             compression=c_state,
         )
+        if layout is not None:
+            out = layout.to_rest(out)
+            layout.check(out, f"segment end at round {out.round}")
+        return out
 
     _BUILDS[0] += 1
     segment._lint = {"build": _BUILDS[0]}  # the compile-once audit's handle
+    segment.layout = layout
     return segment
 
 
@@ -155,7 +322,11 @@ def run_segmented(
     then the ``max_segments`` check, which stops the loop early (cooperative
     preemption; the resume tests' simulated kill).  ``publish`` needs a
     manager: it announces committed boundaries.  Returns the final (or
-    preempted) state; ``state.round`` says how far it got."""
+    preempted) state; ``state.round`` says how far it got.
+
+    Over S > 1 ranks (``segment_fn.layout``) every rank calls this: the
+    save gathers the split leaves to their global shapes, rank 0 writes
+    them, and every rank waits for the write before going on."""
     if publish is not None and manager is None:
         raise ValueError(
             "run_segmented(publish=...) requires a manager: the publish hook "
@@ -166,13 +337,20 @@ def run_segmented(
     if done > total_rounds:
         raise ValueError(f"state.round={done} is past the horizon total_rounds={total_rounds}")
     seg = int(ckpt_every) if ckpt_every and ckpt_every > 0 else int(total_rounds)
+    layout = getattr(segment_fn, "layout", None)
     n_segments = 0
     while done < total_rounds:
         n = min(seg, total_rounds - done)
         state = segment_fn(state, n)
         done += n
         if manager is not None:
-            manager.save(state, step=done)
+            if layout is None:
+                manager.save(state, step=done)
+            else:
+                full = layout.gather(state)
+                if layout.rank == 0:
+                    manager.save(full, step=done)
+                layout.barrier()
             if publish is not None:
                 publish(state, done)
         if on_segment is not None:

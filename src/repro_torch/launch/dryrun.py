@@ -45,7 +45,7 @@ COHORT_SEQUENTIAL = 4  # clients per round, cohort_sequential
 LOCAL_STEPS = 2
 OPTS = ("remat_none", "mlstm_chunked", "attn_chunked", "moe_a2a")  # and mlstm_chunk_N, slstm_seg_N
 MULTI_RANK = ("the port counts a step on one card; see ROADMAP.md section 1, item 6, "
-              "'Multi-rank placement'")
+              "'Multi-rank placement', the model axis")
 
 
 def _cfg_for(arch: str, shape_name: str):

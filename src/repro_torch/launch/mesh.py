@@ -1,51 +1,208 @@
-"""The sampler's shard layout (``ShardSpec``), the port's copy of
-``repro/launch/mesh.py``'s.
+"""Host meshes and the client axis's shard layout (``ShardSpec``), the
+port's copy of ``repro/launch/mesh.py``.
 
-A ``ShardSpec`` describes how a sampler's (N,) client axis is split: ``axes``
-is the layout as ``((name, size), ...)`` pairs and ``axis`` names the one the
-client dimension is split over.  The reference materializes a JAX mesh from
-it; the port has no mesh.  Its shards are the ranks of the default
-``torch.distributed`` process group, which ``process_group()`` returns.  The
-reference's production meshes (``make_production_mesh`` and friends) belong
-to the pod-scale launcher and are not ported.
+A ``Mesh`` is a frozen description of a host mesh: its axis names and sizes,
+laid over the ranks of the default ``torch.distributed`` group in row-major
+order.  A (1, 1) mesh needs no process group (the tests run there); a
+``torch.distributed.device_mesh.DeviceMesh`` is materialised only where the
+mesh has more than one rank (``Mesh.device_mesh``).  ``make_host_mesh`` and
+``make_production_mesh`` take the reference's ``REPRO_MESH_SHAPE`` override.
+
+A ``ShardSpec`` describes how the (N,) client axis is split: ``axes`` is the
+mesh shape as ``((name, size), ...)`` pairs and ``axis`` names the axis, or
+the tuple of axes, the client dimension is split over.  Its S shards are the
+ranks of the default process group, which must hold exactly S ranks
+(``process_group()``).  Rank r holds the contiguous block
+``local_range(n, r)`` of the client axis: blocks of ``ceil(N/S)``, the last
+one shorter.
+
+The client axis's collectives go through ``ShardSpec.reduce`` (``sum``,
+``max``, ``any``) / ``gather`` / ``broadcast``: ``all_reduce``, ``all_gather`` and
+``broadcast`` only, which gloo carries on CPU and CUDA tensors alike.  With
+one shard each is the identity.  Each call counts in ``collective_counts``,
+so a run can show how many collectives a round took.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 
+import torch
 import torch.distributed as dist
 
-__all__ = ["ShardSpec"]
+__all__ = [
+    "Mesh",
+    "ShardSpec",
+    "make_mesh",
+    "make_production_mesh",
+    "make_host_mesh",
+    "batch_axes",
+    "fsdp_axes",
+    "world_size",
+    "collective_counts",
+    "reset_collective_counts",
+]
+
+_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+
+
+def collective_counts() -> dict:
+    """Collectives issued through ``ShardSpec`` since the last reset, by kind."""
+    return dict(_COLLECTIVES)
+
+
+def reset_collective_counts() -> None:
+    for k in _COLLECTIVES:
+        _COLLECTIVES[k] = 0
+
+
+def world_size() -> int:
+    """Ranks of the default process group, 1 without one."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A host mesh: axis names and sizes over the default group's ranks
+    (row-major).  ``shape`` maps names to sizes, as a JAX mesh's does."""
+
+    axis_names: tuple
+    sizes: tuple
+
+    def __post_init__(self):
+        object.__setattr__(self, "axis_names", tuple(str(n) for n in self.axis_names))
+        object.__setattr__(self, "sizes", tuple(int(s) for s in self.sizes))
+        if len(self.axis_names) != len(self.sizes):
+            raise ValueError(f"mesh axes {self.axis_names} and sizes {self.sizes} differ in length")
+        if any(s < 1 for s in self.sizes):
+            raise ValueError(f"mesh sizes must be >= 1, got {self.sizes}")
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    def device_mesh(self, device_type: str = "cpu"):
+        """The ``DeviceMesh`` over the default group's ranks, or None for a
+        one-rank mesh.  Raises ``ValueError`` if the group does not hold
+        exactly ``size`` ranks."""
+        if self.size == 1:
+            return None
+        if world_size() != self.size:
+            raise ValueError(
+                f"mesh {self.shape} needs {self.size} ranks; the default process group "
+                f"holds {world_size()}"
+            )
+        from torch.distributed.device_mesh import init_device_mesh
+
+        return init_device_mesh(device_type, self.sizes, mesh_dim_names=self.axis_names)
+
+
+def make_mesh(shape, axes=None) -> Mesh:
+    """A ``Mesh`` of ``shape``; ``axes`` default ("data", "model"), or
+    ("pod", "data", "model") for three sizes."""
+    shape = tuple(int(x) for x in shape)
+    if axes is None:
+        axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    return Mesh(tuple(axes), shape)
+
+
+def _override_mesh() -> Mesh | None:
+    """REPRO_MESH_SHAPE env override, e.g. "2,1" or "2,4,4"."""
+    override = os.environ.get("REPRO_MESH_SHAPE")
+    if not override:
+        return None
+    return make_mesh(tuple(int(x) for x in override.split(",")))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's pod meshes, (16, 16) or (2, 16, 16), as descriptions."""
+    mesh = _override_mesh()
+    if mesh is not None:
+        return mesh
+    return make_mesh((2, 16, 16) if multi_pod else (16, 16))
+
+
+def make_host_mesh(world: int | None = None) -> Mesh:
+    """(data, model) mesh over the ranks of the default process group
+    (``world``, default its size; 1 without one).  REPRO_MESH_SHAPE
+    overrides; otherwise the model axis takes the largest of
+    (16, 8, 4, 2, 1) dividing the rank count, the reference's rule, so a
+    two-rank host gives (1, 2) and one rank the degenerate (1, 1)."""
+    mesh = _override_mesh()
+    if mesh is not None:
+        return mesh
+    n = world_size() if world is None else int(world)
+    model = next(cand for cand in (16, 8, 4, 2, 1) if n % cand == 0)
+    return make_mesh((n // model, model))
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh axes carrying the batch/client dimension."""
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def fsdp_axes(mesh) -> tuple:
+    """Mesh axes over which fully-sharded parameters are scattered."""
+    return batch_axes(mesh)
+
+
+def _count(kind: str) -> None:
+    _COLLECTIVES[kind] += 1
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardSpec:
-    """Declarative layout of a sampler's (N,) client axis.
+    """Declarative layout of the (N,) client axis over a mesh.
 
     Frozen and hashable, so the sampler dataclasses that hold it stay so.
     Two processes agreeing on a ``ShardSpec`` agree on the layout, which is
-    why checkpoint manifests record ``to_manifest()``."""
+    why checkpoint manifests record ``to_manifest()``; a checkpoint holds
+    global arrays, so a state saved under one layout restores under any."""
 
     axes: tuple = (("data", 1),)  # ((axis_name, size), ...)
-    axis: str = "data"  # which axis carries the (N,) client dimension
+    axis: str | tuple = "data"  # the axis (or axes) carrying the (N,) client dimension
 
     def __post_init__(self):
         object.__setattr__(self, "axes", tuple((str(n), int(s)) for n, s in self.axes))
+        if not isinstance(self.axis, str):
+            object.__setattr__(self, "axis", tuple(str(a) for a in self.axis))
         names = [n for n, _ in self.axes]
-        if self.axis not in names:
-            raise ValueError(f"ShardSpec.axis {self.axis!r} is not a mesh axis; have {names}")
+        for a in self._split_axes:
+            if a not in names:
+                raise ValueError(f"ShardSpec.axis {a!r} is not a mesh axis; have {names}")
+
+    @property
+    def _split_axes(self) -> tuple:
+        return (self.axis,) if isinstance(self.axis, str) else self.axis
+
+    @classmethod
+    def from_mesh(cls, mesh: Mesh, axis="data") -> "ShardSpec":
+        return cls(axes=tuple(zip(mesh.axis_names, mesh.sizes)), axis=axis)
 
     @classmethod
     def from_process_group(cls, axis: str = "data") -> "ShardSpec":
-        """The layout of the default process group: ``axis`` over all of its
-        ranks, or one shard when ``torch.distributed`` is not initialised
-        (the counterpart of the reference's ``from_mesh``)."""
-        size = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-        return cls(axes=((axis, size),), axis=axis)
+        """``axis`` over all ranks of the default process group, one shard
+        without one."""
+        return cls(axes=((axis, world_size()),), axis=axis)
+
+    def mesh(self) -> Mesh:
+        """The described mesh."""
+        return Mesh(tuple(n for n, _ in self.axes), tuple(s for _, s in self.axes))
 
     @property
     def num_shards(self) -> int:
-        return dict(self.axes)[self.axis]
+        sizes = dict(self.axes)
+        return math.prod(sizes[a] for a in self._split_axes)
+
+    @property
+    def splits(self) -> bool:
+        """True when the client axis is split over more than one rank."""
+        return self.num_shards > 1
 
     def process_group(self):
         """The process group whose ranks hold the shards: ``None`` for one
@@ -72,10 +229,81 @@ class ShardSpec:
             )
         return dist.group.WORLD
 
+    def rank(self) -> int:
+        """This process's shard: its rank in ``process_group()``, 0 for one
+        shard."""
+        group = self.process_group()
+        return 0 if group is None else dist.get_rank(group)
+
+    def local_range(self, n: int, rank: int) -> tuple[int, int]:
+        """``[lo, hi)`` of the (n,) axis that shard ``rank`` holds: blocks of
+        ``ceil(n / S)``, the last one shorter (or empty)."""
+        m = -(-int(n) // self.num_shards)
+        lo = min(int(rank) * m, int(n))
+        return lo, min(lo + m, int(n))
+
+    def block(self, n: int) -> tuple[int, int]:
+        """``local_range(n, rank())``."""
+        return self.local_range(n, self.rank())
+
+    # -- collectives over the shards (identities for one shard) ---------------
+
+    def reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        """``x`` reduced over the shards by ``op`` (``all_reduce``; ``x`` is a
+        fresh tensor the call may overwrite)."""
+        group = self.process_group()
+        if group is None:
+            return x
+        x = x.contiguous()
+        dist.all_reduce(x, op=op, group=group)
+        _count("all_reduce")
+        return x
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.reduce(x, dist.ReduceOp.SUM)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return self.reduce(x, dist.ReduceOp.MAX)
+
+    def any(self, x: torch.Tensor) -> torch.Tensor:
+        """A 0-d bool: ``x`` true on any shard."""
+        return self.max(x.to(torch.int32)) > 0
+
+    def gather(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """The (n, ...) whole of the blocks ``x`` (this shard's
+        ``block(n)`` rows), by one ``all_gather`` of blocks padded to
+        ``ceil(n / S)`` rows."""
+        group = self.process_group()
+        if group is None:
+            return x
+        s = self.num_shards
+        m = -(-int(n) // s)
+        dtype = x.dtype
+        x = x.to(torch.uint8) if dtype == torch.bool else x
+        pad = m - x.shape[0]
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        parts = [torch.empty_like(x) for _ in range(s)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        _count("all_gather")
+        out = torch.cat(parts)[: int(n)]
+        return out.to(dtype) if dtype == torch.bool else out
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """``x`` as shard ``src`` holds it, on every shard."""
+        group = self.process_group()
+        if group is None:
+            return x
+        x = x.contiguous()
+        dist.broadcast(x, src=src, group=group)
+        _count("broadcast")
+        return x
+
     def to_manifest(self) -> dict:
         """JSON-ready record for checkpoint manifests (provenance, not a
         restore constraint)."""
-        return {"axes": [[n, s] for n, s in self.axes], "axis": self.axis}
+        axis = self.axis if isinstance(self.axis, str) else list(self.axis)
+        return {"axes": [[n, s] for n, s in self.axes], "axis": axis}
 
     @classmethod
     def from_manifest(cls, data: dict) -> "ShardSpec":

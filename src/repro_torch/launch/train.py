@@ -31,8 +31,11 @@ and batches):
 * ``--compiled``: the run is segments of rounds over a ``TrainState``
   (``fed.round.build_fed_scan_segment`` driven by
   ``fed.state.run_segmented``), the construction ``api.run`` uses, on one
-  device.  ``--ckpt-every N`` cuts the horizon into N-round segments
-  (bitwise neutral) and, with ``--ckpt DIR``, publishes the whole
+  device, or over ranks: ``python -m torch.distributed.run
+  --nproc-per-node S -m repro_torch.launch.train ... --compiled`` with
+  ``REPRO_MESH_SHAPE=S,1`` splits the client axis over S gloo ranks.
+  ``--ckpt-every N`` cuts the horizon into N-round segments (bitwise
+  neutral) and, with ``--ckpt DIR``, publishes the whole
   ``TrainState`` through a ``CheckpointManager`` in ``DIR_ckpts/`` at every
   boundary, with ``spec.json`` written beside the manifest before round 0
   (what ``launch.serve --follow`` reads); ``--resume`` restarts a killed
@@ -55,6 +58,7 @@ import signal
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.api import (
     CompressionSpec,
@@ -66,7 +70,7 @@ from repro_torch.api import (
     TaskSpec,
     build,
 )
-from repro_torch.api.runner import _zoo_segment_and_state
+from repro_torch.api.runner import _make_mesh, _zoo_segment_and_state
 from repro_torch.checkpoint import CheckpointManager, config_fingerprint, save_checkpoint
 from repro_torch.core import estimator
 from repro_torch.core.samplers import draw_input, sampler_names
@@ -117,9 +121,9 @@ def make_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--shard-sampler", default="", metavar="AXIS",
-        help="split the K-Vib solve over the ranks of the default "
-        "torch.distributed group under this axis name (e.g. 'data'; "
-        "ExecutionSpec.sampler_axis; one shard without a group)",
+        help="the mesh axis the sampler's client axis is split over "
+        "(ExecutionSpec.sampler_axis, e.g. 'data'): K-Vib's solve runs the "
+        "sharded solve, split when the axis holds several ranks",
     )
     ap.add_argument(
         "--faults", default="", metavar="JSON",
@@ -236,6 +240,12 @@ def run_spec(spec: ExperimentSpec, *, ckpt: str = "", resume: bool = False, devi
     rounds, ckpt_every = fed.rounds, ex.ckpt_every
     source = PhiloxSource(ex.seed, dev)
 
+    writer = not sampler.splits or sampler.shard.rank() == 0  # rank 0 writes files
+    if sampler.splits and not ex.compiled:
+        raise ValueError(
+            f"the client axis is split over {sampler.shard.num_shards} ranks: the host loop "
+            "runs one rank alone; pass --compiled"
+        )
     if ex.compiled:
         # The weights are the source's first draw, as in api.run.
         segment, state = _zoo_segment_and_state(built, source)
@@ -247,6 +257,10 @@ def run_spec(spec: ExperimentSpec, *, ckpt: str = "", resume: bool = False, devi
           f"K={fed.budget} cohort={rspec.cohort} sampler={spec.sampler.name}")
 
     if ex.compiled:
+        # The reference's host mesh (execution.mesh_shape, REPRO_MESH_SHAPE,
+        # else over the default process group's ranks).
+        mesh = _make_mesh(spec)
+        print(f"compiled scan on mesh {mesh.shape} ({mesh.size} ranks)")
         print(_device_line(dev))
         manager = None
         if resume and not (ckpt and ckpt_every):
@@ -262,7 +276,8 @@ def run_spec(spec: ExperimentSpec, *, ckpt: str = "", resume: bool = False, devi
             # following this directory (launch.serve --follow) rebuilds the
             # run configuration, and its fingerprint, from this file alone.
             os.makedirs(manager.directory, exist_ok=True)
-            spec.save(os.path.join(manager.directory, "spec.json"))
+            if writer:
+                spec.save(os.path.join(manager.directory, "spec.json"))
             if resume:
                 state, start = manager.restore_or_init(state)
                 if start:
@@ -289,6 +304,8 @@ def run_spec(spec: ExperimentSpec, *, ckpt: str = "", resume: bool = False, devi
         )
         _sync(dev)
         wall = time.time() - t0
+        if segment.layout is not None:  # every rank returns the whole sampler state
+            state = segment.layout.gather(state, ("sampler",))
         params, s_state = state.params, state.sampler
         losses = state.metrics["loss"].cpu().numpy()
         cohorts = state.metrics["cohort_size"].cpu().numpy()
@@ -303,7 +320,7 @@ def run_spec(spec: ExperimentSpec, *, ckpt: str = "", resume: bool = False, devi
             print(f"cohort overflow drops: {dropped_total}")
         if "deadline_dropped" in state.metrics:
             print(f"deadline straggler drops: {int(state.metrics['deadline_dropped'].sum())}")
-        if ckpt:
+        if ckpt and writer:
             f = save_checkpoint(ckpt, {"params": params, "sampler": s_state})
             print("final checkpoint ->", f)
         return {"params": params, "sampler": s_state, "losses": [float(x) for x in losses],
@@ -384,7 +401,17 @@ def main(argv=None):
             "or round index, and cannot be resumed"
         )
 
-    return run_spec(spec, ckpt=args.ckpt, resume=args.resume, device=args.device)
+    # Under ``python -m torch.distributed.run --nproc-per-node S`` each rank
+    # joins the gloo group its environment names; REPRO_MESH_SHAPE=S,1 (or
+    # the spec's mesh_shape) then splits the client axis over it.
+    group = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized()
+    if group:
+        dist.init_process_group("gloo")
+    try:
+        return run_spec(spec, ckpt=args.ckpt, resume=args.resume, device=args.device)
+    finally:
+        if group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

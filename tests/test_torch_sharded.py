@@ -239,13 +239,16 @@ def _free_port() -> int:
 
 def test_two_shards_over_gloo(tmp_path):
     """S=2 in two processes, prime N=13 (the +inf padding path): within 1e-6
-    of the single-device solve, sum(p) = K; api.run with sampler_axis splits
-    the solve over the group and follows the unsharded run."""
+    of the single-device solve, sum(p) = K; api.run with sampler_axis on a
+    (2, 1) mesh splits the client axis over the group and follows the
+    unsharded run.  (The host mesh of two ranks is (1, 2), both ranks on the
+    model axis, so the spec names the (2, 1) mesh.)"""
     script = tmp_path / "worker.py"
     script.write_text(_GLOO_WORKER)
     spec = api.ExperimentSpec.from_json(_spec("logreg", oracle=True).to_json())
     d = spec.to_dict()
-    sharded = api.ExperimentSpec.from_dict({**d, "execution": {**d["execution"], "sampler_axis": "data"}})
+    sharded = api.ExperimentSpec.from_dict(
+        {**d, "execution": {**d["execution"], "sampler_axis": "data", "mesh_shape": [2, 1]}})
     port = _free_port()
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"}
     procs = [
