@@ -46,6 +46,18 @@ Phases, each failing loudly (non-zero exit, no result line):
    (kernel 5's ladder on each rank's block), collectives a round, each
    rank's resident (N,) bytes and seconds both ways
    (``--only ranks`` runs the build and this phase alone);
+   model_axis — the model axis on two processes over gloo on the card at
+   mesh (1, 2) against one process (the comment above ``MA_MESH``): (ma1)
+   smollm-360m's prefill and round step and (ma2) qwen3-moe's one-layer
+   prefill (dense dispatch and a2a) as each rank's share under
+   ``use_rules``, each gap (the round's on its update, kernel 2's d on
+   each rank against its plain sum, and a planted fault that the update's
+   limit must catch), the collectives, each process's peak and the
+   kernels each rank launched (kernels 6 and 7; 2 in the round); (ma3)
+   ``api.run`` on (1, 2) bitwise S = 1; (ma4) the dry run of one chip of
+   (16, 16) and (2, 16, 16) on the card's CPU and (ma1)'s prefill counted
+   for one rank, its peak against each process's (``--only model_axis``
+   runs the build and this phase alone);
 4. path — ``repro_torch.api.run(spec)`` with no device argument (so on the
    GPU) for the paper's logistic-regression spec and the tiny-LM spec in
    oracle and deployable mode, three compressed specs (int8 / fp8 deltas,
@@ -158,6 +170,7 @@ line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import math
 import os
@@ -277,6 +290,11 @@ CPU_JOBS = {
     "lint": ["-m", "repro_torch.analysis.lint", "--fast", "--quiet"],
     **{f"dryrun {arch} {shape}": ["-m", "repro_torch.launch.dryrun", "--arch", arch,
                                   "--shape", shape] for arch, shape in DRYRUN_CLI},
+    # (ma4): one chip of the production meshes.
+    "dryrun llama3-405b train_4k 16x16": ["-m", "repro_torch.launch.dryrun", "--arch",
+                                          "llama3-405b", "--shape", "train_4k", "--mesh", "16,16"],
+    "dryrun smollm-360m train_4k 2x16x16": ["-m", "repro_torch.launch.dryrun", "--arch",
+                                            "smollm-360m", "--shape", "train_4k", "--multi-pod"],
 }
 _CPU_RESULTS: dict = {}
 _CPU_PROCS: list = []
@@ -1356,6 +1374,468 @@ def ranks_phase(torch, card: str) -> dict:
     return launches
 
 
+# -- model axis ----------------------------------------------------------------
+
+# The model axis on two processes over gloo on the card, mesh (1, 2), each
+# case against one process unsplit: (ma1) smollm-360m whole, a prefill of
+# 8 x 512 and one round step at (n)'s geometry (C = 8, R = 2, local batch 2,
+# seq 64), under ``models.sharding.use_rules``; (ma2) qwen3-moe one layer at
+# full width, a prefill of 8 x 512 with the dense dispatch and with the a2a,
+# 64 of the 128 experts a process; (ma3) ``api.run`` of (r3)'s spec on the
+# mesh (1, 2) against S = 1, bitwise (the model ranks replicate); (ma4) the
+# dry run on the card's CPU: ``launch.dryrun --arch llama3-405b --shape
+# train_4k --mesh 16,16`` and ``--multi-pod`` (CPU jobs beside the card's
+# phases), and (ma1)'s prefill counted for one rank of (1, 2), its predicted
+# peak held against each process's measured one.  bf16 gaps are a
+# difference norm over the norm.
+MA_MESH = (1, 2)
+# (ma2)'s a2a runs at a capacity factor where neither dispatch drops a row
+# (every expert's buffer holds all 4,096 tokens; the pair buffers all of a
+# rank's rows), so that it and one process's dense dispatch compute the
+# same function; at qwen3's 1.25 the two drop different rows (the a2a
+# slots a rank's rows by wire order) and differ by a third of the logits'
+# norm.  Its drops are held against the reference's a2a on the CPU
+# (tests/test_torch_model_axis.py).
+MA2_A2A_CF = 16.0
+MA_SEED = 11
+MA_ROUND = dict(cohort=8, local_steps=2, local_batch=2, seq=64)
+# (ma1)'s round is held on its update: the round's f32 estimate d (kernel 2's
+# output on a rank's blocks, gathered) against one process's, leaf by leaf,
+# and kernel 2's d on each rank against ``weighted_delta_sum`` on that
+# rank's own deltas.  A planted fault (``_NoMlpGradSum``: the MLP input's
+# gradient left unsummed over ``model``) must move the update past its
+# limit; the parameters after the step, mostly the initial weights, hide
+# most of an update.  The update's limit sits between the sound gap (0.151
+# on the largest leaf, 0.111 the median, on an H100 80GB HBM3 at 700 W) and
+# the planted one (0.896): in bf16 a local step rounds the weights to their
+# grid, and most of one round's change is under one ulp of a weight, so
+# gradients summed in another order flip some of those roundings (in f32 at
+# reduced width the split step holds the unsplit one to 1e-5,
+# tests/test_torch_model_axis.py).
+MA_TOL = {"ma1 prefill": 3e-2, "ma1 round update": 0.3, "ma1 round norms": 3e-2,
+          "ma1 round loss": 1e-2, "ma1 round kernel 2": 1e-5, "ma2 dense": 3e-2,
+          "ma2 a2a": 3e-2}
+MA_SAMPLE = 1 << 16  # entries compared a leaf (a strided sample past that)
+MA_PLANTED = "ma1 round planted"
+
+
+def ma_config(name: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    if name.startswith("ma1"):
+        return get_config("smollm-360m")
+    arch, kw = FAMILY_RUNS["(z) qwen3-moe one layer"][:2]
+    cfg = get_config(arch).reduced(**kw)
+    if name == "ma2 a2a":
+        return dataclasses.replace(cfg, moe_impl="a2a", capacity_factor=MA2_A2A_CF)
+    return cfg
+
+
+def ma_inputs(torch, name: str, cfg, gen):
+    """The case's weights (whole) and inputs, from ``gen`` on the card."""
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda")
+    params = transformer.init_params(cfg, gen, dev)
+    if name.startswith("ma1 round"):
+        c, r, b, s = (MA_ROUND[k] for k in ("cohort", "local_steps", "local_batch", "seq"))
+        tok = torch.randint(0, cfg.vocab, (c, r, b, s), device=dev, generator=gen)
+        tgt = torch.randint(0, cfg.vocab, (c, r, b, s), device=dev, generator=gen)
+        w = torch.rand((c,), device=dev, generator=gen) + 0.1
+        return params, (tok, tgt, w)
+    return params, (torch.randint(0, cfg.vocab, (8, 512), device=dev, generator=gen),)
+
+
+def ma_fn(name: str, cfg):
+    from repro_torch.fed.round import RoundSpec, build_round_step
+    from repro_torch.models import transformer
+
+    if name.startswith("ma1 round"):
+        return build_round_step(cfg, RoundSpec(
+            cohort=MA_ROUND["cohort"], local_steps=MA_ROUND["local_steps"],
+            local_batch=MA_ROUND["local_batch"], local_lr=0.05))
+    return lambda p, tok: transformer.prefill(p, cfg, tok)
+
+
+def ma_sample(np, tree, prefix: str) -> dict:
+    out = {}
+    for i, (_, leaf) in enumerate(_named_leaves(tree)):
+        flat = leaf.float().reshape(-1).cpu().numpy()
+        out[f"{prefix}_{i:04d}"] = flat[::-(-flat.size // MA_SAMPLE)]
+    return out
+
+
+@contextlib.contextmanager
+def ma_keep_estimate(keep: dict):
+    """Record the round step's f32 estimate d in ``keep["d"]`` (and, on the
+    split path, the deltas and weights kernel 2 took), changing nothing."""
+    from repro_torch.core import estimator
+    from repro_torch.fed import round as round_mod
+
+    plain, split = round_mod.weighted_delta_sum, estimator.aggregate_cohort
+
+    def plain_kept(deltas, w):
+        keep["d"] = plain(deltas, w)
+        return keep["d"]
+
+    def split_kept(deltas, w, *, shard):
+        keep.update(deltas=deltas, weights=w, d=split(deltas, w, shard=shard))
+        return keep["d"]
+
+    round_mod.weighted_delta_sum, estimator.aggregate_cohort = plain_kept, split_kept
+    try:
+        yield
+    finally:
+        round_mod.weighted_delta_sum, estimator.aggregate_cohort = plain, split
+
+
+class _NoMlpGradSum:
+    """``models/sharding`` as ``models/mlp.py`` sees it in (ma1)'s planted
+    run: the MLP input's gradient is left unsummed over ``model``, so each
+    rank's update misses the other rank's hidden units below every MLP."""
+
+    def __init__(self, real):
+        self._real = real
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    @staticmethod
+    def reduce_grad(x, group):
+        return x
+
+
+def ma_case(torch, name: str, split: bool) -> dict:
+    """One case of (ma1)/(ma2): unsplit here, or this rank's share under
+    ``use_rules`` on ``MA_MESH``: the outputs as numpy, the kernels
+    launched, the collectives, the peak bytes (allocated after the
+    arguments, over the second of two calls, every cuBLAS workspace freed
+    before it) and the seconds of that call."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.fed.cohort import weighted_delta_sum
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as lsh
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.models import sharding as msh
+
+    cfg = ma_config(name)
+    round_case = name.startswith("ma1 round")
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params, args = ma_inputs(torch, name, cfg, torch.Generator(device="cuda").manual_seed(MA_SEED))
+    mesh, specs = None, None
+    if split:
+        mesh = mesh_mod.make_mesh(MA_MESH)
+        specs = lsh.param_specs(params, mesh, False)
+        params = lsh.param_shardings(params, mesh, False)
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    fn = ma_fn(name, cfg)
+    keep: dict = {}
+    ctx = contextlib.ExitStack()
+    if split:
+        rules = lsh.activation_rules(mesh, client_parallel=round_case)
+        rules["batch"] = None  # the batch is whole on every model rank
+        ctx.enter_context(msh.use_rules(mesh, rules))
+    if round_case:
+        ctx.enter_context(ma_keep_estimate(keep))
+    if name == MA_PLANTED:
+        mlp_mod.msh = _NoMlpGradSum(msh)
+        ctx.callback(setattr, mlp_mod, "msh", msh)
+    with ctx:
+        # No warm-up for the a2a (its seconds are gloo's host staging) or
+        # the planted run (only its values are read).
+        if name not in ("ma2 a2a", MA_PLANTED):
+            out = fn(params, *args)  # warm-up
+            torch.cuda.synchronize()
+            del out
+            keep.clear()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        mesh_mod.reset_collective_counts()
+        t0 = time.perf_counter()
+        out = fn(params, *args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    res = {"seconds": np.asarray(secs), "peak_bytes": np.asarray(peak - base),
+           "held_bytes": np.asarray(held - base)}
+    counts = kernels.launch_counts()
+    res["launch_names"] = np.asarray(sorted(counts))
+    res["launches"] = np.asarray([counts[k] for k in sorted(counts)])
+    coll = mesh_mod.collective_counts()
+    res["collective_names"] = np.asarray(sorted(coll))
+    res["collectives"] = np.asarray([coll[k] for k in sorted(coll)])
+    if round_case:
+        new, norms, loss = out
+        d = keep.pop("d")
+        if split:
+            # Kernel 2 at this rank's shape against its plain sum.
+            want = weighted_delta_sum(keep.pop("deltas"), keep.pop("weights"))
+            flat = [x.reshape(-1) for _, x in _named_leaves(d)]
+            flat_want = [x.reshape(-1) for _, x in _named_leaves(want)]
+            err = torch.stack([(a - b).abs().max() for a, b in zip(flat, flat_want)]).max()
+            diff = sum(float((a - b).double().square().sum()) for a, b in zip(flat, flat_want))
+            ref = sum(float(b.double().square().sum()) for b in flat_want)
+            res["kernel2_gap"] = np.asarray(math.sqrt(diff / ref))
+            res["kernel2_max_abs_err"] = np.asarray(float(err))
+            res["kernel2_entries"] = np.asarray(sum(x.numel() for x in flat))
+            del want, flat, flat_want
+            blocks = [x.shape for _, x in _named_leaves(d)]
+            new = lsh.gather_params(new, specs, mesh)
+            d = lsh.gather_params(d, specs, mesh)
+            res["split_leaf"] = np.asarray(
+                [b != x.shape for b, (_, x) in zip(blocks, _named_leaves(d))])
+        res.update(ma_sample(np, new, "param"))
+        res.update(ma_sample(np, d, "update"))
+        res["norms"], res["loss"] = norms.float().cpu().numpy(), loss.float().cpu().numpy()
+        del d, new
+    else:
+        res["logits"] = out[0].float().cpu().numpy()
+    del out, params, args
+    torch.cuda.empty_cache()
+    return res
+
+
+MA_CASES = ("ma1 prefill", "ma1 round", "ma2 dense", "ma2 a2a")
+
+
+def model_axis_worker(rank: int, port: int, out_dir: str) -> int:
+    """One rank of the model_axis phase (``chip_smoke.py --model-axis-worker``):
+    joins the two-rank gloo group, runs (ma1)-(ma2) as its share and (ma3),
+    each result an npz."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=RANKS_TIMEOUT_S))
+    try:
+        for i, name in enumerate(MA_CASES + (MA_PLANTED,)):
+            np.savez(Path(out_dir) / f"ma{i}_r{rank}.npz", **ma_case(torch, name, True))
+        spec = dict((label, s) for label, s, _ in ranks_specs(api))[MA3_LABEL]
+        spec = with_sections(api, spec, execution={"mesh_shape": list(MA_MESH)})
+        np.savez(Path(out_dir) / f"run_r{rank}.npz", **ranks_run(torch, spec))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+MA3_LABEL = "(r3) smollm-360m client_parallel C=4"
+
+
+def _gap(np, a, b) -> float:
+    return float(np.linalg.norm(a - b)) / max(float(np.linalg.norm(b)), 1e-30)
+
+
+def ma_predicted_peak(torch, cfg) -> tuple:
+    """(ma4): (ma1)'s prefill counted as rank 0 of ``MA_MESH`` on ``meta``
+    tensors: (arguments, temporaries, the collectives by kind)."""
+    from repro_torch.analysis.cost import CountingMesh, count
+    from repro_torch.launch import sharding as lsh
+    from repro_torch.models import sharding as msh
+    from repro_torch.models import transformer
+
+    mesh = CountingMesh(("data", "model"), MA_MESH)
+    blocks = lsh.param_shardings(transformer.init_params(cfg, None, "meta"), mesh, False, rank=0)
+    tok = torch.empty((8, 512), dtype=torch.int64, device="meta")
+    rules = lsh.activation_rules(mesh)
+    rules["batch"] = None
+    with msh.use_rules(mesh, rules):
+        cost, _ = count(lambda p, t: transformer.prefill(p, cfg, t), blocks, tok)
+    return cost.argument_size_bytes, cost.temp_size_bytes, cost.collectives
+
+
+def model_axis_phase(torch, card: str) -> dict:
+    """(ma1)-(ma4) (the comment above ``MA_MESH``): each case here unsplit,
+    then on two processes over gloo on the card; gaps, collectives, peaks,
+    kernel launches on each rank.  Returns both ranks' launches of
+    (ma1)-(ma3)."""
+    phase("model_axis")
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import api, kernels
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in kernels.launch_counts()}
+    ones = {name: ma_case(torch, name, False) for name in MA_CASES}
+    spec = dict((label, s) for label, s, _ in ranks_specs(api))[MA3_LABEL]
+    ones["ma3"] = ranks_run(torch, spec)
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="model_axis_"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--model-axis-worker", str(r), str(port),
+         str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=RANKS_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"model_axis: rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    print(f"model_axis: two processes over gloo on one card, {time.perf_counter() - t0:.1f} s "
+          "from start to exit", flush=True)
+    failures = []
+
+    def expect(cond: bool, msg: str) -> None:
+        if not cond:
+            failures.append(msg)
+            print(f"FAILED: {msg}", flush=True)
+
+    res = {name: [dict(np.load(tmp / f"ma{i}_r{r}.npz")) for r in range(2)]
+           for i, name in enumerate(MA_CASES)}
+    res["ma3"] = [dict(np.load(tmp / f"run_r{r}.npz")) for r in range(2)]
+    planted = [dict(np.load(tmp / f"ma{len(MA_CASES)}_r{r}.npz")) for r in range(2)]
+
+    def leaf_gaps(rr, one, prefix):
+        return [_gap(np, rr[k], one[k]) for k in sorted(one) if k.startswith(prefix)]
+
+    for name in MA_CASES:
+        one, (r0, r1) = ones[name], res[name]
+        keys = ["logits"] if "logits" in one else sorted(
+            k for k in one if k.startswith(("param_", "update_"))) + ["norms", "loss"]
+        for k in keys:
+            expect(np.array_equal(r0[k], r1[k]), f"{name}: the ranks differ in {k}")
+        greedy = ""
+        if name == "ma1 round":
+            gaps = {"ma1 round update": max(leaf_gaps(r0, one, "update_")),
+                    "ma1 round norms": _gap(np, r0["norms"], one["norms"]),
+                    "ma1 round loss": _gap(np, r0["loss"], one["loss"]),
+                    "ma1 round kernel 2": max(float(rr["kernel2_gap"]) for rr in (r0, r1))}
+            params_gap = max(leaf_gaps(r0, one, "param_"))
+            plant_update = max(leaf_gaps(planted[0], one, "update_"))
+            plant_params = max(leaf_gaps(planted[0], one, "param_"))
+            split = r0["split_leaf"]
+
+            def on_split(rr, prefix):
+                return max(g for g, s in zip(leaf_gaps(rr, one, prefix), split) if s)
+
+            expect(plant_update > MA_TOL["ma1 round update"],
+                   f"ma1 round: the planted fault's update gap {plant_update:.3g} is within the "
+                   f"limit {MA_TOL['ma1 round update']}")
+            print(f"ma1 round ({card}): largest leaf gap of the update {gaps['ma1 round update']:.4g}"
+                  f" (median {float(np.median(leaf_gaps(r0, one, 'update_'))):.4g}), of the "
+                  f"parameters after the step {params_gap:.4g}; planted fault (the MLP input's "
+                  f"gradient unsummed over model): update {plant_update:.4g}, parameters "
+                  f"{plant_params:.4g}; on the {int(split.sum())} leaves split over model: "
+                  f"update {on_split(r0, 'update_'):.4g}, planted update "
+                  f"{on_split(planted[0], 'update_'):.4g}, planted parameters "
+                  f"{on_split(planted[0], 'param_'):.4g}; kernel 2 on each rank's blocks "
+                  f"({int(r0['kernel2_entries'])} entries, C = {MA_ROUND['cohort']}) against "
+                  f"weighted_delta_sum on its deltas: gap "
+                  f"{[float(rr['kernel2_gap']) for rr in (r0, r1)]}, max abs err "
+                  f"{[float(rr['kernel2_max_abs_err']) for rr in (r0, r1)]}", flush=True)
+        else:
+            gaps = {name: _gap(np, r0["logits"], one["logits"])}
+            agree = float((r0["logits"].argmax(-1) == one["logits"].argmax(-1)).mean())
+            greedy = f"; greedy tokens agree {agree:.3f}"
+        for k, v in gaps.items():
+            expect(v <= MA_TOL[k], f"{k}: gap {v:.3g} against one process (tolerance {MA_TOL[k]})")
+        names = [str(k) for k in r0["launch_names"]]
+        per_rank = [{k: int(v) for k, v in zip(names, rr["launches"]) if v} for rr in (r0, r1)]
+        for got in per_rank:
+            expect(got.get("rmsnorm", 0) > 0 and got.get("flash_attention", 0) > 0,
+                   f"{name}: kernels 6 and 7 must launch on each rank, got {got}")
+            if name == "ma1 round":
+                expect(got.get("fused_cohort_agg_and_error", 0) == 1,
+                       f"{name}: kernel 2 once on each rank's blocks, got {got}")
+            for k, v in got.items():
+                launches[k] += v
+        one_l = {str(k): int(v) for k, v in zip(one["launch_names"], one["launches"]) if v}
+        coll = {str(k): int(v) for k, v in zip(r0["collective_names"], r0["collectives"]) if v}
+        print(f"{name} ({card}): two ranks against one process, gaps "
+              f"{ {k: float(f'{v:.3g}') for k, v in gaps.items()} }"
+              f"{greedy}; collectives a rank {coll}; peak "
+              f"bytes one process {int(one['peak_bytes'])} rank 0 {int(r0['peak_bytes'])} rank 1 "
+              f"{int(r1['peak_bytes'])} (held: {int(one['held_bytes'])} / "
+              f"{int(r0['held_bytes'])}); seconds one process {float(one['seconds']):.3f} rank 0 "
+              f"{float(r0['seconds']):.3f} rank 1 {float(r1['seconds']):.3f} (both ranks share the "
+              f"card: no speed-up); launches one process {one_l} rank 0 {per_rank[0]} rank 1 "
+              f"{per_rank[1]}", flush=True)
+    one, (r0, r1) = ones["ma3"], res["ma3"]
+    for k in ("loss", "cohort", "dropped") + tuple(k for k in one if k.startswith("param_")):
+        expect(np.array_equal(r0[k], one[k]) and np.array_equal(r1[k], one[k]),
+               f"(ma3): {k} at mesh (1, 2) differs from S = 1")
+    for rr in (r0, r1):
+        for k, v in zip(rr["launch_names"], rr["launches"]):
+            launches[str(k)] += int(v)
+    coll = {str(k): int(v) for k, v in zip(r0["collective_names"], r0["collectives"]) if v}
+    print(f"(ma3) api.run {MA3_LABEL} on mesh (1, 2) ({card}): both ranks bitwise the S = 1 "
+          f"run (loss {one['loss'].tolist()}); collectives a rank {coll or 'none'}; wall s S=1 "
+          f"{float(one['wall_s']):.3f} rank 0 {float(r0['wall_s']):.3f} rank 1 "
+          f"{float(r1['wall_s']):.3f}; peak bytes S=1 {int(one['peak_bytes'])} rank 0 "
+          f"{int(r0['peak_bytes'])} rank 1 {int(r1['peak_bytes'])}", flush=True)
+    # (ma4): the count of one rank against the card, then the CLI records.
+    workspace = cublas_workspace(torch)
+    args_b, temp_b, counted = ma_predicted_peak(torch, ma_config("ma1 prefill"))
+    predicted = args_b + temp_b + workspace
+    for r, rr in enumerate(res["ma1 prefill"]):
+        peak = int(rr["peak_bytes"])
+        band = max(PEAK_BAND[0] * peak, PEAK_BAND[1])
+        expect(abs(predicted - peak) <= band,
+               f"(ma4): rank {r}'s prefill peak {peak} B, predicted {predicted} B")
+        print(f"(ma4) (ma1) prefill, rank {r} of (1, 2) ({card}): peak predicted "
+              f"{predicted / 1e9:.3f} GB (arguments {args_b / 1e9:.3f} + temporaries "
+              f"{temp_b / 1e9:.3f} + one cuBLAS workspace {workspace / 1e6:.1f} MB) against the "
+              f"card's {peak / 1e9:.3f} GB ({predicted / peak - 1:+.2%})", flush=True)
+    issued = {str(k).replace("_", "-"): int(v) for k, v in
+              zip(res["ma1 prefill"][0]["collective_names"], res["ma1 prefill"][0]["collectives"])
+              if v}
+    expect(counted == issued, f"(ma4): counted collectives {counted}, issued {issued}")
+    out_dir = ROOT / "results" / "torch" / "smoke" / "dryrun_mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("*.json"):
+        old.unlink()
+    for job, tag in MA_CLI:
+        rc, stdout, err, cli_s = cpu_job(job)
+        expect(rc == 0, f"{job}: {err[-2000:]}")
+        if rc != 0:
+            continue
+        record = json.loads(stdout.strip().splitlines()[-1])
+        expect(record["status"] == "ok" and record["collectives"],
+               f"{job}: {record.get('status')}, collectives {record.get('collectives')}")
+        print(f"(ma4) {job}: {cli_s:.1f} s on the card's CPU; n_chips {record['n_chips']} mesh "
+              f"{record['mesh']}; rank 0's parameter bytes {record['param_bytes']} "
+              f"({record['param_bytes'] / 1e9:.4f} GB); memory {record['memory']}; flops "
+              f"{record['flops']:.4g}; bytes {record['bytes_accessed']:.4g}; collective bytes "
+              f"{record['collective_bytes']:.4g}; collectives {record['collectives']}", flush=True)
+        (out_dir / f"{record['arch']}__{record['shape']}__{tag}.json").write_text(
+            json.dumps(record, indent=1))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis.report", "--dir",
+                           str(out_dir)], capture_output=True, text=True, timeout=120, env=env,
+                          cwd=str(ROOT))
+    expect(proc.returncode == 0 and "| 16x16 | ok |" in proc.stdout,
+           f"analysis.report over the mesh records: {proc.stderr[-2000:]}")
+    print(proc.stdout, flush=True)
+    check(not failures, "model_axis: " + "; ".join(failures))
+    print(f"model_axis phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+MA_CLI = (("dryrun llama3-405b train_4k 16x16", "sp"), ("dryrun smollm-360m train_4k 2x16x16", "mp"))
+
+
 # -- 4. path ------------------------------------------------------------------
 
 
@@ -2012,8 +2492,10 @@ def zoo_round_profile(torch, api, label: str, spec, card: str) -> None:
         print(f"zoo profile {label} ({card}): wall s a round, stacked layers by one unbind "
               f"{walls['unbind']:.4f} against indexing a layer at a time {walls['index']:.4f} "
               "(one round each, outside the profiler)", flush=True)
-        for way in ("index", "unbind"):
-            transformer._unstack = unbind if way == "unbind" else index
+        # The model's way alone under the profiler (the index way's profiled
+        # round was cut to make room for the model_axis phase).
+        for way in ("unbind",):
+            transformer._unstack = unbind
             state, wall, split, back, launches, other = _profiled_round(torch, segment, state)
             total = sum(split.values()) + sum(other.values())
             if not total:
@@ -2123,7 +2605,7 @@ def fed_lm_on_card(torch, kernels, out: Path) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.examples import fed_lm
 
-    rounds, samplers = 10, ["uniform_isp", "kvib"]
+    rounds, samplers = 5, ["uniform_isp", "kvib"]  # 10 before PR 29, 20 before PR 28
     argv = ["--rounds", str(rounds), "--samplers", *samplers]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3374,7 +3856,7 @@ def dryrun_phase(torch, card: str) -> None:
 # server fit the card together.
 SERVE_LOOP_RUNS = {  # label: (zoo-phase label of the same model, trainer flags)
     "(s) smollm-360m": ("(n) smollm-360m", [
-        "--arch", "smollm-360m", "--compiled", "--rounds", "4", "--clients", "32",
+        "--arch", "smollm-360m", "--compiled", "--rounds", "2", "--clients", "32",
         "--budget", "6", "--cohort", "8", "--seq", "64", "--local-batch", "2",
         "--ckpt-every", "2"]),
     "(t) zamba2-1.2b": ("(o) zamba2-1.2b", [
@@ -3382,6 +3864,10 @@ SERVE_LOOP_RUNS = {  # label: (zoo-phase label of the same model, trainer flags)
         "--budget", "3", "--cohort", "4", "--seq", "64", "--local-batch", "2",
         "--ckpt-every", "2"]),
 }
+# The trainer-alone comparison runs for (s) only: (t)'s alone run was cut to
+# make room for the model_axis phase (its seconds a round alone are the zoo
+# phase's (o)).
+SERVE_LOOP_ALONE = ("(s) smollm-360m",)
 SERVE_SUMMARY = re.compile(
     r"^serve summary: promotions=(\d+) rollbacks=(\d+) tokens=(\d+) "
     r"tokens_per_sec=([\d.]+) swaps=(\d+) last_step=(\d+) batches=(\d+)$", re.M)
@@ -3430,7 +3916,8 @@ def _static_decode_tps(torch, arch: str, chunks: int = 3) -> float:
     return engine.tokens_per_sec()
 
 
-def train_and_follow(torch, label: str, flags: list, root: Path, card: str) -> dict:
+def train_and_follow(torch, label: str, flags: list, root: Path, card: str,
+                     alone_run: bool = True) -> dict:
     """One cross-process run: the trainer alone (``python -m
     repro_torch.launch.train ... --ckpt DIR/alone``), then the trainer
     (``--ckpt DIR/fl``) and the follower
@@ -3446,12 +3933,15 @@ def train_and_follow(torch, label: str, flags: list, root: Path, card: str) -> d
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     # The same trainer command with no follower first: what the follower
     # costs the trainer, both with their first round's warm-up and writes.
-    alone = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *flags, "--ckpt", str(root / "alone")],
-        capture_output=True, text=True, env=env, cwd=str(root), timeout=600)
-    check(alone.returncode == 0, f"{label}: the trainer alone exited {alone.returncode}:\n"
-          f"{(alone.stdout + alone.stderr)[-3000:]}")
-    alone_s = float(re.search(r"\(([\d.]+)s/round\)", alone.stdout).group(1))
+    alone_s = "not run"
+    if alone_run:
+        alone = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *flags, "--ckpt",
+             str(root / "alone")], capture_output=True, text=True, env=env, cwd=str(root),
+            timeout=600)
+        check(alone.returncode == 0, f"{label}: the trainer alone exited {alone.returncode}:\n"
+              f"{(alone.stdout + alone.stderr)[-3000:]}")
+        alone_s = float(re.search(r"\(([\d.]+)s/round\)", alone.stdout).group(1))
     cmds = {
         "trainer": [sys.executable, "-m", "repro_torch.launch.train", *flags,
                     "--ckpt", str(root / "fl")],
@@ -3627,7 +4117,8 @@ def serve_loop_phase(torch, card: str) -> dict:
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_loop_"))
     try:
         for label, (zoo_label, flags) in SERVE_LOOP_RUNS.items():
-            got = train_and_follow(torch, label, flags, root / label[1], card)
+            got = train_and_follow(torch, label, flags, root / label[1], card,
+                                   alone_run=label in SERVE_LOOP_ALONE)
             for k, v in got["gate"].items():
                 launches[k] = launches.get(k, 0) + v
             arch = _flag(flags, "--arch")
@@ -4406,21 +4897,28 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU.")
     ap.add_argument("--only", nargs="+", default=[], metavar="PHASE",
                     help="run only the build and these phases, in this order, and print no "
-                    "result line: kernels, ranks, dryrun, remat (its default cells) or "
+                    "result line: kernels, ranks, model_axis, dryrun, remat (its default cells) or "
                     f"remat=CELLS (comma-separated of {','.join(REMAT_CELLS)})")
     ap.add_argument("--ranks-worker", nargs=4, metavar=("RANK", "PORT", "SPECS", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--model-axis-worker", nargs=3, metavar=("RANK", "PORT", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ranks_worker:
         rank, port, specs, out = args.ranks_worker
         return ranks_worker(int(rank), int(port), specs, out)
+    if args.model_axis_worker:
+        rank, port, out = args.model_axis_worker
+        return model_axis_worker(int(rank), int(port), out)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is visible; nothing was run", file=sys.stderr)
         return 2
     card = device_phase(torch)
     build_phase()
     only = [name.partition("=")[0] for name in args.only]
-    start_cpu_jobs([k for k in CPU_JOBS if not only or (k.startswith("dryrun") and "dryrun" in only)])
+    start_cpu_jobs([k for k in CPU_JOBS if not only
+                    or (k.startswith("dryrun") and "dryrun" in only and k.count(" ") == 2)
+                    or (k in dict(MA_CLI) and "model_axis" in only)])
     if args.only:
         for name in args.only:
             name, _, cells = name.partition("=")
@@ -4428,6 +4926,8 @@ def main(argv=None) -> int:
                 kernel_phase(torch)
             elif name == "ranks":
                 ranks_phase(torch, card)
+            elif name == "model_axis":
+                model_axis_phase(torch, card)
             elif name == "dryrun":
                 dryrun_phase(torch, card)
             elif name == "remat":
@@ -4456,6 +4956,10 @@ def main(argv=None) -> int:
         launches[k] += v
     remat_phase(torch, card)
     lint_phase(torch)
+    # After the lint: the CPU jobs it waits for (the dry run of one chip of
+    # (16, 16) and (2, 16, 16)) have ended by then.
+    for k, v in model_axis_phase(torch, card).items():
+        launches[k] += v
     dryrun_phase(torch, card)
     autograd_phase(torch)
     agreement_phase(torch)

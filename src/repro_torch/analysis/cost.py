@@ -38,6 +38,17 @@ transient is counted because the card allocates it too.
 
 ``counting()`` counts whatever runs inside it on ``meta`` tensors the
 caller makes.  One card has no collectives: ``collective_bytes`` is 0.
+
+One chip of a mesh (``launch/dryrun.py`` with ``--mesh`` or
+``--multi-pod``): the step runs as rank 0's program under
+``models.sharding.use_rules`` over a ``CountingMesh``, a stand-in for the
+mesh's groups that needs no process.  Its ``CountGroup``s (and
+``CountingShard``, the client axis's) return a ``meta`` tensor of each
+collective's real output shape and charge the collective its result
+payload (the reference's ``collective_bytes``, ``analysis/hlo.py``) to
+``collective_bytes`` and one call to ``collectives[kind]`` (the
+reference's names: ``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``all-to-all``).
 """
 from __future__ import annotations
 
@@ -51,7 +62,9 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["Cost", "count", "counting"]
+from repro_torch.launch.mesh import AxisGroup, Mesh, ShardSpec
+
+__all__ = ["Cost", "count", "counting", "CountingMesh", "CountGroup", "CountingShard"]
 
 # Ops that move no data: views by schema, and these.
 _NO_TRAFFIC = {
@@ -170,6 +183,12 @@ class _Counter(TorchDispatchMode):
         k["flops"] += flops
         k["bytes"] += n_bytes
 
+    def collective(self, kind: str, n_bytes: int) -> None:
+        """A collective's result payload (``CountGroup``)."""
+        c = self.cost
+        c.collective_bytes += n_bytes
+        c.collectives[kind] = c.collectives.get(kind, 0) + 1
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
@@ -241,3 +260,85 @@ def count(fn, *args, **kwargs) -> tuple[Cost, object]:
             seen.add(id(st))
             cost.output_size_bytes += st.nbytes()
     return cost, out
+
+
+# ---------------------------------------------------------------------------
+# one chip of a mesh: the groups' stand-in
+# ---------------------------------------------------------------------------
+
+
+def _charge_collective(kind: str, out: torch.Tensor) -> torch.Tensor:
+    from repro_torch.kernels import _common
+
+    if _common.COUNTS:
+        _common.COUNTS[-1].collective(kind, out.numel() * out.element_size())
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CountGroup(AxisGroup):
+    """A mesh line as rank 0 sees it, without a process: each collective
+    returns a new tensor of its output's shape (no values on ``meta``) and
+    charges its result payload to the innermost count."""
+
+    def all_reduce(self, x, op="sum"):
+        return x if self.size == 1 else _charge_collective("all-reduce", torch.empty_like(x))
+
+    def all_gather(self, x, dim):
+        if self.size == 1:
+            return x
+        shape = list(x.shape)
+        shape[dim] *= self.size
+        return _charge_collective("all-gather", x.new_empty(shape))
+
+    def reduce_scatter(self, x, dim):
+        if self.size == 1:
+            return x
+        shape = list(x.shape)
+        shape[dim] //= self.size
+        return _charge_collective("reduce-scatter", x.new_empty(shape))
+
+    def all_to_all(self, x):
+        return x if self.size == 1 else _charge_collective("all-to-all", torch.empty_like(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class CountingMesh(Mesh):
+    """``Mesh`` as rank 0's program sees it: coordinates 0, ``CountGroup``s."""
+
+    def coords(self, rank=None):
+        return super().coords(0 if rank is None else rank)
+
+    def axis_group(self, axes):
+        axes = self._axes(axes)
+        return CountGroup(None, axes, self.axis_size(axes), self.index(axes))
+
+
+@dataclasses.dataclass(frozen=True)
+class CountingShard(ShardSpec):
+    """The client axis's ``ShardSpec`` as rank 0 sees it on a
+    ``CountingMesh``: its collectives charged, none issued."""
+
+    def process_group(self):
+        return None if self.num_shards == 1 else "count"
+
+    def rank(self) -> int:
+        return 0
+
+    def _group(self):
+        return CountGroup(None, self._split_axes, self.num_shards, 0)
+
+    def reduce(self, x, op):
+        return x if not self.splits else self._group().all_reduce(x)
+
+    def gather(self, x, n):
+        if not self.splits:
+            return x
+        m = -(-int(n) // self.num_shards)
+        out = self._group().all_gather(x.new_empty((m,) + tuple(x.shape[1:])), 0)
+        return out[: int(n)]
+
+    def broadcast(self, x, src=0):
+        if not self.splits:
+            return x
+        return _charge_collective("broadcast", torch.empty_like(x))

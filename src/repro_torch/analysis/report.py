@@ -4,9 +4,10 @@
   PYTHONPATH=src python -m repro_torch.analysis.report [--dir results/dryrun_torch]
 
 The tables are the reference's, character for character, but for two
-columns of the dry-run table: the mesh is one card (``1xH100``) and the
-last column is the count's seconds (``trace s``), where the reference's is
-XLA's compile seconds.  The roofline is ``analysis.roofline.HW``'s, the
+columns of the dry-run table: the mesh is the record's (``1xH100`` for one
+card, the dry run's default; ``16x16`` or ``2x16x16`` for one chip of a
+mesh) and the last column is the count's seconds (``trace s``), where the
+reference's is XLA's compile seconds.  The roofline is ``analysis.roofline.HW``'s, the
 datasheet peaks of one NVIDIA H100: predictions, not measurements.
 """
 from __future__ import annotations
@@ -79,18 +80,19 @@ def dryrun_table(results: list[dict]) -> str:
         "|---|---|---|---|---|---|---|---|",
     ]
     for r in results:
+        mesh = r.get("mesh", MESH)
         if r.get("status") == "ok":
             mem = r["memory"]
             per_dev = mem["argument_size_bytes"] + mem["temp_size_bytes"]
             lines.append(
-                f"| {r['arch']} | {r['shape']} | {MESH} | ok | {r['kind']} "
+                f"| {r['arch']} | {r['shape']} | {mesh} | ok | {r['kind']} "
                 f"| {r['round_mode'] if r['kind'] == 'train' else '-'} "
                 f"| {_fmt_bytes(per_dev)} | {r['trace_s']} |"
             )
         else:
             reason = r.get("reason", r.get("status"))
             lines.append(
-                f"| {r['arch']} | {r['shape']} | {MESH} | {r['status']} | - | - | {reason} | - |"
+                f"| {r['arch']} | {r['shape']} | {mesh} | {r['status']} | - | - | {reason} | - |"
             )
     return "\n".join(lines)
 

@@ -27,8 +27,16 @@ default ``torch.distributed`` group).  A mesh whose data axes hold S > 1
 ranks splits the client axis over them (``fed.server``, ``fed.round``): the
 sampler gets a ``ShardSpec`` over those axes (or over
 ``execution.sampler_axis``), and every rank of a group of exactly S ranks
-runs the spec.  A ``model`` axis larger than 1 raises
-``NotImplementedError``: the port has no model axis yet.
+runs the spec.  The ranks of a ``model`` axis larger than 1 replicate
+their data block's work, as the reference's ``api.run`` does (its zoo
+round constrains only the batches and it enters no ``use_rules``): the
+same draws, the same state; only the rank at mesh coordinate 0 writes
+checkpoints (``launch.mesh.is_writer``).  ``execution.sampler_axis`` may
+name any axes that cover the data axes, ``("data", "model")`` for one:
+the client axis then splits over all of their ranks.  A mesh of more ranks
+than the default process group holds raises ``ValueError``.  The model
+axis's split step (``models/sharding.py``) runs under ``use_rules``: the
+dry run and ``chip_smoke.py``'s "model_axis" phase.
 
 Both run on the GPU unless ``device="cpu"`` is passed
 (``repro_torch.device``), and both take a ``repro_torch.checkpoint``
@@ -59,7 +67,14 @@ from repro_torch.device import resolve_device
 from repro_torch.fed.server import FedConfig, History, build_segment_runner, run_federated
 from repro_torch.fed.state import run_segmented
 from repro_torch.fed.tasks import params_to_numpy, tree_map
-from repro_torch.launch.mesh import Mesh, ShardSpec, batch_axes, make_host_mesh, make_mesh
+from repro_torch.launch.mesh import (
+    Mesh,
+    ShardSpec,
+    batch_axes,
+    check_group,
+    make_host_mesh,
+    make_mesh,
+)
 from repro_torch.rng import PhiloxSource
 
 __all__ = ["BuiltExperiment", "build", "run", "restore_template"]
@@ -108,22 +123,17 @@ class BuiltExperiment:
     round_spec: Any = None  # kind="zoo"
 
 
-MODEL_AXIS = "see ROADMAP.md section 1, item 6, 'Multi-rank placement', the model axis"
+MODEL_AXIS = "see ROADMAP.md section 1, 'What is left of the model axis'"
 
 
 def _make_mesh(spec: ExperimentSpec) -> Mesh:
     """The run's host mesh: ``execution.mesh_shape`` as (data, model) or
     (pod, data, model), else ``make_host_mesh()`` over the default process
-    group (the reference's ``_make_mesh``).  Raises
-    ``NotImplementedError`` for a ``model`` axis larger than 1."""
+    group (the reference's ``_make_mesh``).  Raises ``ValueError`` when
+    the mesh holds several ranks and the default group not exactly those."""
     shape = spec.execution.mesh_shape
     mesh = make_host_mesh() if shape is None else make_mesh(shape)
-    if mesh.shape.get("model", 1) != 1:
-        raise NotImplementedError(
-            f"mesh {mesh.shape}: the port splits only the client axis, over the data "
-            f"(and pod) axes, and runs with model = 1 ({MODEL_AXIS}); with several ranks, "
-            "pass execution.mesh_shape=(S, 1) or REPRO_MESH_SHAPE=S,1"
-        )
+    check_group(mesh, "the spec")
     return mesh
 
 
@@ -135,20 +145,22 @@ def _sampler_shard(spec: ExperimentSpec) -> ShardSpec | None:
     rank) when they hold one rank.  One shard of a named axis is
     ``ShardSpec(((axis, 1),), axis)``.  Raises ``ValueError`` when the axis
     holds S > 1 ranks and the default process group does not hold exactly
-    S (``ShardSpec.process_group``), or when the named axis does not cover
-    the mesh's data axes."""
+    the mesh's (``ShardSpec.process_group``), or when the named axes do not
+    cover the mesh's data axes."""
     mesh = _make_mesh(spec)
     baxes = batch_axes(mesh)
     data = ShardSpec.from_mesh(mesh, axis=baxes[0] if len(baxes) == 1 else baxes)
     axis = spec.execution.sampler_axis
     shard = data if axis is None else ShardSpec.from_mesh(mesh, axis=axis)
-    if data.splits and shard.num_shards != data.num_shards:
+    named = (axis,) if isinstance(axis, str) else tuple(axis or baxes)
+    missing = [a for a in baxes if mesh.shape[a] > 1 and a not in named]
+    if missing:
         raise ValueError(
-            f"execution.sampler_axis={axis!r} holds {shard.num_shards} of the {data.num_shards} "
-            f"ranks of the mesh's data axes {mesh.shape}: the client axis splits over them all"
+            f"execution.sampler_axis={axis!r} leaves the data axes {missing} of the mesh "
+            f"{mesh.shape} out: the client axis splits over every rank of them"
         )
     if not shard.splits:
-        return None if axis is None else ShardSpec(axes=((axis, 1),), axis=axis)
+        return None if axis is None else ShardSpec(axes=tuple((a, 1) for a in named), axis=axis)
     shard.process_group()  # no rank runs the spec unsplit without its group
     return shard
 

@@ -37,6 +37,13 @@ the rows' summed loss and divides by B, so the diverged copy stays the same
 on every rank and an uneven split is exact.  A MoE arch's load-balance loss
 and expert capacity couple the rows of a batch, so its
 ``cohort_sequential`` round does not split (``NotImplementedError``).
+
+Under ``models.sharding.use_rules`` over a mesh with more than one rank
+(the dry run's count of one chip, a per-rank step), the parameters are this
+rank's blocks (``launch/sharding.py``), the model code runs its share, and
+each slot's update norm sums every element once: a leaf's local squared
+norm is all_reduced over the axes its spec splits it over, a leaf whole
+on every rank counts once (``split_update_norm``).
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ from repro_torch.fed.cohort import mask_selection, scatter_cohort, select_cohort
 from repro_torch.fed.state import TrainState, init_metric_buffers, make_segment_fn
 from repro_torch.fed.state import StateLayout
 from repro_torch.fed.tasks import tree_leaves, tree_map
+from repro_torch.launch.mesh import ShardSpec
 from repro_torch.models import transformer
 from repro_torch.models.common import ArchConfig
 
@@ -109,7 +117,35 @@ def _batch(tokens, targets, aux_embeds) -> tuple:
     return (tokens, targets) if aux_embeds is None else (tokens, targets, aux_embeds)
 
 
-MODEL_AXIS = "see ROADMAP.md section 1, item 6, 'Multi-rank placement', the model axis"
+MODEL_AXIS = "see ROADMAP.md section 1, 'What is left of the model axis'"
+
+
+def _spec_leaves(specs) -> list:
+    """The specs of a tree in ``tree_leaves``' order (a spec is a tuple)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in _spec_leaves(v)]
+    return [specs]
+
+
+def split_update_norm(delta, specs) -> torch.Tensor:
+    """``fed.client.update_norm`` of a tree of this rank's blocks laid out
+    by ``specs``: the leaves' f32 squared sums, grouped by the mesh axes
+    their specs split, each group's partial all_reduced over those axes."""
+    from repro_torch.launch.sharding import spec_axes
+    from repro_torch.models import sharding as msh
+
+    parts: dict = {}
+    for leaf, spec in zip(tree_leaves(delta), _spec_leaves(specs)):
+        axes = tuple(sorted({a for e in spec for a in spec_axes(e)}))
+        sq = leaf.float().square().sum()
+        parts[axes] = sq if axes not in parts else parts[axes] + sq
+    total = None
+    for axes, sq in parts.items():
+        sq = msh.all_reduce(sq, msh.group_of(axes)) if axes else sq
+        total = sq if total is None else total + sq
+    return total.sqrt()
 
 
 def _split_local_update(params, loss, batches, local_lr: float, rows: int, shard):
@@ -174,9 +210,13 @@ def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None, shard=Non
     def loss(params, batch):
         return transformer.loss_fn(params, cfg, batch)
 
+    def norm(delta):
+        specs = transformer._specs(cfg)
+        return fed_client.update_norm(delta) if specs is None else split_update_norm(delta, specs)
+
     def per_client(params, *batches):
         delta, last = fed_client.local_update(params, loss, batches, spec.local_lr)
-        return delta, last, fed_client.update_norm(delta)
+        return delta, last, norm(delta)
 
     if mode == "client_parallel":
 
@@ -197,7 +237,10 @@ def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None, shard=Non
                         _cohort_mean_loss(every[:, 0], every[:, 2])) + out
             mean_loss = _cohort_mean_loss(losses, weights)
             if comp is None:
-                d = weighted_delta_sum(deltas, weights)
+                if transformer._specs(cfg) is None:
+                    d = weighted_delta_sum(deltas, weights)
+                else:  # under a mesh: kernel 2 on the (C, D) flatten of this rank's blocks
+                    d = estimator.aggregate_cohort(deltas, weights, shard=ShardSpec())
                 return _server_step(params, d, spec.server_lr), norms, mean_loss
             d, _, norms, new_resid = estimator.aggregate_compressed(
                 deltas, weights, weights, comp, resid

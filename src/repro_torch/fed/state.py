@@ -41,7 +41,10 @@ three forms: global (a fresh round-0 state, a restored checkpoint), at
 rest (between segments) and computing (inside a segment).  A checkpoint
 holds the global state: ``run_segmented`` gathers the split leaves and
 rank 0 writes them, and the next segment slices each rank's block out of a
-restored global state, so a run saved at one S resumes at another.
+restored global state, so a run saved at one S resumes at another.  The
+ranks of a ``model`` axis replicate their data block: only the rank at
+mesh coordinate 0 writes (``launch.mesh.is_writer``), and with no split
+leaf the replicated ranks wait for its write.
 """
 from __future__ import annotations
 
@@ -49,8 +52,10 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import tree_flatten, tree_unflatten
+from repro_torch.launch.mesh import is_writer, world_size
 
 __all__ = [
     "TrainState", "StateLayout", "build_placement", "init_metric_buffers", "make_segment_fn",
@@ -345,10 +350,13 @@ def run_segmented(
         done += n
         if manager is not None:
             if layout is None:
-                manager.save(state, step=done)
+                if is_writer():
+                    manager.save(state, step=done)
+                if world_size() > 1:  # replicated ranks wait for the writer
+                    dist.barrier()
             else:
                 full = layout.gather(state)
-                if layout.rank == 0:
+                if is_writer():
                     manager.save(full, step=done)
                 layout.barrier()
             if publish is not None:

@@ -24,7 +24,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._common import ticket_counters
+from repro_torch.kernels._common import counted_meta, meta_call, ticket_counters
 from repro_torch.kernels.build import load_library
 
 __all__ = [
@@ -139,14 +139,15 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtypes, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_g(g: torch.Tensor, dtypes=_FLOAT_DTYPES, name: str = "g") -> tuple[int, int]:
+def _check_g(g: torch.Tensor, dtypes=_FLOAT_DTYPES, name: str = "g",
+             meta: bool = False) -> tuple[int, int]:
     if not isinstance(g, torch.Tensor) or g.dim() != 2:
         raise ValueError(f"{name} must be a 2-D (C, D) tensor")
     c, d = g.shape
     if c < 1 or d < 1:
         raise ValueError(f"{name} must be non-empty, got shape {(c, d)}")
     _check(name, g, (c, d), dtypes, g.device)
-    if g.device.type not in ("cpu", "cuda"):
+    if g.device.type not in ("cpu", "cuda") and not (meta and counted_meta(g)):
         raise ValueError(f"unsupported device {g.device}")
     return c, d
 
@@ -217,6 +218,15 @@ def fused_multi_weighted_agg(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def cohort_work(g: torch.Tensor) -> tuple[int, int]:
+    """Kernel 2's work at g (C, D), ``(operations, bytes)``: two weighted
+    sums (a multiply-add each an element) and the error row's square and
+    sum; g read once, the (D,) f32 estimate and the scalar written, the
+    two (C,) weight rows read."""
+    c, d = g.shape
+    return 4 * c * d + 2 * d, c * d * g.element_size() + 4 * d + 4 + 8 * c
+
+
 def fused_cohort_agg_and_error(
     g: torch.Tensor, w: torch.Tensor, lam_c: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -227,16 +237,21 @@ def fused_cohort_agg_and_error(
     cohort ids (zero on padding).  Returns (d (D,) f32, err () f32) with
     ``d = sum_c w_c g_c`` and ``err = ||sum_c (w_c - lam_c) g_c||^2``.  On
     the GPU it is one kernel launch, and the result is bitwise repeatable
-    (no float atomics: the last block sums the blocks' partials in order)."""
-    c, d = _check_g(g)
+    (no float atomics: the last block sums the blocks' partials in order).
+    On ``meta`` tensors while a count is taken (the dry run's) it charges
+    its work (``cohort_work``) and launches nothing."""
+    c, d = _check_g(g, meta=True)
     _check("w", w, (c,), (torch.float32,), g.device)
     _check("lam_c", lam_c, (c,), (torch.float32,), g.device)
     if g.device.type == "cpu":
         return ref.cohort_agg_and_error_reference(g, w, lam_c)
-    lib = _lib()
-    code = _DTYPE_CODES[g.dtype]
     d_out = torch.empty(d, dtype=torch.float32, device=g.device)
     err = torch.empty((), dtype=torch.float32, device=g.device)
+    if g.is_meta:  # a dry run: nothing to launch on
+        meta_call("fused_cohort_agg_and_error", (g, w, lam_c), cohort_work(g))
+        return d_out, err
+    lib = _lib()
+    code = _DTYPE_CODES[g.dtype]
     stream = _stream(g)
     with torch.cuda.device(g.device):
         partials = torch.empty(

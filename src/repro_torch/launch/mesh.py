@@ -8,23 +8,33 @@ order.  A (1, 1) mesh needs no process group (the tests run there); a
 mesh has more than one rank (``Mesh.device_mesh``).  ``make_host_mesh`` and
 ``make_production_mesh`` take the reference's ``REPRO_MESH_SHAPE`` override.
 
+Ranks lie on the mesh in row-major order (pod, then data, then model), as
+``jax.make_mesh`` orders devices, so the ranks of one ``model`` line are
+contiguous.  ``Mesh.coords()`` is a rank's coordinate on each axis and
+``Mesh.axis_group(axes)`` the ``AxisGroup`` of the ranks that share its
+coordinates on every other axis: one ``dist.new_group`` a line of each axis
+(or tuple of axes), every rank making every line's group in the same order
+(``_line_groups``); a line of all ranks is the default group itself.
+
 A ``ShardSpec`` describes how the (N,) client axis is split: ``axes`` is the
 mesh shape as ``((name, size), ...)`` pairs and ``axis`` names the axis, or
 the tuple of axes, the client dimension is split over.  Its S shards are the
-ranks of the default process group, which must hold exactly S ranks
-(``process_group()``).  Rank r holds the contiguous block
-``local_range(n, r)`` of the client axis: blocks of ``ceil(N/S)``, the last
-one shorter.
+ranks of this rank's line along those axes (``process_group()``); the
+default process group must hold exactly the mesh's ranks.  Rank r holds the
+contiguous block ``local_range(n, r)`` of the client axis: blocks of
+``ceil(N/S)``, the last one shorter.
 
 The client axis's collectives go through ``ShardSpec.reduce`` (``sum``,
 ``max``, ``any``) / ``gather`` / ``broadcast``: ``all_reduce``, ``all_gather`` and
 ``broadcast`` only, which gloo carries on CPU and CUDA tensors alike.  With
 one shard each is the identity.  Each call counts in ``collective_counts``,
-so a run can show how many collectives a round took.
+so a run can show how many collectives a round took, as do the model
+axis's collectives (``AxisGroup``, ``models/sharding.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import os
 
@@ -42,9 +52,13 @@ __all__ = [
     "world_size",
     "collective_counts",
     "reset_collective_counts",
+    "AxisGroup",
+    "is_writer",
+    "check_group",
 ]
 
-_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
+_COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "reduce_scatter": 0,
+                "all_to_all": 0}
 
 
 def collective_counts() -> dict:
@@ -60,6 +74,18 @@ def reset_collective_counts() -> None:
 def world_size() -> int:
     """Ranks of the default process group, 1 without one."""
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def global_rank() -> int:
+    """This process's rank in the default process group, 0 without one."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def is_writer() -> bool:
+    """Whether this process writes a run's files: rank 0 of the default
+    group (mesh coordinate 0 on every axis), or the only process.  Ranks
+    that replicate its work never race on one path."""
+    return global_rank() == 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +126,175 @@ class Mesh:
         from torch.distributed.device_mesh import init_device_mesh
 
         return init_device_mesh(device_type, self.sizes, mesh_dim_names=self.axis_names)
+
+    def coords(self, rank: int | None = None) -> dict:
+        """Rank ``rank``'s (default this process's) coordinate on each axis,
+        row-major."""
+        r = global_rank() if rank is None else int(rank)
+        out = {}
+        for name, size in zip(reversed(self.axis_names), reversed(self.sizes)):
+            out[name] = r % size
+            r //= size
+        return {n: out[n] for n in self.axis_names}
+
+    def _axes(self, axes) -> tuple:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in axes:
+            if a not in self.axis_names:
+                raise ValueError(f"{a!r} is not an axis of the mesh {self.shape}")
+        return axes
+
+    def line(self, axes, rank: int | None = None) -> list:
+        """The global ranks that share ``rank``'s coordinates off ``axes``,
+        in row-major order over ``axes`` (the block order of a dimension
+        split over them)."""
+        axes = self._axes(axes)
+        base = self.coords(rank)
+        ranks = []
+        for pos in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c = dict(base, **dict(zip(axes, pos)))
+            ranks.append(self._rank_of(c))
+        return ranks
+
+    def _rank_of(self, coords: dict) -> int:
+        r = 0
+        for name, size in zip(self.axis_names, self.sizes):
+            r = r * size + coords[name]
+        return r
+
+    def index(self, axes, rank: int | None = None) -> int:
+        """``rank``'s block index along ``axes`` (row-major over them)."""
+        axes = self._axes(axes)
+        c = self.coords(rank)
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + c[a]
+        return i
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self._axes(axes))
+
+    def axis_group(self, axes) -> "AxisGroup":
+        """This rank's ``AxisGroup`` along ``axes`` (a name or a tuple).
+        Raises ``ValueError`` when the line holds several ranks and the
+        default process group does not hold exactly the mesh's."""
+        axes = self._axes(axes)
+        size = self.axis_size(axes)
+        if size == 1:
+            return AxisGroup(None, axes, 1, 0)
+        pg = _process_group(self, axes, f"mesh axes {axes}")
+        return AxisGroup(pg, axes, size, self.index(axes))
+
+
+# (mesh sizes, names, axes) -> (the default group, {line: its group}): every
+# rank makes every line's group once, in the same order.
+_LINE_GROUPS: dict = {}
+
+
+def _line_groups(mesh: Mesh, axes: tuple) -> dict:
+    key = (mesh.sizes, mesh.axis_names, axes)
+    world = dist.group.WORLD
+    hit = _LINE_GROUPS.get(key)
+    if hit is not None and hit[0] is world:
+        return hit[1]
+    others = [a for a in mesh.axis_names if a not in axes]
+    lines = {}
+    for pos in itertools.product(*(range(mesh.shape[a]) for a in others)):
+        rank0 = mesh._rank_of(dict(dict.fromkeys(mesh.axis_names, 0), **dict(zip(others, pos))))
+        line = tuple(mesh.line(axes, rank0))
+        lines[line] = world if len(line) == mesh.size else dist.new_group(list(line))
+    _LINE_GROUPS[key] = (world, lines)
+    return lines
+
+
+def check_group(mesh: Mesh, what: str = "the run") -> None:
+    """Raise ``ValueError`` unless the default process group holds exactly
+    the ranks of ``mesh`` (nothing to check for a one-rank mesh): no rank
+    runs a mesh's share without its group."""
+    if mesh.size == 1:
+        return
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            f"{what} lies on the mesh {mesh.shape} of {mesh.size} ranks, but torch.distributed "
+            f"is not initialised; call init_process_group with world_size={mesh.size} first"
+        )
+    world = dist.get_world_size()
+    if world != mesh.size:
+        raise ValueError(
+            f"{what} lies on the mesh {mesh.shape} of {mesh.size} ranks, but the default "
+            f"process group has world_size={world}"
+        )
+
+
+def _process_group(mesh: Mesh, axes: tuple, what: str):
+    """The process group of this rank's line along ``axes``."""
+    check_group(mesh, what)
+    return _line_groups(mesh, axes)[tuple(mesh.line(axes))]
+
+
+def _host_staged(x: torch.Tensor, group) -> bool:
+    """gloo carries all_reduce, all_gather and broadcast on CUDA tensors; the
+    other collectives go through the host (the transport, not a fallback)."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """The ranks of one mesh line as this rank sees them: ``size`` ranks,
+    this one at ``rank`` (its block index along ``axes``).  Each collective
+    returns a new tensor and leaves its input alone, counts in
+    ``collective_counts`` and is the identity for one rank.  ``pg`` is the
+    ``torch.distributed`` group (None for one rank)."""
+
+    pg: object
+    axes: tuple
+    size: int
+    rank: int
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        if self.size == 1:
+            return x
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self.pg)
+        _count("all_reduce")
+        return y
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The blocks of every rank concatenated along ``dim``."""
+        if self.size == 1:
+            return x
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.pg)
+        _count("all_gather")
+        return torch.cat(parts, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the ranks of ``x``, this rank's block along ``dim``."""
+        if self.size == 1:
+            return x
+        xs = x.movedim(dim, 0).contiguous()
+        staged = _host_staged(xs, self.pg)
+        src = xs.cpu() if staged else xs
+        out = src.new_empty((src.shape[0] // self.size,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=self.pg)
+        _count("reduce_scatter")
+        return (out.to(x.device) if staged else out).movedim(0, dim)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x (size * m, ...): rows ``[i m, (i+1) m)`` go to rank i; the
+        result's rows ``[i m, (i+1) m)`` came from rank i."""
+        if self.size == 1:
+            return x
+        src = x.contiguous()
+        staged = _host_staged(src, self.pg)
+        if staged:
+            src = src.cpu()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.pg)
+        _count("all_to_all")
+        return out.to(x.device) if staged else out
 
 
 def make_mesh(shape, axes=None) -> Mesh:
@@ -206,34 +401,23 @@ class ShardSpec:
 
     def process_group(self):
         """The process group whose ranks hold the shards: ``None`` for one
-        shard; for S > 1 the default group, which must be initialised with
-        ``world_size == S``.
+        shard; for S > 1 the group of this rank's line along the split axes
+        (``Mesh.axis_group``; the default group when the line holds every
+        rank).  The default group must hold exactly the mesh's ranks.
 
         Raises:
           ValueError: S > 1 and no process group, or one of another size.
         """
-        s = self.num_shards
-        if s == 1:
+        if self.num_shards == 1:
             return None
-        if not (dist.is_available() and dist.is_initialized()):
-            raise ValueError(
-                f"ShardSpec splits {self.axis!r} over {s} shards, but torch.distributed "
-                "is not initialised; call init_process_group with world_size="
-                f"{s} first"
-            )
-        world = dist.get_world_size()
-        if world != s:
-            raise ValueError(
-                f"ShardSpec splits {self.axis!r} over {s} shards, but the default "
-                f"process group has world_size={world}"
-            )
-        return dist.group.WORLD
+        return _process_group(self.mesh(), self._split_axes, f"ShardSpec {self.axis!r}")
 
     def rank(self) -> int:
-        """This process's shard: its rank in ``process_group()``, 0 for one
-        shard."""
-        group = self.process_group()
-        return 0 if group is None else dist.get_rank(group)
+        """This process's shard: its block index along the split axes
+        (its rank in ``process_group()``), 0 for one shard."""
+        if self.process_group() is None:
+            return 0
+        return self.mesh().index(self._split_axes)
 
     def local_range(self, n: int, rank: int) -> tuple[int, int]:
         """``[lo, hi)`` of the (n,) axis that shard ``rank`` holds: blocks of

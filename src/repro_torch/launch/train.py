@@ -33,7 +33,10 @@ and batches):
   ``fed.state.run_segmented``), the construction ``api.run`` uses, on one
   device, or over ranks: ``python -m torch.distributed.run
   --nproc-per-node S -m repro_torch.launch.train ... --compiled`` with
-  ``REPRO_MESH_SHAPE=S,1`` splits the client axis over S gloo ranks.
+  ``REPRO_MESH_SHAPE=S,1`` splits the client axis over S gloo ranks;
+  without it the host mesh gives the model axis the largest of 16, 8, 4,
+  2, 1 dividing S (two ranks: (1, 2)), whose ranks replicate the run and
+  only rank 0 writes.
   ``--ckpt-every N`` cuts the horizon into N-round segments (bitwise
   neutral) and, with ``--ckpt DIR``, publishes the whole
   ``TrainState`` through a ``CheckpointManager`` in ``DIR_ckpts/`` at every
@@ -77,6 +80,7 @@ from repro_torch.core.samplers import draw_input, sampler_names
 from repro_torch.fed.cohort import host_gather_cohort_batches, scatter_cohort, select_cohort
 from repro_torch.fed.round import ZooModel, build_round_step
 from repro_torch.fed.state import run_segmented
+from repro_torch.launch.mesh import is_writer
 from repro_torch.models import transformer
 from repro_torch.rng import PhiloxSource
 
@@ -240,7 +244,7 @@ def run_spec(spec: ExperimentSpec, *, ckpt: str = "", resume: bool = False, devi
     rounds, ckpt_every = fed.rounds, ex.ckpt_every
     source = PhiloxSource(ex.seed, dev)
 
-    writer = not sampler.splits or sampler.shard.rank() == 0  # rank 0 writes files
+    writer = is_writer()  # rank 0 writes files; the other ranks replicate or split its work
     if sampler.splits and not ex.compiled:
         raise ValueError(
             f"the client axis is split over {sampler.shard.num_shards} ranks: the host loop "
@@ -291,7 +295,7 @@ def run_spec(spec: ExperimentSpec, *, ckpt: str = "", resume: bool = False, devi
 
         def on_segment(st, rounds_done):
             segments_done.append(rounds_done)
-            if manager is not None:
+            if manager is not None and writer:
                 print(f"checkpoint step {rounds_done} -> {manager.directory}", flush=True)
             if kill_after and len(segments_done) >= kill_after:
                 print(f"REPRO_KILL_AFTER_SEGMENTS={kill_after}: SIGKILL", flush=True)
@@ -403,7 +407,8 @@ def main(argv=None):
 
     # Under ``python -m torch.distributed.run --nproc-per-node S`` each rank
     # joins the gloo group its environment names; REPRO_MESH_SHAPE=S,1 (or
-    # the spec's mesh_shape) then splits the client axis over it.
+    # the spec's mesh_shape) then splits the client axis over it, and the
+    # ranks of a model axis replicate their data block.
     group = int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized()
     if group:
         dist.init_process_group("gloo")

@@ -24,14 +24,19 @@ Where the work goes:
 
 The decode functions write the new K/V line into the cache in place (the
 reference returns a new cache; the port's pool is preallocated once) and
-return the same dict.  ``models/sharding.py`` is not ported: there is no
-mesh, and the reference's ``shard(...)`` annotations are dropped.
+return the same dict.  Under a mesh (``models/sharding.py``) the
+reference's ``shard(...)`` annotations check the projections' layout;
+``kv_heads`` stays whole (the rules keep it replicated), so attention runs
+on gathered weights and whole heads.  A dense decode cache whose sequence
+is split over a mesh line (``kv_seq``) is attended where it lies
+(``split_decode_attention``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import sharding as msh
 from repro_torch.models.common import ArchConfig, apply_rope, rms_norm, rope_angles, softcap, uniform_init
 
 __all__ = [
@@ -73,6 +78,9 @@ def _project_qkv(params, cfg: ArchConfig, xq: torch.Tensor, xkv: torch.Tensor):
     if "q_scale" in params:
         q = rms_norm(q, params["q_scale"], cfg.norm_eps)
         k = rms_norm(k, params["k_scale"], cfg.norm_eps)
+    q = msh.shard(q, "batch", "seq", "kv_heads", None, None)
+    k = msh.shard(k, "batch", "seq", "kv_heads", None)
+    v = msh.shard(v, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
@@ -188,9 +196,42 @@ def decode_attention(params, cfg: ArchConfig, x: torch.Tensor, cache: dict, inde
     k, v = cache["k"], cache["v"]
     k[:, index] = k_new[:, 0].to(k.dtype)
     v[:, index] = v_new[:, 0].to(v.dtype)
+    k = msh.shard(k, "batch", "kv_seq", None, None)
+    v = msh.shard(v, "batch", "kv_seq", None, None)
     if mask is None:
         mask = _causal_mask(1, k.shape[1], window, index, x.device)
     out = _sdpa(cfg, q, k, v, mask)
+    return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ params["wo"], cache
+
+
+def split_decode_attention(params, cfg: ArchConfig, x: torch.Tensor, cache: dict, index: int,
+                           group, *, window: int | None = None, rope=None):
+    """``decode_attention`` on this rank's block of a cache whose sequence
+    is split over ``group`` (block ``group.rank`` of ``S_max / size``
+    positions): the rank that owns position ``index`` writes the new K/V
+    line; each rank takes the logits of its positions (f32), and the max,
+    the sum of exponentials and the weighted values are all_reduced over
+    the line."""
+    b = x.shape[0]
+    index = int(index)
+    q, k_new, v_new = _decode_qkv(params, cfg, x, index, rope)
+    k, v = cache["k"], cache["v"]
+    s_loc = k.shape[1]
+    s0 = group.rank * s_loc
+    if s0 <= index < s0 + s_loc:
+        k[:, index - s0] = k_new[:, 0].to(k.dtype)
+        v[:, index - s0] = v_new[:, 0].to(v.dtype)
+    k = msh.shard(k, "batch", "kv_seq", None, None)
+    v = msh.shard(v, "batch", "kv_seq", None, None)
+    mask = _causal_mask(1, s_loc, window, index - s0, x.device)
+    scale = cfg.hd**-0.5
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q.to(torch.float32), k.to(torch.float32)) * scale
+    logits = torch.where(mask, softcap(logits, cfg.attn_softcap), _NEG)
+    m = msh.all_reduce(logits.amax(-1, keepdim=True), group, "max")
+    p = torch.exp(logits - m)
+    den = msh.all_reduce(p.sum(-1, keepdim=True), group)  # (B, KV, G, 1, 1)
+    num = msh.all_reduce(torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32)), group)
+    out = (num / den.permute(0, 3, 1, 2, 4)).to(v.dtype)
     return out.reshape(b, 1, cfg.n_heads * cfg.hd) @ params["wo"], cache
 
 

@@ -49,6 +49,18 @@ kernel-7 launches.  A decode step launches kernel 6 as often as a forward
 tokens launches kernel 6 ``L * (1 + S) + 1`` times.
 ``params_from_reference`` turns the JAX reference's ``init_params`` tree
 (numpy leaves) into the port's tree.
+
+Under ``models.sharding.use_rules`` over a mesh of more than one rank the
+functions run one rank's share (``models/sharding.py``): ``params`` are its
+blocks (``launch/sharding.py:param_shardings``); each pattern group, the
+``shared`` block, the encoder and the frontend projection gather their
+leaves at use, but the MLP's hidden units and the experts, which
+``models/mlp.py`` and ``models/moe.py`` compute split; the vocabulary is
+split over ``model`` (a masked embedding on the rank's rows and one
+all_reduce; local logits; ``loss_fn``'s vocabulary-parallel cross-entropy;
+``forward``, ``prefill`` and ``decode_step`` all-gather their logits); a
+decode step attends a K/V cache whose sequence is split where it lies.
+Kernels 6-8 run unchanged on whole local activations.
 """
 from __future__ import annotations
 
@@ -60,6 +72,7 @@ from repro_torch.fed.tasks import tree_leaves
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import remat as remat_mod
+from repro_torch.models import sharding as msh
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import (
@@ -286,10 +299,16 @@ def _cross_from_cache(p, cfg: ArchConfig, x, cache):
     return out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
 
 
-def _decode_attn(p, cfg: ArchConfig, x, cache, index, rope, masks: dict, *, window=None):
+def _decode_attn(p, cfg: ArchConfig, x, cache, index, rope, masks: dict, *, window=None,
+                 kv=None):
     """The paged cache (the serving engine's pool + page table) routes to
     ``paged_decode_attention``, the dense layout to ``decode_attention``.
-    ``masks`` memoizes the step's decode mask per window across layers."""
+    ``masks`` memoizes the step's decode mask per window across layers.
+    ``kv``: the mesh line a dense cache's sequence is split over
+    (``attention.split_decode_attention``)."""
+    if kv is not None:
+        return attn_mod.split_decode_attention(p, cfg, x, cache, index, kv, window=window,
+                                               rope=rope)
     paged = "page_table" in cache
     if window not in masks:
         n_keys = cache["page_table"].shape[1] * cache["pool_k"].shape[1] if paged else cache["k"].shape[1]
@@ -310,7 +329,7 @@ def _recurrent_prefill(step_fn, state, x):
 
 
 def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cache=None,
-                 index=None, max_seq=None, masks=None, shared=None, cross_src=None):
+                 index=None, max_seq=None, masks=None, shared=None, cross_src=None, kv=None):
     """Returns (h, new_cache, aux): aux the block's MoE load-balance loss
     (None for the other kinds).  ``rope``: the (cos, sin) tables of the
     positions this call processes, shared by every layer.  ``shared_attn``
@@ -318,10 +337,11 @@ def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cac
     recurrent decode (``mamba2``, ``mlstm``, ``slstm``) updates its cache
     in place.  ``cross_src``: the cross-attention source (B, S_src, d) of
     ``cross_attn`` and ``dec`` in train and prefill; decode reads the
-    cross cache."""
+    cross cache.  ``kv``: the split self-attention cache's line (decode
+    under a mesh)."""
     if kind == "shared_attn":
         return _apply_block("attn", shared, cfg, h, rope, mode=mode, cache=cache, index=index,
-                            max_seq=max_seq, masks=masks)
+                            max_seq=max_seq, masks=masks, kv=kv)
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     if kind == "enc":
         y, _ = _full_attention(p["attn"], cfg, x, None, causal=False)
@@ -336,7 +356,8 @@ def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cac
         return h + mlp(p["mlp"], cfg, rms_norm(h, p["ln2"], cfg.norm_eps)), cache, None
     if kind == "dec":
         if mode == "decode":
-            y, self_cache = _decode_attn(p["attn"], cfg, x, cache["self"], index, rope, masks)
+            y, self_cache = _decode_attn(p["attn"], cfg, x, cache["self"], index, rope, masks,
+                                         kv=kv)
         else:
             y, self_cache = _full_attention(p["attn"], cfg, x, rope,
                                             want_cache=(mode == "prefill"), max_seq=max_seq)
@@ -371,7 +392,8 @@ def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cac
         return h + y, cache, None
     window = cfg.sliding_window if kind == "attn_local" else None
     if mode == "decode":
-        y, cache = _decode_attn(p["attn"], cfg, x, cache, index, rope, masks, window=window)
+        y, cache = _decode_attn(p["attn"], cfg, x, cache, index, rope, masks, window=window,
+                                kv=kv)
     else:
         y, cache = _full_attention(
             p["attn"], cfg, x, rope, window=window, want_cache=(mode == "prefill"), max_seq=max_seq
@@ -391,7 +413,7 @@ def _remat_on(cfg: ArchConfig) -> bool:
 
 
 def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max_seq=None,
-               cross_src=None):
+               cross_src=None, cache_specs=None):
     """Loop over the pattern groups; returns (h, aux, caches).  caches: per
     slot, stacked over repeats (decode updates them in place); prefill
     returns new ones.  aux: the MoE losses summed within each pattern group,
@@ -402,7 +424,15 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
     ``cfg.remat == "full"`` each pattern group runs through
     ``remat.recompute``, the RoPE tables, ``shared`` and the cross source
     entering it as inputs: the backward recomputes the group's forward
-    (kernels 6-8 launch again there) and keeps only its input."""
+    (kernels 6-8 launch again there) and keeps only its input.
+
+    Under a mesh (``models.sharding.active``) ``params`` are this rank's
+    blocks: each group gathers its blocks' leaves (and ``shared``'s) at its
+    entry (``sharding.use_block``), inside the recomputed group under
+    remat.  A decode step's ``cache_specs`` (``launch.sharding.
+    cache_shardings``) give each slot's cache layout: a self-attention
+    cache's split sequence is attended where it lies, a cross cache is
+    gathered whole, a recurrent state raises ``NotImplementedError``."""
     for kind in cfg.block_pattern:
         _check_kind(kind)
     reps = cfg.pattern_repeats()
@@ -415,15 +445,34 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
     out_caches = [[] for _ in cfg.block_pattern]
     layers = [_unstack(stack, reps) for stack in params["stacks"]]
     remat = mode == "train" and _remat_on(cfg)
+    specs = _specs(cfg)
+    block_specs = None if specs is None else [msh.drop_lead(s) for s in specs["stacks"]]
+    kvs = [None] * len(cfg.block_pattern)
+    if specs is not None and mode == "decode":
+        kvs = [_decode_layout(kind, s) for kind, s in zip(cfg.block_pattern, cache_specs)]
+    rules = msh.captured()
 
     def group(h, blocks, shared, cross_src, rope, r=None):
+        if rules is None:
+            return _group(h, blocks, shared, cross_src, rope, r)
+        with msh.entered(rules):  # a recomputed group may run on another thread
+            return _group(h, blocks, shared, cross_src, rope, r)
+
+    def _group(h, blocks, shared, cross_src, rope, r=None):
+        if block_specs is not None:
+            blocks = [msh.use_block(b, s) for b, s in zip(blocks, block_specs)]
+            if shared is not None:
+                shared = msh.use_block(shared, specs["shared"])
         aux_sum = None
         for j, kind in enumerate(cfg.block_pattern):
             cache = None if r is None or caches is None else _rep(caches[j], r)
+            kv = kvs[j]
+            if kv is not None and kind in ("cross_attn", "dec"):
+                cache, kv = _gather_cross(kind, cache, kv), kv.get("self")
             h, nc, aux = _apply_block(
                 kind, blocks[j], cfg, h, rope, mode=mode, cache=cache,
                 index=index, max_seq=max_seq, masks=masks, shared=shared,
-                cross_src=cross_src,
+                cross_src=cross_src, kv=kv,
             )
             if aux is not None:
                 aux_sum = aux if aux_sum is None else aux_sum + aux
@@ -446,11 +495,44 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
     return h, aux, caches
 
 
+def _specs(cfg: ArchConfig):
+    """The whole tree's parameter specs under an active mesh, else None."""
+    ctx = msh.active()
+    if ctx is None:
+        return None
+    from repro_torch.launch.sharding import whole_param_specs
+
+    return whole_param_specs(cfg, ctx[0], ctx[2])
+
+
+def _vocab_group(entry):
+    """The ``model`` line a vocabulary dimension (its spec entry) is split
+    over, or None."""
+    from repro_torch.launch.sharding import spec_axes
+
+    return msh.group_of("model") if "model" in spec_axes(entry) else None
+
+
 def _embed(params, cfg: ArchConfig, tokens):
+    """The embedding; under a vocabulary split over ``model`` each rank
+    looks up the tokens its rows hold (zeros for the others) and one
+    all_reduce sums them, exact (one nonzero term)."""
+    emb, group = params["embed"], None
+    specs = _specs(cfg)
+    if specs is not None:
+        emb = msh.use_leaf(emb, specs["embed"], consumed=True)
+        group = _vocab_group(specs["embed"][0])
     # F.embedding, not params["embed"][tokens]: under vmap(grad) the
     # indexing backward sums repeated tokens in a thread-dependent order, so
     # two federated runs of one spec would differ in the last bits.
-    h = torch.nn.functional.embedding(tokens, params["embed"])
+    if group is None:
+        h = torch.nn.functional.embedding(tokens, emb)
+    else:
+        rows = emb.shape[0]
+        ids = tokens - group.rank * rows
+        inside = (ids >= 0) & (ids < rows)
+        h = torch.nn.functional.embedding(torch.where(inside, ids, 0), emb)
+        h = msh.all_reduce(h * inside[..., None].to(h.dtype), group)
     if cfg.scale_embed:
         # sqrt(d_model) rounded to h's dtype first, as the reference does; a
         # host scalar, so no host-to-device copy.
@@ -462,8 +544,12 @@ def _encode(params, cfg: ArchConfig, frames):
     """Whisper's encoder over the stubbed post-convolution features frames
     (B, S_frames, frontend_dim): the frontend projection, learned
     positions, the ``enc`` blocks, the encoder's final norm."""
-    enc = params["encoder"]
-    h = frames.to(cfg.param_dtype) @ params["frontend_proj"] + enc["pos"][None]
+    specs = _specs(cfg)
+    enc, proj = params["encoder"], params["frontend_proj"]
+    if specs is not None:
+        enc = msh.use_block(enc, specs["encoder"])
+        proj = msh.use_leaf(proj, specs["frontend_proj"])
+    h = frames.to(cfg.param_dtype) @ proj + enc["pos"][None]
     for blk in _unstack(enc["stack"], cfg.encoder_layers):
         h, _, _ = _apply_block("enc", blk, cfg, h, None, mode="train")
     return rms_norm(h, enc["final_norm"], cfg.norm_eps)
@@ -484,37 +570,92 @@ def _cross_source(params, cfg: ArchConfig, aux_embeds):
         return None
     if cfg.encoder_layers:
         return _encode(params, cfg, aux_embeds)
-    return aux_embeds.to(cfg.param_dtype) @ params["frontend_proj"]
+    proj = params["frontend_proj"]
+    specs = _specs(cfg)
+    if specs is not None:
+        proj = msh.use_leaf(proj, specs["frontend_proj"])
+    return aux_embeds.to(cfg.param_dtype) @ proj
 
 
-def _head(params, cfg: ArchConfig, h):
-    head = params["lm_head"] if "lm_head" in params else params["embed"].T
-    return softcap(h @ head, cfg.final_softcap)
+def _final_norm(params, cfg: ArchConfig, h):
+    scale = params["final_norm"]
+    specs = _specs(cfg)
+    if specs is not None:
+        scale = msh.use_leaf(scale, specs["final_norm"])
+    return rms_norm(h, scale, cfg.norm_eps)
+
+
+def _local_head(params, cfg: ArchConfig, h):
+    """(logits over this rank's vocabulary columns, the ``model`` line they
+    are split over or None).  A tied head uses ``embed.T``'s block."""
+    name = "lm_head" if "lm_head" in params else "embed"
+    head, group = params[name], None
+    specs = _specs(cfg)
+    if specs is not None:
+        head = msh.use_leaf(head, specs[name], consumed=True)
+        group = _vocab_group(specs[name][1 if name == "lm_head" else 0])
+    if name == "embed":
+        head = head.T
+    # h is whole on every rank, its gradient through each block partial.
+    logits = softcap(msh.reduce_grad(h, group) @ head, cfg.final_softcap)
+    return msh.shard(logits, "batch", "seq", "vocab", whole=(None, None, cfg.vocab)), group
+
+
+def _whole_logits(params, cfg: ArchConfig, h):
+    """The logits (B, S, V): under a split vocabulary all-gathered, since
+    sampling needs whole rows."""
+    logits, group = _local_head(params, cfg, h)
+    return msh.all_gather(logits, group, -1)
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None):
     """Training forward: tokens (B, S) [+ aux_embeds (B, S_front, F)] ->
     (logits (B,S,V), aux_loss)."""
+    h, aux = _trunk(params, cfg, tokens, aux_embeds)
+    return _whole_logits(params, cfg, h), aux
+
+
+def _trunk(params, cfg: ArchConfig, tokens, aux_embeds):
+    """The final-normed residual stream (B, S, d) and the MoE aux loss."""
     h = _embed(params, cfg, tokens)
     cross_src = _cross_source(params, cfg, aux_embeds)
     h, aux, _ = _run_stack(params, cfg, h, mode="train", cross_src=cross_src)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = msh.shard(h, "batch", "seq", None)
+    h = _final_norm(params, cfg, h)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return _head(params, cfg, h), aux
+    return h, aux
 
 
 def loss_fn(params, cfg: ArchConfig, batch) -> torch.Tensor:
     """batch: (tokens, targets) or (tokens, targets, aux_embeds).  Mean
     next-token cross-entropy in f32 plus
     ``MOE_AUX_COEF`` times the MoE load-balance loss (zero without ``moe``
-    blocks)."""
+    blocks).  Under a mesh: the vocabulary-parallel cross-entropy (the max,
+    the sum of exponentials and the gold logit all_reduced over the
+    vocabulary's line, f32), averaged over the batch axes when this rank
+    holds a block of the rows."""
     tokens, targets = batch[0], batch[1]
-    logits, aux = forward(params, cfg, tokens, batch[2] if len(batch) > 2 else None)
+    h, aux = _trunk(params, cfg, tokens, batch[2] if len(batch) > 2 else None)
+    logits, group = _local_head(params, cfg, h)
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    return torch.mean(logz - gold) + MOE_AUX_COEF * aux
+    if group is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    else:
+        m = msh.all_reduce(logits.detach().amax(-1), group, "max")
+        sumexp = msh.all_reduce(torch.exp(logits - m[..., None]).sum(-1), group)
+        logz = torch.log(sumexp) + m
+        cols = logits.shape[-1]
+        t = targets.long() - group.rank * cols
+        inside = (t >= 0) & (t < cols)
+        gold = torch.gather(logits, -1, torch.where(inside, t, 0)[..., None])[..., 0]
+        gold = msh.all_reduce(torch.where(inside, gold, 0.0), group)
+    loss = torch.mean(logz - gold) + MOE_AUX_COEF * aux
+    rows = msh.batch_group()
+    if rows is not None:
+        loss = msh.all_reduce(loss, rows) / rows.size
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -556,16 +697,23 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, page_size: int | None
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None, max_seq=None,
-            page_size: int | None = None):
+            page_size: int | None = None, *, batch: int | None = None):
     """Process the prompt [and the frontend embeddings], return (logits (B,
     1, V), caches).  Self-attention caches are padded to ``max_seq``
     (default: the prompt length); with ``page_size`` they are repacked into
-    the paged decode layout."""
+    the paged decode layout.  Under a mesh the caches are this rank's
+    blocks (``launch.sharding.cache_shardings`` of the whole ``batch``
+    sequences, default ``tokens``' rows: this rank's rows are its block of
+    the batch axes where the rules split them)."""
     h = _embed(params, cfg, tokens)
     cross_src = _cross_source(params, cfg, aux_embeds)
     h, _, caches = _run_stack(params, cfg, h, mode="prefill", max_seq=max_seq, cross_src=cross_src)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = _head(params, cfg, h[:, -1:])
+    logits = _whole_logits(params, cfg, _final_norm(params, cfg, h)[:, -1:])
+    if _specs(cfg) is not None:
+        if page_size is not None:
+            raise NotImplementedError(f"a paged cache under a mesh: {MODEL_AXIS_LEFT}")
+        return logits, _cut_caches(cfg, caches, batch or tokens.shape[0],
+                                   max_seq or tokens.shape[1])
     if page_size is not None:
         caches = _caches_to_pages(cfg, caches, page_size)
     return logits, caches
@@ -593,10 +741,113 @@ def _caches_to_pages(cfg: ArchConfig, caches, page_size: int):
     return out
 
 
-def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, index: int):
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, index: int, *,
+                max_seq: int | None = None, batch: int | None = None):
     """token (B, 1) int; index = number of tokens already in the cache (a
-    host integer).  Updates ``caches`` in place and returns them."""
+    host integer).  Updates ``caches`` in place and returns them.  Under a
+    mesh the caches are this rank's blocks of ``cache_shardings`` at
+    ``max_seq`` (default: the local caches' length, i.e. not split) and
+    ``batch`` sequences (default ``token``'s rows)."""
     h = _embed(params, cfg, token)
-    h, _, caches = _run_stack(params, cfg, h, mode="decode", caches=caches, index=int(index))
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _head(params, cfg, h), caches
+    specs = None
+    if _specs(cfg) is not None:
+        specs = _whole_cache_specs(cfg, batch or token.shape[0],
+                                   max_seq or _cache_len(cfg, caches))
+    h, _, caches = _run_stack(params, cfg, h, mode="decode", caches=caches, index=int(index),
+                              cache_specs=specs)
+    return _whole_logits(params, cfg, _final_norm(params, cfg, h)), caches
+
+
+# ---------------------------------------------------------------------------
+# decode caches under a mesh
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS_LEFT = "see ROADMAP.md section 1, 'What is left of the model axis'"
+
+
+def _cache_len(cfg: ArchConfig, caches) -> int:
+    for kind, cache in zip(cfg.block_pattern, caches):
+        kv = cache["self"] if kind == "dec" else cache
+        if kind in ATTN_KINDS + ("dec",):
+            if "k" not in kv:
+                raise NotImplementedError(f"a paged cache under a mesh: {MODEL_AXIS_LEFT}")
+            return kv["k"].shape[2]
+    return 0
+
+
+def _whole_cache_specs(cfg: ArchConfig, batch: int, max_seq: int):
+    """``cache_shardings`` of the whole caches of ``batch`` sequences of
+    ``max_seq`` (shapes only, outside any dispatch mode)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    from repro_torch.launch.sharding import cache_shardings
+
+    mesh = msh.current_mesh()
+    with _disable_current_modes():
+        whole = init_caches(cfg, batch, max_seq, device="meta")
+        return cache_shardings(whole, mesh, max_seq, batch)
+
+
+def _kv_line(spec):
+    """The mesh line of a K/V cache whose spec (one repeat: (B, S, KV, hd))
+    splits the sequence, or None when it is whole.  Other split dimensions
+    raise."""
+    from repro_torch.launch.sharding import spec_axes
+
+    if any(spec_axes(e) for e in spec[2:]):
+        raise NotImplementedError(f"a K/V cache split off its sequence {spec}: {MODEL_AXIS_LEFT}")
+    return msh.group_of(spec_axes(spec[1]))
+
+
+def _decode_layout(kind: str, spec):
+    """A slot's decode layout from its stacked cache spec: the self K/V's
+    line (``_kv_line``) for the attention kinds, ``{"cross": specs,
+    "self": line}`` for the cross kinds; recurrent states raise."""
+    one = msh.drop_lead(spec)
+    if kind in ATTN_KINDS:
+        return _kv_line(one["k"])
+    if kind == "cross_attn":
+        return {"cross": one, "self": None}
+    if kind == "dec":
+        return {"cross": one["cross"], "self": _kv_line(one["self"]["k"])}
+    raise NotImplementedError(
+        f"decode of the {kind} block's recurrent state under a mesh with model > 1: "
+        f"{MODEL_AXIS_LEFT}")
+
+
+def _gather_cross(kind: str, cache, layout):
+    """A cross cache gathered whole at its use (read only)."""
+    from repro_torch.launch.sharding import spec_axes
+
+    def whole(leaf, spec):
+        for dim, entry in enumerate(spec):
+            group = msh.group_of(spec_axes(entry)) if dim > 0 else None
+            leaf = msh.all_gather(leaf, group, dim)
+        return leaf
+
+    cross = cache if kind == "cross_attn" else cache["cross"]
+    got = {k: whole(cross[k], layout["cross"][k]) for k in ("k", "v")}
+    return got if kind == "cross_attn" else {"self": cache["self"], "cross": got}
+
+
+def _cut_caches(cfg: ArchConfig, caches, batch: int, max_seq: int):
+    """A prefill's caches (this rank's rows, every position) cut to this
+    rank's blocks of ``cache_shardings``: every split dimension but the
+    batch, whose rows are already this rank's."""
+    from repro_torch.launch.sharding import block_of, spec_axes
+    from repro_torch.launch.mesh import batch_axes
+
+    mesh = msh.current_mesh()
+    specs = _whole_cache_specs(cfg, batch, max_seq)
+    b_axes = batch_axes(mesh)
+
+    def cut(leaf, spec):
+        spec = tuple(None if spec_axes(e) == b_axes and i == 1 else e for i, e in enumerate(spec))
+        return block_of(leaf, spec, mesh)
+
+    def walk(c, s):
+        if isinstance(c, dict):
+            return {k: walk(c[k], s[k]) for k in c}
+        return cut(c, s)
+
+    return [walk(c, s) for c, s in zip(caches, specs)]

@@ -321,15 +321,40 @@ def test_run_one_reduced(arch, shape, monkeypatch):
 
 
 def test_multi_rank_and_bad_opts_raise():
-    for kw in (dict(multi_pod=True), dict(mesh_shape=(2, 1)), dict(opts=("seq_parallel",))):
-        with pytest.raises(NotImplementedError, match="section 1, item 6, 'Multi-rank placement'"):
-            dryrun.run_one("smollm-360m", "decode_32k", **kw)
+    """seq_parallel (the residual stream's sequence over model) is left for
+    the next slice; the meshes are counted (tests/test_torch_model_axis.py)."""
+    with pytest.raises(NotImplementedError, match="section 1, 'What is left of the model axis'"):
+        dryrun.run_one("smollm-360m", "decode_32k", ("seq_parallel",))
     with pytest.raises(ValueError, match="unknown opt"):
         dryrun.run_one("smollm-360m", "decode_32k", ("nope",))
     cfg = dryrun._apply_opts(configs.get_config("xlstm-125m"),
                              ("remat_none", "mlstm_chunk_64", "slstm_seg_16", "attn_chunked", "moe_a2a"))
     assert (cfg.remat, cfg.mlstm_impl, cfg.mlstm_chunk, cfg.slstm_segment, cfg.attn_impl,
             cfg.moe_impl) == ("none", "chunked", 64, 16, "chunked", "a2a")
+
+
+@pytest.mark.parametrize("mesh_args,tag", [
+    ((), "1xH100"), (("--mesh", "16,16"), "sp"), (("--multi-pod",), "mp"),
+    (("--mesh", "2,2"), "2x2"),
+])
+def test_sweep_tags_each_record_with_its_mesh(tmp_path, monkeypatch, mesh_args, tag):
+    """``--all`` keeps one sweep's records apart from another mesh's under
+    one ``--out``: a one-card record is not taken for a mesh's."""
+    seen = []
+
+    def fake_run(cmd, **kw):
+        seen.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, json.dumps({"status": "ok", "trace_s": 0.0}), "")
+
+    monkeypatch.setattr(dryrun, "list_archs", lambda: ["smollm-360m"])
+    monkeypatch.setattr(dryrun, "INPUT_SHAPES", {"train_4k": None})
+    monkeypatch.setattr(dryrun.subprocess, "run", fake_run)
+    (tmp_path / "smollm-360m__train_4k__1xH100.json").write_text("{}")
+    dryrun.main(["--all", "--out", str(tmp_path), *mesh_args])
+    assert (tmp_path / f"smollm-360m__train_4k__{tag}.json").exists()
+    assert seen == ([] if tag == "1xH100" else [[sys.executable, "-m", "repro_torch.launch.dryrun",
+                                                 "--arch", "smollm-360m", "--shape", "train_4k",
+                                                 *mesh_args]])
 
 
 def _cli(*args, cwd=ROOT):
@@ -358,6 +383,11 @@ def test_cli_full_width_decode_and_report(tmp_path):
 
 @pytest.mark.slow
 def test_cli_multi_pod_raises():
+    """--multi-pod counts one chip of (2, 16, 16); --opt seq_parallel raises."""
     proc = _cli("--arch", "smollm-360m", "--shape", "train_4k", "--multi-pod")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert r["n_chips"] == 512 and r["mesh"] == "2x16x16" and r["multi_pod"]
+    proc = _cli("--arch", "smollm-360m", "--shape", "train_4k", "--opt", "seq_parallel")
     assert proc.returncode != 0 and "NotImplementedError" in proc.stderr
-    assert "item 6, 'Multi-rank placement'" in proc.stderr
+    assert "'What is left of the model axis'" in proc.stderr

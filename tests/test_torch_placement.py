@@ -486,16 +486,37 @@ def test_checkpoints_move_between_one_and_two_ranks(ranks):
 
 
 def test_model_axis_and_missing_group_raise(monkeypatch):
-    """model > 1 raises NotImplementedError naming the model axis; a data
-    axis of 2 with no process group raises ValueError at build, on both
-    stacks; REPRO_MESH_SHAPE reaches the mesh when mesh_shape is None."""
+    """model > 1 builds on a process group of the mesh's ranks (a ``fake``
+    one here, rank 3 of 4): the sampler's ShardSpec splits the data axes
+    over this rank's line of them (none at (1, 2) and (1, 1, 2)), and the
+    model line is the rank's neighbours; without a group every mesh of
+    more than one rank raises ValueError at build, on both stacks;
+    REPRO_MESH_SHAPE reaches the mesh when mesh_shape is None."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
     zoo = _zoo("smollm-360m", SMOLLM, cohort=3, batch_size=2)
     for d in (_task(), zoo):
         for shape in ([1, 2], [2, 2], [1, 1, 2]):
             spec = api.ExperimentSpec.from_dict(
                 {**d, "execution": {**d["execution"], "mesh_shape": shape}})
-            with pytest.raises(NotImplementedError, match="the model axis"):
+            with pytest.raises(ValueError, match="not initialised"):
                 api.build(spec, "cpu")
+            world = int(np.prod(shape))
+            dist.init_process_group("fake", store=FakeStore(), rank=world - 1, world_size=world)
+            try:
+                shard = api.build(spec, "cpu").sampler.shard
+                m = mesh.make_mesh(shape)
+                model = m.axis_group("model")
+                assert (model.size, model.rank) == (2, 1)
+                assert dist.get_process_group_ranks(model.pg) == [world - 2, world - 1]
+                if shape == [2, 2]:
+                    assert shard == ShardSpec.from_mesh(m, axis="data") and shard.rank() == 1
+                    assert dist.get_process_group_ranks(shard.process_group()) == [1, 3]
+                else:
+                    assert shard is None
+            finally:
+                dist.destroy_process_group()
         with pytest.raises(ValueError, match="not initialised"):
             api.build(api.ExperimentSpec.from_dict(_with_mesh(d)), "cpu")
         monkeypatch.setenv("REPRO_MESH_SHAPE", "2,1")

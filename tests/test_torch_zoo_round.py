@@ -422,11 +422,11 @@ def test_round_spec_and_its_errors():
 
 
 def test_refusals():
-    # A (2, 1) mesh splits the client axis over two ranks: refused without a
-    # group of two; a model axis is not ported.
+    # A (2, 1) mesh splits the client axis over two ranks, a (1, 2) mesh
+    # replicates over the model axis: both refused without a group of two.
     with pytest.raises(ValueError, match="not initialised"):
         api.build(api.ExperimentSpec.from_dict(spec_dict(execution={"mesh_shape": [2, 1]})), "cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="not initialised"):
         api.build(api.ExperimentSpec.from_dict(spec_dict(execution={"mesh_shape": [1, 2]})), "cpu")
     one = api.build(api.ExperimentSpec.from_dict(spec_dict(execution={"mesh_shape": [1, 1]})), "cpu")
     assert one.kind == "zoo"
@@ -453,7 +453,7 @@ def test_refusals():
     # alone holds 14.07e9 parameters).
     arctic = api.ExperimentSpec.from_dict({**spec_dict(), "task": {
         **spec_dict()["task"], "name": "arctic-480b", "reduced": False, "kwargs": {}}})
-    with pytest.raises(NotImplementedError, match="item 6, 'Multi-rank placement'"):
+    with pytest.raises(NotImplementedError, match="'What is left of the model axis'"):
         api.build(arctic, "cpu")
     with pytest.raises(ValueError, match="unknown zoo arch"):
         api.build(api.ExperimentSpec.from_dict(
