@@ -54,10 +54,18 @@ Phases, each failing loudly (non-zero exit, no result line):
    each rank against its plain sum, and a planted fault that the update's
    limit must catch), the collectives, each process's peak and the
    kernels each rank launched (kernels 6 and 7; 2 in the round); (ma3)
-   ``api.run`` on (1, 2) bitwise S = 1; (ma4) the dry run of one chip of
-   (16, 16) and (2, 16, 16) on the card's CPU and (ma1)'s prefill counted
-   for one rank, its peak against each process's (``--only model_axis``
-   runs the build and this phase alone);
+   ``api.run`` on (1, 2) bitwise S = 1; (ma5) zamba2-1.2b and xlstm-125m
+   whole, a prefill and 16 decode steps over recurrent caches split over
+   ``model`` (the comment above ``MA5``): each step's logits, greedy
+   tokens, each rank's state blocks against one process's, a step's
+   collectives against the count's; (ma6) a reduced qwen3 MoE
+   cohort_sequential round through ``api.run`` on (2, 1), rows split
+   2 / 1 at a capacity that drops pairs, against S = 1; (ma4) the dry run
+   of one chip of (16, 16) and (2, 16, 16) on the card's CPU (llama3-405b
+   and smollm-360m train_4k, zamba2-1.2b decode_32k, xlstm-125m
+   long_500k) and (ma1)'s prefill counted for one rank, its peak against
+   each process's (``--only model_axis`` runs the build and this phase
+   alone);
 4. path — ``repro_torch.api.run(spec)`` with no device argument (so on the
    GPU) for the paper's logistic-regression spec and the tiny-LM spec in
    oracle and deployable mode, three compressed specs (int8 / fp8 deltas,
@@ -295,6 +303,11 @@ CPU_JOBS = {
                                           "llama3-405b", "--shape", "train_4k", "--mesh", "16,16"],
     "dryrun smollm-360m train_4k 2x16x16": ["-m", "repro_torch.launch.dryrun", "--arch",
                                             "smollm-360m", "--shape", "train_4k", "--multi-pod"],
+    "dryrun zamba2-1.2b decode_32k 16x16": ["-m", "repro_torch.launch.dryrun", "--arch",
+                                            "zamba2-1.2b", "--shape", "decode_32k", "--mesh",
+                                            "16,16"],
+    "dryrun xlstm-125m long_500k 2x16x16": ["-m", "repro_torch.launch.dryrun", "--arch",
+                                            "xlstm-125m", "--shape", "long_500k", "--multi-pod"],
 }
 _CPU_RESULTS: dict = {}
 _CPU_PROCS: list = []
@@ -737,8 +750,8 @@ def rmsnorm_kernel_phase(torch, gen, flush, max_err):
     (d_model 4096; its prefill's are zamba2's gated-norm shape), arctic's
     block norms at (x)'s prefill and decode (d_model 7168), xLSTM's block
     and sLSTM norms at (y)'s prefill and decode (d_model 768) and its
-    mLSTM inner norm at (y)'s decode and at a round of (aa) (d_in 1536,
-    8 clients x 2 x 64 rows), the vlm's block norms at (ad)'s prefill
+    mLSTM inner norm at (y)'s decode and at an xlstm-125m round's width
+    (d_in 1536, 8 clients x 2 x 64 rows), the vlm's block norms at (ad)'s prefill
     (d_model 4096), whisper's encoder norms at (ac)'s prefill (8 x 1500
     frames of 768), and a ragged D that takes the scalar loads;
     bf16 and f32.  The bound counts x read and y written once and
@@ -1628,12 +1641,165 @@ def model_axis_worker(rank: int, port: int, out_dir: str) -> int:
         spec = dict((label, s) for label, s, _ in ranks_specs(api))[MA3_LABEL]
         spec = with_sections(api, spec, execution={"mesh_shape": list(MA_MESH)})
         np.savez(Path(out_dir) / f"run_r{rank}.npz", **ranks_run(torch, spec))
+        for name in MA5:
+            forced = np.load(Path(out_dir) / f"{MA5[name][0]}_tokens.npy")
+            np.savez(Path(out_dir) / f"{MA5[name][0]}_r{rank}.npz",
+                     **ma5_case(torch, name, True, forced))
+        spec = with_sections(api, ma6_spec(api), execution={"mesh_shape": [2, 1]})
+        np.savez(Path(out_dir) / f"ma6_r{rank}.npz", **ranks_run(torch, spec))
     finally:
         dist.destroy_process_group()
     return 0
 
 
 MA3_LABEL = "(r3) smollm-360m client_parallel C=4"
+# (ma5): decode of recurrent caches split over ``model`` at MA_MESH, bf16,
+# each arch whole: (m)'s prefill of 8 x 512 for zamba2-1.2b and (y)'s of
+# 8 x 128 for xlstm-125m, then MA5_STEPS decode steps.  One process runs
+# greedy; the ranks are fed its tokens, so each step's logits compare
+# (difference norm over the norm, the largest over the steps), and their
+# own greedy choices are counted.  Each rank's final recurrent state
+# blocks (a strided sample of each leaf) against the blocks of one
+# process's caches; the first step's collectives against the count's.
+MA5 = {"ma5 zamba2": ("zamba2-1.2b", 512), "ma5 xlstm": ("xlstm-125m", 128)}
+MA5_BATCH, MA5_STEPS = 8, 16
+MA5_TOL = {"logits": 3e-2, "state": 5e-2}
+# (ma6): a reduced qwen3 in f32, cohort_sequential, local batch 3 (rows
+# split 2 / 1 over two ranks, mesh (2, 1)) at a capacity factor that drops
+# pairs (3 x 64 tokens, top 2 of 8 experts: 24 rows an expert for the whole
+# batch, 48 pairs an expert on average), through ``api.run`` against S = 1.
+# The full-width round needs several cards: (z)'s one layer peaks at 58 GB
+# in one process.
+MA6_KW = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512, vocab=512,
+              head_dim=64, n_experts=8, top_k=2, moe_d_ff=256, capacity_factor=0.5)
+
+
+def ma6_spec(api):
+    return zoo_spec(api, "qwen3-moe-235b-a22b", kwargs=MA6_KW, rounds=2, clients=32, budget=3,
+                    cohort=2, federation={"batch_size": 3})
+
+
+def ma5_layout(cfg, s: int):
+    """(the mesh, each recurrent slot's one-repeat cache specs with the
+    batch whole) of (ma5)'s caches at MA_MESH."""
+    from repro_torch.launch import sharding as lsh
+    from repro_torch.launch.mesh import batch_axes, make_mesh
+    from repro_torch.models import transformer
+
+    mesh = make_mesh(MA_MESH)
+    max_seq = s + MA5_STEPS
+    specs = lsh.cache_shardings(transformer.init_caches(cfg, MA5_BATCH, max_seq, device="meta"),
+                                mesh, max_seq, MA5_BATCH)
+    out = {}
+    for j, kind in enumerate(cfg.block_pattern):
+        if kind in transformer.STATE_KINDS:
+            out[j] = {k: tuple(None if i == 1 and lsh.spec_axes(e) == batch_axes(mesh) else e
+                               for i, e in enumerate(spec)) for k, spec in specs[j].items()}
+    return mesh, out
+
+
+def ma5_case(torch, name: str, split: bool, forced=None) -> dict:
+    """(ma5) ``name``: a prefill of MA5_BATCH prompts and MA5_STEPS decode
+    steps, unsplit (greedy) or as this rank's share on MA_MESH (fed
+    ``forced``, one process's tokens): every step's logits, the greedy
+    tokens (B, 1 + steps), a strided sample of each recurrent cache leaf
+    (this rank's block; unsplit, each rank's block of the whole), the
+    first decode step's collectives, kernel launches, the peak bytes and
+    the seconds."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as lsh
+    from repro_torch.models import sharding as msh
+    from repro_torch.models import transformer
+
+    arch, s = MA5[name]
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(MA_SEED)
+    params = transformer.init_params(cfg, gen, dev)
+    tok = torch.randint(0, cfg.vocab, (MA5_BATCH, s), device=dev, generator=gen)
+    max_seq = s + MA5_STEPS
+    ctx, kw = contextlib.ExitStack(), {}
+    mesh, layout = ma5_layout(cfg, s)
+    if split:
+        params = lsh.param_shardings(params, mesh, False)
+        torch.cuda.empty_cache()
+        rules = lsh.activation_rules(mesh)
+        rules["batch"] = None  # every rank holds every row
+        ctx.enter_context(msh.use_rules(mesh, rules))
+        kw = {"max_seq": max_seq, "batch": MA5_BATCH}
+    kernels.reset_launch_counts()
+    res = {}
+    with ctx, torch.no_grad():
+        t0 = time.perf_counter()
+        logits, caches = transformer.prefill(params, cfg, tok, max_seq=max_seq,
+                                             **({"batch": MA5_BATCH} if split else {}))
+        torch.cuda.synchronize()
+        res["prefill_s"] = np.asarray(time.perf_counter() - t0)
+        greedy, steps = [logits.argmax(-1)], []
+        t0 = time.perf_counter()
+        for i in range(MA5_STEPS):
+            fed = greedy[-1] if forced is None else torch.as_tensor(forced[:, i:i + 1], device=dev)
+            if i == 0:
+                mesh_mod.reset_collective_counts()
+            logits, caches = transformer.decode_step(params, cfg, fed, caches, s + i, **kw)
+            if i == 0:
+                coll = mesh_mod.collective_counts()
+            steps.append(logits[:, -1].float())
+            greedy.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        res["decode_s"] = np.asarray(time.perf_counter() - t0)
+    res["peak_bytes"] = np.asarray(torch.cuda.max_memory_allocated() - base)
+    res["logits"] = torch.stack(steps, 1).cpu().numpy()
+    res["greedy"] = torch.cat(greedy, 1).cpu().numpy()
+    res["collective_names"] = np.asarray(sorted(coll))
+    res["collectives"] = np.asarray([coll[k] for k in sorted(coll)])
+    counts = kernels.launch_counts()
+    res["launch_names"] = np.asarray(sorted(counts))
+    res["launches"] = np.asarray([counts[k] for k in sorted(counts)])
+    for j, specs in layout.items():
+        for k, spec in specs.items():
+            leaf = caches[j][k].float()
+            for r in ((None,) if split else range(mesh.size)):
+                block = leaf if split else lsh.block_of(leaf, spec, mesh, rank=r)
+                flat = block.reshape(-1)
+                tag = f"state_{j:02d}_{k}" + ("" if split else f"_r{r}")
+                res[tag] = flat[::-(-flat.numel() // MA_SAMPLE)].cpu().numpy()
+    del params, caches, logits, steps
+    torch.cuda.empty_cache()
+    return res
+
+
+def ma5_counted(torch, cfg, s: int) -> dict:
+    """(ma5)'s first decode step counted as rank 0 of MA_MESH on ``meta``
+    tensors: the collectives by kind and their bytes."""
+    from repro_torch.analysis.cost import CountingMesh, count
+    from repro_torch.launch import sharding as lsh
+    from repro_torch.launch.dryrun import _cut
+    from repro_torch.models import sharding as msh
+    from repro_torch.models import transformer
+
+    mesh = CountingMesh(("data", "model"), MA_MESH)
+    max_seq = s + MA5_STEPS
+    blocks = lsh.param_shardings(transformer.init_params(cfg, None, "meta"), mesh, False, rank=0)
+    caches = transformer.init_caches(cfg, MA5_BATCH, max_seq, device="meta")
+    specs = lsh.cache_shardings(caches, mesh, max_seq, MA5_BATCH)
+    caches = [_cut(c, sp, mesh) for c, sp in zip(caches, specs)]
+    tok = torch.empty((MA5_BATCH, 1), dtype=torch.int64, device="meta")
+    rules = lsh.activation_rules(mesh)
+    rules["batch"] = None
+    with msh.use_rules(mesh, rules):
+        cost, _ = count(lambda p, t, c: transformer.decode_step(
+            p, cfg, t, c, s, max_seq=max_seq, batch=MA5_BATCH), blocks, tok, caches)
+    return {"collectives": cost.collectives, "collective_bytes": cost.collective_bytes}
 
 
 def _gap(np, a, b) -> float:
@@ -1676,8 +1842,12 @@ def model_axis_phase(torch, card: str) -> dict:
     ones = {name: ma_case(torch, name, False) for name in MA_CASES}
     spec = dict((label, s) for label, s, _ in ranks_specs(api))[MA3_LABEL]
     ones["ma3"] = ranks_run(torch, spec)
+    ones.update({name: ma5_case(torch, name, False) for name in MA5})
+    ones["ma6"] = ranks_run(torch, ma6_spec(api))
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="model_axis_"))
+    for name, (arch, _) in MA5.items():  # the tokens the ranks are fed
+        np.save(tmp / f"{arch}_tokens.npy", ones[name]["greedy"][:, :MA5_STEPS])
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -1706,6 +1876,9 @@ def model_axis_phase(torch, card: str) -> dict:
     res = {name: [dict(np.load(tmp / f"ma{i}_r{r}.npz")) for r in range(2)]
            for i, name in enumerate(MA_CASES)}
     res["ma3"] = [dict(np.load(tmp / f"run_r{r}.npz")) for r in range(2)]
+    res["ma6"] = [dict(np.load(tmp / f"ma6_r{r}.npz")) for r in range(2)]
+    for name, (arch, _) in MA5.items():
+        res[name] = [dict(np.load(tmp / f"{arch}_r{r}.npz")) for r in range(2)]
     planted = [dict(np.load(tmp / f"ma{len(MA_CASES)}_r{r}.npz")) for r in range(2)]
 
     def leaf_gaps(rr, one, prefix):
@@ -1786,6 +1959,9 @@ def model_axis_phase(torch, card: str) -> dict:
           f"{float(one['wall_s']):.3f} rank 0 {float(r0['wall_s']):.3f} rank 1 "
           f"{float(r1['wall_s']):.3f}; peak bytes S=1 {int(one['peak_bytes'])} rank 0 "
           f"{int(r0['peak_bytes'])} rank 1 {int(r1['peak_bytes'])}", flush=True)
+    for name, (arch, s) in MA5.items():
+        ma5_report(torch, np, name, ones[name], res[name], launches, card, expect)
+    ma6_report(np, api, ones["ma6"], res["ma6"], launches, card, expect)
     # (ma4): the count of one rank against the card, then the CLI records.
     workspace = cublas_workspace(torch)
     args_b, temp_b, counted = ma_predicted_peak(torch, ma_config("ma1 prefill"))
@@ -1833,7 +2009,101 @@ def model_axis_phase(torch, card: str) -> dict:
     return launches
 
 
-MA_CLI = (("dryrun llama3-405b train_4k 16x16", "sp"), ("dryrun smollm-360m train_4k 2x16x16", "mp"))
+MA_CLI = (("dryrun llama3-405b train_4k 16x16", "sp"), ("dryrun smollm-360m train_4k 2x16x16", "mp"),
+          ("dryrun zamba2-1.2b decode_32k 16x16", "sp"),
+          ("dryrun xlstm-125m long_500k 2x16x16", "mp"))
+
+
+def ma5_report(torch, np, name: str, one: dict, ranks: list, launches: dict, card: str,
+               expect) -> None:
+    """(ma5) ``name``: the ranks against one process (the comment above
+    ``MA5``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import spec_axes
+
+    arch, s = MA5[name]
+    cfg = get_config(arch)
+    r0, r1 = ranks
+    for k in ("logits", "greedy"):  # each rank holds its own state blocks
+        expect(np.array_equal(r0[k], r1[k]), f"{name}: the ranks differ in {k}")
+    step_gaps = [_gap(np, r0["logits"][:, i], one["logits"][:, i]) for i in range(MA5_STEPS)]
+    agree = float((r0["greedy"] == one["greedy"]).mean())
+    state = {}
+    for r, rr in enumerate(ranks):
+        for k in rr:
+            if k.startswith("state_"):
+                state[f"{k}_r{r}"] = _gap(np, rr[k], one[f"{k}_r{r}"])
+    _, layout = ma5_layout(cfg, s)
+    split = sum(any(spec_axes(e) for e in spec) for specs in layout.values()
+                for spec in specs.values())
+    worst = max(state, key=state.get)
+    expect(max(step_gaps) <= MA5_TOL["logits"],
+           f"{name}: a step's logits gap {max(step_gaps):.3g} (tolerance {MA5_TOL['logits']})")
+    expect(state[worst] <= MA5_TOL["state"],
+           f"{name}: state block {worst} gap {state[worst]:.3g} (tolerance {MA5_TOL['state']})")
+    expect(split > 0, f"{name}: no recurrent cache leaf is split over model")
+    issued = {str(k).replace("_", "-"): int(v) for k, v in
+              zip(r0["collective_names"], r0["collectives"]) if v}
+    counted = ma5_counted(torch, cfg, s)
+    expect(counted["collectives"] == issued,
+           f"{name}: a decode step's collectives counted {counted['collectives']}, issued {issued}")
+    one_l = {str(k): int(v) for k, v in zip(one["launch_names"], one["launches"]) if v}
+    for r, rr in enumerate(ranks):
+        got = {str(k): int(v) for k, v in zip(rr["launch_names"], rr["launches"]) if v}
+        expect(got == one_l, f"{name}: rank {r} launched {got}, one process {one_l}")
+        for k, v in got.items():
+            launches[k] += v
+    print(f"{name} {arch} whole, bf16, batch {MA5_BATCH}, prompt {s}, {MA5_STEPS} decode steps "
+          f"at mesh {MA_MESH} ({card}): largest logits gap of a step {max(step_gaps):.4g} "
+          f"(each step {[float(f'{g:.3g}') for g in step_gaps]}); the ranks' own greedy tokens "
+          f"agree with one process's in {agree:.4f}; state blocks ({len(state)} leaves over 2 "
+          f"ranks, {split} of {sum(len(v) for v in layout.values())} leaves split over model, "
+          f"at most {MA_SAMPLE} entries a leaf) largest gap {state[worst]:.4g} ({worst}), median "
+          f"{float(np.median(list(state.values()))):.4g}; collectives a decode step a rank "
+          f"{issued} ({counted['collective_bytes']:.6g} B counted, as the count charges them: "
+          f"{counted['collectives'] == issued}); peak bytes one process {int(one['peak_bytes'])} "
+          f"rank 0 {int(r0['peak_bytes'])} rank 1 {int(r1['peak_bytes'])}; seconds one process "
+          f"prefill {float(one['prefill_s']):.3f} decode {float(one['decode_s']):.3f}, rank 0 "
+          f"prefill {float(r0['prefill_s']):.3f} decode {float(r0['decode_s']):.3f} (both ranks "
+          f"share the card: no speed-up); launches a rank {one_l}", flush=True)
+
+
+def ma6_report(np, api, one: dict, ranks: list, launches: dict, card: str, expect) -> None:
+    """(ma6): the MoE cohort_sequential round over rows split 2 / 1 against
+    S = 1 (the comment above ``MA6_KW``)."""
+    from repro_torch.api.runner import build as api_build
+
+    spec = ma6_spec(api)
+    r0, r1 = ranks
+    for k in r0:
+        expect(np.array_equal(r0[k], r1[k]) or k in ("wall_s", "peak_bytes", "n_bytes", "n_shapes"),
+               f"(ma6): the ranks differ in {k}")
+    for k in ("cohort", "dropped"):
+        expect(np.array_equal(r0[k], one[k]), f"(ma6): {k} {r0[k]} at S=2, {one[k]} at S=1")
+    _, f_tol, p_tol = F32_TOL
+    keys = sorted(k for k in one if k.startswith("param_") and k != "param_names")
+    gaps = [_rel(r0[k], one[k]) for k in keys]
+    worst = int(np.argmax(gaps))
+    loss = _rel(r0["loss"], one["loss"])
+    expect(loss <= f_tol, f"(ma6): loss differs by {loss:.3g} of its scale (tolerance {f_tol})")
+    expect(gaps[worst] <= p_tol, f"(ma6): parameters differ by {gaps[worst]:.3g} (tolerance {p_tol})")
+    cfg = api_build(spec).arch_config
+    want = {k: 0 for k in (str(x) for x in r0["launch_names"])}
+    want.update(ranks_launches(cfg, spec, RANKS))
+    for r, rr in enumerate(ranks):
+        got = {str(k): int(v) for k, v in zip(rr["launch_names"], rr["launches"])}
+        expect(got == want, f"(ma6): rank {r} launched {got}, expected {want}")
+        for k, v in got.items():
+            launches[k] += v
+    coll = {str(k): int(v) for k, v in zip(r0["collective_names"], r0["collectives"]) if v}
+    print(f"(ma6) qwen3-moe reduced f32 cohort_sequential, local batch 3 (rows 2 / 1), capacity "
+          f"factor {MA6_KW['capacity_factor']}, {spec.federation.rounds} rounds on mesh (2, 1) "
+          f"({card}): against S = 1 loss {loss:.3g}, parameters {gaps[worst]:.3g} of the "
+          f"largest entry in {one['param_names'][worst]}; both ranks bitwise equal; cohorts "
+          f"{r0['cohort'].tolist()}; collectives a rank {coll}; wall s S=1 "
+          f"{float(one['wall_s']):.3f} rank 0 {float(r0['wall_s']):.3f}; peak bytes S=1 "
+          f"{int(one['peak_bytes'])} rank 0 {int(r0['peak_bytes'])}.  The full-width round needs "
+          f"several cards ((z)'s one layer peaks at 58 GB in one process)", flush=True)
 
 
 # -- 4. path ------------------------------------------------------------------
@@ -2356,7 +2626,7 @@ def zoo_run(torch, api, kernels, label: str, spec, extra: dict | None = None):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     rounds = spec.federation.rounds
-    per_round = zoo_launches_per_round(cfg, rs.cohort)
+    per_round = zoo_launches_per_round(cfg, rs.cohort, rs.local_steps)
     want = {k: 0 for k in counts}
     want.update({k: rounds * v for k, v in per_round.items()})
     want.update(extra or {})
@@ -2720,7 +2990,10 @@ FAMILY_RUNS = {  # label: (arch, reduced() kwargs or None for the full config, r
         n_layers=1, d_model=4096, n_heads=64, n_kv_heads=4, d_ff=1536, vocab=151936,
         head_dim=128, n_experts=128, top_k=8, moe_d_ff=1536, capacity_factor=1.25,
         param_dtype="bfloat16"), 2, 32, 3, 4, {}),
-    "(aa) xlstm-125m": ("xlstm-125m", None, 1, 32, 6, 8, {"federation": {"local_lr": 2e-4}}),
+    # R = 1: its recurrences launch a token at a time (~90,000 kernels a
+    # local step), and the profiler's trace of them is the phase's longest wait.
+    "(aa) xlstm-125m": ("xlstm-125m", None, 1, 32, 6, 8, {"federation": {"local_lr": 2e-4,
+                                                                        "local_steps": 1}}),
     "(ab) arctic reduced": ("arctic-480b", {}, 2, 32, 3, 4, {}),
 }
 FAMILY_AGREE = ("qwen3-moe-235b-a22b", "arctic-480b", "xlstm-125m")  # reduced, f32
@@ -3019,7 +3292,7 @@ def zoo_families_phase(torch, card: str) -> dict:
     (y) xlstm-125m whole through the launcher; zoo rounds through
     ``api.run(spec)`` (seq 64, local batch 2, R = 2): (z) qwen3-moe full
     width one layer (cohort_sequential, N = 32, K = 3, C = 4), (aa)
-    xlstm-125m whole (client_parallel, N = 32, K = 6, C = 8), (ab) arctic
+    xlstm-125m whole (client_parallel, N = 32, K = 6, C = 8, R = 1), (ab) arctic
     reduced (its full-width round does not fit one card); each with exact
     launches of kernels 6 and 7; then the reduced families' agreement of
     card and CPU and a reduced qwen3 spec's bitwise repeat and resume.
@@ -3607,7 +3880,8 @@ def remat_cell(torch, api, key: str, card: str) -> dict:
                      "held_gb": round(before, 2), "loss": loss}
         del state, segment
     torch.cuda.empty_cache()
-    print(f"remat {label} seq {seq} ({card}), C={c} R={ZOO_STEPS} B={ZOO_BATCH}, one round after "
+    print(f"remat {label} seq {seq} ({card}), C={c} R={spec.federation.local_steps} "
+          f"B={ZOO_BATCH}, one round after "
           f"a warm-up: full peak_mem_gb={out['full']['peak_gb']:.2f} round_s="
           f"{out['full']['round_s']:.4f}; none peak_mem_gb={out['none']['peak_gb']:.2f} round_s="
           f"{out['none']['round_s']:.4f} (held between rounds {out['full']['held_gb']:.2f} GB; "
@@ -4013,7 +4287,7 @@ def boundary_cost(torch, api, card: str, root: Path) -> None:
           f"{gb:.3f} GB checkpoint ({gb / save_s:.3f} and {gb / restore_s:.3f} GB/s)", flush=True)
 
 
-def swap_vs_static(torch, card: str, reps: int = 3) -> None:
+def swap_vs_static(torch, card: str, reps: int = 2) -> None:
     """(v) (k)'s engine (smollm-360m, bf16, full width and depth, 8 x (512 +
     64)) decoding 63 steps in chunks of 16 with no swap, and with an
     alternate parameter set copied in after every chunk (the reference's

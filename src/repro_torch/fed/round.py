@@ -34,9 +34,10 @@ losses are ``all_gather``ed.  ``cohort_sequential``: every rank runs every
 slot on its block of each local batch's B rows, as the reference splits the
 batch over its data axes; each local step ``all_reduce``s the gradient of
 the rows' summed loss and divides by B, so the diverged copy stays the same
-on every rank and an uneven split is exact.  A MoE arch's load-balance loss
-and expert capacity couple the rows of a batch, so its
-``cohort_sequential`` round does not split (``NotImplementedError``).
+on every rank and an uneven split is exact.  The step runs inside
+``models.sharding.split_rows`` over the shards' line: a MoE arch's dense
+dispatch, whose capacity, slots and load-balance loss couple a batch's
+rows, computes them over the whole batch (``models/moe.py``).
 
 Under ``models.sharding.use_rules`` over a mesh with more than one rank
 (the dry run's count of one chip, a per-rank step), the parameters are this
@@ -61,6 +62,7 @@ from repro_torch.fed.state import TrainState, init_metric_buffers, make_segment_
 from repro_torch.fed.state import StateLayout
 from repro_torch.fed.tasks import tree_leaves, tree_map
 from repro_torch.launch.mesh import ShardSpec
+from repro_torch.models import sharding as msh
 from repro_torch.models import transformer
 from repro_torch.models.common import ArchConfig
 
@@ -117,9 +119,6 @@ def _batch(tokens, targets, aux_embeds) -> tuple:
     return (tokens, targets) if aux_embeds is None else (tokens, targets, aux_embeds)
 
 
-MODEL_AXIS = "see ROADMAP.md section 1, 'What is left of the model axis'"
-
-
 def _spec_leaves(specs) -> list:
     """The specs of a tree in ``tree_leaves``' order (a spec is a tuple)."""
     if isinstance(specs, dict):
@@ -134,7 +133,6 @@ def split_update_norm(delta, specs) -> torch.Tensor:
     by ``specs``: the leaves' f32 squared sums, grouped by the mesh axes
     their specs split, each group's partial all_reduced over those axes."""
     from repro_torch.launch.sharding import spec_axes
-    from repro_torch.models import sharding as msh
 
     parts: dict = {}
     for leaf, spec in zip(tree_leaves(delta), _spec_leaves(specs)):
@@ -194,11 +192,6 @@ def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None, shard=Non
     mode = cfg.round_mode
     comp = spec.compression
     split = shard is not None and shard.splits
-    if split and mode == "cohort_sequential" and cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: a MoE arch's cohort_sequential round over S > 1 ranks; its "
-            f"load-balance loss and expert capacity couple a batch's rows, {MODEL_AXIS}"
-        )
     if comp is not None and mode != "client_parallel":
         raise ValueError(
             f"RoundSpec.compression needs round_mode='client_parallel' (got "
@@ -259,10 +252,11 @@ def build_round_step(cfg: ArchConfig, spec: RoundSpec, constrain=None, shard=Non
             data = _batch(tokens, targets, aux_embeds)
             for c in range(tokens.shape[0]):
                 if split:
-                    delta, last = _split_local_update(
-                        params, loss, tuple(a[c] for a in data), spec.local_lr,
-                        spec.local_batch, shard,
-                    )
+                    with msh.split_rows(shard.axis_group(), spec.local_batch):
+                        delta, last = _split_local_update(
+                            params, loss, tuple(a[c] for a in data), spec.local_lr,
+                            spec.local_batch, shard,
+                        )
                     norm = fed_client.update_norm(delta)
                 else:
                     delta, last, norm = per_client(params, *(a[c] for a in data))

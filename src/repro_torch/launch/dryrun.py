@@ -26,9 +26,12 @@ round's cohort multiplied by the pod size, as the reference's) count rank
 launch.sharding.activation_rules(...))`` on an ``analysis.cost.
 CountingMesh`` (no process), with its blocks of the parameters
 (``param_shardings``; ``fsdp`` for the cohort_sequential archs) and of
-the caches (``cache_shardings``), its block of the round's clients
-(client_parallel, whose client-axis collectives a ``CountingShard``
-charges) or of each batch's rows (the rules' batch axes).  The record's
+the caches (``cache_shardings``; a decode step charges the all-gathers
+of the recurrent states it gathers at use), its block of the round's
+clients (client_parallel, whose client-axis collectives a
+``CountingShard`` charges) or of each batch's rows (the rules' batch
+axes; a MoE arch's dense dispatch charges the (E,) count gather and the
+(2, E) all-reduce a block that couple the rows).  The record's
 ``n_chips`` is the mesh's size, ``mesh`` its shape (``16x16``); ``memory``,
 ``flops``, ``bytes_accessed``, ``collective_bytes`` and ``collectives``
 are rank 0's.  Without a mesh (or with one of all ones) the count is one

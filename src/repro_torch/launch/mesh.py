@@ -430,6 +430,13 @@ class ShardSpec:
         """``local_range(n, rank())``."""
         return self.local_range(n, self.rank())
 
+    def axis_group(self) -> AxisGroup:
+        """The shards' line as an ``AxisGroup`` (this rank at ``rank()``;
+        one rank for one shard)."""
+        if not self.splits:
+            return AxisGroup(None, self._split_axes, 1, 0)
+        return AxisGroup(self.process_group(), self._split_axes, self.num_shards, self.rank())
+
     # -- collectives over the shards (identities for one shard) ---------------
 
     def reduce(self, x: torch.Tensor, op) -> torch.Tensor:

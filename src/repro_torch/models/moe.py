@@ -35,6 +35,20 @@ E/M experts (``launch/sharding.py``; the router is gathered whole):
   rows each), sends the results back and combines them; the output is
   all-gathered over the sequence and the aux loss averaged over ``model``
   (and the batch axes where they split the rows).
+
+Where a batch's rows are split over several ranks (the rules' batch axes,
+or a split ``cohort_sequential`` round's ``split_rows``:
+``models.sharding.row_split``), the dense dispatch computes the whole
+batch's function, as the reference's GSPMD program does: ``cap`` counts
+every row's tokens; each pair's slot is its position among all the batch's
+tokens in row order (one ``all_gather`` of the (E,) counts, the lower
+ranks' summed before this rank's cumulative sum); ``frac`` and
+``mean_gate`` are sums all-reduced over the rows' line (one ``all_reduce``
+of a (2, E) tensor) over the whole token count.  A rank's loss enters the
+step weighted by its share of the rows, so its part of the aux's gradient
+is scaled by the inverse share: summed over the ranks, the aux's gradient
+comes out once.  The a2a keeps the reference's per-shard capacity and
+averaged aux.
 """
 from __future__ import annotations
 
@@ -69,20 +83,29 @@ def capacity(cfg: ArchConfig, n_tok: int) -> int:
     return int(max(1, round(cfg.capacity_factor * n_tok * cfg.top_k / cfg.n_experts)))
 
 
-def route(router: torch.Tensor, cfg: ArchConfig, xf: torch.Tensor):
+def route(router: torch.Tensor, cfg: ArchConfig, xf: torch.Tensor, rows=None):
     """xf (T, d) -> (gates (T, E) f32, top_w (T, k) renormalised, top_idx
-    (T, k), expert_mask (T, E) f32, slot (T, k) int, keep (T, k) bool)."""
+    (T, k), expert_mask (T, E) f32, slot (T, k) int, keep (T, k) bool).
+
+    ``rows``: ``(line, whole tokens)`` when xf is this rank's block of a
+    batch whose rows the line splits (contiguous, lower ranks first): the
+    capacity is the whole batch's, and each pair's slot its position among
+    all the batch's tokens."""
     e, k = cfg.n_experts, cfg.top_k
     gates = torch.softmax(xf.to(torch.float32) @ router, dim=-1)
     top_w, top_idx = torch.topk(gates, k, dim=-1)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    cap = capacity(cfg, xf.shape[0])
+    cap = capacity(cfg, xf.shape[0] if rows is None else rows[1])
     # The top-k experts of a token are distinct, so the mask is 0/1.  A
     # comparison with arange, not F.one_hot (which checks its input's range
     # on the host, and vmap refuses that).
     experts = torch.arange(e, device=xf.device)
     expert_mask = (top_idx[..., None] == experts).to(torch.float32).sum(1)  # (T, E)
     position = torch.cumsum(expert_mask, dim=0) * expert_mask - 1.0  # exact below 2**24 tokens
+    if rows is not None:  # after the lower ranks' pairs of each expert
+        line = rows[0]
+        counts = msh.all_gather(expert_mask.sum(0)[None], line, 0)  # (S, E), exact integers
+        position = position + counts[: line.rank].sum(0) * expert_mask
     slot = torch.gather(position, 1, top_idx).to(torch.int32)
     keep = (slot >= 0) & (slot < cap)
     return gates, top_w, top_idx, expert_mask, slot, keep
@@ -103,8 +126,11 @@ def moe_ffn(params: dict, cfg: ArchConfig, x: torch.Tensor):
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(b * s, d)
-    gates, top_w, top_idx, expert_mask, slot, keep = route(params["router"], cfg, xf)
-    cap = capacity(cfg, b * s)
+    split = msh.row_split(b)  # (the rows' line, the whole batch's rows) or None
+    rows = None if split is None else (split[0], split[1] * s)
+    gates, top_w, top_idx, expert_mask, slot, keep = route(params["router"], cfg, xf, rows)
+    n_tok = b * s if rows is None else rows[1]
+    cap = capacity(cfg, n_tok)
     slot_c = torch.clamp(slot, 0, cap - 1).long()
     # This rank's experts [e0, e0 + e_loc) (all of them without a mesh).
     e_loc = params["w_up"].shape[0]
@@ -147,8 +173,15 @@ def moe_ffn(params: dict, cfg: ArchConfig, x: torch.Tensor):
     if "dense" in params:
         out = out + mlp(params["dense"], cfg, x)
 
-    frac = expert_mask.mean(0)
-    mean_gate = gates.mean(0)
+    if split is None:
+        frac = expert_mask.mean(0)
+        mean_gate = gates.mean(0)
+    else:
+        # The whole batch's sums; this rank's gradient scaled by whole / local
+        # rows (module docstring).  x - x.detach() is an exact zero.
+        sums = torch.stack([expert_mask.sum(0), gates.sum(0)])
+        sums = msh.all_reduce(sums.detach(), split[0]) + (split[1] / b) * (sums - sums.detach())
+        frac, mean_gate = sums[0] / n_tok, sums[1] / n_tok
     aux = e * torch.sum(frac * mean_gate)
     return out, aux
 

@@ -33,6 +33,12 @@ pair:
 They run over a ``launch.mesh.AxisGroup`` (a ``torch.distributed`` group,
 counted in ``launch.mesh.collective_counts``), or over the dry run's
 stand-in that needs no process (``analysis.cost.CountingMesh``).
+
+A batch's rows may also be split without the rules: a split
+``cohort_sequential`` round gives each rank its block of every local
+batch (``fed/round.py``) inside ``split_rows``.  ``row_split`` names the
+rows' line either way, for the functions that couple a batch's rows (the
+dense MoE dispatch's capacity, slots and load-balance loss).
 """
 from __future__ import annotations
 
@@ -57,9 +63,12 @@ __all__ = [
     "all_gather",
     "all_to_all",
     "PORT_SPLIT",
+    "split_rows",
+    "row_split",
 ]
 
 _CTX: contextvars.ContextVar = contextvars.ContextVar("shard_rules", default=None)
+_ROWS: contextvars.ContextVar = contextvars.ContextVar("split_rows", default=None)
 
 # logical axis -> mesh axis (or tuple of mesh axes); launch/sharding.py's
 # activation_rules overrides them per mesh.
@@ -94,9 +103,34 @@ def use_rules(mesh, rules: dict | None = None, *, fsdp: bool = False):
         _CTX.reset(token)
 
 
+@contextlib.contextmanager
+def split_rows(group, rows: int):
+    """Run the model code on this rank's block of a batch of ``rows`` rows
+    split over ``group`` (an ``AxisGroup``): contiguous blocks, lower ranks
+    first (``ShardSpec.local_range``), uneven ones too."""
+    token = _ROWS.set(None if group is None or group.size == 1 else (group, int(rows)))
+    try:
+        yield
+    finally:
+        _ROWS.reset(token)
+
+
+def row_split(local_rows: int):
+    """``(line, whole rows)`` when this rank's ``local_rows`` are its block
+    of a batch split over several ranks: ``split_rows``', or the rules'
+    batch axes (equal blocks), else None."""
+    rows = _ROWS.get()
+    if rows is not None:
+        return rows
+    group = batch_group()
+    return None if group is None else (group, int(local_rows) * group.size)
+
+
 def captured():
-    """The rules in force here, for ``entered`` to restore elsewhere."""
-    return _CTX.get()
+    """The rules and the rows' split in force here, for ``entered`` to
+    restore elsewhere (None when neither is)."""
+    ctx, rows = _CTX.get(), _ROWS.get()
+    return None if ctx is None and rows is None else (ctx, rows)
 
 
 @contextlib.contextmanager
@@ -104,10 +138,12 @@ def entered(ctx):
     """Run under ``ctx`` (``captured()``'s value): the autograd engine's
     device thread, which runs a CUDA backward and with it a recomputed
     group (``models/remat.py``), does not inherit this thread's context."""
-    token = _CTX.set(ctx)
+    rules, rows = (None, None) if ctx is None else ctx
+    token, token_rows = _CTX.set(rules), _ROWS.set(rows)
     try:
         yield
     finally:
+        _ROWS.reset(token_rows)
         _CTX.reset(token)
 
 

@@ -59,7 +59,9 @@ leaves at use, but the MLP's hidden units and the experts, which
 split over ``model`` (a masked embedding on the rank's rows and one
 all_reduce; local logits; ``loss_fn``'s vocabulary-parallel cross-entropy;
 ``forward``, ``prefill`` and ``decode_step`` all-gather their logits); a
-decode step attends a K/V cache whose sequence is split where it lies.
+decode step attends a K/V cache whose sequence is split where it lies and
+gathers a recurrent state (``mamba2``, ``mlstm``, ``slstm``) whole at its
+use, writing its block of the new state back.
 Kernels 6-8 run unchanged on whole local activations.
 """
 from __future__ import annotations
@@ -102,6 +104,7 @@ REMAT_MODES = ("full", "none")  # the reference's ArchConfig.remat values
 PORTED_KINDS = ("attn", "attn_local", "moe", "mamba2", "shared_attn", "mlstm", "slstm",
                 "cross_attn", "dec")  # "enc" blocks live in params["encoder"] alone
 ATTN_KINDS = ("attn", "attn_local", "moe", "shared_attn")  # flat self-attention K/V caches
+STATE_KINDS = ("mamba2", "mlstm", "slstm")  # a recurrent state, O(1) in the sequence
 _RECURRENT = {  # kind: (decode step, state init)
     "mlstm": (xlstm_mod.mlstm_decode_step, xlstm_mod.init_mlstm_state),
     "slstm": (xlstm_mod.slstm_decode_step, xlstm_mod.init_slstm_state),
@@ -432,7 +435,9 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
     remat.  A decode step's ``cache_specs`` (``launch.sharding.
     cache_shardings``) give each slot's cache layout: a self-attention
     cache's split sequence is attended where it lies, a cross cache is
-    gathered whole, a recurrent state raises ``NotImplementedError``."""
+    gathered whole; a recurrent state is gathered whole, the unsplit cell
+    updates it, and this rank's block of the new state is written back
+    into the cache in place (``_keep_blocks``)."""
     for kind in cfg.block_pattern:
         _check_kind(kind)
     reps = cfg.pattern_repeats()
@@ -466,14 +471,19 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
         aux_sum = None
         for j, kind in enumerate(cfg.block_pattern):
             cache = None if r is None or caches is None else _rep(caches[j], r)
-            kv = kvs[j]
-            if kv is not None and kind in ("cross_attn", "dec"):
-                cache, kv = _gather_cross(kind, cache, kv), kv.get("self")
+            layout = kv = kvs[j]
+            held = None  # this rank's blocks of a gathered recurrent state
+            if layout is not None and kind in ("cross_attn", "dec"):
+                cache, kv = _gather_cross(kind, cache, layout), layout["self"]
+            elif layout is not None and kind in STATE_KINDS:
+                held, cache, kv = cache, _gathered(cache, layout), None
             h, nc, aux = _apply_block(
                 kind, blocks[j], cfg, h, rope, mode=mode, cache=cache,
                 index=index, max_seq=max_seq, masks=masks, shared=shared,
                 cross_src=cross_src, kv=kv,
             )
+            if held is not None:
+                nc = _keep_blocks(held, nc, layout)
             if aux is not None:
                 aux_sum = aux if aux_sum is None else aux_sum + aux
             if r is not None:
@@ -747,7 +757,10 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, index: int
     host integer).  Updates ``caches`` in place and returns them.  Under a
     mesh the caches are this rank's blocks of ``cache_shardings`` at
     ``max_seq`` (default: the local caches' length, i.e. not split) and
-    ``batch`` sequences (default ``token``'s rows)."""
+    ``batch`` sequences (default ``token``'s rows), and stay so: a K/V
+    cache is attended and written where its sequence lies, a recurrent
+    state is all-gathered at its use and this rank's block of the new
+    state copied back (``_run_stack``)."""
     h = _embed(params, cfg, token)
     specs = None
     if _specs(cfg) is not None:
@@ -799,34 +812,73 @@ def _kv_line(spec):
     return msh.group_of(spec_axes(spec[1]))
 
 
+def _held_dims(spec) -> list:
+    """``(dim, line)`` of each dimension of one repeat's cache spec that
+    this rank holds a block of: every dimension split over a line of more
+    than one rank, but the batch's (0) over the batch axes, whose rows are
+    this rank's already (as ``_cut_caches`` leaves them)."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.launch.sharding import spec_axes
+
+    b_axes = batch_axes(msh.current_mesh())
+    out = []
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        group = None if dim == 0 and axes == b_axes else msh.group_of(axes)
+        if group is not None:
+            out.append((dim, group))
+    return out
+
+
 def _decode_layout(kind: str, spec):
     """A slot's decode layout from its stacked cache spec: the self K/V's
-    line (``_kv_line``) for the attention kinds, ``{"cross": specs,
-    "self": line}`` for the cross kinds; recurrent states raise."""
+    line (``_kv_line``) for the attention kinds, ``{"cross": held, "self":
+    line}`` for the cross kinds, and for a recurrent state each leaf's
+    ``_held_dims`` (None where no leaf is split: the cell updates the cache
+    as it is)."""
     one = msh.drop_lead(spec)
     if kind in ATTN_KINDS:
         return _kv_line(one["k"])
     if kind == "cross_attn":
-        return {"cross": one, "self": None}
+        return {"cross": _held(one), "self": None}
     if kind == "dec":
-        return {"cross": one["cross"], "self": _kv_line(one["self"]["k"])}
-    raise NotImplementedError(
-        f"decode of the {kind} block's recurrent state under a mesh with model > 1: "
-        f"{MODEL_AXIS_LEFT}")
+        return {"cross": _held(one["cross"]), "self": _kv_line(one["self"]["k"])}
+    held = _held(one)
+    return held if any(held.values()) else None
+
+
+def _held(specs: dict) -> dict:
+    return {k: _held_dims(s) for k, s in specs.items()}
+
+
+def _gathered(cache: dict, held: dict) -> dict:
+    """Each leaf of a cache all-gathered whole over the lines ``held``
+    names (``_held_dims``); a leaf no line splits is the cache's own."""
+    out = {}
+    for k, leaf in cache.items():
+        for dim, group in held[k]:
+            leaf = msh.all_gather(leaf, group, dim)
+        out[k] = leaf
+    return out
+
+
+def _keep_blocks(cache: dict, whole: dict, held: dict) -> dict:
+    """Copy this rank's block of each leaf of the updated ``whole`` state
+    into ``cache`` in place; returns ``cache``."""
+    for k, leaf in cache.items():
+        new = whole[k]
+        for dim, group in held[k]:
+            m = leaf.shape[dim]
+            new = new.narrow(dim, group.rank * m, m)
+        if new is not leaf:
+            leaf.copy_(new)
+    return cache
 
 
 def _gather_cross(kind: str, cache, layout):
     """A cross cache gathered whole at its use (read only)."""
-    from repro_torch.launch.sharding import spec_axes
-
-    def whole(leaf, spec):
-        for dim, entry in enumerate(spec):
-            group = msh.group_of(spec_axes(entry)) if dim > 0 else None
-            leaf = msh.all_gather(leaf, group, dim)
-        return leaf
-
     cross = cache if kind == "cross_attn" else cache["cross"]
-    got = {k: whole(cross[k], layout["cross"][k]) for k in ("k", "v")}
+    got = _gathered(cross, layout["cross"])
     return got if kind == "cross_attn" else {"self": cache["self"], "cross": got}
 
 

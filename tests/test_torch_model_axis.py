@@ -10,23 +10,30 @@ on meshes with model > 1.
   reference in one subprocess; where it refuses a spec that names an axis
   twice, the port's names it twice too);
 * one worker pair (``tests/torch_model_axis_worker.py``, two gloo
-  processes) runs every two-rank case, a worker quad the (2, 2) runs: the
+  processes) runs every two-rank case, a worker quad the (2, 2) ones: the
   per-rank ``loss_fn`` and its ``torch.func`` gradient gathered whole
   against the unsplit ones at rtol 1e-5, atol 1e-5 (dense with remat full
   and none, the mamba2 hybrid with ``shared_attn``, moe with the dense
-  dispatch and with the a2a, whisper, and fsdp at (2, 1) on a
-  cohort_sequential arch); one client_parallel round step; prefill, a
-  split-cache decode and forward; ``api.run`` at (1, 2) and (1, 1, 2)
-  bitwise the one-rank run, at (2, 2) within the S = 2 tolerance, on both
-  stacks;
+  dispatch and with the a2a, whisper, fsdp at (2, 1) on a
+  cohort_sequential arch, and the dense dispatch over split rows at a
+  capacity that drops pairs, at (2, 1) and (2, 2): slots and kept pairs
+  exactly the unsplit step's); one client_parallel round step; prefill, a
+  split-cache decode and forward; four decode steps of the mamba2 hybrid
+  (at (1, 2), and at (2, 2) over split rows) and of the xLSTM, each rank's
+  recurrent state blocks against the unsplit caches'; ``api.run`` at
+  (1, 2) and (1, 1, 2) bitwise the one-rank run, at (2, 2) within the
+  S = 2 tolerance, on both stacks, and qwen3's and arctic's
+  cohort_sequential rounds at (2, 2) over rows split 2 / 1;
 * the port's a2a on the reference's weights against the reference's
   ``_moe_ffn_a2a`` on a two-device CPU mesh (its process started with
   ``XLA_FLAGS=--xla_force_host_platform_device_count=2``): routing, slots
-  and capacity drops exact, output and aux at the f32 tolerance;
+  and capacity drops exact, output and aux at the f32 tolerance; the
+  dense dispatch over 3 rows split 2 / 1 against the reference's
+  ``moe_ffn`` on the whole batch, slots and drops exact;
 * the dry run: a mesh of all ones gives today's record field for field;
-  at (1, 2) the counted collectives are the ones the gloo ranks issued;
-  rank 0's parameter bytes at (16, 16) are the reference specs' to the
-  byte.
+  at (1, 2) and (2, 1) the counted collectives of a prefill, a decode step
+  and a rows step are the ones the gloo ranks issued; rank 0's parameter
+  bytes at (16, 16) are the reference specs' to the byte.
 """
 import json
 import os
@@ -46,7 +53,7 @@ from repro_torch.analysis import cost as cost_mod  # noqa: E402
 from repro_torch.configs.registry import InputShape  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import sharding as lsh  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import batch_axes, make_mesh  # noqa: E402
 from repro_torch.models import sharding as msh  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from test_torch_zoo_round import one_intraop_thread  # noqa: E402, F401
@@ -54,7 +61,7 @@ from test_torch_zoo_round import one_intraop_thread  # noqa: E402, F401
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_model_axis_worker as worker  # noqa: E402
 import torch_ranks_worker  # noqa: E402
-from test_torch_placement import _task, _zoo, SMOLLM  # noqa: E402
+from test_torch_placement import _task, _zoo, ARCTIC, MOE_TOL, QWEN3, SMOLLM  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -68,6 +75,11 @@ HYBRID = {"n_layers": 4, "d_model": 64, "d_ff": 128, "vocab": 128,
           "block_pattern": ["mamba2", "mamba2", "mamba2", "shared_attn"]}
 MOE = {"n_layers": 2, "d_model": 64, "vocab": 128}
 MOE_A2A = {**MOE, "capacity_factor": 4.0}  # no drops: the dense dispatch's rows, exactly
+# 4 x 8 tokens, top 2 of 4 experts: a buffer of 8 rows an expert for the
+# whole batch drops pairs, and a rank's own 2 rows would give it 4.
+MOE_ROWS = {**MOE, "capacity_factor": 0.5}
+XLSTM = {"n_layers": 4, "d_model": 64, "vocab": 128}
+DECODE = dict(seq=12, steps=4)  # a prefill of 7 tokens, then 4 decode steps
 
 
 def _case(name, kind, arch, kwargs, mesh=(1, 2), **kw):
@@ -93,6 +105,16 @@ STEP_CASES = [
     _case("serve", "prefill_decode", "smollm-360m", SMALL),
     _case("serve_whisper", "prefill_decode", "whisper-small", SMALL),  # a split cross cache
     _case("prefill", "prefill", "smollm-360m", SMALL),
+    _case("hybrid_decode", "prefill_decode", "zamba2-1.2b", HYBRID, **DECODE),
+    _case("xlstm_decode", "prefill_decode", "xlstm-125m", XLSTM, **DECODE),
+    _case("moe_dense_rows", "loss_grad", "qwen3-moe-235b-a22b", MOE_ROWS, mesh=(2, 1),
+          rows=True, routes=True),
+]
+QUAD_STEPS = [  # on the worker quad
+    _case("hybrid_decode_rows", "prefill_decode", "zamba2-1.2b", HYBRID, mesh=(2, 2), rows=True,
+          **DECODE),
+    _case("moe_dense_rows_2x2", "loss_grad", "qwen3-moe-235b-a22b", MOE_ROWS, mesh=(2, 2),
+          rows=True, routes=True),
 ]
 A2A_KW = {"d_model": 32, "vocab": 128, "capacity_factor": 0.5}  # capacity drops on the wire
 RUN_SPECS = {"task": _task(), "zoo": _zoo("smollm-360m", SMOLLM, cohort=3, batch_size=2)}
@@ -111,6 +133,11 @@ RUN_QUAD = [{"name": f"run_{stack}_2x2", "kind": "run", "spec": _with_mesh(d, (2
 RUN_QUAD.append({"name": "run_task_2x2_data_model", "kind": "run", "spec": _with_mesh(
     {**RUN_SPECS["task"], "execution": {**RUN_SPECS["task"]["execution"],
                                         "sampler_axis": ["data", "model"]}}, (2, 2))})
+# The MoE archs' cohort_sequential rounds: each batch's 3 rows split 2 / 1
+# over the data line, replicated over the model line.
+RUN_QUAD += [{"name": f"run_{name}_2x2", "kind": "run", "spec": _with_mesh(
+    _zoo(arch, kw, cohort=2, batch_size=3), (2, 2))}
+    for name, arch, kw in (("qwen3", "qwen3-moe-235b-a22b", QWEN3), ("arctic", "arctic-480b", ARCTIC))]
 # Two ranks and no mesh_shape: the host mesh (1, 2).
 RUN_CASES.append({"name": "run_zoo_host_mesh", "kind": "run", "spec": RUN_SPECS["zoo"]})
 
@@ -163,6 +190,18 @@ _A2A_REF = textwrap.dedent(
     out, aux = moe._moe_ffn_a2a(p, cfg, jnp.asarray(x), mesh)
     res = dict(x=x, out=np.asarray(out), aux=np.asarray(aux),
                **{k: np.asarray(p[k]) for k in ("router", "w_gate", "w_up", "w_down")})
+    # The dense dispatch on the same weights over a whole batch of 3 rows.
+    dense = get_config("qwen3-moe-235b-a22b").reduced(**kw)
+    x3 = np.random.default_rng(1).standard_normal((3, 8, dense.d_model)).astype(np.float32)
+    d_out, d_aux = jax.jit(lambda v: moe.moe_ffn(p, dense, v))(jnp.asarray(x3))
+    xf = jnp.asarray(x3.reshape(-1, dense.d_model))
+    _, top_idx = jax.lax.top_k(jax.nn.softmax(xf @ p["router"], axis=-1), dense.top_k)
+    mask = jnp.sum(jax.nn.one_hot(top_idx, dense.n_experts, dtype=jnp.float32), axis=1)
+    position = jnp.cumsum(mask, axis=0) * mask - 1.0
+    slot = jnp.take_along_axis(position, top_idx, axis=1).astype(jnp.int32)
+    cap = int(max(1, round(dense.capacity_factor * xf.shape[0] * dense.top_k / dense.n_experts)))
+    res.update(dense_x=x3, dense_out=np.asarray(d_out), dense_aux=np.asarray(d_aux),
+               dense_slot=np.asarray(slot), dense_keep=np.asarray((slot >= 0) & (slot < cap)))
     e_loc, k = cfg.n_experts // 2, cfg.top_k
     for r in range(2):
         xf = jnp.asarray(x[:, r * 4:(r + 1) * 4].reshape(-1, cfg.d_model))
@@ -191,14 +230,18 @@ def ranks(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr[-3000:]
     a2a = _case("a2a_ref", "a2a_ref", "qwen3-moe-235b-a22b", A2A_KW, moe_impl="a2a",
                 ref=str(ref))
-    pair_cases = STEP_CASES + [a2a] + RUN_CASES
-    pair, quad = _start(pair_cases, 2, tmp), _start(RUN_QUAD, 4, tmp)
+    dense = _case("dense_ref", "dense_ref", "qwen3-moe-235b-a22b", A2A_KW, mesh=(2, 1),
+                  ref=str(ref))
+    pair_cases = STEP_CASES + [a2a, dense] + RUN_CASES
+    quad_cases = QUAD_STEPS + RUN_QUAD
+    pair, quad = _start(pair_cases, 2, tmp), _start(quad_cases, 4, tmp)
     _wait(pair + quad)
     out = {c["name"]: [dict(np.load(tmp / f"{c['name']}_r{r}.npz")) for r in range(2)]
            for c in pair_cases}
     out.update({c["name"]: [dict(np.load(tmp / f"{c['name']}_r{r}.npz")) for r in range(4)]
-                for c in RUN_QUAD})
+                for c in quad_cases})
     out["a2a_ref"].append(dict(np.load(ref)))
+    out["dense_ref"].append(out["a2a_ref"][-1])
     return out
 
 
@@ -409,15 +452,62 @@ def _held(got: dict, want: dict, name: str) -> None:
         np.testing.assert_allclose(got[k], w, err_msg=f"{name} {k}", **TOL)
 
 
-@pytest.mark.parametrize("case", STEP_CASES, ids=[c["name"] for c in STEP_CASES])
+def _held_blocks(case, got: list, caches: dict) -> None:
+    """Each rank's recurrent cache leaves (its rows gathered whole) against
+    its block of the unsplit caches under ``cache_shardings``; some leaf is
+    split."""
+    cfg, mesh = worker.config(case), make_mesh(case["mesh"])
+    b, s = case.get("batch", 4), case["seq"]
+    specs = lsh.cache_shardings(transformer.init_caches(cfg, b, s, device="meta"), mesh, s, b)
+    split = 0
+    for k, w in caches.items():
+        _, j, leaf = k.split(".")
+        spec = tuple(None if i == 1 and lsh.spec_axes(e) == batch_axes(mesh) else e
+                     for i, e in enumerate(specs[int(j)][leaf]))
+        for r, rr in enumerate(got):
+            block = lsh.block_of(torch.from_numpy(w), spec, mesh, rank=r).numpy()
+            np.testing.assert_allclose(rr[k], block, err_msg=f"{k} rank {r}", **TOL)
+            split += rr[k].size < w.size
+    assert split
+
+
+def _held_routes(case, got: list, routes: dict) -> None:
+    """Each MoE block's slots and kept pairs: the ranks of one data line's
+    block agree, and the data blocks' tokens in row order are the unsplit
+    step's, drops included."""
+    mesh = make_mesh(case["mesh"])
+    blocks: dict = {}
+    for r, rr in enumerate(got):
+        blocks.setdefault(mesh.coords(r)["data"], []).append(rr)
+    for k, w in routes.items():
+        for same in blocks.values():
+            for rr in same[1:]:
+                np.testing.assert_array_equal(rr[k], same[0][k], err_msg=k)
+        whole = np.concatenate([blocks[d][0][k] for d in sorted(blocks)])
+        np.testing.assert_array_equal(whole, w, err_msg=k)
+    assert not all(w.all() for k, w in routes.items() if k.endswith(".keep"))
+
+
+@pytest.mark.parametrize("case", STEP_CASES + QUAD_STEPS,
+                         ids=[c["name"] for c in STEP_CASES + QUAD_STEPS])
 def test_rank_step_holds_unsplit(case, ranks, one_intraop_thread):  # noqa: F811
-    """Both ranks' loss, gathered gradients (or round params, norms and
-    loss; or logits) equal the unsplit step's; both ranks agree bitwise."""
+    """Every rank's loss, gathered gradients (or round params, norms and
+    loss; or logits) equal the unsplit step's; the ranks agree bitwise.  A
+    decode case's recurrent state blocks equal the unsplit caches' blocks;
+    a rows case's slots and kept pairs are the unsplit step's exactly."""
     want = worker.whole_case(case)
-    r0, r1 = ranks[case["name"]]
+    got = ranks[case["name"]]
+    caches = {k: want.pop(k) for k in list(want) if k.startswith("cache.")}
+    routes = {k: want.pop(k) for k in list(want) if k.startswith("route.")}
+    r0 = got[0]
     _held(r0, want, case["name"])
-    for k in want:
-        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+    for rr in got[1:]:
+        for k in want:
+            np.testing.assert_array_equal(rr[k], r0[k], err_msg=k)
+    if caches:
+        _held_blocks(case, got, caches)
+    if routes:
+        _held_routes(case, got, routes)
     kinds = dict(zip(sorted(["all_reduce", "all_gather", "broadcast", "reduce_scatter",
                              "all_to_all"]), r0["collectives"]))
     assert kinds["all_reduce"] > 0 or kinds["reduce_scatter"] > 0
@@ -445,12 +535,29 @@ def test_a2a_matches_reference(ranks):
     assert dropped > 0  # the case exercises the capacity drops
 
 
+def test_dense_rows_match_reference(ranks):
+    """The dense dispatch over a batch of 3 rows split 2 / 1 over two ranks
+    (``split_rows``) against the reference's ``moe_ffn`` on the whole
+    batch (jitted, CPU, the same weights): the ranks' outputs in row order
+    and each rank's aux at the f32 tolerance; the slots and kept pairs
+    exactly, with drops at the whole batch's capacity."""
+    r0, r1, ref = ranks["dense_ref"]
+    assert r0["out"].shape[0] == 2 and r1["out"].shape[0] == 1
+    np.testing.assert_allclose(np.concatenate([r0["out"], r1["out"]]), ref["dense_out"], **TOL)
+    for rr in (r0, r1):
+        np.testing.assert_allclose(rr["aux"], ref["dense_aux"], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.concatenate([r0["slot"], r1["slot"]]), ref["dense_slot"])
+    np.testing.assert_array_equal(np.concatenate([r0["keep"], r1["keep"]]), ref["dense_keep"])
+    assert not ref["dense_keep"].all()
+
+
 @pytest.mark.parametrize("case", RUN_CASES + RUN_QUAD, ids=[c["name"] for c in RUN_CASES + RUN_QUAD])
 def test_api_run_replicates_over_model(case, ranks, one_intraop_thread):  # noqa: F811
     """``api.run`` on a mesh with model > 1 (and on two ranks with no
     mesh_shape: the host mesh (1, 2)): every rank returns the one-rank
     run's history, bitwise where the data axes hold one rank, and within
-    the S = 2 tolerance where they hold two ((2, 2))."""
+    the S = 2 tolerance where they hold two ((2, 2); the MoE rounds' own,
+    ``test_torch_placement.MOE_TOL``)."""
     execution = {k: v for k, v in case["spec"]["execution"].items() if k != "mesh_shape"}
     want = torch_ranks_worker.run_case({**case, "spec": {**case["spec"],
                                                          "execution": execution}})
@@ -459,7 +566,8 @@ def test_api_run_replicates_over_model(case, ranks, one_intraop_thread):  # noqa
         for k, w in want.items():
             if "2x2" in case["name"]:
                 scale = max(1e-30, float(np.max(np.abs(w)))) if w.size else 1.0
-                np.testing.assert_allclose(r[k], w, rtol=0, atol=1e-6 * scale, err_msg=k)
+                tol = MOE_TOL if case["name"].startswith(("run_qwen3", "run_arctic")) else 1e-6
+                np.testing.assert_allclose(r[k], w, rtol=0, atol=tol * scale, err_msg=k)
             else:
                 np.testing.assert_array_equal(r[k], w, err_msg=k)
     for r in got[1:]:
@@ -497,7 +605,8 @@ def test_dryrun_mesh_of_ones_is_today(shape, monkeypatch):
 @pytest.mark.parametrize("arch,shape,mesh", [
     ("smollm-360m", "train_4k", (2, 2)), ("smollm-360m", "decode_32k", (1, 2)),
     ("qwen3-moe-235b-a22b", "train_4k", (2, 2)), ("zamba2-1.2b", "prefill_32k", (2, 2)),
-    ("llama3.2-1b-sw", "long_500k", (2, 2))])
+    ("llama3.2-1b-sw", "long_500k", (2, 2)), ("zamba2-1.2b", "decode_32k", (2, 2)),
+    ("xlstm-125m", "long_500k", (1, 2))])
 def test_dryrun_counts_one_chip(arch, shape, mesh, monkeypatch):
     """A reduced step counted as rank 0 of a mesh: n_chips and the mesh
     column, collectives charged, rank 0's parameter blocks; the report
@@ -505,7 +614,7 @@ def test_dryrun_counts_one_chip(arch, shape, mesh, monkeypatch):
     from repro_torch.analysis import report
 
     kw = {"smollm-360m": SMALL, "qwen3-moe-235b-a22b": MOE, "zamba2-1.2b": HYBRID,
-          "llama3.2-1b-sw": SMALL}[arch]
+          "llama3.2-1b-sw": SMALL, "xlstm-125m": XLSTM}[arch]
     monkeypatch.setattr(dryrun, "INPUT_SHAPES", TINY)
     monkeypatch.setattr(dryrun, "_cfg_for", lambda a, s: configs.get_config(a).reduced(**kw))
     r = dryrun.run_one(arch, shape, mesh_shape=mesh)
@@ -521,20 +630,45 @@ def test_dryrun_counts_one_chip(arch, shape, mesh, monkeypatch):
     assert not torch.cuda.is_initialized()
 
 
-def test_dryrun_collectives_equal_the_ranks(ranks):
-    """At (1, 2) the count of the reduced prefill charges the collectives
-    the gloo ranks issued, kind for kind."""
-    case = next(c for c in STEP_CASES if c["name"] == "prefill")
+@pytest.mark.parametrize("name", ["prefill", "hybrid_decode", "xlstm_decode", "moe_dense_rows"])
+def test_dryrun_collectives_equal_the_ranks(name, ranks):
+    """Rank 0's count of a reduced step charges the collectives the gloo
+    ranks issued, kind for kind: the prefill at (1, 2), one decode step
+    over recurrent caches split over ``model`` (the gathers at use), and
+    the MoE loss and gradient over rows split at (2, 1) (each block's
+    count gather and sums' all_reduce)."""
+    from repro_torch.launch.dryrun import _cut
+
+    case = next(c for c in STEP_CASES if c["name"] == name)
     cfg = worker.config(case)
-    m = cost_mod.CountingMesh(("data", "model"), (1, 2))
+    m = cost_mod.CountingMesh(("data", "model"), tuple(case["mesh"]))
     blocks = lsh.param_shardings(transformer.init_params(cfg, None, "meta"), m, False, rank=0)
-    tok = worker.inputs(case, cfg)[0]
+    batch = worker.inputs(case, cfg)
+    b, s = batch[0].shape
     rules = lsh.activation_rules(m)
-    rules["batch"] = None
+    if not case.get("rows"):
+        rules["batch"] = None
+    r0 = ranks[name][0]
     with msh.use_rules(m, rules):
-        c, _ = cost_mod.count(lambda p, t: transformer.prefill(p, cfg, t), blocks, tok)
+        if case["kind"] == "prefill":
+            c, _ = cost_mod.count(lambda p, t: transformer.prefill(p, cfg, t), blocks, batch[0])
+            issued = r0["collectives"]
+        elif case["kind"] == "prefill_decode":
+            caches = transformer.init_caches(cfg, b, s, device="meta")
+            specs = lsh.cache_shardings(caches, m, s, b)
+            caches = [_cut(x, sp, m) for x, sp in zip(caches, specs)]
+            t = s - 1 - case["steps"]
+            c, _ = cost_mod.count(lambda p, tok, cc: transformer.decode_step(
+                p, cfg, tok, cc, t, max_seq=s, batch=b), blocks, batch[0][:, t:t + 1], caches)
+            issued = r0["decode_collectives"]
+        else:
+            rows = b // m.shape["data"]
+            c, _ = cost_mod.count(lambda p, x, y: torch.func.grad_and_value(
+                lambda q: transformer.loss_fn(q, cfg, (x, y)))(p), blocks, batch[0][:rows],
+                batch[1][:rows])
+            issued = r0["step_collectives"]
     issued = dict(zip(sorted(["all_reduce", "all_gather", "broadcast", "reduce_scatter",
-                              "all_to_all"]), ranks["prefill"][0]["collectives"].tolist()))
+                              "all_to_all"]), issued.tolist()))
     issued = {k.replace("_", "-"): v for k, v in issued.items() if v}
     assert c.collectives == issued
 

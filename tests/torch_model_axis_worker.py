@@ -8,13 +8,18 @@ writing ``OUT_DIR/<name>_r<RANK>.npz``.  The parent test imports
 ``whole_case`` and computes each case unsplit.  Imports no JAX.
 
 A case is a dict: ``name``; ``kind`` (``loss_grad``: ``loss_fn`` and its
-``torch.func`` gradient gathered whole; ``round``: one client_parallel
-``build_round_step``; ``prefill_decode``; ``prefill``; ``a2a_ref``: the
-a2a MoE on the reference's weights; ``run``: ``api.run`` of ``spec`` on its
-``mesh_shape``, by ``torch_ranks_worker.run_case``); ``arch`` and
+``torch.func`` gradient gathered whole, the step's collectives, and with
+``routes`` each MoE block's slots and kept pairs; ``round``: one
+client_parallel ``build_round_step``; ``prefill_decode``: ``serve``;
+``prefill``; ``a2a_ref``: the a2a MoE on the reference's weights;
+``dense_ref``: the dense MoE on the reference's weights over a batch of 3
+rows split 2 / 1 (``split_rows``); ``run``: ``api.run`` of ``spec`` on
+its ``mesh_shape``, by ``torch_ranks_worker.run_case``); ``arch`` and
 ``kwargs`` (a reduced config), ``remat``, ``moe_impl``, ``aux_coef``;
 ``mesh`` (the mesh shape); ``fsdp``; ``rows`` (whether this rank takes its
-block of the batch rows, as the rules' ``batch`` axes say); ``seed``.
+block of the batch rows, as the rules' ``batch`` axes say); ``batch``,
+``seq``, ``steps``; ``seed``.  Outputs a rank computes on its rows are
+gathered back whole over the rows' line outside the counted collectives.
 """
 import dataclasses
 import datetime
@@ -91,6 +96,86 @@ def round_inputs(case, cfg):
     return tok, tgt, w
 
 
+def _whole_rows(x, rows, dim: int = 0):
+    """This rank's rows gathered whole over ``rows`` (an ``AxisGroup``, or
+    None) by ``torch.distributed`` itself: not counted."""
+    import torch.distributed as dist
+
+    if rows is None:
+        return x
+    parts = [torch.empty_like(x) for _ in range(rows.size)]
+    dist.all_gather(parts, x.contiguous(), group=rows.pg)
+    return torch.cat(parts, dim)
+
+
+def _counts_now() -> np.ndarray:
+    from repro_torch.launch import mesh
+
+    counts = mesh.collective_counts()
+    return np.asarray([counts[k] for k in sorted(counts)])
+
+
+def serve(case, cfg, p, rows=None) -> dict:
+    """A prefill of all but the last ``steps + 1`` tokens (``steps`` 1 by
+    default), ``steps`` decode steps on the tokens that follow, the
+    forward over every token, and each recurrent cache after the last step
+    (``cache.<slot>.<leaf>``, stacked over repeats).  Under the rules: the
+    caches are this rank's blocks; with ``rows`` (the batch axes' line)
+    this rank takes its block of the rows; the first decode step's
+    collectives (``decode_collectives``)."""
+    from repro_torch.models import sharding, transformer
+
+    batch = inputs(case, cfg)
+    whole = batch[0].shape[0]
+    if rows is not None:
+        b = whole // rows.size
+        batch = tuple(x[rows.rank * b:(rows.rank + 1) * b] for x in batch)
+    tok, aux = batch[0], (batch[2] if cfg.frontend else None)
+    s, steps = tok.shape[1], case.get("steps", 1)
+    split = sharding.active() is not None
+    kw = {"batch": whole} if split else {}
+    start = s - 1 - steps
+    logits, caches = transformer.prefill(p, cfg, tok[:, :start], aux, max_seq=s, **kw)
+    if split:
+        kw["max_seq"] = s
+    out, decoded = {}, []
+    for t in range(start, start + steps):
+        before = _counts_now()
+        l_t, caches = transformer.decode_step(p, cfg, tok[:, t:t + 1], caches, t, **kw)
+        if split and t == start:
+            out["decode_collectives"] = _counts_now() - before
+        decoded.append(l_t)
+    full, _ = transformer.forward(p, cfg, tok, aux)
+    for k, x in (("prefill", logits), ("decode", torch.cat(decoded, 1)), ("forward", full)):
+        out[k] = _whole_rows(x.detach(), rows).numpy()
+    for j, kind in enumerate(cfg.block_pattern):
+        if kind in transformer.STATE_KINDS:
+            for k, leaf in caches[j].items():
+                out[f"cache.{j}.{k}"] = _whole_rows(leaf, rows, 1).numpy()
+    return out
+
+
+def routes(cfg, p, batch) -> dict:
+    """Each MoE block's slots and kept pairs (``route.<i>.slot`` and
+    ``.keep``, this rank's tokens) in one forward without a gradient."""
+    from repro_torch.models import moe, transformer
+
+    got, real = [], moe.route
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        got.append((out[4].numpy(), out[5].numpy()))
+        return out
+
+    moe.route = spy
+    try:
+        with torch.no_grad():
+            transformer.loss_fn(p, cfg, batch)
+    finally:
+        moe.route = real
+    return {f"route.{i}.{n}": x for i, pair in enumerate(got) for n, x in zip(("slot", "keep"), pair)}
+
+
 def whole_case(case) -> dict:
     """The case unsplit (no rules): name -> numpy array."""
     from repro_torch.fed.round import RoundSpec, build_round_step
@@ -103,7 +188,8 @@ def whole_case(case) -> dict:
         batch = inputs(case, cfg)
         grads, loss = torch.func.grad_and_value(
             lambda q: transformer.loss_fn(q, cfg, batch))(p)
-        return {"loss": loss.detach().numpy(), **{f"g.{k}": v for k, v in _flat(grads).items()}}
+        out = {"loss": loss.detach().numpy(), **{f"g.{k}": v for k, v in _flat(grads).items()}}
+        return {**out, **(routes(cfg, p, batch) if case.get("routes") else {})}
     if kind == "round":
         step = build_round_step(cfg, RoundSpec(cohort=case["cohort"], local_steps=2,
                                                local_batch=2, local_lr=0.05))
@@ -111,13 +197,7 @@ def whole_case(case) -> dict:
         return {"loss": loss.numpy(), "norms": norms.numpy(),
                 **{f"p.{k}": v for k, v in _flat(new).items()}}
     if kind == "prefill_decode":
-        batch = inputs(case, cfg)
-        tok, aux = batch[0], (batch[2] if cfg.frontend else None)
-        s = tok.shape[1]
-        logits, caches = transformer.prefill(p, cfg, tok[:, : s - 2], aux, max_seq=s)
-        l1, caches = transformer.decode_step(p, cfg, tok[:, s - 2 : s - 1], caches, s - 2)
-        full, _ = transformer.forward(p, cfg, tok, aux)
-        return {"prefill": logits.numpy(), "decode": l1.numpy(), "forward": full.detach().numpy()}
+        return serve(case, cfg, p)
     if kind == "prefill":
         logits, _ = transformer.prefill(p, cfg, inputs(case, cfg)[0])
         return {"prefill": logits.numpy()}
@@ -156,6 +236,29 @@ def a2a_against_reference(case) -> dict:
             "slot": slot.numpy(), "kept": kept.numpy(), "cap_pair": np.asarray(cap_pair)}
 
 
+def dense_against_reference(case) -> dict:
+    """The port's dense MoE dispatch on the reference's weights over a
+    batch of 3 rows (``case["ref"]``'s ``dense_x``), this rank's block of
+    the rows (2 / 1, ``ShardSpec.local_range``) inside ``split_rows``: the
+    output of its rows, the aux, and its tokens' slots and kept pairs."""
+    from repro_torch.launch.mesh import ShardSpec
+    from repro_torch.models import moe, sharding
+
+    ref = np.load(case["ref"])
+    cfg = config(case)
+    shard = ShardSpec(axes=(("data", 2), ("model", 1)), axis="data")
+    x = torch.from_numpy(ref["dense_x"])
+    lo, hi = shard.block(x.shape[0])
+    p = {k: torch.from_numpy(ref[k]) for k in ("router", "w_gate", "w_up", "w_down")}
+    xb = x[lo:hi]
+    line = shard.axis_group()
+    with sharding.split_rows(line, x.shape[0]):
+        out, aux = moe.moe_ffn(p, cfg, xb)
+    route = moe.route(p["router"], cfg, xb.reshape(-1, cfg.d_model), (line, x.shape[0] * x.shape[1]))
+    return {"out": out.numpy(), "aux": aux.numpy(), "slot": route[4].numpy(),
+            "keep": route[5].numpy()}
+
+
 def rank_case(case) -> dict:
     """The case as this rank's share under ``use_rules`` on its mesh."""
     from repro_torch.fed.round import RoundSpec, build_round_step
@@ -165,6 +268,8 @@ def rank_case(case) -> dict:
 
     if case["kind"] == "a2a_ref":
         return a2a_against_reference(case)
+    if case["kind"] == "dense_ref":
+        return dense_against_reference(case)
     if case["kind"] == "run":  # api.run on the mesh (its spec's mesh_shape)
         import torch_ranks_worker
 
@@ -188,8 +293,11 @@ def rank_case(case) -> dict:
                 batch = tuple(x[rows.rank * b:(rows.rank + 1) * b] for x in batch)
             grads, loss = torch.func.grad_and_value(
                 lambda q: transformer.loss_fn(q, cfg, batch))(p)
+            out = {"step_collectives": _counts_now()}
+            if case.get("routes"):
+                out.update(routes(cfg, p, batch))
             grads = lsh.gather_params(grads, specs, mesh)
-            return {"loss": loss.detach().numpy(),
+            return {**out, "loss": loss.detach().numpy(),
                     **{f"g.{k}": v for k, v in _flat(grads).items()}}
         if kind == "round":
             step = build_round_step(cfg, RoundSpec(cohort=case["cohort"], local_steps=2,
@@ -199,15 +307,7 @@ def rank_case(case) -> dict:
             return {"loss": loss.numpy(), "norms": norms.numpy(),
                     **{f"p.{k}": v for k, v in _flat(new).items()}}
         if kind == "prefill_decode":
-            batch = inputs(case, cfg)
-            tok, aux = batch[0], (batch[2] if cfg.frontend else None)
-            s = tok.shape[1]
-            logits, caches = transformer.prefill(p, cfg, tok[:, : s - 2], aux, max_seq=s)
-            l1, caches = transformer.decode_step(p, cfg, tok[:, s - 2 : s - 1], caches, s - 2,
-                                                 max_seq=s)
-            full, _ = transformer.forward(p, cfg, tok, aux)
-            return {"prefill": logits.numpy(), "decode": l1.numpy(),
-                    "forward": full.detach().numpy()}
+            return serve(case, cfg, p, sharding.batch_group() if case.get("rows") else None)
         if kind == "prefill":  # one prefill, for the dry run's count of its collectives
             logits, _ = transformer.prefill(p, cfg, inputs(case, cfg)[0])
             return {"prefill": logits.numpy()}
