@@ -28,7 +28,8 @@ Phases, each failing loudly (non-zero exit, no result line):
    shared-attention shape, bf16 and f32, each row naming the kernel that
    ran (tensor cores for bf16, CUDA cores for f32);
    kernel 8 (ssd_scan) at zamba2-1.2b's prefill shape as the model passes
-   it, with b and c per row, at a ragged S, under strong decays, y and the
+   it, at the half of its heads a rank of (ma5) runs, with b and c per
+   row, at a ragged S, under strong decays, y and the
    final state, each kernel-8 row with its bound at the TF32 tensor-core
    rate and at the f32 rate; kernel 6's host time a call at decode's shape,
    through the wrapper and through ``torch.autograd.Function.apply``;
@@ -52,13 +53,15 @@ Phases, each failing loudly (non-zero exit, no result line):
    prefill (dense dispatch and a2a) as each rank's share under
    ``use_rules``, each gap (the round's on its update, kernel 2's d on
    each rank against its plain sum, and a planted fault that the update's
-   limit must catch), the collectives, each process's peak and the
+   limit must catch; the round again in f32, its update's gap against
+   f32 rounding), the collectives, each process's peak and the
    kernels each rank launched (kernels 6 and 7; 2 in the round); (ma3)
    ``api.run`` on (1, 2) bitwise S = 1; (ma5) zamba2-1.2b and xlstm-125m
-   whole, a prefill and 16 decode steps over recurrent caches split over
-   ``model`` (the comment above ``MA5``): each step's logits, greedy
-   tokens, each rank's state blocks against one process's, a step's
-   collectives against the count's; (ma6) a reduced qwen3 MoE
+   whole, a prefill and 16 decode steps, the mamba2 and mLSTM heads
+   computed on a rank's block over recurrent caches split over ``model``
+   (the comment above ``MA5``): each step's logits, greedy tokens, each
+   rank's state blocks against one process's, a step's collectives and
+   bytes against the count's and the bytes' limit; (ma6) a reduced qwen3 MoE
    cohort_sequential round through ``api.run`` on (2, 1), rows split
    2 / 1 at a capacity that drops pairs, against S = 1; (ma4) the dry run
    of one chip of (16, 16) and (2, 16, 16) on the card's CPU (llama3-405b
@@ -1006,6 +1009,8 @@ def ssd_kernel_phase(torch, gen, flush, max_err):
     cases = [  # (label, B, H, S, hd, N, Q, x dtype, b/c dtype, b/c shared, constant da)
         ("prefill zamba2", 8, 64, 512, 64, 64, 128, f32, bf16, True, None),
         ("prefill zamba2 bf16 x", 8, 64, 512, 64, 64, 128, bf16, bf16, True, None),
+        # (ma5)'s prefill on a rank of (1, 2): the state rule's 32 of the 64 heads.
+        ("prefill zamba2 heads of a rank", 8, 32, 512, 64, 64, 128, f32, bf16, True, None),
         ("per-row b/c", 8, 64, 512, 64, 64, 128, f32, f32, False, None),
         ("ragged S=200", 8, 64, 200, 64, 64, 128, f32, bf16, True, None),
         ("ragged S=200 bf16", 8, 64, 200, 64, 64, 128, bf16, bf16, True, None),
@@ -1424,10 +1429,14 @@ MA_ROUND = dict(cohort=8, local_steps=2, local_batch=2, seq=64)
 # grid, and most of one round's change is under one ulp of a weight, so
 # gradients summed in another order flip some of those roundings (in f32 at
 # reduced width the split step holds the unsplit one to 1e-5,
-# tests/test_torch_model_axis.py).
+# tests/test_torch_model_axis.py).  "ma1 round f32" is the same round with
+# f32 weights (TF32 off in both), which tells whether that floor is bf16's:
+# its update is held to 1e-4, f32 rounding summed in another order through
+# the round.
 MA_TOL = {"ma1 prefill": 3e-2, "ma1 round update": 0.3, "ma1 round norms": 3e-2,
           "ma1 round loss": 1e-2, "ma1 round kernel 2": 1e-5, "ma2 dense": 3e-2,
-          "ma2 a2a": 3e-2}
+          "ma2 a2a": 3e-2, "ma1 round f32 update": 1e-4, "ma1 round f32 norms": 1e-4,
+          "ma1 round f32 loss": 1e-5, "ma1 round f32 kernel 2": 1e-5}
 MA_SAMPLE = 1 << 16  # entries compared a leaf (a strided sample past that)
 MA_PLANTED = "ma1 round planted"
 
@@ -1435,8 +1444,12 @@ MA_PLANTED = "ma1 round planted"
 def ma_config(name: str):
     import dataclasses
 
+    import torch
+
     from repro_torch.configs import get_config
 
+    if name == "ma1 round f32":
+        return dataclasses.replace(get_config("smollm-360m"), param_dtype=torch.float32)
     if name.startswith("ma1"):
         return get_config("smollm-360m")
     arch, kw = FAMILY_RUNS["(z) qwen3-moe one layer"][:2]
@@ -1562,9 +1575,9 @@ def ma_case(torch, name: str, split: bool) -> dict:
         mlp_mod.msh = _NoMlpGradSum(msh)
         ctx.callback(setattr, mlp_mod, "msh", msh)
     with ctx:
-        # No warm-up for the a2a (its seconds are gloo's host staging) or
-        # the planted run (only its values are read).
-        if name not in ("ma2 a2a", MA_PLANTED):
+        # No warm-up for the a2a (its seconds are gloo's host staging), the
+        # planted run or the f32 round (only their values are read).
+        if name not in ("ma2 a2a", MA_PLANTED, "ma1 round f32"):
             out = fn(params, *args)  # warm-up
             torch.cuda.synchronize()
             del out
@@ -1617,7 +1630,7 @@ def ma_case(torch, name: str, split: bool) -> dict:
     return res
 
 
-MA_CASES = ("ma1 prefill", "ma1 round", "ma2 dense", "ma2 a2a")
+MA_CASES = ("ma1 prefill", "ma1 round", "ma2 dense", "ma2 a2a", "ma1 round f32")
 
 
 def model_axis_worker(rank: int, port: int, out_dir: str) -> int:
@@ -1642,9 +1655,11 @@ def model_axis_worker(rank: int, port: int, out_dir: str) -> int:
         spec = with_sections(api, spec, execution={"mesh_shape": list(MA_MESH)})
         np.savez(Path(out_dir) / f"run_r{rank}.npz", **ranks_run(torch, spec))
         for name in MA5:
-            forced = np.load(Path(out_dir) / f"{MA5[name][0]}_tokens.npy")
-            np.savez(Path(out_dir) / f"{MA5[name][0]}_r{rank}.npz",
+            forced = np.load(Path(out_dir) / f"{ma5_slug(name)}_tokens.npy")
+            np.savez(Path(out_dir) / f"{ma5_slug(name)}_r{rank}.npz",
                      **ma5_case(torch, name, True, forced))
+            np.savez(Path(out_dir) / f"{ma5_slug(name)}_planted_r{rank}.npz",
+                     **ma5_case(torch, name, True, forced, planted=True))
         spec = with_sections(api, ma6_spec(api), execution={"mesh_shape": [2, 1]})
         np.savez(Path(out_dir) / f"ma6_r{rank}.npz", **ranks_run(torch, spec))
     finally:
@@ -1653,17 +1668,55 @@ def model_axis_worker(rank: int, port: int, out_dir: str) -> int:
 
 
 MA3_LABEL = "(r3) smollm-360m client_parallel C=4"
-# (ma5): decode of recurrent caches split over ``model`` at MA_MESH, bf16,
-# each arch whole: (m)'s prefill of 8 x 512 for zamba2-1.2b and (y)'s of
-# 8 x 128 for xlstm-125m, then MA5_STEPS decode steps.  One process runs
-# greedy; the ranks are fed its tokens, so each step's logits compare
-# (difference norm over the norm, the largest over the steps), and their
-# own greedy choices are counted.  Each rank's final recurrent state
+# (ma5): decode of recurrent caches split over ``model`` at MA_MESH, each
+# arch whole: (m)'s prefill of 8 x 512 for zamba2-1.2b in bf16, xlstm-125m
+# at prompts of 4 in bf16 and of 8 in f32, then MA5_STEPS decode steps.
+# The mamba2 and mLSTM heads are computed on a rank's block (the ``state``
+# rule: no weight or state leaf of theirs gathered; kernel 8 on 32 of
+# zamba2's 64 heads in the prefill), the sLSTM gathered at use.  One
+# process runs greedy; the ranks are fed its tokens, so each step's logits
+# compare (difference norm over the norm, the largest over the steps), and
+# their own greedy choices are counted.  Each rank's final recurrent state
 # blocks (a strided sample of each leaf) against the blocks of one
-# process's caches; the first step's collectives against the count's.
-MA5 = {"ma5 zamba2": ("zamba2-1.2b", 512), "ma5 xlstm": ("xlstm-125m", 128)}
+# process's caches; the first step's collectives and the bytes the ranks'
+# calls returned (``launch.mesh.collective_bytes``) against the count's,
+# the bytes within MA5_BYTES (the heads' activations and partial sums, the
+# shared attention's and the sLSTM's leaves gathered at use).
+# The split rounds every mamba2 and mLSTM block's GEMMs in another order
+# than one process does (column blocks of the projections, f32 partial
+# products of the output projection), so a bf16 split run and one
+# process's bf16 run are two bf16 roundings of one function.  Each is held
+# against one process's f32 run of the same weights fed the same tokens
+# (the anchor, "anchor" in MA5_TOL): the split's distance from it, in
+# logits and state blocks, at most MA5_ANCHOR times one process's.  The f32
+# case is held pairwise.  xlstm-125m at its random init is chaotic: one
+# weight moved by one ulp in one process (``ulp_gap``, printed) moves its
+# logits by O(1) over a prompt of 128 tokens, where the anchor could tell
+# nothing apart, hence its short prompts.  Each case runs once more with a
+# planted fault (``_NoPartialSum``: a decode step's partial sums over the
+# state blocks left unreduced), which its check must reject.
+MA5 = {"ma5 zamba2": ("zamba2-1.2b", 512, "bfloat16"), "ma5 xlstm": ("xlstm-125m", 4, "bfloat16"),
+       "ma5 xlstm f32": ("xlstm-125m", 8, "float32")}
 MA5_BATCH, MA5_STEPS = 8, 16
-MA5_TOL = {"logits": 3e-2, "state": 5e-2}
+MA5_TOL = {"ma5 zamba2": "anchor", "ma5 xlstm": "anchor",
+           "ma5 xlstm f32": {"logits": 1e-3, "state": 1e-3}}
+MA5_ANCHOR = 1.5
+MA5_BYTES = {"ma5 zamba2": 0.15e9, "ma5 xlstm": 0.1e9, "ma5 xlstm f32": 0.15e9}  # a step's, a rank
+
+
+def ma5_slug(name: str) -> str:
+    return name.replace(" ", "_")
+
+
+def ma5_config(name: str):
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    arch, _, dtype = MA5[name]
+    return dataclasses.replace(get_config(arch), param_dtype=getattr(torch, dtype))
 # (ma6): a reduced qwen3 in f32, cohort_sequential, local batch 3 (rows
 # split 2 / 1 over two ranks, mesh (2, 1)) at a capacity factor that drops
 # pairs (3 x 64 tokens, top 2 of 8 experts: 24 rows an expert for the whole
@@ -1698,25 +1751,49 @@ def ma5_layout(cfg, s: int):
     return mesh, out
 
 
-def ma5_case(torch, name: str, split: bool, forced=None) -> dict:
+class _NoPartialSum:
+    """``models/sharding`` as ``models/ssm.py`` and ``models/xlstm.py`` see
+    it in (ma5)'s planted runs: a decode step's partial sums over a state
+    block (mamba2's y over N, the mLSTM's c q and n q over k) are left
+    unreduced, so each rank's output misses the other rank's block."""
+
+    def __init__(self, real):
+        self._real = real
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    @staticmethod
+    def all_reduce(x, group, op="sum"):
+        return x
+
+
+def ma5_case(torch, name: str, split: bool, forced=None, planted: bool = False) -> dict:
     """(ma5) ``name``: a prefill of MA5_BATCH prompts and MA5_STEPS decode
     steps, unsplit (greedy) or as this rank's share on MA_MESH (fed
     ``forced``, one process's tokens): every step's logits, the greedy
     tokens (B, 1 + steps), a strided sample of each recurrent cache leaf
     (this rank's block; unsplit, each rank's block of the whole), the
-    first decode step's collectives, kernel launches, the peak bytes and
-    the seconds."""
+    first decode step's collectives and their result bytes, kernel
+    launches, the peak bytes and the seconds; unsplit, for a case held to
+    its anchor, the same weights in f32 fed the same tokens
+    (``anchor_logits``, ``anchor_`` state samples), and ``ulp_gap``: the
+    prefill's and each decode step's logits again, fed the same tokens,
+    with one weight of the first block moved by one ulp, against the
+    first.  ``planted``: the split run under
+    ``_NoPartialSum``."""
     import numpy as np
 
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import sharding as lsh
     from repro_torch.models import sharding as msh
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models import transformer
+    from repro_torch.models import xlstm as xlstm_mod
 
-    arch, s = MA5[name]
-    cfg = get_config(arch)
+    arch, s, _ = MA5[name]
+    cfg = ma5_config(name)
     dev = torch.device("cuda")
     torch.cuda.synchronize()
     torch._C._cuda_clearCublasWorkspaces()
@@ -1736,6 +1813,10 @@ def ma5_case(torch, name: str, split: bool, forced=None) -> dict:
         rules["batch"] = None  # every rank holds every row
         ctx.enter_context(msh.use_rules(mesh, rules))
         kw = {"max_seq": max_seq, "batch": MA5_BATCH}
+    if planted:
+        for mod in (ssm_mod, xlstm_mod):
+            mod.msh = _NoPartialSum(msh)
+            ctx.callback(setattr, mod, "msh", msh)
     kernels.reset_launch_counts()
     res = {}
     with ctx, torch.no_grad():
@@ -1744,6 +1825,7 @@ def ma5_case(torch, name: str, split: bool, forced=None) -> dict:
                                              **({"batch": MA5_BATCH} if split else {}))
         torch.cuda.synchronize()
         res["prefill_s"] = np.asarray(time.perf_counter() - t0)
+        first = logits.float()
         greedy, steps = [logits.argmax(-1)], []
         t0 = time.perf_counter()
         for i in range(MA5_STEPS):
@@ -1752,7 +1834,7 @@ def ma5_case(torch, name: str, split: bool, forced=None) -> dict:
                 mesh_mod.reset_collective_counts()
             logits, caches = transformer.decode_step(params, cfg, fed, caches, s + i, **kw)
             if i == 0:
-                coll = mesh_mod.collective_counts()
+                coll, sent = mesh_mod.collective_counts(), mesh_mod.collective_bytes()
             steps.append(logits[:, -1].float())
             greedy.append(logits.argmax(-1))
         torch.cuda.synchronize()
@@ -1762,18 +1844,49 @@ def ma5_case(torch, name: str, split: bool, forced=None) -> dict:
     res["greedy"] = torch.cat(greedy, 1).cpu().numpy()
     res["collective_names"] = np.asarray(sorted(coll))
     res["collectives"] = np.asarray([coll[k] for k in sorted(coll)])
+    res["collective_bytes"] = np.asarray([sent[k] for k in sorted(sent)], dtype=np.int64)
     counts = kernels.launch_counts()
     res["launch_names"] = np.asarray(sorted(counts))
     res["launches"] = np.asarray([counts[k] for k in sorted(counts)])
-    for j, specs in layout.items():
-        for k, spec in specs.items():
-            leaf = caches[j][k].float()
-            for r in ((None,) if split else range(mesh.size)):
-                block = leaf if split else lsh.block_of(leaf, spec, mesh, rank=r)
-                flat = block.reshape(-1)
-                tag = f"state_{j:02d}_{k}" + ("" if split else f"_r{r}")
-                res[tag] = flat[::-(-flat.numel() // MA_SAMPLE)].cpu().numpy()
-    del params, caches, logits, steps
+    anchor = None
+    if not split and MA5_TOL[name] == "anchor":  # after the counts and the peak
+        import dataclasses
+
+        from torch.utils._pytree import tree_map
+
+        cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+        params32 = tree_map(lambda t: t.float(), params)
+        fed = torch.cat(greedy, 1)
+        with torch.no_grad():
+            _, anchor = transformer.prefill(params32, cfg32, tok, max_seq=max_seq)
+            out32 = []
+            for i in range(MA5_STEPS):
+                l32, anchor = transformer.decode_step(params32, cfg32, fed[:, i:i + 1], anchor, s + i)
+                out32.append(l32[:, -1])
+        res["anchor_logits"] = torch.stack(out32, 1).cpu().numpy()
+        del params32, out32
+    if not split:  # the control, after the counts and the anchor
+        w = next(x for _, x in _named_leaves(params["stacks"][0]) if x.dim() >= 3)
+        fed = torch.cat(greedy, 1)
+        with torch.no_grad():
+            w.view(torch.int16 if w.element_size() == 2 else torch.int32).view(-1)[0] += 1
+            moved, cc = transformer.prefill(params, cfg, tok, max_seq=max_seq)
+            gaps = [float((moved.float() - first).norm() / first.norm())]
+            for i in range(MA5_STEPS):
+                moved, cc = transformer.decode_step(params, cfg, fed[:, i:i + 1], cc, s + i)
+                gaps.append(float((moved[:, -1].float() - steps[i]).norm() / steps[i].norm()))
+        res["ulp_gap"] = np.asarray(gaps)  # the prefill's, then each decode step's
+        del moved, cc
+    for prefix, held in (("", caches), ("anchor_", anchor)):
+        for j, specs in layout.items() if held is not None else ():
+            for k, spec in specs.items():
+                leaf = held[j][k].float()
+                for r in ((None,) if split else range(mesh.size)):
+                    block = leaf if split else lsh.block_of(leaf, spec, mesh, rank=r)
+                    flat = block.reshape(-1)
+                    tag = f"{prefix}state_{j:02d}_{k}" + ("" if split else f"_r{r}")
+                    res[tag] = flat[::-(-flat.numel() // MA_SAMPLE)].cpu().numpy()
+    del params, caches, logits, steps, first, anchor
     torch.cuda.empty_cache()
     return res
 
@@ -1846,8 +1959,8 @@ def model_axis_phase(torch, card: str) -> dict:
     ones["ma6"] = ranks_run(torch, ma6_spec(api))
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="model_axis_"))
-    for name, (arch, _) in MA5.items():  # the tokens the ranks are fed
-        np.save(tmp / f"{arch}_tokens.npy", ones[name]["greedy"][:, :MA5_STEPS])
+    for name in MA5:  # the tokens the ranks are fed
+        np.save(tmp / f"{ma5_slug(name)}_tokens.npy", ones[name]["greedy"][:, :MA5_STEPS])
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -1877,8 +1990,10 @@ def model_axis_phase(torch, card: str) -> dict:
            for i, name in enumerate(MA_CASES)}
     res["ma3"] = [dict(np.load(tmp / f"run_r{r}.npz")) for r in range(2)]
     res["ma6"] = [dict(np.load(tmp / f"ma6_r{r}.npz")) for r in range(2)]
-    for name, (arch, _) in MA5.items():
-        res[name] = [dict(np.load(tmp / f"{arch}_r{r}.npz")) for r in range(2)]
+    for name in MA5:
+        for tag in ("", "_planted"):
+            res[name + tag] = [dict(np.load(tmp / f"{ma5_slug(name)}{tag}_r{r}.npz"))
+                               for r in range(2)]
     planted = [dict(np.load(tmp / f"ma{len(MA_CASES)}_r{r}.npz")) for r in range(2)]
 
     def leaf_gaps(rr, one, prefix):
@@ -1891,7 +2006,16 @@ def model_axis_phase(torch, card: str) -> dict:
         for k in keys:
             expect(np.array_equal(r0[k], r1[k]), f"{name}: the ranks differ in {k}")
         greedy = ""
-        if name == "ma1 round":
+        if name == "ma1 round f32":
+            gaps = {f"{name} update": max(leaf_gaps(r0, one, "update_")),
+                    f"{name} norms": _gap(np, r0["norms"], one["norms"]),
+                    f"{name} loss": _gap(np, r0["loss"], one["loss"]),
+                    f"{name} kernel 2": max(float(rr["kernel2_gap"]) for rr in (r0, r1))}
+            print(f"{name} ({card}): largest leaf gap of the update {gaps[f'{name} update']:.4g} "
+                  f"(median {float(np.median(leaf_gaps(r0, one, 'update_'))):.4g}; bf16's limit "
+                  f"{MA_TOL['ma1 round update']}), of the parameters after the step "
+                  f"{max(leaf_gaps(r0, one, 'param_')):.4g}", flush=True)
+        elif name == "ma1 round":
             gaps = {"ma1 round update": max(leaf_gaps(r0, one, "update_")),
                     "ma1 round norms": _gap(np, r0["norms"], one["norms"]),
                     "ma1 round loss": _gap(np, r0["loss"], one["loss"]),
@@ -1930,7 +2054,7 @@ def model_axis_phase(torch, card: str) -> dict:
         for got in per_rank:
             expect(got.get("rmsnorm", 0) > 0 and got.get("flash_attention", 0) > 0,
                    f"{name}: kernels 6 and 7 must launch on each rank, got {got}")
-            if name == "ma1 round":
+            if name.startswith("ma1 round"):
                 expect(got.get("fused_cohort_agg_and_error", 0) == 1,
                        f"{name}: kernel 2 once on each rank's blocks, got {got}")
             for k, v in got.items():
@@ -1959,8 +2083,9 @@ def model_axis_phase(torch, card: str) -> dict:
           f"{float(one['wall_s']):.3f} rank 0 {float(r0['wall_s']):.3f} rank 1 "
           f"{float(r1['wall_s']):.3f}; peak bytes S=1 {int(one['peak_bytes'])} rank 0 "
           f"{int(r0['peak_bytes'])} rank 1 {int(r1['peak_bytes'])}", flush=True)
-    for name, (arch, s) in MA5.items():
-        ma5_report(torch, np, name, ones[name], res[name], launches, card, expect)
+    for name in MA5:
+        ma5_report(torch, np, name, ones[name], res[name], res[name + "_planted"], launches, card,
+                   expect)
     ma6_report(np, api, ones["ma6"], res["ma6"], launches, card, expect)
     # (ma4): the count of one rank against the card, then the CLI records.
     workspace = cublas_workspace(torch)
@@ -1991,6 +2116,10 @@ def model_axis_phase(torch, card: str) -> dict:
         record = json.loads(stdout.strip().splitlines()[-1])
         expect(record["status"] == "ok" and record["collectives"],
                f"{job}: {record.get('status')}, collectives {record.get('collectives')}")
+        if record["arch"] == "zamba2-1.2b":  # 64 heads over 16: the state rule's split
+            expect(record["collective_bytes"] <= MA5_BYTES["ma5 zamba2"],
+                   f"{job}: {record['collective_bytes']:.6g} collective bytes counted, limit "
+                   f"{MA5_BYTES['ma5 zamba2']:.3g}")
         print(f"(ma4) {job}: {cli_s:.1f} s on the card's CPU; n_chips {record['n_chips']} mesh "
               f"{record['mesh']}; rank 0's parameter bytes {record['param_bytes']} "
               f"({record['param_bytes'] / 1e9:.4f} GB); memory {record['memory']}; flops "
@@ -2014,58 +2143,97 @@ MA_CLI = (("dryrun llama3-405b train_4k 16x16", "sp"), ("dryrun smollm-360m trai
           ("dryrun xlstm-125m long_500k 2x16x16", "mp"))
 
 
-def ma5_report(torch, np, name: str, one: dict, ranks: list, launches: dict, card: str,
-               expect) -> None:
-    """(ma5) ``name``: the ranks against one process (the comment above
-    ``MA5``)."""
-    from repro_torch.configs import get_config
+def ma5_held(np, name: str, one: dict, ranks: list) -> tuple:
+    """(what failed, what was held): the split run ``ranks`` against one
+    process's ``one`` by ``MA5_TOL[name]`` (the comment above ``MA5``)."""
+    tol, failed, held = MA5_TOL[name], [], []
+    steps = range(MA5_STEPS)
+    if tol == "anchor":
+        pairs = {"logits": [(_gap(np, one["logits"][:, i], one["anchor_logits"][:, i]),
+                             _gap(np, ranks[0]["logits"][:, i], one["anchor_logits"][:, i]))
+                            for i in steps],
+                 "state": [(_gap(np, one[f"{k}_r{r}"], one[f"anchor_{k}_r{r}"]),
+                            _gap(np, rr[k], one[f"anchor_{k}_r{r}"]))
+                           for r, rr in enumerate(ranks) for k in rr if k.startswith("state_")]}
+        for what, got in pairs.items():
+            one_max, split_max = max(p[0] for p in got), max(p[1] for p in got)
+            held.append(f"{what}: one process's bf16 run {one_max:.4g} from its f32 run, the "
+                        f"split's {split_max:.4g} (ratio {split_max / one_max:.3f}, limit "
+                        f"{MA5_ANCHOR})")
+            if not split_max <= MA5_ANCHOR * one_max:
+                failed.append(held[-1])
+        return failed, "; ".join(held)
+    step_gap = max(_gap(np, ranks[0]["logits"][:, i], one["logits"][:, i]) for i in steps)
+    state_gap = max(_gap(np, rr[k], one[f"{k}_r{r}"]) for r, rr in enumerate(ranks)
+                    for k in rr if k.startswith("state_"))
+    for what, got in (("logits", step_gap), ("state", state_gap)):
+        held.append(f"{what}: largest gap {got:.4g}, limit {tol[what]}")
+        if not got <= tol[what]:
+            failed.append(held[-1])
+    return failed, "; ".join(held)
+
+
+def ma5_report(torch, np, name: str, one: dict, ranks: list, planted: list, launches: dict,
+               card: str, expect) -> None:
+    """(ma5) ``name``: the ranks against one process, and the planted
+    fault's run rejected by the same check (the comment above ``MA5``)."""
     from repro_torch.launch.sharding import spec_axes
 
-    arch, s = MA5[name]
-    cfg = get_config(arch)
+    arch, s, dtype = MA5[name]
+    cfg = ma5_config(name)
     r0, r1 = ranks
     for k in ("logits", "greedy"):  # each rank holds its own state blocks
         expect(np.array_equal(r0[k], r1[k]), f"{name}: the ranks differ in {k}")
+    expect(bool(np.isfinite(r0["logits"]).all()), f"{name}: non-finite logits")
+    failed, held = ma5_held(np, name, one, ranks)
+    for what in failed:
+        expect(False, f"{name}: {what}")
+    caught, planted_held = ma5_held(np, name, one, planted)
+    expect(bool(caught), f"{name}: the planted fault passed the check ({planted_held})")
     step_gaps = [_gap(np, r0["logits"][:, i], one["logits"][:, i]) for i in range(MA5_STEPS)]
     agree = float((r0["greedy"] == one["greedy"]).mean())
-    state = {}
-    for r, rr in enumerate(ranks):
-        for k in rr:
-            if k.startswith("state_"):
-                state[f"{k}_r{r}"] = _gap(np, rr[k], one[f"{k}_r{r}"])
+    state = {f"{k}_r{r}": _gap(np, rr[k], one[f"{k}_r{r}"]) for r, rr in enumerate(ranks)
+             for k in rr if k.startswith("state_")}
     _, layout = ma5_layout(cfg, s)
     split = sum(any(spec_axes(e) for e in spec) for specs in layout.values()
                 for spec in specs.values())
     worst = max(state, key=state.get)
-    expect(max(step_gaps) <= MA5_TOL["logits"],
-           f"{name}: a step's logits gap {max(step_gaps):.3g} (tolerance {MA5_TOL['logits']})")
-    expect(state[worst] <= MA5_TOL["state"],
-           f"{name}: state block {worst} gap {state[worst]:.3g} (tolerance {MA5_TOL['state']})")
     expect(split > 0, f"{name}: no recurrent cache leaf is split over model")
     issued = {str(k).replace("_", "-"): int(v) for k, v in
               zip(r0["collective_names"], r0["collectives"]) if v}
+    sent = [int(rr["collective_bytes"].sum()) for rr in ranks]
     counted = ma5_counted(torch, cfg, s)
     expect(counted["collectives"] == issued,
            f"{name}: a decode step's collectives counted {counted['collectives']}, issued {issued}")
+    for r, got in enumerate(sent):
+        expect(got == counted["collective_bytes"] and got <= MA5_BYTES[name],
+               f"{name}: rank {r}'s decode step moved {got} B, counted "
+               f"{counted['collective_bytes']:.10g} (limit {MA5_BYTES[name]:.3g})")
+    as_counted = counted["collectives"] == issued and sent == [counted["collective_bytes"]] * 2
     one_l = {str(k): int(v) for k, v in zip(one["launch_names"], one["launches"]) if v}
     for r, rr in enumerate(ranks):
         got = {str(k): int(v) for k, v in zip(rr["launch_names"], rr["launches"]) if v}
         expect(got == one_l, f"{name}: rank {r} launched {got}, one process {one_l}")
         for k, v in got.items():
             launches[k] += v
-    print(f"{name} {arch} whole, bf16, batch {MA5_BATCH}, prompt {s}, {MA5_STEPS} decode steps "
-          f"at mesh {MA_MESH} ({card}): largest logits gap of a step {max(step_gaps):.4g} "
-          f"(each step {[float(f'{g:.3g}') for g in step_gaps]}); the ranks' own greedy tokens "
-          f"agree with one process's in {agree:.4f}; state blocks ({len(state)} leaves over 2 "
-          f"ranks, {split} of {sum(len(v) for v in layout.values())} leaves split over model, "
-          f"at most {MA_SAMPLE} entries a leaf) largest gap {state[worst]:.4g} ({worst}), median "
+    print(f"{name} {arch} whole, {dtype}, batch {MA5_BATCH}, prompt {s}, {MA5_STEPS} decode steps "
+          f"at mesh {MA_MESH} ({card}): held ({held}); the planted fault's run "
+          f"({planted_held}) rejected: {bool(caught)}; largest logits gap of a step "
+          f"{max(step_gaps):.4g} (each step {[float(f'{g:.3g}') for g in step_gaps]}; one process "
+          f"with one weight moved by one ulp moves its prefill's logits by "
+          f"{float(one['ulp_gap'][0]):.4g}, a decode step's by up to "
+          f"{float(one['ulp_gap'][1:].max()):.4g}); the ranks' own greedy tokens agree with one process's in "
+          f"{agree:.4f}; state blocks ({len(state)} leaves over 2 ranks, {split} of "
+          f"{sum(len(v) for v in layout.values())} leaves split over model, at most {MA_SAMPLE} "
+          f"entries a leaf) largest gap {state[worst]:.4g} ({worst}), median "
           f"{float(np.median(list(state.values()))):.4g}; collectives a decode step a rank "
-          f"{issued} ({counted['collective_bytes']:.6g} B counted, as the count charges them: "
-          f"{counted['collectives'] == issued}); peak bytes one process {int(one['peak_bytes'])} "
-          f"rank 0 {int(r0['peak_bytes'])} rank 1 {int(r1['peak_bytes'])}; seconds one process "
-          f"prefill {float(one['prefill_s']):.3f} decode {float(one['decode_s']):.3f}, rank 0 "
-          f"prefill {float(r0['prefill_s']):.3f} decode {float(r0['decode_s']):.3f} (both ranks "
-          f"share the card: no speed-up); launches a rank {one_l}", flush=True)
+          f"{issued}, bytes the ranks' calls returned {sent} (counted "
+          f"{counted['collective_bytes']:.10g}: {as_counted}); peak bytes one process "
+          f"{int(one['peak_bytes'])} rank 0 {int(r0['peak_bytes'])} rank 1 {int(r1['peak_bytes'])}; "
+          f"seconds one process prefill {float(one['prefill_s']):.3f} decode "
+          f"{float(one['decode_s']):.3f}, rank 0 prefill {float(r0['prefill_s']):.3f} decode "
+          f"{float(r0['decode_s']):.3f} (both ranks share the card: no speed-up); launches a rank "
+          f"{one_l}", flush=True)
 
 
 def ma6_report(np, api, one: dict, ranks: list, launches: dict, card: str, expect) -> None:
@@ -3159,10 +3327,11 @@ def family_serve(torch, kernels, label: str, cfg, seed: int, card: str) -> dict:
 
 def xlstm_serve(torch, kernels, card: str) -> dict:
     """(y) ``python -m repro_torch.launch.serve --arch xlstm-125m`` (whole,
-    bf16, the card): prefill 8 x 128 as one decode cell a token after one
-    ``ln1`` norm over the prompt, so kernel 6 runs L (1 + S) + 1 = 1,549
-    times in the prefill and 2L + 1 = 25 times a decode step; kernel 7
-    never.  Then 8 decode steps under the profiler."""
+    bf16, the card): prefill 8 x 128, an sLSTM block as one decode cell a
+    token after one ``ln1`` norm over the prompt, an mLSTM block its
+    ``ln1`` and inner norm once over the prompt, so kernel 6 runs
+    L/2 (1 + S) + L + 1 = 787 times in the prefill and 2L + 1 = 25 times a
+    decode step; kernel 7 never.  Then 8 decode steps under the profiler."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
@@ -3177,8 +3346,9 @@ def xlstm_serve(torch, kernels, card: str) -> dict:
           f"(y): not xlstm-125m whole: {cfg}, {n_params}")
     s, new = int(SERVE_Y[5]), int(SERVE_Y[7])
     per_step = 2 * cfg.n_layers + 1
-    prefill = cfg.n_layers * (1 + s) + 1
-    check(out["prefill_launches"]["rmsnorm"] == prefill == 1549,
+    reps = cfg.pattern_repeats()
+    prefill = reps * cfg.block_pattern.count("slstm") * (1 + s) + reps * 2 + 1
+    check(out["prefill_launches"]["rmsnorm"] == prefill == 787,
           f"(y): prefill launches {out['prefill_launches']}")
     _serve_checks(torch, "(y)", eng, counts, {"rmsnorm": prefill + per_step * (new - 1)}, new)
     peak = torch.cuda.max_memory_allocated() / 1e9

@@ -26,8 +26,13 @@ round's cohort multiplied by the pod size, as the reference's) count rank
 launch.sharding.activation_rules(...))`` on an ``analysis.cost.
 CountingMesh`` (no process), with its blocks of the parameters
 (``param_shardings``; ``fsdp`` for the cohort_sequential archs) and of
-the caches (``cache_shardings``; a decode step charges the all-gathers
-of the recurrent states it gathers at use), its block of the round's
+the caches (``cache_shardings``), where the mamba2 and mLSTM heads are
+computed split (the ``state`` rule: the columns of each block's projection
+and conv outputs a rank uses exchanged or gathered, its partial sums
+all-reduced, a prefill's final states moved to the caches' layout by
+all_to_all; no weight or state leaf of theirs gathered) and the sLSTM's leaves and states, and those of a block
+whose heads the ``model`` line does not divide, are gathered at use; its
+block of the round's
 clients (client_parallel, whose client-axis collectives a
 ``CountingShard`` charges) or of each batch's rows (the rules' batch
 axes; a MoE arch's dense dispatch charges the (E,) count gather and the

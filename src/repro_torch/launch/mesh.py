@@ -51,6 +51,7 @@ __all__ = [
     "fsdp_axes",
     "world_size",
     "collective_counts",
+    "collective_bytes",
     "reset_collective_counts",
     "AxisGroup",
     "is_writer",
@@ -59,6 +60,7 @@ __all__ = [
 
 _COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "reduce_scatter": 0,
                 "all_to_all": 0}
+_COLLECTIVE_BYTES = dict.fromkeys(_COLLECTIVES, 0)
 
 
 def collective_counts() -> dict:
@@ -66,9 +68,17 @@ def collective_counts() -> dict:
     return dict(_COLLECTIVES)
 
 
+def collective_bytes() -> dict:
+    """The result payload of those collectives, by kind: the bytes of each
+    call's output on this rank (``analysis.cost``'s ``collective_bytes``
+    charges the same)."""
+    return dict(_COLLECTIVE_BYTES)
+
+
 def reset_collective_counts() -> None:
     for k in _COLLECTIVES:
         _COLLECTIVES[k] = 0
+        _COLLECTIVE_BYTES[k] = 0
 
 
 def world_size() -> int:
@@ -257,7 +267,7 @@ class AxisGroup:
         y = x.contiguous().clone()
         dist.all_reduce(y, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
                         group=self.pg)
-        _count("all_reduce")
+        _count("all_reduce", y)
         return y
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -267,8 +277,9 @@ class AxisGroup:
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x, group=self.pg)
-        _count("all_gather")
-        return torch.cat(parts, dim)
+        out = torch.cat(parts, dim)
+        _count("all_gather", out)
+        return out
 
     def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The sum over the ranks of ``x``, this rank's block along ``dim``."""
@@ -279,7 +290,7 @@ class AxisGroup:
         src = xs.cpu() if staged else xs
         out = src.new_empty((src.shape[0] // self.size,) + tuple(src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, group=self.pg)
-        _count("reduce_scatter")
+        _count("reduce_scatter", out)
         return (out.to(x.device) if staged else out).movedim(0, dim)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -293,7 +304,7 @@ class AxisGroup:
             src = src.cpu()
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=self.pg)
-        _count("all_to_all")
+        _count("all_to_all", out)
         return out.to(x.device) if staged else out
 
 
@@ -346,8 +357,9 @@ def fsdp_axes(mesh) -> tuple:
     return batch_axes(mesh)
 
 
-def _count(kind: str) -> None:
+def _count(kind: str, out: torch.Tensor) -> None:
     _COLLECTIVES[kind] += 1
+    _COLLECTIVE_BYTES[kind] += out.numel() * out.element_size()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -447,7 +459,7 @@ class ShardSpec:
             return x
         x = x.contiguous()
         dist.all_reduce(x, op=op, group=group)
-        _count("all_reduce")
+        _count("all_reduce", x)
         return x
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -476,8 +488,9 @@ class ShardSpec:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
         parts = [torch.empty_like(x) for _ in range(s)]
         dist.all_gather(parts, x.contiguous(), group=group)
-        _count("all_gather")
-        out = torch.cat(parts)[: int(n)]
+        whole = torch.cat(parts)
+        _count("all_gather", whole)
+        out = whole[: int(n)]
         return out.to(dtype) if dtype == torch.bool else out
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -487,7 +500,7 @@ class ShardSpec:
             return x
         x = x.contiguous()
         dist.broadcast(x, src=src, group=group)
-        _count("broadcast")
+        _count("broadcast", x)
         return x
 
     def to_manifest(self) -> dict:

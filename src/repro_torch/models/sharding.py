@@ -10,9 +10,10 @@ runs one rank's share of the step: its parameters are this rank's blocks
 (``launch/sharding.py:param_shardings``) and it splits what the rules split
 over ``model`` (``ffn``: the MLP's hidden units, ``experts``: the MoE's
 expert stacks, ``vocab``: the embedding rows and the head's columns,
-``kv_seq``: the decode caches' sequence), and the batch where the rules give
-``batch`` the batch axes.  Every other leaf is gathered whole at its use
-(``models/transformer.py``).  ``shard`` never changes values, as in the
+``kv_seq``: the decode caches' sequence, ``state``: the mamba2 and mLSTM
+heads, ``models/ssm.py`` and ``models/xlstm.py``), and the batch where the
+rules give ``batch`` the batch axes.  Every other leaf is gathered whole at
+its use (``models/transformer.py``).  ``shard`` never changes values, as in the
 reference; under the rules it checks that each dimension the port splits
 has the local size the rules imply (``whole`` gives the dimension's whole
 size) and raises ``ValueError`` on a mismatch.
@@ -29,6 +30,12 @@ pair:
                                            reduce-scatter (``grad="sum"``:
                                            each rank's gradient is partial)
   ``all_to_all``      exchange forward     the inverse exchange backward
+
+``gather_blocks`` (the whole tensors of several blocks in one
+all_gather), ``block`` (this rank's block of a whole tensor),
+``redistribute`` (a block along one dimension as the block along another,
+one all_to_all) and ``take_columns`` (the columns a rank uses of a tensor
+split on its columns, one all_to_all) are built on them.
 
 They run over a ``launch.mesh.AxisGroup`` (a ``torch.distributed`` group,
 counted in ``launch.mesh.collective_counts``), or over the dry run's
@@ -63,6 +70,11 @@ __all__ = [
     "all_gather",
     "all_to_all",
     "PORT_SPLIT",
+    "block",
+    "row_block_matmul",
+    "gather_blocks",
+    "redistribute",
+    "take_columns",
     "split_rows",
     "row_split",
 ]
@@ -86,9 +98,10 @@ DEFAULT_RULES = {
     "state": ("model",),  # SSM recurrent state heads
 }
 
-# The logical axes the port's per-rank program holds split; the others
-# (heads, kv_heads, state, seq) are computed whole on gathered weights.
-PORT_SPLIT = ("batch", "ffn", "experts", "vocab", "kv_seq")
+# The logical axes the port's per-rank program holds split ("state": a
+# mamba2 or mLSTM block's heads, where the model line divides them); the
+# others (heads, kv_heads, seq) are computed whole on gathered weights.
+PORT_SPLIT = ("batch", "ffn", "experts", "vocab", "kv_seq", "state")
 
 
 @contextlib.contextmanager
@@ -375,15 +388,117 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return _AllToAll.apply(x, group) if _needs_function(x) else group.all_to_all(x)
 
 
+def block(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """This rank's block of ``x`` (whole on every rank of ``group``) along
+    ``dim``: a view; ``x`` itself for no group."""
+    if group is None:
+        return x
+    m = x.shape[dim] // group.size
+    return x.narrow(dim, group.rank * m, m)
+
+
+def row_block_matmul(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """``x @ w`` where ``w`` is this rank's row block of a weight split over
+    ``group`` and ``x`` the matching block of its input: the partial
+    products all-reduced, in x's dtype.  A low-precision partial product is
+    formed and summed in f32 and rounded once, as one GEMM over the whole
+    rows rounds its f32 accumulator once.  ``group`` None: ``x @ w``."""
+    if group is None:
+        return x @ w
+    if x.dtype == torch.float32:
+        return all_reduce(x @ w, group)
+    return all_reduce(x.float() @ w.float(), group).to(x.dtype)
+
+
+def gather_blocks(parts, group, grad: str = "sum") -> list:
+    """The whole tensors of this rank's blocks ``parts`` (each split over
+    ``group`` along its last dimension, contiguous blocks in rank order),
+    with one all_gather of their concatenation; ``grad`` as
+    ``all_gather``'s.  ``parts`` themselves for no group."""
+    parts = list(parts)
+    if group is None:
+        return parts
+    if len(parts) == 1:
+        return [all_gather(parts[0], group, -1, grad)]
+    widths = [p.shape[-1] for p in parts]
+    whole = all_gather(torch.cat(parts, -1), group, -1, grad)
+    whole = whole.unflatten(-1, (group.size, sum(widths)))
+    return [t.flatten(-2) for t in whole.split(widths, -1)]
+
+
+def redistribute(x: torch.Tensor, group, src: int, dst) -> torch.Tensor:
+    """``x``, this rank's block along ``src`` of a tensor split over
+    ``group``, as its block along ``dst`` (one all_to_all), or whole
+    (``dst`` None: an all_gather)."""
+    if group is None or dst == src:
+        return x
+    if dst is None:
+        return all_gather(x, group, src)
+    got = all_to_all(torch.stack(x.chunk(group.size, dst)), group)
+    return torch.cat(got.unbind(0), src)
+
+
+def take_columns(x: torch.Tensor, group, need) -> torch.Tensor:
+    """The columns ``need(rank)`` names for this rank (a list of (start,
+    stop) ranges of the whole tensor's last dimension), in order, from
+    ``x``, this rank's block of a tensor split over ``group`` along its last
+    dimension (contiguous equal blocks in rank order).  One all_to_all:
+    each rank sends every other the columns it holds of that rank's
+    ranges, each chunk padded to the widest such chunk (all from shapes,
+    the same on every rank); this rank's own columns are taken in place.
+    ``need`` is a function of a rank, the same on every rank.  ``group``
+    None: ``x``'s columns ``need(0)``."""
+    if group is None:
+        return torch.cat([x[..., a:b] for a, b in need(0)], -1)
+    w, size, me = x.shape[-1], group.size, group.rank
+
+    def held(i, j):  # rank j's ranges that rank i holds, in rank i's columns
+        return [(max(a, i * w) - i * w, min(b, (i + 1) * w) - i * w) for a, b in need(j)
+                if max(a, i * w) < min(b, (i + 1) * w)]
+
+    def width(ranges):
+        return sum(b - a for a, b in ranges)
+
+    m = max(width(held(i, j)) for i in range(size) for j in range(size) if i != j)
+    got = None
+    if m:
+        chunks = []
+        for j in range(size):
+            parts = [] if j == me else [x[..., a:b] for a, b in held(me, j)]
+            pad = m - width(held(me, j)) if j != me else m
+            chunks.append(torch.cat(parts + [x.new_zeros(x.shape[:-1] + (pad,))], -1))
+        got = all_to_all(torch.stack(chunks), group)  # got[i]: rank i's chunk for this rank
+    out, at = [], [0] * size
+    for a, b in need(me):
+        for i in range(a // w, (b - 1) // w + 1):  # the ranks holding [a, b), in order
+            lo, hi = max(a, i * w) - i * w, min(b, (i + 1) * w) - i * w
+            if i == me:
+                out.append(x[..., lo:hi])
+            else:
+                out.append(got[i][..., at[i] : at[i] + hi - lo])
+                at[i] += hi - lo
+    return torch.cat(out, -1)
+
+
 # ---------------------------------------------------------------------------
 # parameters at their use
 # ---------------------------------------------------------------------------
 
-# Leaves whose model-split dimension the model code consumes split (step 6's
-# MLP: ``mlp``/``dense`` up, gate, down; step 7's expert stacks), by the
-# dict that holds them.
-CONSUMED = {"mlp": ("up", "gate", "down"), "dense": ("up", "gate", "down"),
-            "moe": ("w_gate", "w_up", "w_down")}
+# Leaves whose model-split dimension the model code consumes split, by
+# (block kind, the dict that holds them); kind None: in every block.  Step
+# 6's MLP (``mlp``/``dense`` up, gate, down), step 7's expert stacks, and
+# the projections of a mamba2 or mLSTM block whose heads this rank
+# computes (``models/ssm.py``, ``models/xlstm.py``).  The sLSTM's leaves
+# under the same ``cell`` key are not caught: its block is gathered whole.
+CONSUMED = {(None, "mlp"): ("up", "gate", "down"), (None, "dense"): ("up", "gate", "down"),
+            (None, "moe"): ("w_gate", "w_up", "w_down"),
+            ("mamba2", "ssm"): ("in_proj", "conv_w", "out_proj"),
+            ("mlstm", "cell"): ("up", "conv_w", "wq", "wk", "wv", "w_if", "down")}
+
+
+def consumed(kind, parent: str) -> tuple:
+    """The leaves of ``parent`` in a block of ``kind`` consumed split."""
+    return CONSUMED.get((None, parent), ()) + (CONSUMED.get((kind, parent), ()) if kind else ())
 
 
 def batch_group():
@@ -414,12 +529,14 @@ def use_leaf(x: torch.Tensor, spec: tuple, consumed: bool = False) -> torch.Tens
     return reduce_grad(x, group_of(rest)) if rest else x
 
 
-def use_block(tree, specs, parent: str = ""):
+def use_block(tree, specs, parent: str = "", kind=None):
     """``use_leaf`` over a block's tree of blocks and its specs: every leaf
-    whole but the model-split dimension of the ``CONSUMED`` leaves."""
+    whole but the model-split dimension of the ``CONSUMED`` leaves (those
+    of ``kind``'s own entries only when ``kind`` is given: a block that
+    computes its heads split)."""
     if isinstance(tree, dict):
-        return {k: (use_block(v, specs[k], k) if isinstance(v, dict)
-                    else use_leaf(v, specs[k], k in CONSUMED.get(parent, ())))
+        return {k: (use_block(v, specs[k], k, kind) if isinstance(v, dict)
+                    else use_leaf(v, specs[k], k in consumed(kind, parent)))
                 for k, v in tree.items()}
     return use_leaf(tree, specs, False)
 

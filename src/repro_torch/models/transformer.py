@@ -20,10 +20,12 @@ K/V for the self-attention kinds (``moe`` included), the recurrent {"conv",
 "ssm"} state for ``mamba2`` and the {"c", "n", "m", ...} states for
 ``mlstm`` and ``slstm`` (never paged), the fixed-width cross K/V {"k", "v"}
 (B, frontend_seq, KV, hd) for ``cross_attn`` and {"self": K/V, "cross":
-{"k", "v"}} for ``dec`` (only the self half is paged).  An
-``mlstm``/``slstm`` prefill is the decode cell run over the prompt a token
-at a time, after one ``ln1`` norm over the whole sequence (the reference's
-``_recurrent_prefill``).
+{"k", "v"}} for ``dec`` (only the self half is paged).  An ``slstm``
+prefill is the decode cell run over the prompt a token at a time, after
+one ``ln1`` norm over the whole sequence (the reference's
+``_recurrent_prefill``); an ``mlstm`` prefill computes the same function
+with its projections and inner norm run once over the prompt
+(``xlstm.mlstm_prefill``).
 
 The frontend archs (the vlm and whisper) take ``aux_embeds``, the stubbed
 frontend's output (B, frontend_seq, frontend_dim) f32, in ``forward``,
@@ -46,7 +48,8 @@ adds its ``lnx`` norm and its cross-attention (three kernel-6 and two
 kernel-7 launches), whisper's encoder ``2 E + 1`` kernel-6 and ``E``
 kernel-7 launches.  A decode step launches kernel 6 as often as a forward
 (the decoder's part of it) and kernels 7 and 8 never; an xLSTM prefill of S
-tokens launches kernel 6 ``L * (1 + S) + 1`` times.
+tokens launches kernel 6 twice an ``mlstm`` block, ``1 + S`` times an
+``slstm`` block and once more for the final norm.
 ``params_from_reference`` turns the JAX reference's ``init_params`` tree
 (numpy leaves) into the port's tree.
 
@@ -55,14 +58,19 @@ functions run one rank's share (``models/sharding.py``): ``params`` are its
 blocks (``launch/sharding.py:param_shardings``); each pattern group, the
 ``shared`` block, the encoder and the frontend projection gather their
 leaves at use, but the MLP's hidden units and the experts, which
-``models/mlp.py`` and ``models/moe.py`` compute split; the vocabulary is
-split over ``model`` (a masked embedding on the rank's rows and one
-all_reduce; local logits; ``loss_fn``'s vocabulary-parallel cross-entropy;
-``forward``, ``prefill`` and ``decode_step`` all-gather their logits); a
-decode step attends a K/V cache whose sequence is split where it lies and
-gathers a recurrent state (``mamba2``, ``mlstm``, ``slstm``) whole at its
-use, writing its block of the new state back.
-Kernels 6-8 run unchanged on whole local activations.
+``models/mlp.py`` and ``models/moe.py`` compute split, and the
+projections of a ``mamba2`` or ``mlstm`` block whose heads the ``model``
+line divides, which ``models/ssm.py`` and ``models/xlstm.py`` compute on
+this rank's heads (the ``state`` rule) in training, prefill and decode;
+the vocabulary is split over ``model`` (a masked embedding on the rank's
+rows and one all_reduce; local logits; ``loss_fn``'s vocabulary-parallel
+cross-entropy; ``forward``, ``prefill`` and ``decode_step`` all-gather
+their logits); a decode step attends a K/V cache whose sequence is split
+where it lies, updates a split ``mamba2``/``mlstm`` state in the layout its
+cache has, and gathers an ``slstm`` state (or the state of a block whose
+heads the line does not divide) whole at its use, writing its block of the
+new state back.  Kernels 6-8 run unchanged on local activations: kernel 8
+on a rank's heads.
 """
 from __future__ import annotations
 
@@ -105,10 +113,12 @@ PORTED_KINDS = ("attn", "attn_local", "moe", "mamba2", "shared_attn", "mlstm", "
                 "cross_attn", "dec")  # "enc" blocks live in params["encoder"] alone
 ATTN_KINDS = ("attn", "attn_local", "moe", "shared_attn")  # flat self-attention K/V caches
 STATE_KINDS = ("mamba2", "mlstm", "slstm")  # a recurrent state, O(1) in the sequence
-_RECURRENT = {  # kind: (decode step, state init)
-    "mlstm": (xlstm_mod.mlstm_decode_step, xlstm_mod.init_mlstm_state),
-    "slstm": (xlstm_mod.slstm_decode_step, xlstm_mod.init_slstm_state),
-}
+HEADS_KINDS = ("mamba2", "mlstm")  # computed on a rank's heads under the ``state`` rule
+# The dimensions (of one repeat's leaf: 0 the batch) a split-heads block's
+# state may be split on over the model line (None: whole).
+_CELL_DIMS = {"mamba2": {"conv": (2,), "ssm": (None, 1, 2, 3)},
+              "mlstm": {"conv": (2,), "c": (None, 1, 2, 3), "n": (None, 1, 2), "m": (None, 1)}}
+_STATE_INIT = {"mlstm": xlstm_mod.init_mlstm_state, "slstm": xlstm_mod.init_slstm_state}
 
 
 def _check_kind(kind: str) -> None:
@@ -332,7 +342,8 @@ def _recurrent_prefill(step_fn, state, x):
 
 
 def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cache=None,
-                 index=None, max_seq=None, masks=None, shared=None, cross_src=None, kv=None):
+                 index=None, max_seq=None, masks=None, shared=None, cross_src=None, kv=None,
+                 line=None, layout=None):
     """Returns (h, new_cache, aux): aux the block's MoE load-balance loss
     (None for the other kinds).  ``rope``: the (cos, sin) tables of the
     positions this call processes, shared by every layer.  ``shared_attn``
@@ -341,7 +352,9 @@ def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cac
     in place.  ``cross_src``: the cross-attention source (B, S_src, d) of
     ``cross_attn`` and ``dec`` in train and prefill; decode reads the
     cross cache.  ``kv``: the split self-attention cache's line (decode
-    under a mesh)."""
+    under a mesh).  ``line``: the ``model`` line a ``mamba2``/``mlstm``
+    block computes its heads over, ``layout`` its cache's layout (prefill
+    and decode), both from ``_split_cells``."""
     if kind == "shared_attn":
         return _apply_block("attn", shared, cfg, h, rope, mode=mode, cache=cache, index=index,
                             max_seq=max_seq, masks=masks, kv=kv)
@@ -376,22 +389,30 @@ def _apply_block(kind: str, p: dict, cfg: ArchConfig, h, rope, *, mode: str, cac
         return h + mlp(p["mlp"], cfg, rms_norm(h, p["ln2"], cfg.norm_eps)), new_cache, None
     if kind == "mamba2":
         if mode == "decode":
-            y, cache = ssm_mod.mamba2_decode_step(p["ssm"], cfg, x, cache)
+            y, cache = ssm_mod.mamba2_decode_step(p["ssm"], cfg, x, cache, line, layout)
         elif mode == "prefill":
-            y, cache = ssm_mod.mamba2_block(p["ssm"], cfg, x, return_state=True)
+            y, cache = ssm_mod.mamba2_block(p["ssm"], cfg, x, return_state=True, line=line,
+                                            layout=layout)
         else:
-            y = ssm_mod.mamba2_block(p["ssm"], cfg, x)
+            y = ssm_mod.mamba2_block(p["ssm"], cfg, x, line=line)
         return h + y, cache, None
-    if kind in _RECURRENT:
-        step, init_state = _RECURRENT[kind]
+    if kind == "mlstm":
         if mode == "decode":
-            y, cache = step(p["cell"], cfg, x, cache)
+            y, cache = xlstm_mod.mlstm_decode_step(p["cell"], cfg, x, cache, line, layout)
         elif mode == "prefill":
-            state0 = init_state(cfg, x.shape[0], device=x.device)
-            y, cache = _recurrent_prefill(lambda tok, st: step(p["cell"], cfg, tok, st), state0, x)
+            y, cache = xlstm_mod.mlstm_prefill(p["cell"], cfg, x, line, layout)
         else:
-            block = xlstm_mod.mlstm_block if kind == "mlstm" else xlstm_mod.slstm_block
-            y = block(p["cell"], cfg, x)
+            y = xlstm_mod.mlstm_block(p["cell"], cfg, x, line)
+        return h + y, cache, None
+    if kind == "slstm":
+        if mode == "decode":
+            y, cache = xlstm_mod.slstm_decode_step(p["cell"], cfg, x, cache)
+        elif mode == "prefill":
+            state0 = xlstm_mod.init_slstm_state(cfg, x.shape[0], device=x.device)
+            y, cache = _recurrent_prefill(
+                lambda tok, st: xlstm_mod.slstm_decode_step(p["cell"], cfg, tok, st), state0, x)
+        else:
+            y = xlstm_mod.slstm_block(p["cell"], cfg, x)
         return h + y, cache, None
     window = cfg.sliding_window if kind == "attn_local" else None
     if mode == "decode":
@@ -432,12 +453,18 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
     Under a mesh (``models.sharding.active``) ``params`` are this rank's
     blocks: each group gathers its blocks' leaves (and ``shared``'s) at its
     entry (``sharding.use_block``), inside the recomputed group under
-    remat.  A decode step's ``cache_specs`` (``launch.sharding.
-    cache_shardings``) give each slot's cache layout: a self-attention
-    cache's split sequence is attended where it lies, a cross cache is
-    gathered whole; a recurrent state is gathered whole, the unsplit cell
-    updates it, and this rank's block of the new state is written back
-    into the cache in place (``_keep_blocks``)."""
+    remat, but the leaves the blocks consume split: the MLP's and the
+    experts', and a ``mamba2``/``mlstm`` block's projections where the
+    ``model`` line divides its heads (``_split_cells``).  ``cache_specs``
+    (``launch.sharding.cache_shardings``; prefill and decode) give each
+    slot's cache layout: a self-attention cache's split sequence is
+    attended where it lies, a cross cache is gathered whole; a split-heads
+    block's state is updated (decode) or laid out (prefill) where its cache
+    holds it; any other recurrent state (``slstm``, a block whose heads
+    the line does not divide or whose cache the split cell cannot take) is
+    gathered whole, the unsplit cell updates it, and this rank's block of
+    the new state is written back into the cache in place
+    (``_keep_blocks``)."""
     for kind in cfg.block_pattern:
         _check_kind(kind)
     reps = cfg.pattern_repeats()
@@ -452,9 +479,11 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
     remat = mode == "train" and _remat_on(cfg)
     specs = _specs(cfg)
     block_specs = None if specs is None else [msh.drop_lead(s) for s in specs["stacks"]]
+    lines, cells = _split_cells(cfg, block_specs, cache_specs)
     kvs = [None] * len(cfg.block_pattern)
     if specs is not None and mode == "decode":
-        kvs = [_decode_layout(kind, s) for kind, s in zip(cfg.block_pattern, cache_specs)]
+        kvs = [None if line is not None else _decode_layout(kind, s)
+               for kind, s, line in zip(cfg.block_pattern, cache_specs, lines)]
     rules = msh.captured()
 
     def group(h, blocks, shared, cross_src, rope, r=None):
@@ -465,7 +494,8 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
 
     def _group(h, blocks, shared, cross_src, rope, r=None):
         if block_specs is not None:
-            blocks = [msh.use_block(b, s) for b, s in zip(blocks, block_specs)]
+            blocks = [msh.use_block(b, s, kind=kind if line is not None else None)
+                      for b, s, kind, line in zip(blocks, block_specs, cfg.block_pattern, lines)]
             if shared is not None:
                 shared = msh.use_block(shared, specs["shared"])
         aux_sum = None
@@ -480,7 +510,7 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
             h, nc, aux = _apply_block(
                 kind, blocks[j], cfg, h, rope, mode=mode, cache=cache,
                 index=index, max_seq=max_seq, masks=masks, shared=shared,
-                cross_src=cross_src, kv=kv,
+                cross_src=cross_src, kv=kv, line=lines[j], layout=cells[j],
             )
             if held is not None:
                 nc = _keep_blocks(held, nc, layout)
@@ -501,7 +531,10 @@ def _run_stack(params, cfg: ArchConfig, h, *, mode, caches=None, index=None, max
             group_aux.append(aux_sum)
     aux = torch.stack(group_aux).sum() if group_aux else None
     if mode == "prefill":
-        return h, aux, [_stack(c) for c in out_caches]
+        caches = [_stack(c) for c in out_caches]
+        if cache_specs is not None:
+            caches = _cut_caches(caches, cache_specs, lines)
+        return h, aux, caches
     return h, aux, caches
 
 
@@ -513,6 +546,41 @@ def _specs(cfg: ArchConfig):
     from repro_torch.launch.sharding import whole_param_specs
 
     return whole_param_specs(cfg, ctx[0], ctx[2])
+
+
+def _split_cells(cfg: ArchConfig, block_specs, cache_specs=None) -> tuple:
+    """(lines, cells): per pattern slot, the ``model`` line a ``mamba2``/
+    ``mlstm`` block computes its heads over, and the layout its split cell
+    takes the cache in (``_cell_layout``; None without ``cache_specs``).
+    A slot has a line when the rules' ``state`` axis is ``model``, the line
+    divides the block's heads, ``param_specs`` splits every leaf the block
+    consumes and, given ``cache_specs`` (prefill and decode), the cell can
+    take the cache's layout.  Otherwise its leaves (and state) are gathered
+    whole at use: no mesh; ``slstm`` and the other kinds; a line of more
+    ranks than divide the heads (xlstm-125m's 4 heads on a line of 16); a
+    conv state left whole because a dimension equals ``max_seq``."""
+    from repro_torch.launch.sharding import spec_axes
+
+    lines, cells = [None] * len(cfg.block_pattern), [None] * len(cfg.block_pattern)
+    line = msh.group_of("model") if msh.axes_of("state") == ("model",) else None
+    if block_specs is None or line is None:
+        return lines, cells
+    for j, kind in enumerate(cfg.block_pattern):
+        if kind not in HEADS_KINDS:
+            continue
+        heads = (cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim if kind == "mamba2"
+                 else cfg.n_heads)
+        parent = "ssm" if kind == "mamba2" else "cell"
+        spec = block_specs[j][parent]
+        if heads % line.size or not all(any(spec_axes(e) == ("model",) for e in spec[leaf])
+                                        for leaf in msh.CONSUMED[(kind, parent)]):
+            continue
+        if cache_specs is not None:
+            cells[j] = _cell_layout(kind, _held(msh.drop_lead(cache_specs[j])), line)
+            if cells[j] is None:
+                continue
+        lines[j] = line
+    return lines, cells
 
 
 def _vocab_group(entry):
@@ -697,8 +765,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, page_size: int | None
                 c = {"self": kv_cache(), "cross": c}
         elif kind == "mamba2":
             c = ssm_mod.init_mamba2_state(cfg, batch, device=dev)
-        elif kind in _RECURRENT:
-            c = _RECURRENT[kind][1](cfg, batch, device=dev)
+        elif kind in _STATE_INIT:
+            c = _STATE_INIT[kind](cfg, batch, device=dev)
         else:
             c = kv_cache()
         return _stack([c] * reps)
@@ -717,13 +785,14 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, aux_embeds=None, max_
     the batch axes where the rules split them)."""
     h = _embed(params, cfg, tokens)
     cross_src = _cross_source(params, cfg, aux_embeds)
-    h, _, caches = _run_stack(params, cfg, h, mode="prefill", max_seq=max_seq, cross_src=cross_src)
-    logits = _whole_logits(params, cfg, _final_norm(params, cfg, h)[:, -1:])
+    specs = None
     if _specs(cfg) is not None:
         if page_size is not None:
             raise NotImplementedError(f"a paged cache under a mesh: {MODEL_AXIS_LEFT}")
-        return logits, _cut_caches(cfg, caches, batch or tokens.shape[0],
-                                   max_seq or tokens.shape[1])
+        specs = _whole_cache_specs(cfg, batch or tokens.shape[0], max_seq or tokens.shape[1])
+    h, _, caches = _run_stack(params, cfg, h, mode="prefill", max_seq=max_seq, cross_src=cross_src,
+                              cache_specs=specs)
+    logits = _whole_logits(params, cfg, _final_norm(params, cfg, h)[:, -1:])
     if page_size is not None:
         caches = _caches_to_pages(cfg, caches, page_size)
     return logits, caches
@@ -758,9 +827,10 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, index: int
     mesh the caches are this rank's blocks of ``cache_shardings`` at
     ``max_seq`` (default: the local caches' length, i.e. not split) and
     ``batch`` sequences (default ``token``'s rows), and stay so: a K/V
-    cache is attended and written where its sequence lies, a recurrent
-    state is all-gathered at its use and this rank's block of the new
-    state copied back (``_run_stack``)."""
+    cache is attended and written where its sequence lies, a split-heads
+    block's state is updated where it lies, another recurrent state is
+    all-gathered at its use and this rank's block of the new state copied
+    back (``_run_stack``)."""
     h = _embed(params, cfg, token)
     specs = None
     if _specs(cfg) is not None:
@@ -833,9 +903,9 @@ def _held_dims(spec) -> list:
 def _decode_layout(kind: str, spec):
     """A slot's decode layout from its stacked cache spec: the self K/V's
     line (``_kv_line``) for the attention kinds, ``{"cross": held, "self":
-    line}`` for the cross kinds, and for a recurrent state each leaf's
-    ``_held_dims`` (None where no leaf is split: the cell updates the cache
-    as it is)."""
+    line}`` for the cross kinds, and for a recurrent state gathered at use
+    each leaf's ``_held_dims`` (None where no leaf is split: the cell
+    updates the cache as it is)."""
     one = msh.drop_lead(spec)
     if kind in ATTN_KINDS:
         return _kv_line(one["k"])
@@ -849,6 +919,21 @@ def _decode_layout(kind: str, spec):
 
 def _held(specs: dict) -> dict:
     return {k: _held_dims(s) for k, s in specs.items()}
+
+
+def _cell_layout(kind: str, held: dict, line):
+    """The dimension of each state leaf that ``held`` (``_held_dims``)
+    splits over ``line``'s ranks (None: whole), as a split-heads cell takes
+    it (``_CELL_DIMS``), or None when it cannot."""
+    mesh = msh.current_mesh()
+    out = {}
+    for leaf, dims in held.items():
+        if len(dims) > 1 or (dims and mesh.line(dims[0][1].axes) != mesh.line(line.axes)):
+            return None
+        out[leaf] = dims[0][0] if dims else None
+        if out[leaf] not in _CELL_DIMS[kind][leaf]:
+            return None
+    return out
 
 
 def _gathered(cache: dict, held: dict) -> dict:
@@ -882,15 +967,15 @@ def _gather_cross(kind: str, cache, layout):
     return got if kind == "cross_attn" else {"self": cache["self"], "cross": got}
 
 
-def _cut_caches(cfg: ArchConfig, caches, batch: int, max_seq: int):
+def _cut_caches(caches, specs, lines):
     """A prefill's caches (this rank's rows, every position) cut to this
-    rank's blocks of ``cache_shardings``: every split dimension but the
-    batch, whose rows are already this rank's."""
+    rank's blocks of ``specs`` (``cache_shardings``): every split dimension
+    but the batch, whose rows are already this rank's.  A slot with a
+    ``line`` (``_split_cells``) comes laid out already."""
     from repro_torch.launch.sharding import block_of, spec_axes
     from repro_torch.launch.mesh import batch_axes
 
     mesh = msh.current_mesh()
-    specs = _whole_cache_specs(cfg, batch, max_seq)
     b_axes = batch_axes(mesh)
 
     def cut(leaf, spec):
@@ -902,4 +987,4 @@ def _cut_caches(cfg: ArchConfig, caches, batch: int, max_seq: int):
             return {k: walk(c[k], s[k]) for k in c}
         return cut(c, s)
 
-    return [walk(c, s) for c, s in zip(caches, specs)]
+    return [c if line is not None else walk(c, s) for c, s, line in zip(caches, specs, lines)]

@@ -21,13 +21,42 @@ The stabilisers start where the reference starts them: the mLSTM training
 cell at -inf, the decode states and ``mlstm_chunked`` at -1e30.  The decode
 steps write the new states into the state dict they are given, in place
 (the serving engine's caches keep their addresses), and return that dict.
+
+A prefill (``mlstm_prefill``) runs the projections and the inner norm
+once over the prompt and the decode cell a token at a time from the decode
+states' start, the reference's function (its prefill folds the prompt in
+with the decode step).
+
+Under ``models.sharding.use_rules`` an mLSTM block may hold this rank's
+blocks of its projections over the ``model`` line (``line``, chosen by
+``models/transformer.py:_split_cells``; the reference's ``"state"`` rule,
+``shard(q, "batch", "seq", "state", None)``): columns of ``up``, ``wq``,
+``wk``, ``wv`` and ``w_if``, channels of ``conv_w``, rows of ``down``.  No
+weight is gathered: ``up``'s and the conv's outputs and the gates are
+all-gathered, ``wq``/``wk``/``wv``'s column blocks are this rank's heads,
+the heads' outputs are gathered for the inner norm (kernel 6 over the
+whole row), and ``down``'s row block gives a partial product, summed in
+f32 (``sharding.row_block_matmul``).  Training and prefill run the cell on
+this rank's heads, a prefill moving the final states to the cache's
+layout by all_to_all; a decode step gathers every head's q, k, v and gates
+and updates the state blocks in the layout its cache has (``layout``),
+``h`` from the blocks' partial sums all-reduced (or gathered).  With
+``line`` None (no mesh, or a line that does not divide the heads, whose
+leaves ``models/transformer.py`` gathers whole) the code is the unsplit
+one.  The sLSTM has no ``state``
+annotation in the reference: its block is always gathered whole at use,
+and a decode step gathers its split state and keeps its blocks
+(``models/transformer.py:_keep_blocks``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import remat
+from repro_torch.models import sharding as msh
 from repro_torch.models.common import ArchConfig, rms_norm, uniform_init
 from repro_torch.models.ssm import _causal_conv
 
@@ -35,6 +64,7 @@ __all__ = [
     "mlstm_chunked",
     "init_mlstm",
     "mlstm_block",
+    "mlstm_prefill",
     "init_mlstm_state",
     "mlstm_decode_step",
     "init_slstm",
@@ -70,27 +100,51 @@ def init_mlstm(cfg: ArchConfig, gen: torch.Generator | None) -> dict:
     }
 
 
-def _mlstm_step(c, n, m, q_t, k_t, v_t, lf, li):
+def _mlstm_step(c, n, m, q_t, k_t, v_t, lf, li, line=None, layout=None):
     """One stabilised mLSTM step: c (B,H,hd,hd), n (B,H,hd), m (B,H); q_t,
     k_t, v_t (B,H,hd) f32, q and k pre-scaled; lf, li (B,H) log forget and
-    input gates.  Returns (c, n, m, h_t (B,H,hd))."""
-    m_new = torch.maximum(lf + m, li)
-    f_s = torch.exp(lf + m - m_new)[..., None]  # (B,H,1)
-    i_s = torch.exp(li - m_new)[..., None]
+    input gates.  Returns (c, n, m, h_t (B,H,hd)).
+
+    Under ``line`` c, n and m are this rank's blocks along ``layout``'s
+    dimension of each (c: 1 heads, 2 v, 3 k; n: 1 heads, 2 k; m: 1 heads;
+    None whole) and the inputs every head's: the new blocks, and h_t whole
+    (the m block's gate factors gathered; c·q and n·q over a k block are
+    partial sums, all-reduced together, over a head or v block gathered)."""
+    at = {} if line is None else layout
+
+    def on(t, leaf, dims):  # t's slice of ``leaf``'s block: dims maps its split dim to t's
+        return t if at.get(leaf) not in dims else msh.block(t, line, dims[at[leaf]])
+
+    lf_m, li_m = on(lf, "m", {1: 1}), on(li, "m", {1: 1})
+    m_new = torch.maximum(lf_m + m, li_m)
+    f_s = torch.exp(lf_m + m - m_new)[..., None]  # (B,H,1)
+    i_s = torch.exp(li_m - m_new)[..., None]
+    floor = torch.exp(-m_new)[..., None]
+    if at.get("m") == 1:
+        f_s, i_s, floor = msh.all_gather(torch.cat([f_s, i_s, floor], -1), line, 1).split(1, -1)
     # (i v) k^T, not i (v k^T): the backward then keeps no (hd, hd) outer
     # product a step, only C itself (the next step's input); training at
     # xlstm-125m's width holds 64 steps x 6 blocks of these.
-    c = c * f_s[..., None] + (i_s * v_t)[..., :, None] * k_t[..., None, :]
-    n = n * f_s + i_s * k_t
-    denom = torch.maximum(torch.abs(torch.sum(n * q_t, dim=-1, keepdim=True)),
-                          torch.exp(-m_new)[..., None])
-    h_t = torch.einsum("bhvk,bhk->bhv", c, q_t) / denom
-    return c, n, m_new, h_t
+    c = (c * on(f_s, "c", {1: 1})[..., None]
+         + (on(i_s, "c", {1: 1}) * on(v_t, "c", {1: 1, 2: 2}))[..., :, None]
+         * on(k_t, "c", {1: 1, 3: 2})[..., None, :])
+    n = n * on(f_s, "n", {1: 1}) + on(i_s, "n", {1: 1}) * on(k_t, "n", {1: 1, 2: 2})
+    nq = torch.sum(n * on(q_t, "n", {1: 1, 2: 2}), dim=-1, keepdim=True)
+    num = torch.einsum("bhvk,bhk->bhv", c, on(q_t, "c", {1: 1, 3: 2}))
+    if at.get("c") == 3 and at.get("n") == 2:  # both partial sums: one all_reduce
+        num, nq = msh.all_reduce(torch.cat([num, nq], -1), line).split([num.shape[-1], 1], -1)
+    else:
+        num = (msh.all_reduce(num, line) if at.get("c") == 3
+               else msh.redistribute(num, line, at.get("c"), None))
+        nq = msh.all_reduce(nq, line) if at.get("n") == 2 else msh.redistribute(nq, line, at.get("n"), None)
+    denom = torch.maximum(torch.abs(nq), floor)
+    return c, n, m_new, num / denom
 
 
-def _mlstm_cell(q, k, v, i_gate, f_gate):
+def _mlstm_cell(q, k, v, i_gate, f_gate, m0: float = -math.inf, return_state: bool = False):
     """Stabilised mLSTM recurrence.  q, k, v (B,S,H,hd); gates (B,S,H)
-    pre-activation.  Returns h (B,S,H,hd) f32."""
+    pre-activation.  Returns h (B,S,H,hd) f32, and with ``return_state``
+    the final (c, n, m); the stabiliser starts at ``m0``."""
     bsz, s, h, hd = q.shape
     logf = F.logsigmoid(f_gate.to(torch.float32))
     logi = i_gate.to(torch.float32)
@@ -101,45 +155,85 @@ def _mlstm_cell(q, k, v, i_gate, f_gate):
     dev = q.device
     c = torch.zeros((bsz, h, hd, hd), dtype=torch.float32, device=dev)
     n = torch.zeros((bsz, h, hd), dtype=torch.float32, device=dev)
-    m = torch.full((bsz, h), -torch.inf, dtype=torch.float32, device=dev)
+    m = torch.full((bsz, h), m0, dtype=torch.float32, device=dev)
     hs = []
     for t in range(s):
         c, n, m, h_t = _mlstm_step(c, n, m, qf[:, t], kf[:, t], vf[:, t], logf[:, t], logi[:, t])
         hs.append(h_t)
-    return torch.stack(hs, dim=1)
+    out = torch.stack(hs, dim=1)
+    return (out, (c, n, m)) if return_state else out
 
 
-def _mlstm_qkv_gates(params: dict, cfg: ArchConfig, x: torch.Tensor, conv_state=None):
+def _mlstm_qkv_gates(params: dict, cfg: ArchConfig, x: torch.Tensor, conv_state=None, line=None,
+                     every_head: bool = False):
     """The block's projections: (z, q, k, v (B,S,H,hd) in x's dtype, i and f
-    gate pre-activations (B,S,H) f32, the new conv state)."""
+    gate pre-activations (B,S,H) f32, the new conv state).  Under ``line``
+    (the module docstring): z whole, q, k, v and the gates of this rank's heads, or
+    with ``every_head`` of every head; the conv state is this rank's
+    channel block."""
     bsz, s, d = x.shape
     d_in = 2 * d
     hd = d_in // cfg.n_heads
-    up = x @ params["up"]
+    x = msh.reduce_grad(x, line)
+    (up,) = msh.gather_blocks([x @ params["up"]], line)
     xi, z = up[..., :d_in], up[..., d_in:]
-    xc, conv_state = _causal_conv(xi, params["conv_w"], conv_state)
-    xc = F.silu(xc)
-    q = (xc @ params["wq"]).reshape(bsz, s, cfg.n_heads, hd)
-    k = (xc @ params["wk"]).reshape(bsz, s, cfg.n_heads, hd)
-    v = (xi @ params["wv"]).reshape(bsz, s, cfg.n_heads, hd)
-    gates = (xi @ params["w_if"] + params["if_bias"][None, None]).reshape(bsz, s, 2, cfg.n_heads)
-    return z, q, k, v, gates[:, :, 0], gates[:, :, 1], conv_state
+    xc, conv_state = _causal_conv(msh.block(xi, line), params["conv_w"], conv_state)
+    (xc,) = msh.gather_blocks([F.silu(xc)], line)
+    q, k, v, g = xc @ params["wq"], xc @ params["wk"], xi @ params["wv"], xi @ params["w_if"]
+    own = None if every_head else line  # the line of the heads this rank keeps
+    if own is None:
+        q, k, v, g = msh.gather_blocks([q, k, v, g], line)
+    else:
+        (g,) = msh.gather_blocks([g], line)
+    q, k, v = (t.reshape(bsz, s, t.shape[-1] // hd, hd) for t in (q, k, v))
+    bias = msh.reduce_grad(params["if_bias"], line)
+    gates = (g + bias[None, None]).reshape(bsz, s, 2, cfg.n_heads)
+    return (z, q, k, v, msh.block(gates[:, :, 0], own), msh.block(gates[:, :, 1], own),
+            conv_state)
 
 
-def _mlstm_out(params: dict, cfg: ArchConfig, h, z, x_dtype):
-    """Inner norm (kernel 6), output gate, down projection."""
-    h = rms_norm(h.to(x_dtype), params["norm_scale"], cfg.norm_eps) * F.silu(z)
-    return h @ params["down"]
+def _mlstm_out(params: dict, cfg: ArchConfig, h, z, line=None):
+    """Inner norm (kernel 6, over the whole row of h (B,S,d_in), x's
+    dtype), output gate, down projection; under ``line`` this rank's block
+    of the gated row against its rows of ``down``
+    (``sharding.row_block_matmul``)."""
+    h = rms_norm(h, msh.reduce_grad(params["norm_scale"], line), cfg.norm_eps) * F.silu(z)
+    return msh.row_block_matmul(msh.block(h, line), params["down"], line)
 
 
-def mlstm_block(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def mlstm_block(params: dict, cfg: ArchConfig, x: torch.Tensor, line=None) -> torch.Tensor:
+    """x (B,S,d) -> y (B,S,d); on this rank's heads under ``line`` (the
+    module docstring)."""
     bsz, s, d = x.shape
-    z, q, k, v, i_gate, f_gate, _ = _mlstm_qkv_gates(params, cfg, x)
+    z, q, k, v, i_gate, f_gate, _ = _mlstm_qkv_gates(params, cfg, x, line=line)
+    q = msh.shard(q, "batch", "seq", "state", None,
+                  whole=(None, None, cfg.n_heads, None) if line is not None else None)
     if cfg.mlstm_impl == "chunked":
         h, _ = mlstm_chunked(q, k, v, i_gate, f_gate, chunk=cfg.mlstm_chunk)
     else:
         h = _mlstm_cell(q, k, v, i_gate, f_gate)
-    return _mlstm_out(params, cfg, h.reshape(bsz, s, 2 * d), z, x.dtype)
+    (h,) = msh.gather_blocks([h.reshape(bsz, s, -1).to(x.dtype)], line)
+    return _mlstm_out(params, cfg, h, z, line)
+
+
+def mlstm_prefill(params: dict, cfg: ArchConfig, x: torch.Tensor, line=None, layout=None):
+    """A prompt x (B,S,d) folded into the decode states from their start
+    (``init_mlstm_state``): the projections once, the decode cell a token
+    at a time, the inner norm once over the sequence; returns (y (B,S,d),
+    the final states).  Under ``line`` (the module docstring) the cell runs
+    on this rank's heads and the states come laid out as the cache holds
+    them (``layout``'s dimension of each), the conv's its channel block."""
+    bsz, s, d = x.shape
+    z, q, k, v, i_gate, f_gate, conv = _mlstm_qkv_gates(params, cfg, x, line=line)
+    q = msh.shard(q, "batch", "seq", "state", None,
+                  whole=(None, None, cfg.n_heads, None) if line is not None else None)
+    h, (c, n, m) = _mlstm_cell(q, k, v, i_gate, f_gate, m0=-1e30, return_state=True)
+    (h,) = msh.gather_blocks([h.reshape(bsz, s, -1).to(x.dtype)], line)
+    state = {"c": c, "n": n, "m": m}
+    if line is not None:
+        state = {k: msh.redistribute(t, line, 1, layout[k]) for k, t in state.items()}
+    state["conv"] = conv.to(torch.float32)  # the decode state's dtype
+    return _mlstm_out(params, cfg, h, z, line), state
 
 
 def init_mlstm_state(cfg: ArchConfig, batch: int, device=None) -> dict:
@@ -154,20 +248,25 @@ def init_mlstm_state(cfg: ArchConfig, batch: int, device=None) -> dict:
     }
 
 
-def mlstm_decode_step(params: dict, cfg: ArchConfig, x: torch.Tensor, state: dict):
-    """x (B,1,d) -> (y (B,1,d), state), the state updated in place."""
+def mlstm_decode_step(params: dict, cfg: ArchConfig, x: torch.Tensor, state: dict, line=None,
+                      layout=None):
+    """x (B,1,d) -> (y (B,1,d), state), the state updated in place.  On this
+    rank's blocks (the module docstring) ``state`` holds the blocks along
+    ``layout``'s dimension of each leaf (``_mlstm_step``), the conv's
+    channel block."""
     bsz = x.shape[0]
     d_in = 2 * cfg.d_model
     hd = d_in // cfg.n_heads
-    z, q, k, v, i_gate, f_gate, conv_state = _mlstm_qkv_gates(params, cfg, x, state["conv"])
+    z, q, k, v, i_gate, f_gate, conv_state = _mlstm_qkv_gates(params, cfg, x, state["conv"], line,
+                                                              every_head=True)
     scale = hd**-0.5
     q = q[:, 0].to(torch.float32) * scale
     k = k[:, 0].to(torch.float32) * scale
     v = v[:, 0].to(torch.float32)
     logi = i_gate[:, 0].to(torch.float32)
     logf = F.logsigmoid(f_gate[:, 0].to(torch.float32))
-    c, n, m, h = _mlstm_step(state["c"], state["n"], state["m"], q, k, v, logf, logi)
-    y = _mlstm_out(params, cfg, h.reshape(bsz, 1, d_in), z, x.dtype)
+    c, n, m, h = _mlstm_step(state["c"], state["n"], state["m"], q, k, v, logf, logi, line, layout)
+    y = _mlstm_out(params, cfg, h.reshape(bsz, 1, d_in).to(x.dtype), z, line)
     for name, new in (("c", c), ("n", n), ("m", m), ("conv", conv_state)):
         state[name].copy_(new)
     return y, state

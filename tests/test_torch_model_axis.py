@@ -20,7 +20,11 @@ on meshes with model > 1.
   exactly the unsplit step's); one client_parallel round step; prefill, a
   split-cache decode and forward; four decode steps of the mamba2 hybrid
   (at (1, 2), and at (2, 2) over split rows) and of the xLSTM, each rank's
-  recurrent state blocks against the unsplit caches'; ``api.run`` at
+  recurrent state blocks against the unsplit caches'; the mamba2 and mLSTM
+  heads computed on a rank's block (the ``state`` rule) in the hybrid and
+  xLSTM training, prefill and decode cases, no split weight or state leaf
+  of theirs the input of an all_gather, and an xLSTM of 2 heads on a model
+  line of 4 (the gathered path; its leaves are seen gathered); ``api.run`` at
   (1, 2) and (1, 1, 2) bitwise the one-rank run, at (2, 2) within the
   S = 2 tolerance, on both stacks, and qwen3's and arctic's
   cohort_sequential rounds at (2, 2) over rows split 2 / 1;
@@ -79,6 +83,7 @@ MOE_A2A = {**MOE, "capacity_factor": 4.0}  # no drops: the dense dispatch's rows
 # whole batch drops pairs, and a rank's own 2 rows would give it 4.
 MOE_ROWS = {**MOE, "capacity_factor": 0.5}
 XLSTM = {"n_layers": 4, "d_model": 64, "vocab": 128}
+XLSTM_2H = {**XLSTM, "n_heads": 2}  # a model line of 4 does not divide its heads
 DECODE = dict(seq=12, steps=4)  # a prefill of 7 tokens, then 4 decode steps
 
 
@@ -107,6 +112,12 @@ STEP_CASES = [
     _case("prefill", "prefill", "smollm-360m", SMALL),
     _case("hybrid_decode", "prefill_decode", "zamba2-1.2b", HYBRID, **DECODE),
     _case("xlstm_decode", "prefill_decode", "xlstm-125m", XLSTM, **DECODE),
+    # max_seq 3 is the conv state's width: the conv cache stays whole, which
+    # the split cell cannot take, so the block takes the gathered path.
+    _case("xlstm_decode_conv_whole", "prefill_decode", "xlstm-125m", XLSTM, seq=3, steps=1,
+          gathered=True),
+    _case("xlstm", "loss_grad", "xlstm-125m", XLSTM),
+    _case("xlstm_none", "loss_grad", "xlstm-125m", XLSTM, remat="none"),
     _case("moe_dense_rows", "loss_grad", "qwen3-moe-235b-a22b", MOE_ROWS, mesh=(2, 1),
           rows=True, routes=True),
 ]
@@ -115,6 +126,10 @@ QUAD_STEPS = [  # on the worker quad
           **DECODE),
     _case("moe_dense_rows_2x2", "loss_grad", "qwen3-moe-235b-a22b", MOE_ROWS, mesh=(2, 2),
           rows=True, routes=True),
+    _case("xlstm_line_over_heads", "loss_grad", "xlstm-125m", XLSTM_2H, mesh=(1, 4),
+          gathered=True),
+    _case("xlstm_decode_line_over_heads", "prefill_decode", "xlstm-125m", XLSTM_2H, mesh=(1, 4),
+          gathered=True, **DECODE),
 ]
 A2A_KW = {"d_model": 32, "vocab": 128, "capacity_factor": 0.5}  # capacity drops on the wire
 RUN_SPECS = {"task": _task(), "zoo": _zoo("smollm-360m", SMOLLM, cohort=3, batch_size=2)}
@@ -488,13 +503,26 @@ def _held_routes(case, got: list, routes: dict) -> None:
     assert not all(w.all() for k, w in routes.items() if k.endswith(".keep"))
 
 
+def _heads_split(case):
+    """Whether the case's mamba2/mlstm blocks compute their heads split
+    (None: it has none): all but the ``gathered`` cases, whose line does
+    not divide the heads or whose caches the split cell cannot take."""
+    if not set(worker.config(case).block_pattern) & set(transformer.HEADS_KINDS):
+        return None
+    return not case.get("gathered")
+
+
 @pytest.mark.parametrize("case", STEP_CASES + QUAD_STEPS,
                          ids=[c["name"] for c in STEP_CASES + QUAD_STEPS])
 def test_rank_step_holds_unsplit(case, ranks, one_intraop_thread):  # noqa: F811
     """Every rank's loss, gathered gradients (or round params, norms and
     loss; or logits) equal the unsplit step's; the ranks agree bitwise.  A
     decode case's recurrent state blocks equal the unsplit caches' blocks;
-    a rows case's slots and kept pairs are the unsplit step's exactly."""
+    a rows case's slots and kept pairs are the unsplit step's exactly.  A
+    case whose mamba2/mlstm heads the model line divides gathers none of
+    their split weight or state leaves (a prefill moves the heads' states
+    to the caches' layout by all_to_all); one whose line does not divide
+    them gathers its leaves whole, and the check sees it."""
     want = worker.whole_case(case)
     got = ranks[case["name"]]
     caches = {k: want.pop(k) for k in list(want) if k.startswith("cache.")}
@@ -515,6 +543,15 @@ def test_rank_step_holds_unsplit(case, ranks, one_intraop_thread):  # noqa: F811
         assert kinds["all_to_all"] > 0
     if case.get("fsdp"):
         assert kinds["reduce_scatter"] > 0  # the fsdp gather's backward
+    split = _heads_split(case)
+    for r, rr in enumerate(got):
+        gathered = rr["gathered_whole"].tolist()
+        if split:
+            assert not gathered, f"rank {r} gathered {gathered} whole"
+        elif split is not None:
+            assert gathered, f"rank {r}: the gathered path's leaves are not seen"
+    if split and case["kind"] == "prefill_decode":
+        assert kinds["all_to_all"] > 0
 
 
 def test_a2a_matches_reference(ranks):
@@ -630,13 +667,17 @@ def test_dryrun_counts_one_chip(arch, shape, mesh, monkeypatch):
     assert not torch.cuda.is_initialized()
 
 
-@pytest.mark.parametrize("name", ["prefill", "hybrid_decode", "xlstm_decode", "moe_dense_rows"])
+@pytest.mark.parametrize("name", ["prefill", "hybrid_decode", "xlstm_decode", "moe_dense_rows",
+                                  "xlstm"])
 def test_dryrun_collectives_equal_the_ranks(name, ranks):
     """Rank 0's count of a reduced step charges the collectives the gloo
-    ranks issued, kind for kind: the prefill at (1, 2), one decode step
-    over recurrent caches split over ``model`` (the gathers at use), and
-    the MoE loss and gradient over rows split at (2, 1) (each block's
-    count gather and sums' all_reduce)."""
+    ranks issued, kind for kind, and the bytes rank 0's calls returned
+    (``launch.mesh.collective_bytes``): the prefill at (1, 2), one decode step
+    over recurrent caches split over ``model`` (the heads' projections
+    gathered, the state blocks' partial sums reduced), the MoE loss and
+    gradient over rows split at (2, 1) (each block's count gather and
+    sums' all_reduce), and the xLSTM's loss and gradient at (1, 2) on
+    split mLSTM heads."""
     from repro_torch.launch.dryrun import _cut
 
     case = next(c for c in STEP_CASES if c["name"] == name)
@@ -652,7 +693,7 @@ def test_dryrun_collectives_equal_the_ranks(name, ranks):
     with msh.use_rules(m, rules):
         if case["kind"] == "prefill":
             c, _ = cost_mod.count(lambda p, t: transformer.prefill(p, cfg, t), blocks, batch[0])
-            issued = r0["collectives"]
+            issued, sent = r0["collectives"], r0["collective_bytes"]
         elif case["kind"] == "prefill_decode":
             caches = transformer.init_caches(cfg, b, s, device="meta")
             specs = lsh.cache_shardings(caches, m, s, b)
@@ -660,17 +701,18 @@ def test_dryrun_collectives_equal_the_ranks(name, ranks):
             t = s - 1 - case["steps"]
             c, _ = cost_mod.count(lambda p, tok, cc: transformer.decode_step(
                 p, cfg, tok, cc, t, max_seq=s, batch=b), blocks, batch[0][:, t:t + 1], caches)
-            issued = r0["decode_collectives"]
+            issued, sent = r0["decode_collectives"], r0["decode_bytes"]
         else:
             rows = b // m.shape["data"]
             c, _ = cost_mod.count(lambda p, x, y: torch.func.grad_and_value(
                 lambda q: transformer.loss_fn(q, cfg, (x, y)))(p), blocks, batch[0][:rows],
                 batch[1][:rows])
-            issued = r0["step_collectives"]
+            issued, sent = r0["step_collectives"], r0["step_bytes"]
     issued = dict(zip(sorted(["all_reduce", "all_gather", "broadcast", "reduce_scatter",
                               "all_to_all"]), issued.tolist()))
     issued = {k.replace("_", "-"): v for k, v in issued.items() if v}
     assert c.collectives == issued
+    assert c.collective_bytes == int(sent.sum()) > 0
 
 
 def test_recomputed_group_keeps_the_rules_on_another_thread():

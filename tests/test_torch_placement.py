@@ -17,7 +17,12 @@ zoo rounds split over a two-rank gloo group against the port at S = 1.
   oracle and deployable are also held against the reference's unsharded
   run on its replayed draws, at the f32 tolerances.  Checkpoints move
   between S = 2 and S = 1 both ways, and a resume at S = 2 is bitwise the
-  uninterrupted S = 2 run.
+  uninterrupted S = 2 run.  The int8 run of ``chip_smoke.py``'s (r2)
+  (tiny_lm deployable, markov availability, a deadline, the async ring)
+  at S = 2 is handed the codes its S = 1 run wrote
+  (``torch_ranks_worker.quantizer_codes``, a test-side patch of the
+  quantizer) and then follows S = 1 within the f32 tolerance: flipped
+  codes are the whole gap between them.
 """
 import json
 import os
@@ -337,6 +342,21 @@ CASES.update({
 CASES["zoo_smollm_int8"]["compression"] = {"delta_dtype": "int8"}
 CASES["zoo_smollm_parallel"]["fault"] = FAULTS
 REF_CASES = {"kvib_ref_oracle_12": True, "kvib_ref_deploy_12": False}
+# chip_smoke.py's (r2): tiny_lm deployable with Markov availability, an
+# exponential deadline, the async ring of 4 and int8 deltas with error
+# feedback, 5 rounds.  Its S = 2 run's own codes differ from S = 1's where
+# a sum added in another order sits at a rounding boundary.
+R2_INT8 = {
+    "task": {"name": "tiny_lm", "kwargs": {"vocab": 256}, "dataset": "synthetic_tokens",
+             "dataset_kwargs": {"n_clients": 50, "seq_len": 32, "vocab": 256, "total_seqs": 3000,
+                                "power": 2.2, "seed": 0}},
+    "sampler": {"name": "kvib", "kwargs": {"horizon": 5}},
+    "federation": {"rounds": 5, "budget": 5, "local_steps": 1, "batch_size": 8, "local_lr": 0.3},
+    "execution": {"seed": 0, "oracle_metrics": False, "sampler_axis": "data"},
+    "fault": {"availability": "markov", "availability_kwargs": {"p_on": 0.6, "p_off": 0.2},
+              "deadline": 1.2, "latency": "exponential", "async_buffer": 4},
+    "compression": {"delta_dtype": "int8"},
+}
 # Checkpoints: (a) saved at S = 2, resumed at S = 1; (b) saved at S = 1 here,
 # resumed at S = 2; (c) saved and resumed at S = 2.
 CKPT_SPEC = _task(**CKPT)
@@ -373,6 +393,10 @@ def ranks(tmp_path_factory):
                           "spec": _with_mesh(_task(n=n, fault={"availability": "markov"}))})
         # (b): this process saves a first segment at S = 1 before the pair starts.
         torch_ranks_worker.run_case({"kind": "interrupt", "spec": CKPT_SPEC, "dir": str(tmp / "b")})
+        # (r2) at S = 1 records its codes before the pair starts; S = 2 is handed them.
+        codes = str(tmp / "r2_codes.npz")
+        r2_one = torch_ranks_worker.run_case({"spec": R2_INT8, "codes": codes, "record": True})
+        cases.append({"name": "r2_int8_given_codes", "spec": _with_mesh(R2_INT8), "codes": codes})
         cases += [
             {"name": "ckpt_a_save", "kind": "interrupt", "spec": _with_mesh(CKPT_SPEC),
              "dir": str(tmp / "a")},
@@ -396,12 +420,13 @@ def ranks(tmp_path_factory):
             # The S = 1 runs here while the pair runs.
             ones = {}
             for case in cases:
-                if case.get("kind", "run") == "run":
+                if case.get("kind", "run") == "run" and not case.get("codes"):
                     execution = {k: v for k, v in case["spec"]["execution"].items()
                                  if k != "mesh_shape"}
                     plain = {**case, "spec": {**case["spec"], "execution": execution}}
                     ones[case["name"]] = torch_ranks_worker.run_case(plain)
             ones["ckpt_s1"] = torch_ranks_worker.run_case({"spec": CKPT_SPEC})
+            ones["r2_int8_given_codes"] = r2_one
             for p in procs:
                 _, err = p.communicate(timeout=600)
                 assert p.returncode == 0, err[-4000:]
@@ -444,6 +469,22 @@ def test_split_run_matches_one_rank(name, ranks):
         np.testing.assert_array_equal(r0[k], r1[k], err_msg=f"ranks differ: {k}")
     _close(r0, one, MOE_TOL if name.startswith(("zoo_qwen3", "zoo_arctic")) else REL_TOL)
     assert r0["collectives"].sum() > 0  # the split run went through collectives
+
+
+def test_int8_split_run_follows_one_rank_given_its_codes(ranks):
+    """(r2) with int8 deltas and error feedback at S = 2, handed the codes
+    and scales its S = 1 run wrote, call for call (each rank its slots'
+    rows of the estimator's, the async ring's row whole): every float
+    within the f32 tolerance of S = 1, counts exact, both ranks bitwise.
+    Some of the S = 2 run's own codes differ from the ones it is handed
+    (the case exercises a flip)."""
+    r0, r1, one = ranks["r2_int8_given_codes"]
+    for k in r0:
+        np.testing.assert_array_equal(r0[k], r1[k], err_msg=f"ranks differ: {k}")
+    assert len(r0["flips"]) == len(one["flips"]) == 2 * R2_INT8["federation"]["rounds"]
+    assert r0["flips"].sum() > 0
+    _close(r0, {k: v for k, v in one.items() if k != "flips"})
+    assert r0["collectives"].sum() > 0
 
 
 @pytest.mark.parametrize("oracle", [True, False], ids=["oracle", "deploy"])

@@ -292,7 +292,9 @@ def test_prefill_decode_match_reference_and_forward():
 
 def test_kernel6_calls_per_pass(monkeypatch):
     """Kernel 6 two times a block plus the final norm in a forward and a
-    decode step, L (1 + S) + 1 times in a prefill of S tokens; kernel 7
+    decode step; in a prefill of S tokens two times an mLSTM block (its
+    ``ln1`` and inner norm over the prompt), 1 + S times an sLSTM block
+    (the decode cell a token at a time) plus the final norm; kernel 7
     never."""
     from repro_torch.kernels import ops
 
@@ -312,9 +314,9 @@ def test_kernel6_calls_per_pass(monkeypatch):
     transformer.forward(params, cfg, tokens)
     assert calls == {"rmsnorm": 2 * 4 + 1, "flash_attention": 0}
     _, caches = transformer.prefill(params, cfg, tokens, max_seq=8)
-    assert calls == {"rmsnorm": 9 + 4 * (1 + 6) + 1, "flash_attention": 0}
+    assert calls == {"rmsnorm": 9 + 2 * 2 + 2 * (1 + 6) + 1, "flash_attention": 0}
     transformer.decode_step(params, cfg, tokens[:, :1], caches, 6)
-    assert calls == {"rmsnorm": 9 + 29 + 9, "flash_attention": 0}
+    assert calls == {"rmsnorm": 9 + 19 + 9, "flash_attention": 0}
 
 
 def test_param_tree_and_count_match_reference():

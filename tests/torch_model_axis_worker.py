@@ -20,6 +20,13 @@ its ``mesh_shape``, by ``torch_ranks_worker.run_case``); ``arch`` and
 block of the batch rows, as the rules' ``batch`` axes say); ``batch``,
 ``seq``, ``steps``; ``seed``.  Outputs a rank computes on its rows are
 gathered back whole over the rows' line outside the counted collectives.
+
+Every case also writes ``gathered_whole``: the names of the watched
+leaves that were the input of an all_gather.  The watched leaves are this
+rank's blocks of the ``mamba2``/``mlstm`` weights ``param_specs`` splits
+over ``model`` (the ones such a block consumes) and, after a prefill, of
+their state leaves ``cache_shardings`` splits; ``launch.mesh.AxisGroup.
+all_gather`` is wrapped to look up each input's address among them.
 """
 import dataclasses
 import datetime
@@ -49,12 +56,6 @@ def _flat(tree, prefix=""):
 
 def config(case):
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer
-
-    # The a2a's aux is the mean of the shards' local estimates, not the
-    # whole batch's (the reference's definition): its cases drop the aux
-    # term and hold the aux against the reference's a2a instead.
-    transformer.MOE_AUX_COEF = case.get("aux_coef", 0.01)
 
     cfg = get_config(case["arch"]).reduced(**case.get("kwargs", {}))
     over = {k: case[k] for k in ("remat", "moe_impl") if k in case}
@@ -108,11 +109,71 @@ def _whole_rows(x, rows, dim: int = 0):
     return torch.cat(parts, dim)
 
 
+_WATCH: list = []  # (first byte, end, name) of each watched leaf's storage
+_GATHERED: list = []  # the watched leaves an all_gather took as its input
+
+
+def _spy_gathers() -> None:
+    from repro_torch.launch.mesh import AxisGroup
+
+    real = AxisGroup.all_gather
+
+    def all_gather(self, x, dim):
+        if self.size > 1:
+            at = x.data_ptr()
+            _GATHERED.extend(name for lo, hi, name in _WATCH if lo <= at < hi)
+        return real(self, x, dim)
+
+    AxisGroup.all_gather = all_gather
+
+
+def _watch(name: str, t) -> None:
+    _WATCH.append((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size(), name))
+
+
+def _watch_params(cfg, p, specs) -> None:
+    """This rank's blocks of the mamba2/mlstm leaves split over ``model``."""
+    from repro_torch.launch import sharding as lsh
+    from repro_torch.models import sharding, transformer
+
+    for j, kind in enumerate(cfg.block_pattern):
+        if kind not in transformer.HEADS_KINDS:
+            continue
+        parent = "ssm" if kind == "mamba2" else "cell"
+        for leaf in sharding.CONSUMED[(kind, parent)]:
+            if any("model" in lsh.spec_axes(e) for e in specs["stacks"][j][parent][leaf]):
+                _watch(f"stacks.{j}.{parent}.{leaf}", p["stacks"][j][parent][leaf])
+
+
+def _watch_states(cfg, caches, mesh, max_seq: int, batch: int) -> None:
+    """This rank's blocks of the mamba2/mlstm state leaves split over
+    ``model`` (the batch's split over the batch axes aside)."""
+    from repro_torch.launch import sharding as lsh
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models import transformer
+
+    specs = lsh.cache_shardings(transformer.init_caches(cfg, batch, max_seq, device="meta"),
+                                mesh, max_seq, batch)
+    for j, kind in enumerate(cfg.block_pattern):
+        if kind in transformer.HEADS_KINDS:
+            for leaf, spec in specs[j].items():
+                if any(lsh.spec_axes(e) and lsh.spec_axes(e) != batch_axes(mesh) for e in spec):
+                    _watch(f"cache.{j}.{leaf}", caches[j][leaf])
+
+
 def _counts_now() -> np.ndarray:
     from repro_torch.launch import mesh
 
     counts = mesh.collective_counts()
     return np.asarray([counts[k] for k in sorted(counts)])
+
+
+def _bytes_now() -> np.ndarray:
+    """The collectives' result bytes so far, by kind (``_counts_now``'s order)."""
+    from repro_torch.launch import mesh
+
+    sent = mesh.collective_bytes()
+    return np.asarray([sent[k] for k in sorted(sent)], dtype=np.int64)
 
 
 def serve(case, cfg, p, rows=None) -> dict:
@@ -138,12 +199,14 @@ def serve(case, cfg, p, rows=None) -> dict:
     logits, caches = transformer.prefill(p, cfg, tok[:, :start], aux, max_seq=s, **kw)
     if split:
         kw["max_seq"] = s
+        _watch_states(cfg, caches, sharding.current_mesh(), s, whole)
     out, decoded = {}, []
     for t in range(start, start + steps):
-        before = _counts_now()
+        before, sent = _counts_now(), _bytes_now()
         l_t, caches = transformer.decode_step(p, cfg, tok[:, t:t + 1], caches, t, **kw)
         if split and t == start:
             out["decode_collectives"] = _counts_now() - before
+            out["decode_bytes"] = _bytes_now() - sent
         decoded.append(l_t)
     full, _ = transformer.forward(p, cfg, tok, aux)
     for k, x in (("prefill", logits), ("decode", torch.cat(decoded, 1)), ("forward", full)):
@@ -176,8 +239,31 @@ def routes(cfg, p, batch) -> dict:
     return {f"route.{i}.{n}": x for i, pair in enumerate(got) for n, x in zip(("slot", "keep"), pair)}
 
 
+def set_aux_coef(case) -> float:
+    """Set ``transformer.MOE_AUX_COEF`` for ``case``; returns the old one.
+    The a2a's aux is the mean of the shards' local estimates, not the
+    whole batch's (the reference's definition): its cases drop the aux
+    term and hold the aux against the reference's a2a instead."""
+    from repro_torch.models import transformer
+
+    old, transformer.MOE_AUX_COEF = transformer.MOE_AUX_COEF, case.get("aux_coef", 0.01)
+    return old
+
+
 def whole_case(case) -> dict:
-    """The case unsplit (no rules): name -> numpy array."""
+    """The case unsplit (no rules): name -> numpy array.  The MoE aux
+    coefficient is the case's while it runs and restored after, since the
+    parent test process runs other cases (and ``api.run``) after it."""
+    from repro_torch.models import transformer
+
+    coef = set_aux_coef(case)
+    try:
+        return _whole_case(case)
+    finally:
+        transformer.MOE_AUX_COEF = coef
+
+
+def _whole_case(case) -> dict:
     from repro_torch.fed.round import RoundSpec, build_round_step
     from repro_torch.models import transformer
 
@@ -266,6 +352,7 @@ def rank_case(case) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import sharding, transformer
 
+    set_aux_coef(case)  # this process runs one case after another
     if case["kind"] == "a2a_ref":
         return a2a_against_reference(case)
     if case["kind"] == "dense_ref":
@@ -280,6 +367,7 @@ def rank_case(case) -> dict:
     whole = params(case, cfg)
     specs = lsh.param_specs(whole, mesh, fsdp)
     p = lsh.param_shardings(whole, mesh, fsdp)
+    _watch_params(cfg, p, specs)
     kind = case["kind"]
     rules = lsh.activation_rules(mesh, client_parallel=(kind == "round"))
     if not case.get("rows"):
@@ -293,7 +381,7 @@ def rank_case(case) -> dict:
                 batch = tuple(x[rows.rank * b:(rows.rank + 1) * b] for x in batch)
             grads, loss = torch.func.grad_and_value(
                 lambda q: transformer.loss_fn(q, cfg, batch))(p)
-            out = {"step_collectives": _counts_now()}
+            out = {"step_collectives": _counts_now(), "step_bytes": _bytes_now()}
             if case.get("routes"):
                 out.update(routes(cfg, p, batch))
             grads = lsh.gather_params(grads, specs, mesh)
@@ -324,6 +412,7 @@ def main(argv) -> None:
         cases = json.load(f)
     out_dir = argv[5]
     torch.set_num_threads(1)
+    _spy_gathers()
     dist.init_process_group(
         "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank,
         timeout=datetime.timedelta(seconds=120),
@@ -331,9 +420,12 @@ def main(argv) -> None:
     try:
         for case in cases:
             mesh.reset_collective_counts()
+            _WATCH.clear(), _GATHERED.clear()
             out = rank_case(case)
             counts = mesh.collective_counts()
             out["collectives"] = np.asarray([counts[k] for k in sorted(counts)])
+            out["collective_bytes"] = _bytes_now()
+            out["gathered_whole"] = np.asarray(sorted(set(_GATHERED)), dtype=str)
             np.savez(os.path.join(out_dir, f"{case['name']}_r{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

@@ -10,8 +10,12 @@ A case is a dict: ``name``; ``spec``, an ``ExperimentSpec`` dict; ``kind``,
 one of ``run`` (``api.run``), ``interrupt`` (the compiled path stopped after
 its first segment, saved to ``dir``), ``resume`` (``api.run`` resumed from
 ``dir``), ``layout`` (one segment; the resident shapes of the (N,) leaves);
-``replay``, an optional pickled ``ReplaySource``.  Imports no JAX.
+``replay``, an optional pickled ``ReplaySource``; ``codes``, an npz of
+compressed codes ``quantizer_codes`` recorded at S = 1, which the run is
+handed in place of its own (with ``flips``: how many of its own codes
+differ).  Imports no JAX.
 """
+import contextlib
 import datetime
 import json
 import os
@@ -54,6 +58,55 @@ def _history(hist) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def quantizer_codes(path: str, record: bool):
+    """Record every code and scale the run's quantizer writes to ``path``
+    (``record``), or hand the run the ones recorded there, call for call:
+    the estimator's rows of this rank's slots (a contiguous block,
+    ``ShardSpec.local_range``) and the async ring's row whole.  The
+    quantizer is patched where ``core/estimator.py`` and
+    ``core/stragglers.py`` call it; nothing in the package changes.
+    Yields a list that ends up holding, per call, the number of the run's
+    own codes that differ from the ones handed to it."""
+    from repro_torch.core import estimator, stragglers
+    from repro_torch.launch.mesh import ShardSpec
+
+    mods = (estimator, stragglers)
+    real = {m: m.quantize_stacked for m in mods}
+    flips: list = []
+    got: dict = {}
+    saved = None if record else np.load(path)
+
+    def patched(mod):
+        def quantize(flat, **kw):
+            q, s = real[mod](flat, **kw)
+            i = len(flips)
+            if record:
+                got[f"q{i}"], got[f"s{i}"] = q.numpy(), s.numpy()
+                flips.append(0)
+                return q, s
+            rq, rs = torch.from_numpy(saved[f"q{i}"]), torch.from_numpy(saved[f"s{i}"])
+            if rq.shape[0] != q.shape[0]:  # this rank's slots of the S = 1 cohort
+                import torch.distributed as dist
+
+                spec = ShardSpec(axes=(("data", dist.get_world_size()), ("model", 1)), axis="data")
+                lo, hi = spec.local_range(rq.shape[0], dist.get_rank())
+                rq, rs = rq[lo:hi], rs[lo:hi]
+            flips.append(int((q != rq).sum()))
+            return rq.clone(), rs.clone()
+        return quantize
+
+    for m in mods:
+        m.quantize_stacked = patched(m)
+    try:
+        yield flips
+    finally:
+        for m in mods:
+            m.quantize_stacked = real[m]
+    if record:
+        np.savez(path, **got)
+
+
 def run_case(case: dict) -> dict:
     """One case on this process (a rank of the group, or alone at S = 1):
     name -> numpy array."""
@@ -68,6 +121,10 @@ def run_case(case: dict) -> dict:
         with open(case["replay"], "rb") as f:
             source = pickle.load(f)
     kind = case.get("kind", "run")
+    if kind == "run" and case.get("codes"):
+        with quantizer_codes(case["codes"], case.get("record", False)) as flips:
+            hist = api.run(spec, "cpu", random_source=source)
+        return {**_history(hist), "flips": np.asarray(flips, np.int64)}
     if kind == "run":
         return _history(api.run(spec, "cpu", random_source=source))
     if kind == "resume":
